@@ -1,0 +1,42 @@
+"""Field arithmetic: the reference's host modules (``params``, ``host``) plus
+the torch :class:`DeviceField` and its CUDA Montgomery multiply."""
+
+from .._refpath import reference_dir
+
+__path__.append(reference_dir("field"))
+
+from .params import (  # noqa: E402
+    FieldSpec,
+    LIMB_BITS,
+    NUM_LIMBS,
+    PASTA_FP,
+    PASTA_FQ,
+    BN254_FR,
+    BN254_FQ,
+    SPECS,
+    to_limbs,
+    from_limbs,
+)
+from .host import PrimeField, field_class, Fp, Fr, Fq, Fq_pasta  # noqa: E402
+from .device import DeviceField, get_device_field  # noqa: E402
+
+__all__ = [
+    "FieldSpec",
+    "LIMB_BITS",
+    "NUM_LIMBS",
+    "PASTA_FP",
+    "PASTA_FQ",
+    "BN254_FR",
+    "BN254_FQ",
+    "SPECS",
+    "to_limbs",
+    "from_limbs",
+    "PrimeField",
+    "field_class",
+    "Fp",
+    "Fr",
+    "Fq",
+    "Fq_pasta",
+    "DeviceField",
+    "get_device_field",
+]

@@ -1,0 +1,132 @@
+"""Batched Montgomery multiply: the CUDA kernel, its plain PyTorch version,
+and the wrapper that picks one by the tensors' device.
+
+The kernel (``csrc/mont_mul.cu``) replaces
+``halo2_tpu/field/pallas_mul.py:_mont_mul_kernel``.  Field arrays are
+``(16, *batch)`` int32 tensors of 16-bit limbs, Montgomery form, canonical
+(< p): the reference's ``uint32`` numbers held in int32.
+
+:func:`mont_mul` runs :func:`mont_mul_plain` for a CPU tensor and launches
+the kernel for a CUDA tensor; there is no fallback between the two.
+``LAUNCHES["mont_mul"]`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .params import LIMB_BITS, LIMB_MASK, NUM_LIMBS, FieldSpec
+
+L = NUM_LIMBS
+LAUNCHES = {"mont_mul": 0}
+
+
+@functools.lru_cache(maxsize=None)
+def modulus_words(spec: FieldSpec) -> np.ndarray:
+    """(9,) uint32 kernel argument: p as 8 little-endian words, then
+    n0 = -p^{-1} mod 2^32."""
+    words = [(spec.p >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
+    words.append((-pow(spec.p, -1, 1 << 32)) % (1 << 32))
+    return np.array(words, np.uint32)
+
+
+# ------------------------------------------------------------- plain version
+def carry(t: torch.Tensor):
+    """Carry-propagate int64 limb columns ``(nl, *B)`` (any sign) into
+    16-bit limbs; returns ``(limbs, carry_out)``, carry_out < 0 on a borrow."""
+    out = []
+    c = None
+    for row in t.unbind(0):
+        if c is not None:
+            row = row + c
+        c = row >> LIMB_BITS
+        out.append(row & LIMB_MASK)
+    return torch.stack(out), c
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_consts(spec: FieldSpec, device: torch.device):
+    """p as an int64 (16, 1) column, and the Toeplitz matrices (float64) whose
+    product with a limb column gives the column sums of x * N' mod R and of
+    x * p (N' = -p^{-1} mod R).  Every sum is below 16 * 2^32 < 2^53, so the
+    float64 products are exact."""
+    nprime = (-pow(spec.p, -1, 1 << 256)) % (1 << 256)
+    n_l = [(nprime >> (LIMB_BITS * j)) & LIMB_MASK for j in range(L)]
+    p_l = [(spec.p >> (LIMB_BITS * j)) & LIMB_MASK for j in range(L)]
+    t_n = np.zeros((L, L), np.float64)
+    t_p = np.zeros((2 * L, L), np.float64)
+    for i in range(L):
+        for j in range(L):
+            if i + j < L:
+                t_n[i + j, i] = n_l[j]
+            t_p[i + j, i] = p_l[j]
+    p_col = torch.tensor(p_l, dtype=torch.int64, device=device).reshape(L, 1)
+    return (
+        p_col,
+        torch.from_numpy(t_n).to(device),
+        torch.from_numpy(t_p).to(device),
+    )
+
+
+def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b * 2^-256 mod p in int64 torch ops (the reference's loop-free
+    algorithm): T = a * b, m = (T mod R) * N' mod R, (T + m p) / R, one
+    conditional subtract.  a, b broadcast over their batch axes."""
+    a, b = torch.broadcast_tensors(a, b)
+    shape = a.shape
+    a = a.reshape(L, -1).to(torch.int64)
+    b = b.reshape(L, -1).to(torch.int64)
+    p_col, t_n, t_p = _plain_consts(spec, a.device)
+
+    t = a.new_zeros((2 * L, a.shape[1]))
+    for i in range(L):
+        t[i : i + L] += a[i] * b  # column sums < 16 * 2^32
+    t_low, _ = carry(t[:L])  # T mod R
+    m, _ = carry((t_n @ t_low.double()).to(torch.int64))
+    s, _ = carry(t + (t_p @ m.double()).to(torch.int64))  # low half is zero
+    res = s[L:]  # (T + m p) / R < 2p
+    red, borrow = carry(res - p_col)
+    out = torch.where(borrow < 0, res, red)
+    return out.to(torch.int32).reshape(shape)
+
+
+# --------------------------------------------------------------------- wrapper
+def _check(a: torch.Tensor, b: torch.Tensor) -> None:
+    for name, x in (("a", a), ("b", b)):
+        if x.dtype != torch.int32:
+            raise TypeError(f"mont_mul: {name} must be int32, got {x.dtype}")
+        if x.dim() < 1 or x.shape[0] != L:
+            raise ValueError(f"mont_mul: {name} must be (16, ...), got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"mont_mul: {name} must be contiguous")
+    if a.device != b.device:
+        raise ValueError(f"mont_mul: a on {a.device}, b on {b.device}")
+    if b.shape != a.shape and b.numel() != L:
+        raise ValueError(
+            f"mont_mul: b must match a {tuple(a.shape)} or be one element, got {tuple(b.shape)}"
+        )
+
+
+def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product of ``(16, *batch)`` a and b (b full width, or one
+    broadcast element).  CPU tensors: plain version; CUDA tensors: kernel."""
+    _check(a, b)
+    if a.device.type == "cpu":
+        return mont_mul_plain(spec, a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"mont_mul: unsupported device {a.device}")
+    from .. import _build
+
+    out = torch.empty_like(a)
+    m = a.numel() // L
+    if m == 0:
+        return out
+    _build.launch(
+        "mont_mul", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), m,
+        int(b.numel() == L), modulus_words(spec).ctypes.data,
+    )
+    LAUNCHES["mont_mul"] += 1
+    return out

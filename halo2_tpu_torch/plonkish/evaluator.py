@@ -1,0 +1,149 @@
+"""Evaluate gate expressions as an instruction program over torch tensors
+(port of halo2_tpu/plonkish/evaluator.py).
+
+Expressions are CSE'd into a static SSA :class:`Program` (one instruction per
+unique node, carried over unchanged from the reference).  The reference runs
+it as a ``lax.scan`` VM inside one jitted program; here it is a Python loop
+over the instructions, each a field op vectorized over every row, so on the
+card every multiply is one launch of the Montgomery kernel.
+
+The MockProver's gate checker (``build_gate_checker``, ``encode_columns``) is
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..field.device import DeviceField
+from .expression import (
+    Constant,
+    Expression,
+    Negated,
+    Product,
+    Query,
+    Scaled,
+    SelectorExpr,
+    Sum,
+)
+
+# VM opcodes
+_ADD, _MUL, _NEG = 0, 1, 2
+
+
+class Program:
+    """A compiled expression set: query table + constants + instructions."""
+
+    def __init__(self, exprs, rot_scale: int = 1):
+        self.rot_scale = rot_scale
+        self.queries: list[tuple[str, int, int]] = []  # (kind, col_index, rotation)
+        self._query_ids: dict = {}
+        self.consts: list[int] = []
+        self._const_ids: dict = {}
+        # instructions hold symbolic refs; slots are resolved once the query
+        # and constant tables stop growing (a ref's numeric slot depends on
+        # the FINAL table sizes)
+        self._sym_instrs: list[tuple[int, tuple, tuple]] = []
+        self._node_ids: dict = {}
+        self._out_refs = [self._visit(e) for e in exprs]
+        self.instrs = [
+            (op, self._slot(a), self._slot(b)) for op, a, b in self._sym_instrs
+        ]
+
+    def _query_slot(self, key) -> int:
+        idx = self._query_ids.get(key)
+        if idx is None:
+            idx = len(self.queries)
+            self._query_ids[key] = idx
+            self.queries.append(key)
+        return idx
+
+    def _const_slot(self, v: int) -> int:
+        idx = self._const_ids.get(v)
+        if idx is None:
+            idx = len(self.consts)
+            self._const_ids[v] = idx
+            self.consts.append(v)
+        return idx
+
+    def _emit(self, op: int, r1: tuple, r2: tuple) -> int:
+        self._sym_instrs.append((op, r1, r2))
+        return len(self._sym_instrs) - 1
+
+    def _visit(self, e: Expression) -> tuple[str, int]:
+        """Returns ('q'|'c'|'i', index)."""
+        key = e
+        hit = self._node_ids.get(key)
+        if hit is not None:
+            return hit
+        if isinstance(e, Constant):
+            out = ("c", self._const_slot(int(e.value)))
+        elif isinstance(e, Query):
+            out = ("q", self._query_slot((e.column.kind.value, e.column.index, e.rotation.value)))
+        elif isinstance(e, SelectorExpr):
+            out = ("q", self._query_slot(("selector", e.selector.index, 0)))
+        elif isinstance(e, Sum):
+            out = ("i", self._emit(_ADD, self._visit(e.a), self._visit(e.b)))
+        elif isinstance(e, Product):
+            out = ("i", self._emit(_MUL, self._visit(e.a), self._visit(e.b)))
+        elif isinstance(e, Negated):
+            r1 = self._visit(e.a)
+            out = ("i", self._emit(_NEG, r1, r1))
+        elif isinstance(e, Scaled):
+            r1 = self._visit(e.a)
+            r2 = ("c", self._const_slot(int(e.scale)))
+            out = ("i", self._emit(_MUL, r1, r2))
+        else:
+            raise TypeError(f"unknown expression node {type(e)}")
+        self._node_ids[key] = out
+        return out
+
+    def _slot(self, ref) -> int:
+        tag, idx = ref
+        if tag == "q":
+            return idx
+        if tag == "c":
+            return len(self.queries) + idx
+        return len(self.queries) + len(self.consts) + idx
+
+    def output_slots(self) -> list[int]:
+        return [self._slot(r) for r in self._out_refs]
+
+
+def _run_program(prog: Program, df: DeviceField, columns: dict) -> torch.Tensor:
+    """Execute the program; returns (num_outputs, 16, n) Montgomery tensors.
+
+    ``columns[kind][ci]`` is a (16, n) tensor (a stacked (C, 16, n) tensor or
+    a list of them).  A rotation by r rows reads row i + r * rot_scale,
+    wrapping, as ``jnp.roll(arr, -r)`` does in the reference."""
+    col = next((c for v in columns.values() for c in v), None)
+    assert col is not None, "no columns to evaluate over"
+    n, device = col.shape[-1], col.device
+
+    slots = []
+    for kind, ci, rot in prog.queries:
+        arr = columns[kind][ci]
+        r = rot * prog.rot_scale
+        slots.append(torch.roll(arr, -r, dims=-1) if r else arr)
+    # constants stay (16, 1) columns that broadcast over the rows
+    for v in prog.consts:
+        slots.append(df.encode([v], device=device))
+    for op, s1, s2 in prog.instrs:
+        a, b = slots[s1], slots[s2]
+        if op == _ADD:
+            slots.append(df.add(a, b))
+        elif op == _MUL:
+            slots.append(df.mul(a, b))
+        else:
+            slots.append(df.neg(a))
+    return torch.stack([slots[s].expand(16, n) for s in prog.output_slots()])
+
+
+def build_expr_batch_eval(cs, df: DeviceField, exprs, rot_scale: int = 1):
+    """Evaluation of arbitrary expressions: fn(columns) -> (len(exprs), 16, n)."""
+    prog = Program(exprs, rot_scale=rot_scale)
+
+    def fn(columns):
+        return _run_program(prog, df, columns)
+
+    return fn

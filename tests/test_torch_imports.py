@@ -1,0 +1,89 @@
+"""The port imports without JAX, as it must on the machine with the card.
+
+A subprocess blocks ``jax`` (``sys.modules["jax"] = None``) and imports every
+module of the ported slice, the flagship circuit and chip_smoke.py.  JAX must
+never load, the reference package ``halo2_tpu`` must never be imported under
+its own name, and every module that resolves to a file under ``halo2_tpu/``
+(the port's ``__path__`` scheme) must be one that holds no JAX code.
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REF_DIR = os.path.join(ROOT, "halo2_tpu")
+PORT_DIR = os.path.join(ROOT, "halo2_tpu_torch")
+JAX_IMPORT = re.compile(r"^\s*(import jax|from jax)\b", re.M)
+
+SLICE_MODULES = [
+    "halo2_tpu_torch",
+    "halo2_tpu_torch._build",
+    "halo2_tpu_torch.field",
+    "halo2_tpu_torch.field.cuda_mul",
+    "halo2_tpu_torch.field.device",
+    "halo2_tpu_torch.poly",
+    "halo2_tpu_torch.poly.cuda_ntt",
+    "halo2_tpu_torch.poly.domain",
+    "halo2_tpu_torch.plonkish",
+    "halo2_tpu_torch.plonkish.evaluator",
+    "halo2_tpu_torch.poseidon",
+    "halo2_tpu_torch.poseidon.primitives",
+    "halo2_tpu_torch.ec",
+    "halo2_tpu_torch.native",
+    "halo2_tpu_torch.kzg",
+    "halo2_tpu_torch.kzg.params",
+    "halo2_tpu_torch.kzg.keygen",
+    "halo2_tpu_torch.kzg.engine",
+    "halo2_tpu_torch.kzg.prover",
+    "halo2_tpu_torch.kzg.verifier",
+    "halo2_tpu_torch.circuits.merkle_sum_tree",
+    "halo2_tpu_torch.circuits.hash_v1",
+    "chip_smoke",
+]
+
+_PROBE = r"""
+import importlib, json, os, sys
+sys.modules["jax"] = None
+for name in json.loads(sys.argv[1]):
+    importlib.import_module(name)
+loaded = [k for k, v in sys.modules.items() if v is not None and (k == "jax" or k.startswith("jax."))]
+ref = [k for k in sys.modules if k == "halo2_tpu" or k.startswith("halo2_tpu.")]
+files = {
+    k: os.path.abspath(m.__file__)
+    for k, m in list(sys.modules.items())
+    if k.startswith("halo2_tpu_torch") and getattr(m, "__file__", None)
+}
+print(json.dumps({"jax": loaded, "reference_package": ref, "files": files}))
+"""
+
+
+def test_slice_imports_without_jax():
+    res = subprocess.run(
+        [sys.executable, "-c", _PROBE, json.dumps(SLICE_MODULES)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["jax"] == []
+    assert out["reference_package"] == []
+    resolved = {k: f for k, f in out["files"].items() if f.startswith(REF_DIR + os.sep)}
+    assert "halo2_tpu_torch.circuits.merkle_sum_tree" in resolved
+    assert "halo2_tpu_torch.kzg.verifier" in resolved
+    for name, path in resolved.items():
+        with open(path) as f:
+            assert not JAX_IMPORT.search(f.read()), f"{name} resolves to JAX-bearing {path}"
+    for name in ("halo2_tpu_torch.field.device", "halo2_tpu_torch.kzg.prover"):
+        assert out["files"][name].startswith(PORT_DIR + os.sep)
+
+
+def test_no_port_file_imports_jax():
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _dirs, names in os.walk(PORT_DIR):
+        paths += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    assert len(paths) > 15
+    for path in paths:
+        with open(path) as f:
+            assert not JAX_IMPORT.search(f.read()), path
