@@ -7,24 +7,39 @@ passes or raises:
 
 0. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 1. build of the CUDA kernels from halo2_tpu_torch/csrc (and of the native
-   host engine), with their times;
+   host engine), with their times and each kernel's registers and spills;
 2. every kernel against its plain PyTorch version on the card, limb for
-   limb: mont_mul for BN254 Fr, BN254 Fq and Pasta Fp at m in {1, 511, 513,
-   2^11, 2^15, 2^20} with edge values and a broadcast operand; the NTT stage
-   kernels at n in {2^9, 2^11, 2^15, 2^20}, forward and inverse, and
+   limb: mont_mul and mont_sqr for BN254 Fr, BN254 Fq and Pasta Fp at m in
+   {1, 511, 513, 2^11, 2^15, 2^20} with edge values (mont_mul also with a
+   broadcast operand); jac_madd and jac_add at the same m on BN254 G1 points
+   with z != 1, flags included, with the exception lanes first (P == Q,
+   P == -Q, P at infinity, Q at infinity, a masked mixed-add lane); the NTT
+   stage kernels at n in {2^9, 2^11, 2^15, 2^20}, forward and inverse, and
    iNTT(NTT(x)) == x; at 2^11, 2^15 and 2^20 the time per call of kernel
    and plain version (CUDA events around back-to-back calls) and each
    kernel's device time per launch (torch.profiler);
-3. the flagship prove: merkle-sum-tree depth 15, k = 11 (built as
+3. the device MSM: msm_points at 2^16 (the k = 16 SRS, random.Random(42)
+   scalars) and 2^20 (that SRS and random.Random(9) scalars tiled 16 times)
+   equals the native host MSM on the same arrays; the time of each (median
+   of 3 runs after a warm-up), the device run's kernel launches and its
+   device -> host reads of the P == Q flags;
+4. the flagship prove: merkle-sum-tree depth 15, k = 11 (built as
    scripts/north_star.py builds it), proved three times with
-   random.Random(7) on the card; the bytes must equal
+   random.Random(7) and the commitments on the native host MSM, then twice
+   with commit="device" (the device MSM); every proof's bytes must equal
    tests/data/mst_d15_k11_rng7.proof (the reference's proof), the verifier
-   must accept it and reject a tampered root, and every kernel must have
-   been launched during a prove.
+   must accept it and reject a tampered root;
+5. the SRS setup on the card: ParamsKZG.setup(16, device=cuda) equals
+   .srs/kzg_bn254_k16_s857536.pkl limb for limb.
 
-The line before the last is a JSON object with one entry per kernel; the
-last is {"ok": true, "device": {...}}.  Without a CUDA device, or outside
-the repository, the script fails before printing either.
+Every path of phases 3-5 runs once with the launch counts set to 0 just
+before and read just after, and fails if a kernel it must launch was not
+launched: mont_mul and the NTT kernels in both proves, jac_madd and jac_add
+in the device-commit prove and the MSM, mont_sqr, mont_mul and jac_add in
+the setup.  The line before the last is a JSON object with one entry per
+kernel (its launches summed over those runs); the last is {"ok": true,
+"device": {...}}.  Without a CUDA device, or outside the repository, the
+script fails before printing either.
 """
 
 from __future__ import annotations
@@ -40,6 +55,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "data", "mst_d15_k11_rng7.proof")
 PK_CACHE = os.path.join(ROOT, ".srs", "pk_mst_d15_k11.pkl")
+SRS16 = os.path.join(ROOT, ".srs", "kzg_bn254_k16_s857536.pkl")
 MUL_SIZES = (1, 511, 513, 1 << 11, 1 << 15, 1 << 20)
 NTT_SIZES = (1 << 9, 1 << 11, 1 << 15, 1 << 20)
 TIMED_SIZES = (1 << 11, 1 << 15, 1 << 20)
@@ -147,11 +163,25 @@ def phase_build():
     print(f"[build] native host engine: {time.perf_counter() - t0:.2f} s", flush=True)
 
 
+def _time_kernel(name, symbol, m, kernel, plain, times, plain_calls=3):
+    """Time per call of kernel and plain version at m lanes, and the
+    kernel's device time per launch; record and print them."""
+    t_k = _ms_per_call(kernel, 50)
+    t_p = _ms_per_call(plain, plain_calls, runs=3)
+    t_d = _kernel_device_ms(kernel, symbol)
+    times[(name, m)] = (t_k, t_p)
+    print(
+        f"[kernels] {name} m={m}: kernel {t_k:.4f} ms per call ({t_d:.4f} ms on the "
+        f"device), plain {t_p:.4f} ms per call",
+        flush=True,
+    )
+
+
 def phase_kernels(device):
     """Every kernel against its plain version; returns per-kernel results."""
     import torch
 
-    from halo2_tpu_torch.field.cuda_mul import mont_mul, mont_mul_plain
+    from halo2_tpu_torch.field.cuda_mul import mont_mul, mont_mul_plain, mont_sqr, mont_sqr_plain
     from halo2_tpu_torch.field.device import get_device_field
     from halo2_tpu_torch.field.params import BN254_FQ, BN254_FR, PASTA_FP
     from halo2_tpu_torch.poly import cuda_ntt
@@ -159,7 +189,7 @@ def phase_kernels(device):
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0x5EED)
-    err = {"mont_mul": 0.0, "ntt_small_stages": 0.0, "ntt_large_stage": 0.0}
+    err = {name: 0.0 for name, _, _ in KERNELS}
     times = {}
 
     for spec in (BN254_FR, BN254_FQ, PASTA_FP):
@@ -187,7 +217,17 @@ def phase_kernels(device):
                     f"({t_d:.4f} ms on the device), plain {t_p:.4f} ms per call",
                     flush=True,
                 )
-        print(f"[kernels] mont_mul {spec.name}: equal to plain at m={list(MUL_SIZES)}", flush=True)
+            e = _max_abs_err(f"mont_sqr {spec.name} m={m}", mont_sqr(spec, a), mont_sqr_plain(spec, a))
+            err["mont_sqr"] = max(err["mont_sqr"], e)
+            _max_abs_err(f"mont_sqr {spec.name} m={m} vs mont_mul", mont_sqr(spec, a), mont_mul(spec, a, a))
+            if spec is BN254_FR and m in TIMED_SIZES:
+                _time_kernel(
+                    "mont_sqr", "mont_sqr_kernel", m, lambda: mont_sqr(spec, a),
+                    lambda: mont_sqr_plain(spec, a), times,
+                )
+        print(f"[kernels] mont_mul, mont_sqr {spec.name}: equal to plain at m={list(MUL_SIZES)}", flush=True)
+
+    _check_jac_kernels(device, err, times)
 
     spec = BN254_FR
     for n in NTT_SIZES:
@@ -240,6 +280,74 @@ def phase_kernels(device):
     return err, times
 
 
+def _curve_lanes(device, m):
+    """BN254 G1 operands for the group-law kernels at m lanes: p Jacobian
+    with z != 1, q affine (mixed add) and Jacobian with z != 1 (full add),
+    from the k = 16 SRS's points.  Lanes 0-4 are the exception lanes: P == Q,
+    P == -Q, P at infinity, Q at infinity (a (0, 0) masked lane of the mixed
+    add), and a masked mixed-add lane."""
+    import numpy as np
+    import torch
+
+    from halo2_tpu_torch.ec import device as ecd
+    from halo2_tpu_torch.kzg.params import ParamsKZG
+
+    srs = ParamsKZG.load(SRS16)
+    n = srs.n
+    reps = -(-(m + n) // n)
+    x, y = (
+        torch.from_numpy(np.tile(a, (1, reps)).view(np.int32)).to(device) for a in (srs.g1_x, srs.g1_y)
+    )
+    p = ecd.jac_double(ecd.jac_from_affine(x[:, :m].contiguous(), y[:, :m].contiguous()))
+    qx, qy = x[:, n - 1 : n - 1 + m].contiguous(), y[:, n - 1 : n - 1 + m].contiguous()
+    q = ecd.jac_double(ecd.jac_from_affine(qx, qy))
+    valid = torch.ones(m, dtype=torch.bool, device=device)
+    front = min(2, m)
+    ax, ay = ecd.jac_to_affine({k: v[:, :front].contiguous() for k, v in p.items()})
+    ay = torch.stack([ay[:, 0], ecd.df().neg(ay)[:, -1]], dim=1)  # lane 0: P, lane 1: -P
+    for i in range(front):  # q as an affine point (z = 1)
+        qx[:, i], qy[:, i] = ax[:, i], ay[:, i]
+        q["x"][:, i], q["y"][:, i], q["z"][:, i] = ax[:, i], ay[:, i], ecd.df().one_mont((), device=device)
+    inf = ecd.jac_infinity((), device=device)
+    if m > 2:
+        for k in p:
+            p[k][:, 2] = inf[k]
+    if m > 3:
+        for k in q:
+            q[k][:, 3] = inf[k]
+        qx[:, 3], qy[:, 3], valid[3] = 0, 0, False
+    if m > 4:
+        valid[4] = False
+    return p, q, qx, qy, valid
+
+
+def _check_jac_kernels(device, err, times):
+    """jac_madd and jac_add against their plain versions, limb for limb,
+    flags included, before and after the P == Q doubling."""
+    from halo2_tpu_torch.ec import cuda_jac
+
+    for m in MUL_SIZES:
+        p, q, qx, qy, valid = _curve_lanes(device, m)
+        cases = (
+            ("jac_madd", lambda: cuda_jac.jac_madd_flagged(p, qx, qy, valid),
+             lambda: cuda_jac.jac_madd_flagged_plain(p, qx, qy, valid),
+             lambda: cuda_jac.jac_madd_cuda(p, qx, qy, valid), lambda: cuda_jac.jac_madd_plain(p, qx, qy, valid)),
+            ("jac_add", lambda: cuda_jac.jac_add_flagged(p, q), lambda: cuda_jac.jac_add_flagged_plain(p, q),
+             lambda: cuda_jac.jac_add_cuda(p, q), lambda: cuda_jac.jac_add_plain(p, q)),
+        )
+        for name, flagged, flagged_plain, full, full_plain in cases:
+            (out_k, same_k), (out_p, same_p) = flagged(), flagged_plain()
+            if not (same_k.equal(same_p) and bool(same_k[0])) or int(same_k.sum()) != 1:
+                raise AssertionError(f"{name} m={m}: the P == Q flags differ or are wrong")
+            got_full, want_full = full(), full_plain()
+            for k in ("x", "y", "z"):
+                err[name] = max(err[name], _max_abs_err(f"{name} m={m} {k}", out_k[k], out_p[k]))
+                _max_abs_err(f"{name} m={m} {k} doubled", got_full[k], want_full[k])
+            if m in TIMED_SIZES:
+                _time_kernel(name, f"{name}_kernel", m, flagged, flagged_plain, times, plain_calls=2)
+        print(f"[kernels] jac_madd, jac_add m={m}: equal to plain, flags included", flush=True)
+
+
 def _flagship_circuit():
     """The north-star instance, built as scripts/north_star.py builds it."""
     from halo2_tpu_torch.circuits.merkle_sum_tree import (
@@ -267,28 +375,154 @@ def _flagship_circuit():
     return circuit, public
 
 
-def _reset_launches():
+def _launch_tables():
+    from halo2_tpu_torch.ec import cuda_jac
     from halo2_tpu_torch.field import cuda_mul
     from halo2_tpu_torch.poly import cuda_ntt
 
-    cuda_mul.LAUNCHES["mont_mul"] = 0
-    for name in cuda_ntt.LAUNCHES:
-        cuda_ntt.LAUNCHES[name] = 0
+    return cuda_mul.LAUNCHES, cuda_ntt.LAUNCHES, cuda_jac.LAUNCHES
+
+
+def _reset_launches():
+    for table in _launch_tables():
+        for name in table:
+            table[name] = 0
 
 
 def _read_launches() -> dict:
-    from halo2_tpu_torch.field import cuda_mul
-    from halo2_tpu_torch.poly import cuda_ntt
+    return {name: n for table in _launch_tables() for name, n in table.items()}
 
-    return {**cuda_mul.LAUNCHES, **cuda_ntt.LAUNCHES}
+
+def _require(path: str, counts: dict, names) -> None:
+    missing = [name for name in names if counts[name] == 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels not launched: {missing}")
+
+
+class _FlagReads:
+    """Counts the group ops' device -> host reads of their P == Q flags
+    (one per jac_add/jac_madd call) and the doublings they led to."""
+
+    def __enter__(self):
+        from halo2_tpu_torch.ec import cuda_jac
+
+        self.module, self.orig = cuda_jac, cuda_jac._double_fixup
+        self.reads = self.doublings = 0
+
+        def counted(out, same, p, d):
+            self.reads += 1
+            res = self.orig(out, same, p, d)
+            self.doublings += res is not out
+            return res
+
+        cuda_jac._double_fixup = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module._double_fixup = self.orig
+
+
+def phase_msm(device):
+    """msm_points at 2^16 and 2^20 (bench.py's inputs) against the native
+    host MSM; returns the launch counts of each size's first run."""
+    import numpy as np
+    import torch
+
+    from halo2_tpu_torch import native
+    from halo2_tpu_torch.ec import device as ecd
+    from halo2_tpu_torch.field.device import get_device_field
+    from halo2_tpu_torch.field.params import BN254_FR
+    from halo2_tpu_torch.kzg.params import ParamsKZG
+
+    srs = ParamsKZG.load(SRS16)
+    n = srs.n
+    dfr = get_device_field(BN254_FR)
+    rng = random.Random(42)
+    sc16 = dfr.encode_np([rng.randrange(BN254_FR.p) for _ in range(n)], to_mont=False)
+    rng = random.Random(9)
+    sc20 = np.tile(dfr.encode_np([rng.randrange(BN254_FR.p) for _ in range(n)], to_mont=False), (1, 16))
+    cases = (
+        ("2^16", srs.g1_x, srs.g1_y, sc16),
+        ("2^20", np.tile(srs.g1_x, (1, 16)), np.tile(srs.g1_y, (1, 16)), sc20),
+    )
+    runs = []
+    for label, px, py, sc in cases:
+        args = [torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device) for a in (px, py, sc)]
+        packed = [native.pack_device(a) for a in (px, py, sc)]
+        _reset_launches()
+        torch.cuda.synchronize(device)
+        with _FlagReads() as flags:
+            t0 = time.perf_counter()
+            got = ecd.msm_points(*args)
+            first = time.perf_counter() - t0
+        counts = _read_launches()
+        want = native.msm_g1_mont(*packed)
+        if got != want or got == (0, 0):
+            raise AssertionError(f"MSM {label}: device {got} != native {want}")
+        _require(f"MSM {label}", counts, ("jac_madd", "jac_add"))
+        runs.append(counts)
+        t_dev, t_nat = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ecd.msm_points(*args)
+            t_dev.append(time.perf_counter() - t0)
+        native.msm_g1_mont(*packed)
+        for _ in range(3):
+            t0 = time.perf_counter()
+            native.msm_g1_mont(*packed)
+            t_nat.append(time.perf_counter() - t0)
+        dev, nat = statistics.median(t_dev), statistics.median(t_nat)
+        points = px.shape[1]
+        print(
+            f"[msm] {label}: equal to native; device {dev * 1e3:.1f} ms ({points / dev:.4g} points/s, "
+            f"first run {first * 1e3:.1f} ms, runs {[round(t * 1e3, 1) for t in t_dev]}), native "
+            f"{nat * 1e3:.1f} ms ({points / nat:.4g} points/s, runs {[round(t * 1e3, 1) for t in t_nat]}); "
+            f"first run: launches {counts}, P == Q flag reads {flags.reads}, doublings {flags.doublings}",
+            flush=True,
+        )
+    return runs
+
+
+def _prove(params, pk, circuit, public, want, device, commit, reps):
+    """Prove ``reps`` times; every proof must equal ``want``.  Returns the
+    last proof and the launch counts of the first prove."""
+    import torch
+
+    from halo2_tpu_torch.kzg import create_proof
+    from halo2_tpu_torch.kzg.prover import PHASE_TIMINGS
+
+    launches = None
+    for rep in range(reps):
+        _reset_launches()
+        PHASE_TIMINGS.clear()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        proof = create_proof(
+            params, pk, circuit, [list(public)], rng=random.Random(7), device=device, commit=commit
+        )
+        torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        counts = _read_launches()
+        if launches is None:
+            launches = counts
+        phases = ", ".join(f"{k_}={v:.3f}" for k_, v in PHASE_TIMINGS.items())
+        print(
+            f"[prove] commit={commit} rep {rep}: {dt:.3f} s, {len(proof)} bytes, launches {counts}; "
+            f"phases (s): {phases}",
+            flush=True,
+        )
+        if proof != want:
+            raise AssertionError(f"commit={commit} rep {rep}: proof differs from the reference proof in {FIXTURE}")
+    return proof, launches
 
 
 def phase_prove(device):
+    """The flagship, native commits then device commits; returns the launch
+    counts of each first prove."""
     import torch
 
     from halo2_tpu_torch.field import Fr
-    from halo2_tpu_torch.kzg import ParamsKZG, ProvingKey, create_proof, verify_proof
-    from halo2_tpu_torch.kzg.prover import PHASE_TIMINGS
+    from halo2_tpu_torch.kzg import ParamsKZG, ProvingKey, verify_proof
 
     k = 11
     circuit, public = _flagship_circuit()
@@ -300,26 +534,14 @@ def phase_prove(device):
         want = f.read()
 
     torch.cuda.reset_peak_memory_stats(device)
-    launches = None
-    for rep in range(3):
-        _reset_launches()
-        PHASE_TIMINGS.clear()
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        proof = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7), device=device)
-        torch.cuda.synchronize(device)
-        dt = time.perf_counter() - t0
-        counts = _read_launches()
-        if launches is None:
-            launches = counts
-        phases = ", ".join(f"{k_}={v:.3f}" for k_, v in PHASE_TIMINGS.items())
-        print(f"[prove] rep {rep}: {dt:.3f} s, {len(proof)} bytes, launches {counts}; phases (s): {phases}", flush=True)
-        if proof != want:
-            raise AssertionError(f"rep {rep}: proof differs from the reference proof in {FIXTURE}")
+    proof, native_counts = _prove(params, pk, circuit, public, want, device, "native", 3)
+    _require("native-commit prove", native_counts, ("mont_mul", "ntt_small_stages", "ntt_large_stage"))
+    _, device_counts = _prove(params, pk, circuit, public, want, device, "device", 2)
+    _require(
+        "device-commit prove", device_counts,
+        ("mont_mul", "ntt_small_stages", "ntt_large_stage", "jac_madd", "jac_add"),
+    )
     print(f"[prove] peak device memory {torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB", flush=True)
-    missing = [name for name, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched during the prove: {missing}")
 
     t0 = time.perf_counter()
     ok = verify_proof(params.verifier_params(), pk.vk, proof, [list(public)])
@@ -330,14 +552,42 @@ def phase_prove(device):
     bad[2] = bad[2] + Fr.from_u64(1)
     if verify_proof(params.verifier_params(), pk.vk, proof, [bad]):
         raise AssertionError("the verifier accepted a tampered root")
-    print("[prove] proof equals the reference fixture; tampered root rejected", flush=True)
-    return launches
+    print("[prove] proofs equal the reference fixture; tampered root rejected", flush=True)
+    return [native_counts, device_counts]
+
+
+def phase_setup(device):
+    """ParamsKZG.setup(16) on the card against the saved k = 16 SRS; returns
+    the launch counts of the setup."""
+    import numpy as np
+    import torch
+
+    from halo2_tpu_torch.kzg.params import ParamsKZG
+
+    want = ParamsKZG.load(SRS16)
+    _reset_launches()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    got = ParamsKZG.setup(16, device=device)
+    dt = time.perf_counter() - t0
+    counts = _read_launches()
+    for name in ("g1_x", "g1_y"):
+        if not np.array_equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"setup(16) on the card: {name} differs from {SRS16}")
+    if [c.c for c in got.s_g2] != [c.c for c in want.s_g2]:
+        raise AssertionError(f"setup(16) on the card: s_g2 differs from {SRS16}")
+    _require("setup", counts, ("mont_sqr", "mont_mul", "jac_add"))
+    print(f"[setup] k=16 on the card: {dt:.3f} s, equal to {os.path.relpath(SRS16, ROOT)}; launches {counts}", flush=True)
+    return [counts]
 
 
 KERNELS = (
     ("mont_mul", "halo2_tpu_torch/csrc/mont_mul.cu", "halo2_tpu/field/pallas_mul.py:357"),
+    ("mont_sqr", "halo2_tpu_torch/csrc/mont_mul.cu", "halo2_tpu/field/pallas_mul.py:363"),
     ("ntt_small_stages", "halo2_tpu_torch/csrc/ntt.cu", "halo2_tpu/poly/pallas_ntt.py:47"),
     ("ntt_large_stage", "halo2_tpu_torch/csrc/ntt.cu", "halo2_tpu/poly/pallas_ntt.py:97"),
+    ("jac_madd", "halo2_tpu_torch/csrc/jac.cu", "halo2_tpu/ec/pallas_jac.py:76"),
+    ("jac_add", "halo2_tpu_torch/csrc/jac.cu", "halo2_tpu/ec/pallas_jac.py:127"),
 )
 
 
@@ -345,9 +595,12 @@ def main() -> int:
     device = phase_device()
     import torch
 
+    t_start = time.perf_counter()
     phase_build()
     err, times = phase_kernels(device)
-    launches = phase_prove(device)
+    runs = phase_msm(device) + phase_prove(device) + phase_setup(device)
+    launches = {name: sum(r[name] for r in runs) for name, _, _ in KERNELS}
+    print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     report = {
         "kernels": [
             {

@@ -1,7 +1,8 @@
 """Build the CUDA kernels under ``csrc/`` into one shared library, at first use.
 
-Route: ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with :mod:`ctypes`.  No PyTorch
+Route: ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per
+source, in parallel) and links them into a shared library with a plain C
+interface, loaded with :mod:`ctypes`.  No PyTorch
 header is compiled, so a build takes seconds.  The library's name carries a
 hash of the sources, so an edited kernel is rebuilt and a stale one is never
 loaded.  The output directory ``_build/`` (listed in ``.gitignore``) sits
@@ -63,21 +64,37 @@ def log_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
+    """Compile the kernels unless a library for these sources exists: one
+    ``nvcc -c`` per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(out.name + f".tmp{os.getpid()}")
-    cmd = [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
-        "-o", str(tmp), *(str(p) for p in _sources() if p.suffix == ".cu"),
-    ]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    log_path().write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    tag = f"tmp{os.getpid()}"
+    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    jobs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}_{source_digest()}.{tag}.o"
+        cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _obj, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(text)
+    tmp = out.with_name(out.name + f".{tag}")
+    if not failed:
+        cmd = [_nvcc(), *flags, "-shared", "-o", str(tmp), *(str(obj) for _c, obj, _p in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.stderr)
+    for _cmd, obj, _proc in jobs:
+        obj.unlink(missing_ok=True)
+    log_path().write_text("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)
     return out
 
@@ -89,10 +106,17 @@ def lib() -> ctypes.CDLL:
         if _LIB is None:
             handle = ctypes.CDLL(str(build()))
             vp, i32 = ctypes.c_void_p, ctypes.c_int
-            handle.h2t_mont_mul.argtypes = [vp, vp, vp, i32, i32, vp, vp]
-            handle.h2t_ntt_small_stages.argtypes = [vp, vp, i32, vp, i32, vp, vp]
-            handle.h2t_ntt_large_stage.argtypes = [vp, vp, i32, i32, vp, i32, vp, vp]
-            for fn in (handle.h2t_mont_mul, handle.h2t_ntt_small_stages, handle.h2t_ntt_large_stage):
+            argtypes = {
+                "mont_mul": [vp, vp, vp, i32, i32, vp, vp],
+                "mont_sqr": [vp, vp, i32, vp, vp],
+                "ntt_small_stages": [vp, vp, i32, vp, i32, vp, vp],
+                "ntt_large_stage": [vp, vp, i32, i32, vp, i32, vp, vp],
+                "jac_madd": [vp] * 10 + [i32, vp, vp],
+                "jac_add": [vp] * 10 + [i32, vp, vp],
+            }
+            for name, types in argtypes.items():
+                fn = getattr(handle, f"h2t_{name}")
+                fn.argtypes = types
                 fn.restype = i32
             handle.h2t_error_string.argtypes = [i32]
             handle.h2t_error_string.restype = ctypes.c_char_p

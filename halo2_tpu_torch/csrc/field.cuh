@@ -138,4 +138,74 @@ __device__ __forceinline__ void mont_mul(const uint32_t a[WORDS], const uint32_t
   for (int k = 0; k < WORDS; ++k) r[k] = reduce ? d[k] : t[k];
 }
 
+// Montgomery square r = a * a * 2^-256 mod p for a < p, canonical: the same
+// value as mont_mul(a, a).  The 512-bit square takes the 28 products a[i] a[j]
+// (i < j) once, doubles them with one shift, and adds the 8 diagonal squares
+// (36 multiplies instead of 64); then 8 separated REDC steps (SOS), each
+// adding one multiple of p that clears the lowest word, whose carry out rides
+// into the next step's top word.  (T + m p) / 2^256 < 2p, so one conditional
+// subtract leaves r canonical.
+__device__ __forceinline__ void mont_sqr(const uint32_t a[WORDS], const Modulus& M,
+                                         uint32_t r[WORDS]) {
+  uint32_t t[2 * WORDS + 1];
+#pragma unroll
+  for (int k = 0; k < 2 * WORDS + 1; ++k) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < WORDS - 1; ++i) {  // off-diagonal products, row by row
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = i + 1; j < WORDS; ++j) {
+      c += static_cast<uint64_t>(a[i]) * a[j] + t[i + j];
+      t[i + j] = static_cast<uint32_t>(c);
+      c >>= 32;
+    }
+    t[i + WORDS] = static_cast<uint32_t>(c);
+  }
+  uint32_t hi = 0;  // double: the off-diagonal sum is below 2^511
+#pragma unroll
+  for (int k = 0; k < 2 * WORDS; ++k) {
+    const uint32_t next = t[k] >> 31;
+    t[k] = (t[k] << 1) | hi;
+    hi = next;
+  }
+  uint64_t c = 0;  // add the diagonal a[i]^2 at word 2i
+#pragma unroll
+  for (int i = 0; i < WORDS; ++i) {
+    const uint64_t sq = static_cast<uint64_t>(a[i]) * a[i];
+    c += static_cast<uint64_t>(t[2 * i]) + static_cast<uint32_t>(sq);
+    t[2 * i] = static_cast<uint32_t>(c);
+    c >>= 32;
+    c += static_cast<uint64_t>(t[2 * i + 1]) + (sq >> 32);
+    t[2 * i + 1] = static_cast<uint32_t>(c);
+    c >>= 32;
+  }
+  uint32_t extra = 0;  // carry owed to word i + WORDS + 1
+#pragma unroll
+  for (int i = 0; i < WORDS; ++i) {
+    const uint32_t m = t[i] * M.n0;
+    c = 0;
+#pragma unroll
+    for (int j = 0; j < WORDS; ++j) {
+      c += static_cast<uint64_t>(m) * M.p[j] + t[i + j];
+      t[i + j] = static_cast<uint32_t>(c);
+      c >>= 32;
+    }
+    c += static_cast<uint64_t>(t[i + WORDS]) + extra;
+    t[i + WORDS] = static_cast<uint32_t>(c);
+    extra = static_cast<uint32_t>(c >> 32);
+  }
+  uint32_t d[WORDS];
+  const uint32_t borrow = sub_words(t + WORDS, M.p, d);
+  const bool reduce = extra || !borrow;  // t >= p
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) r[k] = reduce ? d[k] : t[WORDS + k];
+}
+
+__device__ __forceinline__ bool is_zero(const uint32_t a[WORDS]) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) acc |= a[k];
+  return acc == 0;
+}
+
 }  // namespace h2t

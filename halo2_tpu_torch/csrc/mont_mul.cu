@@ -1,4 +1,5 @@
-// Batched Montgomery multiply: out = a * b * 2^-256 mod p, canonical.
+// Batched Montgomery multiply: out = a * b * 2^-256 mod p, canonical; and
+// batched Montgomery square: out = a * a * 2^-256 mod p, canonical.
 //
 // Replaces halo2_tpu/field/pallas_mul.py:_mont_mul_kernel (reached through
 // _mont_mul_call and mont_mul), which the TPU computes with a byte-split bf16
@@ -46,6 +47,32 @@ extern "C" int h2t_mont_mul(const void* a, const void* b, void* out, int m, int 
   mont_mul_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
       static_cast<uint32_t*>(out), m, b_bcast, M);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Replaces halo2_tpu/field/pallas_mul.py:_mont_sqr_kernel (reached through
+// _mont_sqr_call and mont_sqr), which the TPU computes from the 136 limb
+// products of the upper triangle.  Here: field.cuh's mont_sqr, 36
+// word products for the square and 72 for the reduction, one thread per
+// element.  It moves 128 bytes per element (a and out), so like mont_mul it
+// is bound by memory traffic on an H100; its equality with mont_mul(a, a)
+// is what the tests check.
+__global__ void mont_sqr_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
+                                int m, Modulus M) {
+  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<size_t>(m)) return;
+  uint32_t x[WORDS], r[WORDS];
+  load_elem(a, m, idx, x);
+  mont_sqr(x, M, r);
+  store_elem(out, m, idx, r);
+}
+
+extern "C" int h2t_mont_sqr(const void* a, void* out, int m, const void* modulus, void* stream) {
+  const Modulus M = modulus_from_host(static_cast<const uint32_t*>(modulus));
+  const int threads = 256;
+  const int blocks = (m + threads - 1) / threads;
+  mont_sqr_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<uint32_t*>(out), m, M);
   return static_cast<int>(cudaGetLastError());
 }
 

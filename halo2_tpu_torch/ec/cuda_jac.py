@@ -1,0 +1,224 @@
+"""Jacobian group ops on the MSM's path: the CUDA kernels, their plain
+PyTorch versions, and the wrappers that pick one by the tensors' device
+(port of halo2_tpu/ec/pallas_jac.py).
+
+The kernels (``csrc/jac.cu``) replace ``halo2_tpu/ec/pallas_jac.py``'s
+``_madd_kernel`` (mixed Jacobian + affine add) and ``_add_kernel`` (complete
+Jacobian add).  They compute the reference's canonical formulas
+(``ec/device.py:_jac_madd_jnp`` and ``_jac_add_jnp``), so their output equals
+the plain versions here limb for limb.  A point is a dict ``{x, y, z}`` of
+``(16, *batch)`` int32 Montgomery limb tensors over BN254 Fq; z == 0 marks
+infinity.
+
+Each kernel returns the sum and a per-lane ``same`` flag (P == Q, both
+finite); :func:`_double_fixup` then applies ``jac_double`` on flagged lanes,
+behind one device -> host read of ``same.any()`` (the reference's
+``lax.cond``).  :func:`jac_madd_cuda` / :func:`jac_add_cuda` run the plain
+versions for CPU tensors and launch the kernels for CUDA tensors; there is no
+fallback between the two.  ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..field.cuda_mul import check_limbs, modulus_words, mont_mul_plain, mont_sqr_plain
+from ..field.device import DeviceField
+from ..field.params import BN254_FQ, NUM_LIMBS, to_limbs
+
+L = NUM_LIMBS
+LAUNCHES = {"jac_madd": 0, "jac_add": 0}
+
+
+class _PlainField(DeviceField):
+    """DeviceField whose multiplies are the plain versions on any device, so
+    the plain group ops launch no kernel of this package."""
+
+    def mul(self, a, b):
+        return mont_mul_plain(self.spec, a, b)
+
+    def square(self, a):
+        return mont_sqr_plain(self.spec, a)
+
+
+@functools.lru_cache(maxsize=None)
+def plain_field() -> _PlainField:
+    return _PlainField(BN254_FQ)
+
+
+# ------------------------------------------------------------ plain versions
+def jac_madd_flagged_plain(p, qx, qy, valid):
+    """p + (qx, qy) where ``valid`` else p, without the P == Q doubling;
+    returns ``(point, same)``.  The formulas of ``_jac_madd_jnp``
+    (madd-2007-bl); (qx, qy) is a finite affine point on valid lanes."""
+    d = plain_field()
+    x1, y1, z1 = p["x"], p["y"], p["z"]
+    z1z1 = d.square(z1)
+    u2 = d.mul(qx, z1z1)
+    s2 = d.mul(qy, d.mul(z1, z1z1))
+    h = d.sub(u2, x1)
+    hh = d.square(h)
+    i = d.double(d.double(hh))
+    j = d.mul(h, i)
+    rr = d.double(d.sub(s2, y1))
+    v = d.mul(x1, i)
+    x3 = d.sub(d.sub(d.square(rr), j), d.double(v))
+    y3 = d.sub(d.mul(rr, d.sub(v, x3)), d.double(d.mul(y1, j)))
+    z3 = d.sub(d.sub(d.square(d.add(z1, h)), z1z1), hh)
+
+    p_inf = d.is_zero(z1)
+    same = valid & d.is_zero(h) & d.is_zero(rr) & ~p_inf
+    aff = {"x": qx, "y": qy, "z": d.one_mont(qx.shape[1:], device=qx.device)}
+    out = {k: d.select(p_inf, aff[k], v_) for k, v_ in (("x", x3), ("y", y3), ("z", z3))}
+    return {k: d.select(valid, out[k], p[k]) for k in out}, same
+
+
+def jac_add_flagged_plain(p, q):
+    """Complete p + q without the P == Q doubling; returns ``(point,
+    same)``.  The formulas and selects of ``_jac_add_jnp`` (add-2007-bl):
+    P == -Q gives infinity (0, 1, 0), an infinite side returns the other."""
+    d = plain_field()
+    x1, y1, z1 = p["x"], p["y"], p["z"]
+    x2, y2, z2 = q["x"], q["y"], q["z"]
+    z1z1 = d.square(z1)
+    z2z2 = d.square(z2)
+    u1 = d.mul(x1, z2z2)
+    u2 = d.mul(x2, z1z1)
+    s1 = d.mul(d.mul(y1, z2), z2z2)
+    s2 = d.mul(d.mul(y2, z1), z1z1)
+    h = d.sub(u2, u1)
+    r = d.sub(s2, s1)
+
+    hh = d.square(h)
+    i = d.double(d.double(hh))
+    j = d.mul(h, i)
+    rr = d.double(r)
+    v = d.mul(u1, i)
+    x3 = d.sub(d.sub(d.square(rr), j), d.double(v))
+    y3 = d.sub(d.mul(rr, d.sub(v, x3)), d.double(d.mul(s1, j)))
+    z3 = d.mul(d.double(d.mul(z1, z2)), h)
+
+    h_zero, r_zero = d.is_zero(h), d.is_zero(r)
+    p_inf, q_inf = d.is_zero(z1), d.is_zero(z2)
+    same = h_zero & r_zero & ~p_inf & ~q_inf
+    opposite = h_zero & ~r_zero & ~p_inf & ~q_inf
+    batch = x3.shape[1:]
+    inf = {
+        "x": d.zeros(batch, device=x3.device),
+        "y": d.one_mont(batch, device=x3.device),
+        "z": d.zeros(batch, device=x3.device),
+    }
+    out = {"x": x3, "y": y3, "z": z3}
+    out = {k: d.select(opposite, inf[k], out[k]) for k in out}
+    out = {k: d.select(p_inf, q[k], out[k]) for k in out}
+    return {k: d.select(q_inf, p[k], out[k]) for k in out}, same
+
+
+def _double_fixup(out, same, p, d):
+    """The (rare) P == Q lanes take jac_double(p), computed only when some
+    lane is flagged: one device -> host sync per call."""
+    if not bool(same.any()):
+        return out
+    from .device import jac_double
+
+    dbl = jac_double(p, d)
+    return {k: torch.where(same[None], dbl[k], out[k]) for k in out}
+
+
+def jac_madd_plain(p, qx, qy, valid):
+    """Mixed add p + (qx, qy) where ``valid`` else p, in plain torch ops."""
+    out, same = jac_madd_flagged_plain(p, qx, qy, valid)
+    return _double_fixup(out, same, p, plain_field())
+
+
+def jac_add_plain(p, q):
+    """Complete Jacobian add p + q in plain torch ops."""
+    out, same = jac_add_flagged_plain(p, q)
+    return _double_fixup(out, same, p, plain_field())
+
+
+# ------------------------------------------------------------------ wrappers
+@functools.lru_cache(maxsize=None)
+def _curve_consts() -> np.ndarray:
+    """(17,) uint32 kernel argument: Fq's p words and n0, then R mod p."""
+    one = to_limbs(BN254_FQ.r)
+    words = [one[2 * k] | (one[2 * k + 1] << 16) for k in range(8)]
+    return np.concatenate([modulus_words(BN254_FQ), np.array(words, np.uint32)])
+
+
+def _check_points(op: str, batch, points: dict) -> None:
+    check_limbs(op, **points)
+    for name, t in points.items():
+        if tuple(t.shape[1:]) != tuple(batch):
+            raise ValueError(f"{op}: {name} has batch {tuple(t.shape[1:])}, expected {tuple(batch)}")
+
+
+def _launch(kernel: str, ins, flags, batch):
+    """Launch ``kernel`` over the flattened batch: returns ``(point, same)``."""
+    from .. import _build
+
+    x = ins[0]
+    out = {k: torch.empty_like(x) for k in ("x", "y", "z")}
+    same = torch.zeros(batch, dtype=torch.int32, device=x.device)
+    m = x.numel() // L
+    if m:
+        _build.launch(
+            kernel, x.device, *(t.data_ptr() for t in ins + flags),
+            out["x"].data_ptr(), out["y"].data_ptr(), out["z"].data_ptr(), same.data_ptr(),
+            m, _curve_consts().ctypes.data,
+        )
+        LAUNCHES[kernel] += 1
+    return out, same != 0
+
+
+def jac_madd_flagged(p, qx, qy, valid):
+    """:func:`jac_madd_flagged_plain` for CPU tensors, the ``jac_madd``
+    kernel for CUDA tensors.  Contiguous int32 inputs of one batch shape;
+    ``valid`` is a bool tensor of that batch shape."""
+    batch = p["x"].shape[1:]
+    _check_points("jac_madd", batch, {"px": p["x"], "py": p["y"], "pz": p["z"], "qx": qx, "qy": qy})
+    if valid.dtype != torch.bool or tuple(valid.shape) != tuple(batch) or valid.device != qx.device:
+        raise ValueError(f"jac_madd: valid must be bool {tuple(batch)} on {qx.device}")
+    if qx.device.type == "cpu":
+        return jac_madd_flagged_plain(p, qx, qy, valid)
+    if qx.device.type != "cuda":
+        raise ValueError(f"jac_madd: unsupported device {qx.device}")
+    ins = [p["x"], p["y"], p["z"], qx, qy]
+    return _launch("jac_madd", ins, [valid.to(torch.int32)], batch)
+
+
+def jac_add_flagged(p, q):
+    """:func:`jac_add_flagged_plain` for CPU tensors, the ``jac_add`` kernel
+    for CUDA tensors.  Contiguous int32 inputs of one batch shape."""
+    batch = p["x"].shape[1:]
+    _check_points(
+        "jac_add", batch,
+        {"px": p["x"], "py": p["y"], "pz": p["z"], "qx": q["x"], "qy": q["y"], "qz": q["z"]},
+    )
+    if q["x"].device.type == "cpu":
+        return jac_add_flagged_plain(p, q)
+    if q["x"].device.type != "cuda":
+        raise ValueError(f"jac_add: unsupported device {q['x'].device}")
+    ins = [p["x"], p["y"], p["z"], q["x"], q["y"], q["z"]]
+    return _launch("jac_add", ins, [], batch)
+
+
+def jac_madd_cuda(p, qx, qy, valid):
+    """Mixed add p + (qx, qy) where ``valid`` else p, with the P == Q
+    doubling: the kernel on CUDA tensors, the plain version on CPU ones."""
+    from .device import df
+
+    out, same = jac_madd_flagged(p, qx, qy, valid)
+    return _double_fixup(out, same, p, df())
+
+
+def jac_add_cuda(p, q):
+    """Complete Jacobian add: the kernel on CUDA tensors, the plain version
+    on CPU ones."""
+    from .device import df
+
+    out, same = jac_add_flagged(p, q)
+    return _double_fixup(out, same, p, df())

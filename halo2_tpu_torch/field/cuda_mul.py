@@ -1,14 +1,15 @@
-"""Batched Montgomery multiply: the CUDA kernel, its plain PyTorch version,
-and the wrapper that picks one by the tensors' device.
+"""Batched Montgomery multiply and square: the CUDA kernels, their plain
+PyTorch versions, and the wrappers that pick one by the tensors' device.
 
-The kernel (``csrc/mont_mul.cu``) replaces
-``halo2_tpu/field/pallas_mul.py:_mont_mul_kernel``.  Field arrays are
-``(16, *batch)`` int32 tensors of 16-bit limbs, Montgomery form, canonical
-(< p): the reference's ``uint32`` numbers held in int32.
+The kernels (``csrc/mont_mul.cu``) replace
+``halo2_tpu/field/pallas_mul.py:_mont_mul_kernel`` and ``_mont_sqr_kernel``.
+Field arrays are ``(16, *batch)`` int32 tensors of 16-bit limbs, Montgomery
+form, canonical (< p): the reference's ``uint32`` numbers held in int32.
 
-:func:`mont_mul` runs :func:`mont_mul_plain` for a CPU tensor and launches
-the kernel for a CUDA tensor; there is no fallback between the two.
-``LAUNCHES["mont_mul"]`` counts kernel launches.
+:func:`mont_mul` (:func:`mont_sqr`) runs :func:`mont_mul_plain`
+(:func:`mont_sqr_plain`) for a CPU tensor and launches the kernel for a CUDA
+tensor; there is no fallback between the two.  ``LAUNCHES`` counts kernel
+launches by name.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 from .params import LIMB_BITS, LIMB_MASK, NUM_LIMBS, FieldSpec
 
 L = NUM_LIMBS
-LAUNCHES = {"mont_mul": 0}
+LAUNCHES = {"mont_mul": 0, "mont_sqr": 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,39 +72,65 @@ def _plain_consts(spec: FieldSpec, device: torch.device):
     )
 
 
-def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a * b * 2^-256 mod p in int64 torch ops (the reference's loop-free
-    algorithm): T = a * b, m = (T mod R) * N' mod R, (T + m p) / R, one
-    conditional subtract.  a, b broadcast over their batch axes."""
-    a, b = torch.broadcast_tensors(a, b)
-    shape = a.shape
-    a = a.reshape(L, -1).to(torch.int64)
-    b = b.reshape(L, -1).to(torch.int64)
-    p_col, t_n, t_p = _plain_consts(spec, a.device)
-
-    t = a.new_zeros((2 * L, a.shape[1]))
-    for i in range(L):
-        t[i : i + L] += a[i] * b  # column sums < 16 * 2^32
+def _redc_plain(spec: FieldSpec, t: torch.Tensor) -> torch.Tensor:
+    """int64 product columns ``(2L, m)`` of T < p * R -> T * R^-1 mod p as
+    int32 limbs: m = (T mod R) * N' mod R, (T + m p) / R, one conditional
+    subtract."""
+    p_col, t_n, t_p = _plain_consts(spec, t.device)
     t_low, _ = carry(t[:L])  # T mod R
     m, _ = carry((t_n @ t_low.double()).to(torch.int64))
     s, _ = carry(t + (t_p @ m.double()).to(torch.int64))  # low half is zero
     res = s[L:]  # (T + m p) / R < 2p
     red, borrow = carry(res - p_col)
-    out = torch.where(borrow < 0, res, red)
-    return out.to(torch.int32).reshape(shape)
+    return torch.where(borrow < 0, res, red).to(torch.int32)
+
+
+def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b * 2^-256 mod p in int64 torch ops (the reference's loop-free
+    algorithm): T = a * b, then :func:`_redc_plain`.  a, b broadcast over
+    their batch axes."""
+    a, b = torch.broadcast_tensors(a, b)
+    shape = a.shape
+    a = a.reshape(L, -1).to(torch.int64)
+    b = b.reshape(L, -1).to(torch.int64)
+    t = a.new_zeros((2 * L, a.shape[1]))
+    for i in range(L):
+        t[i : i + L] += a[i] * b  # column sums < 16 * 2^32
+    return _redc_plain(spec, t).reshape(shape)
+
+
+def mont_sqr_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """a * a * 2^-256 mod p in int64 torch ops: T from the 136 limb products
+    of the upper triangle (off-diagonal ones doubled), then
+    :func:`_redc_plain`; equal to ``mont_mul_plain(spec, a, a)``."""
+    shape = a.shape
+    a = a.reshape(L, -1).to(torch.int64)
+    t = a.new_zeros((2 * L, a.shape[1]))
+    for i in range(L):
+        t[2 * i] += a[i] * a[i]
+        t[2 * i + 1 : i + L] += 2 * a[i] * a[i + 1 :]  # column sums < 2^37
+    return _redc_plain(spec, t).reshape(shape)
 
 
 # --------------------------------------------------------------------- wrapper
-def _check(a: torch.Tensor, b: torch.Tensor) -> None:
-    for name, x in (("a", a), ("b", b)):
+def check_limbs(op: str, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous int32 ``(16, ...)`` limb
+    array, all on one device."""
+    devices = set()
+    for name, x in tensors.items():
         if x.dtype != torch.int32:
-            raise TypeError(f"mont_mul: {name} must be int32, got {x.dtype}")
+            raise TypeError(f"{op}: {name} must be int32, got {x.dtype}")
         if x.dim() < 1 or x.shape[0] != L:
-            raise ValueError(f"mont_mul: {name} must be (16, ...), got {tuple(x.shape)}")
+            raise ValueError(f"{op}: {name} must be (16, ...), got {tuple(x.shape)}")
         if not x.is_contiguous():
-            raise ValueError(f"mont_mul: {name} must be contiguous")
-    if a.device != b.device:
-        raise ValueError(f"mont_mul: a on {a.device}, b on {b.device}")
+            raise ValueError(f"{op}: {name} must be contiguous")
+        devices.add(x.device)
+    if len(devices) > 1:
+        raise ValueError(f"{op}: tensors on several devices {sorted(map(str, devices))}")
+
+
+def _check(a: torch.Tensor, b: torch.Tensor) -> None:
+    check_limbs("mont_mul", a=a, b=b)
     if b.shape != a.shape and b.numel() != L:
         raise ValueError(
             f"mont_mul: b must match a {tuple(a.shape)} or be one element, got {tuple(b.shape)}"
@@ -129,4 +156,23 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         int(b.numel() == L), modulus_words(spec).ctypes.data,
     )
     LAUNCHES["mont_mul"] += 1
+    return out
+
+
+def mont_sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Montgomery square of ``(16, *batch)`` a.  CPU tensors: plain version;
+    CUDA tensors: kernel."""
+    check_limbs("mont_sqr", a=a)
+    if a.device.type == "cpu":
+        return mont_sqr_plain(spec, a)
+    if a.device.type != "cuda":
+        raise ValueError(f"mont_sqr: unsupported device {a.device}")
+    from .. import _build
+
+    out = torch.empty_like(a)
+    m = a.numel() // L
+    if m == 0:
+        return out
+    _build.launch("mont_sqr", a.device, a.data_ptr(), out.data_ptr(), m, modulus_words(spec).ctypes.data)
+    LAUNCHES["mont_sqr"] += 1
     return out

@@ -6,10 +6,12 @@ A *field array* keeps the reference's layout: ``(16, *batch)`` little-endian
 2^16, so the numbers are the reference's ``uint32`` ones, and torch's
 ``uint32`` lacks the CPU ops the plain arithmetic needs.
 
-``mul`` goes to :func:`.cuda_mul.mont_mul` (the CUDA kernel for a CUDA
-tensor, its plain version for a CPU tensor).  ``add``/``sub``/``neg`` are
-plain torch ops, as they are ``jnp`` ops in the reference; they compute in
-int64 and return int32.
+``mul`` and ``square`` go to :func:`.cuda_mul.mont_mul` and
+:func:`.cuda_mul.mont_sqr` (the CUDA kernels for a CUDA tensor, their plain
+versions for a CPU tensor).  ``add``/``sub``/``neg`` are plain torch ops, as
+they are ``jnp`` ops in the reference; they compute in int64 and return
+int32.  ``pow_fixed``/``inv`` are a Python loop over the exponent's bits,
+which the host knows (the reference's ``lax.scan``).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import functools
 import numpy as np
 import torch
 
-from .cuda_mul import carry, mont_mul
+from .cuda_mul import carry, mont_mul, mont_sqr
 from .params import FieldSpec, LIMB_BITS, LIMB_MASK, NUM_LIMBS, to_limbs
 
 L = NUM_LIMBS
@@ -39,6 +41,7 @@ class DeviceField:
         self._one_mont_np = _col(to_limbs(spec.r))
         self._r2_np = _col(to_limbs(spec.r2))
         self._one_raw_np = _col(to_limbs(1))
+        self._inv_exp_bits = [(spec.p - 2) >> i & 1 for i in range(spec.num_bits)]
 
     @functools.lru_cache(maxsize=None)
     def _const(self, name: str, device: torch.device, ndim: int, dtype=torch.int32):
@@ -98,6 +101,55 @@ class DeviceField:
             a, b = a.expand(full), b.expand(full)
         return mont_mul(self.spec, a.contiguous(), b.contiguous())
 
+    def square(self, a):
+        return mont_sqr(self.spec, a.contiguous())
+
+    def mul_small(self, a, k: int):
+        """Multiply by a small host constant k (adds, for k <= 4)."""
+        if k == 0:
+            return self.zeros(a.shape[1:], device=a.device)
+        acc = a
+        for _ in range(k - 1):
+            acc = self.add(acc, a)
+        return acc
+
+    # ------------------------------------------------------------ pow / inv
+    def pow_fixed(self, a, e: int):
+        """a^e for a host-known exponent."""
+        if e == 0:
+            return self.one_mont(a.shape[1:], device=a.device)
+        return self._pow_bits(a, [(e >> i) & 1 for i in range(e.bit_length())])
+
+    def _pow_bits(self, a, bits):
+        """Square-and-multiply over host bits, LSB first.  The reference
+        multiplies by one where a bit is 0; skipping that multiply gives the
+        same limbs (a Montgomery product with R mod p is the identity)."""
+        acc = None
+        base = a
+        for i, bit in enumerate(bits):
+            if bit:
+                acc = base if acc is None else self.mul(acc, base)
+            if i + 1 < len(bits):
+                base = self.square(base)
+        return self.one_mont(a.shape[1:], device=a.device) if acc is None else acc
+
+    def inv(self, a):
+        """Batched inverse via Fermat: a^(p-2).  inv(0) = 0."""
+        return self._pow_bits(a, self._inv_exp_bits)
+
+    # ------------------------------------------------------------ predicates
+    def is_zero(self, a):
+        return (a == 0).all(dim=0)
+
+    def eq(self, a, b):
+        a, b, _ = self._bcast(a, b)
+        return (a == b).all(dim=0)
+
+    def select(self, mask, a, b):
+        """mask: (*B,) bool -> where(mask, a, b) over (L, *B)."""
+        a, b, _ = self._bcast(a, b)
+        return torch.where(mask[None], a, b)
+
     # ----------------------------------------------------------- conversions
     def encode_np(self, values, to_mont: bool = True) -> np.ndarray:
         """Host ints / PrimeField elems -> (L, N) numpy uint32 limbs."""
@@ -129,6 +181,14 @@ class DeviceField:
             rinv, p = self.spec.r_inv, self.p
             vals = np.array([int(v) * rinv % p for v in vals], dtype=object)
         return vals.reshape(tuple(fa.shape[1:])) if fa.dim() > 1 else int(vals[0])
+
+    def from_u32_array(self, v):
+        """Values below 2^32 (*B,) (int64, or int32 holding uint32 bits) ->
+        Montgomery field arrays (L, *B)."""
+        v = v.to(torch.int64) & 0xFFFFFFFF
+        lo, hi = v & LIMB_MASK, v >> LIMB_BITS
+        raw = torch.stack([lo, hi] + [torch.zeros_like(lo)] * (L - 2)).to(torch.int32)
+        return self.to_mont_arr(raw)
 
     def to_mont_arr(self, raw):
         """Canonical-limb array -> Montgomery form: multiply by R^2."""

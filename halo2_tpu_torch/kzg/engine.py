@@ -3,9 +3,12 @@
 Engine polys are (16, m) int32 Montgomery tensors on the engine's device.
 On a CUDA device every transform runs the NTT kernels and every field
 multiply the Montgomery kernel; on the CPU the same calls run the kernels'
-plain versions.  As in the reference's ``DeviceEngine``, commitments and
-grand products run on the native C++ host engine: ``commit_batch`` fetches
-the whole batch in one copy and hands it to the host Pippenger.
+plain versions.  As in the reference's ``DeviceEngine``, grand products run
+on the native C++ host engine, and so do commitments by default
+(``commit="native"``): ``commit_batch`` fetches the whole batch in one copy
+and hands it to the host Pippenger.  ``commit="device"`` (the reference's
+``HALO2_TPU_COMMIT_BACKEND=device``) runs each commitment on the device
+Pippenger instead, over the SRS uploaded once per (params, device).
 """
 
 from __future__ import annotations
@@ -25,11 +28,14 @@ class TorchEngine:
 
     name = "torch"
 
-    def __init__(self, params, st, device):
+    def __init__(self, params, st, device, commit: str = "native"):
+        if commit not in ("native", "device"):
+            raise ValueError(f"commit must be 'native' or 'device', got {commit!r}")
         self.params = params
         self.st = st
         self.domain = st.domain
         self.device = torch.device(device)
+        self.commit = commit
         self.dfr = get_device_field(BN254_FR)
 
     def _upload(self, limbs_u32: np.ndarray) -> torch.Tensor:
@@ -105,7 +111,9 @@ class TorchEngine:
 
     # ---- commitments / decode
     def commit_batch(self, coeffs_list):
-        return commit_coeffs_batch(self.params, coeffs_list) if coeffs_list else []
+        if not coeffs_list:
+            return []
+        return commit_coeffs_batch(self.params, coeffs_list, backend=self.commit)
 
     def decode_many(self, polys):
         """Engine polys -> (m, 4) u64 canonical host polys (the native

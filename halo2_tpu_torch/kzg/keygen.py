@@ -6,8 +6,9 @@
 reference-resolved verifier and SHPLONK code import these names from this
 module.  ``ProvingKey`` loads the dict that the reference's
 ``ProvingKey.save`` writes, re-synthesizing the structure with this
-package's classes.  Commitments use the native host MSM, the reference's
-default branch.
+package's classes.  Commitments use the native host MSM (the reference's
+default branch) or the device Pippenger, chosen by the ``backend``
+argument.
 
 Keygen from scratch (``keygen_vk``/``keygen_pk``) is not ported yet: the
 port proves with a proving key saved by the reference.
@@ -361,10 +362,19 @@ def commit_coeffs(params, coeffs) -> object:
     return commit_coeffs_batch(params, [coeffs])[0]
 
 
-def commit_coeffs_batch(params, coeffs_list) -> list:
-    """Commit many (16, m) Montgomery coefficient arrays (numpy uint32, or
-    int32 tensors on any device, fetched in one copy) over the shared SRS
-    with the native C++ Pippenger."""
+def commit_coeffs_batch(params, coeffs_list, backend: str = "native") -> list:
+    """Commit many (16, m) Montgomery coefficient arrays over the shared SRS.
+
+    ``backend="native"`` (the reference's default): numpy uint32 or int32
+    tensors on any device, fetched in one copy, go to the native C++
+    Pippenger.  ``backend="device"`` (the reference's
+    ``HALO2_TPU_COMMIT_BACKEND=device``): int32 tensors on one device go to
+    the device Pippenger (:func:`..ec.device.msm_points`) there, over the SRS
+    uploaded once per (params, device)."""
+    if backend == "device":
+        return _commit_device(params, coeffs_list)
+    if backend != "native":
+        raise ValueError(f"commit backend must be 'native' or 'device', got {backend!r}")
     if not native.available():
         raise RuntimeError("commitments need the native host engine (no C++ compiler)")
     m = coeffs_list[0].shape[-1]
@@ -377,6 +387,37 @@ def commit_coeffs_batch(params, coeffs_list) -> list:
     packed = native.pack_device(np.moveaxis(stacked, 1, 0).reshape(16, -1))
     canon = native.from_mont(packed, "fr").reshape(len(coeffs_list), m, 4)
     return [ec.g1_from_ints(x, y) for x, y in native.msm_g1_mont_batch(px, py, canon)]
+
+
+def _device_srs(params, device: torch.device):
+    """``params.g1_x``/``g1_y`` as int32 tensors on ``device``, uploaded once
+    per (params, device) and cached on the params."""
+    cache = getattr(params, "_device_srs", None)
+    if cache is None:
+        cache = {}
+        params._device_srs = cache
+    if device not in cache:
+        cache[device] = tuple(
+            torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32)).to(device)
+            for a in (params.g1_x, params.g1_y)
+        )
+    return cache[device]
+
+
+def _commit_device(params, coeffs_list) -> list:
+    from ..ec.device import msm_points
+    from ..field.device import get_device_field
+
+    dfr = get_device_field(FR)
+    out = []
+    for coeffs in coeffs_list:
+        if not isinstance(coeffs, torch.Tensor):
+            raise TypeError("the device commit backend takes int32 tensors")
+        m = coeffs.shape[-1]
+        g1_x, g1_y = _device_srs(params, coeffs.device)
+        canon = dfr.from_mont_arr(coeffs)
+        out.append(ec.g1_from_ints(*msm_points(g1_x[:, :m], g1_y[:, :m], canon)))
+    return out
 
 
 def to_host_limbs(arrays) -> np.ndarray:

@@ -3,9 +3,10 @@
 The SRS stays host numpy, as in the reference: ``g1_x``/``g1_y`` are
 (16, n) uint32 Montgomery limbs over BN254 Fq, read by the native host MSM.
 ``load`` reads the reference's pickles (numpy arrays and ints only).
-``setup`` computes the powers on the host for n <= 4096; the reference's
-device branch for larger n (batched fixed-base scalar multiply) waits for the
-device curve arithmetic.
+``setup`` computes G * tau^i on the host for n <= 4096 or a CPU device, and
+otherwise takes the reference's device branch: one batched double-and-add
+over the 256 bit rows of the powers (:func:`..ec.device.scalar_mul_batched`,
+the ``jac_add`` and ``mont_sqr`` kernels), then ``jac_to_affine``.
 """
 
 from __future__ import annotations
@@ -15,12 +16,32 @@ import pickle
 import random
 
 import numpy as np
+import torch
 
 from ..ec import host as ec
 from ..field.device import get_device_field
-from ..field.params import BN254_FQ
+from ..field.params import BN254_FQ, BN254_FR
 
 HOST_SETUP_MAX_N = 4096
+
+
+def device_g1_powers(powers, device) -> tuple:
+    """[G * v for v in powers] as affine Montgomery limbs (two (16, n) numpy
+    uint32 arrays), computed on ``device``: the reference's device branch of
+    ``ParamsKZG.setup``."""
+    from ..ec.device import jac_from_affine, jac_to_affine, scalar_mul_batched
+
+    d = get_device_field(BN254_FQ)
+    n = len(powers)
+    limbs = get_device_field(BN254_FR).encode_np(powers, to_mont=False)  # (16, n)
+    # (16, n) 16-bit limbs -> (256, n) LSB-first bits
+    bits = ((limbs[:, None, :] >> np.arange(16, dtype=np.uint32)[None, :, None]) & 1).reshape(256, n)
+    gx, gy = ec.g1_to_ints(ec.G1)
+    g = d.encode([gx, gy], device=device)
+    base = jac_from_affine(g[:, :1].expand(16, n).contiguous(), g[:, 1:].expand(16, n).contiguous())
+    acc = scalar_mul_batched(base, torch.from_numpy(bits.astype(np.int32)).to(device))
+    g1_x, g1_y = jac_to_affine(acc)
+    return tuple(a.cpu().numpy().view(np.uint32) for a in (g1_x, g1_y))
 
 
 class ParamsKZG:
@@ -36,22 +57,23 @@ class ParamsKZG:
         self.s_g2 = s_g2
 
     @classmethod
-    def setup(cls, k: int, seed: int = 0xD15C0):
+    def setup(cls, k: int, seed: int = 0xD15C0, device=None):
+        """The seeded SRS; G * tau^i on ``device`` (the CPU when None) when
+        it is not the CPU and n > 4096, on the host otherwise."""
         n = 1 << k
-        if n > HOST_SETUP_MAX_N:
-            raise NotImplementedError(
-                f"SRS setup for n={n} > {HOST_SETUP_MAX_N} needs the device "
-                "scalar multiply, not ported yet; load a cached SRS instead"
-            )
+        device = torch.device(device or "cpu")
         rng = random.Random(seed)
         tau = rng.randrange(1, ec.R)
         powers = [1] * n
         for i in range(1, n):
             powers[i] = powers[i - 1] * tau % ec.R
-        d = get_device_field(BN254_FQ)
-        pts = [ec.ec_mul(ec.G1, v) for v in powers]
-        g1_x = d.encode_np([ec.g1_to_ints(p)[0] for p in pts])
-        g1_y = d.encode_np([ec.g1_to_ints(p)[1] for p in pts])
+        if device.type == "cpu" or n <= HOST_SETUP_MAX_N:
+            d = get_device_field(BN254_FQ)
+            pts = [ec.ec_mul(ec.G1, v) for v in powers]
+            g1_x = d.encode_np([ec.g1_to_ints(p)[0] for p in pts])
+            g1_y = d.encode_np([ec.g1_to_ints(p)[1] for p in pts])
+        else:
+            g1_x, g1_y = device_g1_powers(powers, device)
         return cls(k, g1_x, g1_y, ec.G2, ec.ec_mul(ec.G2, tau))
 
     # ------------------------------------------------------------ persistence

@@ -9,9 +9,10 @@ explicit ``device``:
   h(X) on the extended coset -> x -> evaluations -> SHPLONK multiopen.
 
 Row-axis work (iNTTs, coset NTTs, the quotient instruction VM, the vanishing
-multiply, ``extended_to_coeff``) runs on ``device``; commitments, grand
-products and the multiopen run on the host, as in the reference's device
-engine.  For the same ``rng`` the proof bytes equal the reference's.
+multiply, ``extended_to_coeff``) runs on ``device``; grand products and the
+multiopen run on the host, as in the reference's device engine, and the
+commitments where ``commit`` says.  For the same ``rng`` the proof bytes
+equal the reference's.
 """
 
 from __future__ import annotations
@@ -59,17 +60,19 @@ def _native_or_none():
 
 
 def create_proof(
-    params, pk: ProvingKey, circuit, instances, rng=None, device=None
+    params, pk: ProvingKey, circuit, instances, rng=None, device=None, commit="native"
 ) -> bytes:
     """halo2 `create_proof` (reference src/circuits/utils.rs:40-48) with the
-    row-axis work on ``device`` (a torch device; the CPU when None)."""
+    row-axis work on ``device`` (a torch device; the CPU when None) and the
+    commitments on the native host Pippenger (``commit="native"``) or the
+    device Pippenger on ``device`` (``commit="device"``)."""
     rng = rng or _random.Random()
     device = torch.device(device or "cpu")
     t = time.perf_counter()
     st = pk.vk.structure
     cs, k, n, u = st.cs, st.k, st.n, st.u
     domain = st.domain
-    eng = TorchEngine(params, st, device)
+    eng = TorchEngine(params, st, device, commit=commit)
     if os.environ.get("HALO2_TPU_TIMING"):
         print(f"  [prover] engine: {eng.name}", flush=True)
     transcript = Blake2bWrite()

@@ -7,11 +7,17 @@ tests/conftest.py (which imports it) must be left out:
     python -m pytest tests/test_torch_cuda.py --noconftest -q -m cuda
 """
 
+import os
+import pickle
 import random
 
+import numpy as np
 import pytest
 import torch
 
+from halo2_tpu_torch import native
+from halo2_tpu_torch.ec import cuda_jac
+from halo2_tpu_torch.ec import device as ecd
 from halo2_tpu_torch.field import cuda_mul
 from halo2_tpu_torch.field.device import get_device_field
 from halo2_tpu_torch.field.params import BN254_FQ, BN254_FR, PASTA_FP
@@ -19,6 +25,7 @@ from halo2_tpu_torch.poly import cuda_ntt
 from halo2_tpu_torch.poly.domain import _ntt_raw, twiddle_table
 
 pytestmark = pytest.mark.cuda
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -72,3 +79,78 @@ def test_cuda_ntt_matches_cpu_ntt(device):
     want = _ntt_raw(spec, n, False)(x)
     got = _ntt_raw(spec, n, False)(x.to(device))
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("spec", [BN254_FR, BN254_FQ, PASTA_FP], ids=lambda s: s.name)
+@pytest.mark.parametrize("m", [1, 511, 513, 4096])
+def test_mont_sqr_kernel_matches_plain(device, spec, m):
+    a = _encoded(spec, m, 4, device)
+    before = cuda_mul.LAUNCHES["mont_sqr"]
+    got = cuda_mul.mont_sqr(spec, a)
+    torch.cuda.synchronize(device)
+    assert torch.equal(got, cuda_mul.mont_sqr_plain(spec, a))
+    assert torch.equal(got, cuda_mul.mont_mul(spec, a, a))
+    assert cuda_mul.LAUNCHES["mont_sqr"] == before + 1
+
+
+def _srs(n, device):
+    with open(os.path.join(ROOT, ".srs", "kzg_bn254_k13_s857536.pkl"), "rb") as f:
+        data = pickle.load(f)
+    px, py = (np.ascontiguousarray(data[k][:, :n]) for k in ("g1_x", "g1_y"))
+    return px, py, *(torch.from_numpy(a.view(np.int32)).to(device) for a in (px, py))
+
+
+def _points(m, device):
+    """p: points with z != 1 (doubled); q: affine points.  Lane 0: P == Q,
+    lane 1: P == -Q, lane 2: P at infinity, lane 3: Q at infinity (full add)
+    or masked (mixed add)."""
+    _, _, x, y = _srs(2 * m, device)
+    p = ecd.jac_double(ecd.jac_from_affine(x[:, :m].contiguous(), y[:, :m].contiguous()))
+    qx, qy = x[:, m:].contiguous(), y[:, m:].contiguous()
+    ax, ay = ecd.jac_to_affine(p)
+    qx[:, :2], qy[:, 0], qy[:, 1] = ax[:, :2], ay[:, 0], ecd.df().neg(ay)[:, 1]
+    q = ecd.jac_double(ecd.jac_from_affine(qx, qy))
+    for k in q:
+        q[k][:, 0] = p[k][:, 0]
+    q["x"][:, 1], q["y"][:, 1], q["z"][:, 1] = p["x"][:, 1], ecd.df().neg(p["y"])[:, 1], p["z"][:, 1]
+    inf = ecd.jac_infinity((), device=device)
+    for k in p:
+        p[k][:, 2] = inf[k]
+        q[k][:, 3] = inf[k]
+    valid = torch.ones(m, dtype=torch.bool, device=device)
+    valid[3] = False
+    return p, q, qx, qy, valid
+
+
+@pytest.mark.parametrize("m", [8, 513, 4096])
+def test_jac_kernels_match_plain(device, m):
+    p, q, qx, qy, valid = _points(m, device)
+    before = dict(cuda_jac.LAUNCHES)
+    for got, want in (
+        (cuda_jac.jac_madd_flagged(p, qx, qy, valid), cuda_jac.jac_madd_flagged_plain(p, qx, qy, valid)),
+        (cuda_jac.jac_add_flagged(p, q), cuda_jac.jac_add_flagged_plain(p, q)),
+    ):
+        torch.cuda.synchronize(device)
+        assert torch.equal(got[1], want[1])
+        assert got[1][:4].tolist() == [True, False, False, False]
+        for k in ("x", "y", "z"):
+            assert torch.equal(got[0][k], want[0][k]), k
+    full = cuda_jac.jac_add_cuda(p, q)
+    plain = cuda_jac.jac_add_plain(p, q)
+    for k in full:
+        assert torch.equal(full[k], plain[k]), k
+    assert cuda_jac.LAUNCHES["jac_madd"] == before["jac_madd"] + 1
+    assert cuda_jac.LAUNCHES["jac_add"] == before["jac_add"] + 2
+
+
+def test_msm_points_matches_native(device):
+    n = 1 << 12
+    rng = random.Random(12)
+    px, py, x, y = _srs(n, device)
+    sc = get_device_field(BN254_FR).encode_np([rng.randrange(BN254_FR.p) for _ in range(n)], to_mont=False)
+    before = dict(cuda_jac.LAUNCHES)
+    got = ecd.msm_points(x, y, torch.from_numpy(sc.view(np.int32)).to(device))
+    want = native.msm_g1_mont(native.pack_device(px), native.pack_device(py), native.pack_device(sc))
+    assert got == want
+    assert cuda_jac.LAUNCHES["jac_madd"] > before["jac_madd"]
+    assert cuda_jac.LAUNCHES["jac_add"] > before["jac_add"]

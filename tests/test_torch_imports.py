@@ -32,6 +32,8 @@ SLICE_MODULES = [
     "halo2_tpu_torch.poseidon",
     "halo2_tpu_torch.poseidon.primitives",
     "halo2_tpu_torch.ec",
+    "halo2_tpu_torch.ec.cuda_jac",
+    "halo2_tpu_torch.ec.device",
     "halo2_tpu_torch.native",
     "halo2_tpu_torch.kzg",
     "halo2_tpu_torch.kzg.params",
@@ -75,7 +77,7 @@ def test_slice_imports_without_jax():
     for name, path in resolved.items():
         with open(path) as f:
             assert not JAX_IMPORT.search(f.read()), f"{name} resolves to JAX-bearing {path}"
-    for name in ("halo2_tpu_torch.field.device", "halo2_tpu_torch.kzg.prover"):
+    for name in ("halo2_tpu_torch.field.device", "halo2_tpu_torch.ec.device", "halo2_tpu_torch.kzg.prover"):
         assert out["files"][name].startswith(PORT_DIR + os.sep)
 
 

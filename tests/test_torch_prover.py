@@ -3,7 +3,9 @@
 Each circuit is built twice, once from each package's own classes.  The
 reference makes the proving key and proves on its default engine; the port
 loads the saved key (``ProvingKey.load``, the reference's pickle format) and
-proves on the CPU, where every kernel runs its plain version.  Under the same
+proves on the CPU, where every kernel runs its plain version, with its
+commitments on the native host MSM or (``commit="device"``) the port's
+device Pippenger.  Under the same
 ``random.Random`` seed the proofs must be equal; both verifiers must accept
 the port's proof, and the port's must reject a tampered public input.
 
@@ -88,11 +90,11 @@ PORT = ({"hash_v1": port_hash_v1, "mst": port_mst}, port_field, port_plonkish)
 
 
 @pytest.mark.parametrize(
-    "build, k, seed, tamper",
-    [(_hash_v1, 4, 9, 0), (_mst_k9, 9, 7, 2)],
-    ids=["hash_v1-k4", "merkle_sum_tree-k9"],
+    "build, k, seed, tamper, commit",
+    [(_hash_v1, 4, 9, 0, "native"), (_mst_k9, 9, 7, 2, "native"), (_hash_v1, 4, 9, 0, "device")],
+    ids=["hash_v1-k4", "merkle_sum_tree-k9", "hash_v1-k4-device-commit"],
 )
-def test_proof_bytes_match_reference(tmp_path, build, k, seed, tamper):
+def test_proof_bytes_match_reference(tmp_path, build, k, seed, tamper, commit):
     ref_circuit, ref_public = build(REF)
     ref_params = ref_kzg.ParamsKZG.setup_cached(k)
     ref_pk = ref_kzg.keygen(ref_params, ref_circuit, k, ref_field.Fr)
@@ -106,7 +108,9 @@ def test_proof_bytes_match_reference(tmp_path, build, k, seed, tamper):
     params = port_kzg.ParamsKZG.setup_cached(k)
     pk = PortProvingKey.load(path, circuit, k, port_field.Fr)
     assert pk.vk.digest == ref_pk.vk.digest
-    got = port_kzg.create_proof(params, pk, circuit, [list(public)], rng=random.Random(seed))
+    got = port_kzg.create_proof(
+        params, pk, circuit, [list(public)], rng=random.Random(seed), commit=commit
+    )
 
     assert got == want
     assert ref_kzg.verify_proof(ref_params, ref_pk.vk, got, [list(ref_public)])
