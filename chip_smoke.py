@@ -30,16 +30,30 @@ passes or raises:
    tests/data/mst_d15_k11_rng7.proof (the reference's proof), the verifier
    must accept it and reject a tampered root;
 5. the SRS setup on the card: ParamsKZG.setup(16, device=cuda) equals
-   .srs/kzg_bn254_k16_s857536.pkl limb for limb.
+   .srs/kzg_bn254_k16_s857536.pkl limb for limb;
+6. keygen on the card: the flagship through keygen_vk then keygen_pk
+   (native commits) and through keygen(..., commit="device"), each equal to
+   .srs/pk_mst_d15_k11.pkl (digest, commitments, values, coefficients); a
+   prove with the fresh pk equals the fixture and verifies; vk and pk times;
+7. the MockProver on the card: the flagship valid and with a tampered root,
+   the Poseidon experiment (Pasta Fp, width 5, k = 7) valid and tampered,
+   and two of the reference's negative vectors (a ConstraintNotSatisfied
+   and a Lookup failure); every card run's failures equal the same run on
+   the CPU; verify times on the card and on the CPU;
+8. the device Poseidon sponge: hash_device (MySpec(5, 4), L = 4, BN254 Fr)
+   over 2^20 messages from random.Random, one level of a 2^21-leaf
+   merkle-sum tree; its first 1024 lanes equal the plain versions on the
+   CPU and 256 spread lanes equal the host poseidon_hash; hashes/s.
 
-Every path of phases 3-5 runs once with the launch counts set to 0 just
+Every path of phases 3-8 runs once with the launch counts set to 0 just
 before and read just after, and fails if a kernel it must launch was not
-launched: mont_mul and the NTT kernels in both proves, jac_madd and jac_add
-in the device-commit prove and the MSM, mont_sqr, mont_mul and jac_add in
-the setup.  The line before the last is a JSON object with one entry per
-kernel (its launches summed over those runs); the last is {"ok": true,
-"device": {...}}.  Without a CUDA device, or outside the repository, the
-script fails before printing either.
+launched: mont_mul and the NTT kernels in the proves and the keygens,
+jac_madd and jac_add in the device-commit prove, the device-commit keygen
+and the MSM, mont_sqr, mont_mul and jac_add in the setup, mont_mul in the
+MockProver, mont_mul and mont_sqr in the sponge.  The line before the last
+is a JSON object with one entry per kernel (its launches summed over those
+runs); the last is {"ok": true, "device": {...}}.  Without a CUDA device, or
+outside the repository, the script fails before printing either.
 """
 
 from __future__ import annotations
@@ -83,27 +97,33 @@ def _ms_per_call(fn, calls: int, runs: int = 5) -> float:
     return statistics.median(times)
 
 
-def _kernel_device_ms(fn, symbol: str, calls: int = 20) -> float:
+def _kernel_device_ms(fn, symbol: str, calls: int = 20, tries: int = 3) -> float:
     """Device time of one launch of the kernel whose name contains ``symbol``,
     from torch.profiler's per-kernel sums over ``calls`` calls of fn(): the
-    mean over the launches the profiler recorded (it can drop a few)."""
+    mean over the launches the profiler recorded.  It can drop a few, and
+    on some runs all of them: then it profiles again, and after ``tries``
+    empty profiles the time is not measured (nan)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for e in prof.key_averages():
-        if symbol in e.key and e.device_type == torch.autograd.DeviceType.CUDA:
-            total_us += e.self_device_time_total
-            count += e.count
-    if not 0 < count <= calls:
-        raise AssertionError(f"profiler saw {count} launches of {symbol} in {calls} calls")
-    return total_us / count / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for e in prof.key_averages():
+            if symbol in e.key and e.device_type == torch.autograd.DeviceType.CUDA:
+                total_us += e.self_device_time_total
+                count += e.count
+        if count > calls:
+            raise AssertionError(f"profiler saw {count} launches of {symbol} in {calls} calls")
+        if count:
+            return total_us / count / 1e3
+    print(f"[kernels] the profiler recorded no launch of {symbol} in {tries} tries", flush=True)
+    return float("nan")
 
 
 def _max_abs_err(name: str, got, want) -> float:
@@ -581,6 +601,248 @@ def phase_setup(device):
     return [counts]
 
 
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _check_key(label: str, pk, want: dict) -> None:
+    """A generated pk against the dict the reference saved: digest,
+    commitments, values and coefficients."""
+    import numpy as np
+
+    got = pk.to_saved()
+    for name, value in want.items():
+        same = np.array_equal(got[name], value) if isinstance(value, np.ndarray) else got[name] == value
+        if not same:
+            raise AssertionError(f"{label}: {name} differs from {PK_CACHE}")
+
+
+def phase_keygen(device):
+    """The flagship's keys generated on the card, split (native commits) and
+    fused (device commits), each equal to the reference's saved pk; one prove
+    with the fresh pk equals the fixture.  Returns the launch counts of the
+    split keygen, the fused keygen and the prove."""
+    import pickle
+
+    from halo2_tpu_torch.field import Fr
+    from halo2_tpu_torch.kzg import ParamsKZG, create_proof, keygen, keygen_pk, keygen_vk, verify_proof
+
+    k = 11
+    circuit, public = _flagship_circuit()
+    params = ParamsKZG.setup_cached(k)
+    # the pickle is the repository's own cache, written by the reference
+    with open(PK_CACHE, "rb") as f:
+        want = pickle.load(f)
+    with open(FIXTURE, "rb") as f:
+        want_proof = f.read()
+
+    _reset_launches()
+    _sync(device)
+    t0 = time.perf_counter()
+    vk = keygen_vk(params, circuit, k, Fr, device=device)
+    _sync(device)
+    t_vk = time.perf_counter() - t0
+    pk = keygen_pk(params, vk, circuit, k, Fr, device=device)
+    _sync(device)
+    t_pk = time.perf_counter() - t0 - t_vk
+    split_counts = _read_launches()
+    _require("keygen_vk + keygen_pk", split_counts, ("mont_mul", "ntt_small_stages", "ntt_large_stage"))
+    _check_key("keygen_vk + keygen_pk", pk, want)
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    pk_dev = keygen(params, circuit, k, Fr, device=device, commit="device")
+    _sync(device)
+    t_fused = time.perf_counter() - t0
+    fused_counts = _read_launches()
+    _require(
+        "keygen, device commits", fused_counts,
+        ("mont_mul", "ntt_small_stages", "ntt_large_stage", "jac_madd", "jac_add"),
+    )
+    _check_key("keygen, device commits", pk_dev, want)
+    print(
+        f"[keygen] k={k} on the card: keygen_vk {t_vk:.3f} s, keygen_pk {t_pk:.3f} s (launches "
+        f"{split_counts}); keygen with commit=\"device\" {t_fused:.3f} s (launches {fused_counts}); "
+        f"both equal to {os.path.relpath(PK_CACHE, ROOT)}",
+        flush=True,
+    )
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    proof = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7), device=device)
+    _sync(device)
+    t_prove = time.perf_counter() - t0
+    prove_counts = _read_launches()
+    _require("prove with the generated pk", prove_counts, ("mont_mul", "ntt_small_stages", "ntt_large_stage"))
+    if proof != want_proof:
+        raise AssertionError(f"the proof with the generated pk differs from {FIXTURE}")
+    if not verify_proof(params.verifier_params(), pk.vk, proof, [list(public)]):
+        raise AssertionError("the verifier rejected the proof made with the generated pk")
+    print(
+        f"[keygen] prove with the generated pk: {t_prove:.3f} s, equal to the fixture, verified; "
+        f"launches {prove_counts}",
+        flush=True,
+    )
+    return [split_counts, fused_counts, prove_counts]
+
+
+def _mock_vectors():
+    """(label, k, circuit, instances, F, failure kinds that must appear);
+    None for a vector that must be satisfied."""
+    from halo2_tpu_torch.circuits.less_than import LessThanCircuit
+    from halo2_tpu_torch.circuits.merkle_sum_tree import MerkleSumTreeCircuit, Node, compute_merkle_sum_root
+    from halo2_tpu_torch.circuits.poseidon import PoseidonCircuit
+    from halo2_tpu_torch.field import Fp, Fr
+    from halo2_tpu_torch.plonkish import Value
+    from halo2_tpu_torch.poseidon import MySpec, poseidon_hash
+
+    flagship, public = _flagship_circuit()
+    bad_root = list(public)
+    bad_root[2] = bad_root[2] + Fr.from_u64(1)
+
+    spec = MySpec(5, 4)
+    message = [Fp.from_u64(99)] * 4
+    digest = poseidon_hash(Fp, spec, message)
+    poseidon = PoseidonCircuit(Fp, spec, 4, [Value.known(x) for x in message], Value.known(digest))
+
+    # tests/test_merkle_sum_tree.py::test_non_binary_index: the bool and swap
+    # gates fail (ConstraintNotSatisfied)
+    leaf = Node(Fr.from_u64(10), Fr.from_u64(100))
+    elements = [Node(Fr.from_u64(h), Fr.from_u64(b)) for h, b in [(1, 10), (5, 50), (6, 60), (9, 90), (9, 90)]]
+    indices = [Fr.from_u64(2)] + [Fr.from_u64(0)] * 4
+    root = compute_merkle_sum_root(Fr, leaf, elements, [Fr.from_u64(0)] * 5)
+    non_binary = MerkleSumTreeCircuit(
+        Fr, leaf.hash, leaf.balance, [n.hash for n in elements], [n.balance for n in elements],
+        indices, Fr.from_u64(500),
+    )
+    mst_public = [leaf.hash, leaf.balance, root.hash, Fr.from_u64(500)]
+
+    # tests/test_less_than.py::test_less_than, its invalid half: 755 is not
+    # among the 754 public inputs of the dynamic lookup (Lookup)
+    less_than = LessThanCircuit(Fp, Value.known(Fp.from_u64(755)))
+
+    return [
+        ("flagship valid", 11, flagship, [list(public)], Fr, None),
+        ("flagship tampered root", 11, flagship, [bad_root], Fr, set()),
+        ("poseidon valid", 7, poseidon, [[digest]], Fp, None),
+        ("poseidon tampered digest", 7, poseidon, [[digest + Fp.one()]], Fp, set()),
+        ("merkle_sum_tree non-binary index", 10, non_binary, [mst_public], Fr, {"ConstraintNotSatisfied"}),
+        ("less_than not in table", 10, less_than, [[Fp.from_u64(i) for i in range(754)]], Fp, {"Lookup"}),
+    ]
+
+
+def phase_mock(device):
+    """MockProver.run on the card against the same run on the CPU (the plain
+    versions): equal failure lists, and the expected verdicts.  Returns the
+    launch counts of each card run."""
+    import torch
+
+    from halo2_tpu_torch.dev import MockProver
+
+    vectors = _mock_vectors()
+    results = {}
+    for label, k, circuit, instances, F, _kinds in vectors:
+        _reset_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        prover = MockProver.run(k, circuit, instances, F=F, device=device)
+        t_run = time.perf_counter() - t0
+        failures = prover.verify()
+        _sync(device)
+        t_card = time.perf_counter() - t0 - t_run
+        counts = _read_launches()
+        results[label] = ([repr(f) for f in failures], {type(f).__name__ for f in failures}, t_card, counts)
+    runs = [counts for *_, counts in results.values()]
+    # the less-than vector's gate and lookup expressions hold no product
+    _require("MockProver", {name: sum(r[name] for r in runs) for name in runs[0]}, ("mont_mul",))
+    cpu = torch.device("cpu")
+    for label, k, circuit, instances, F, kinds in vectors:
+        t0 = time.perf_counter()
+        prover = MockProver.run(k, circuit, instances, F=F, device=cpu)
+        t_run = time.perf_counter() - t0
+        want = [repr(f) for f in prover.verify()]
+        t_cpu = time.perf_counter() - t0 - t_run
+        got, got_kinds, t_card, counts = results[label]
+        if got != want:
+            raise AssertionError(f"MockProver {label}: the card's failures differ from the CPU's")
+        if (kinds is None) != (got == []) or (kinds and not kinds <= got_kinds):
+            raise AssertionError(f"MockProver {label}: unexpected failures {sorted(got_kinds)} ({len(got)})")
+        print(
+            f"[mock] {label} (k={k}, {F.SPEC.name}): {len(got)} failures {sorted(got_kinds)}, equal on "
+            f"card and CPU; synthesis {t_run:.3f} s, verify on the card {t_card:.3f} s, on the CPU "
+            f"{t_cpu:.3f} s; card launches: mont_mul {counts['mont_mul']}",
+            flush=True,
+        )
+    return runs
+
+
+def phase_poseidon(device, batch: int = 1 << 20):
+    """hash_device (MySpec(5, 4), L = 4, BN254 Fr) over ``batch`` random
+    messages on the card: the first 1024 lanes equal the plain versions on
+    the CPU, 256 lanes spread over the batch equal the host poseidon_hash.
+    Returns the launch counts of the first run."""
+    import numpy as np
+    import torch
+
+    from halo2_tpu_torch.field import Fr
+    from halo2_tpu_torch.field.device import get_device_field
+    from halo2_tpu_torch.field.params import BN254_FR
+    from halo2_tpu_torch.poseidon import MySpec, hash_device, poseidon_hash
+
+    spec, L = MySpec(5, 4), 4
+    df = get_device_field(BN254_FR)
+    # canonical Montgomery limbs: the top limb below p's keeps every value < p
+    rng = random.Random(0x905E1D)
+    limbs = np.frombuffer(rng.randbytes(L * 16 * batch * 2), np.uint16).reshape(L, 16, batch).astype(np.int32)
+    limbs[:, 15] %= BN254_FR.p >> 240
+    messages = torch.from_numpy(limbs).to(device)
+    del limbs
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    _reset_launches()
+    _sync(device)
+    t0 = time.perf_counter()
+    out = hash_device(df, spec, L, messages)
+    _sync(device)
+    first = time.perf_counter() - t0
+    counts = _read_launches()
+    _require("hash_device", counts, ("mont_mul", "mont_sqr"))
+    peak = torch.cuda.max_memory_allocated(device) / 2**20 if device.type == "cuda" else float("nan")
+
+    lanes = min(1024, batch)
+    plain = hash_device(df, spec, L, messages[:, :, :lanes].cpu())
+    if not torch.equal(out[:, :lanes].cpu(), plain):
+        raise AssertionError(f"hash_device: the card's first {lanes} lanes differ from the plain versions")
+    spread = list(range(0, batch, max(1, batch // 256)))[:256]
+    msgs = df.decode(messages[:, :, spread].transpose(0, 1).cpu())  # (L, 256) ints
+    digests = df.decode(out[:, spread].cpu())
+    for j, lane in enumerate(spread):
+        want = int(poseidon_hash(Fr, spec, [Fr(int(msgs[i, j])) for i in range(L)]))
+        if int(digests[j]) != want:
+            raise AssertionError(f"hash_device lane {lane}: differs from the host poseidon_hash")
+
+    times = []
+    for _ in range(3):
+        _sync(device)
+        t0 = time.perf_counter()
+        hash_device(df, spec, L, messages)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    print(
+        f"[poseidon] hash_device MySpec(5, 4), L={L}, BN254 Fr, B={batch}: {med * 1e3:.1f} ms, "
+        f"{batch / med:.4g} hashes/s (median of 3 after the first run, {first * 1e3:.1f} ms; runs "
+        f"{[round(t * 1e3, 1) for t in times]}); peak device memory {peak:.1f} MiB; first {lanes} lanes "
+        f"equal the plain versions, {len(spread)} spread lanes equal poseidon_hash; launches {counts}",
+        flush=True,
+    )
+    return [counts]
+
+
 KERNELS = (
     ("mont_mul", "halo2_tpu_torch/csrc/mont_mul.cu", "halo2_tpu/field/pallas_mul.py:357"),
     ("mont_sqr", "halo2_tpu_torch/csrc/mont_mul.cu", "halo2_tpu/field/pallas_mul.py:363"),
@@ -599,6 +861,7 @@ def main() -> int:
     phase_build()
     err, times = phase_kernels(device)
     runs = phase_msm(device) + phase_prove(device) + phase_setup(device)
+    runs += phase_keygen(device) + phase_mock(device) + phase_poseidon(device)
     launches = {name: sum(r[name] for r in runs) for name, _, _ in KERNELS}
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     report = {

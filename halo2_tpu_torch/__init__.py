@@ -19,8 +19,8 @@ Subpackages whose reference modules import JAX (``field``, ``poly``,
 its ``__init__`` appends the matching reference directory to its own
 ``__path__``, re-exports what the reference ``__init__`` exports minus the
 JAX code, and the JAX-bearing modules themselves are rewritten on torch
-tensors.  The three Pallas kernels on the prover's path are CUDA C++ under
-``csrc/``, built at first use by :mod:`halo2_tpu_torch._build`.
+tensors.  The reference's six Pallas kernels are CUDA C++ under ``csrc/``,
+built at first use by :mod:`halo2_tpu_torch._build`.
 """
 
 from ._refpath import REF_ROOT as _REF_ROOT

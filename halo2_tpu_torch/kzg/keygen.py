@@ -10,13 +10,19 @@ package's classes.  Commitments use the native host MSM (the reference's
 default branch) or the device Pippenger, chosen by the ``backend``
 argument.
 
-Keygen from scratch (``keygen_vk``/``keygen_pk``) is not ported yet: the
-port proves with a proving key saved by the reference.
+Keygen (``keygen_vk``/``keygen_pk``/``keygen``) takes ``device`` and
+``commit``: with a device, the fixed and sigma columns' iNTTs run there
+(the NTT kernels and the Montgomery kernel on a CUDA device), the
+reference's device branch; without one, on the native host NTT, its default
+branch.  Both give the same canonical Montgomery limbs, and the key, its
+digest and its saved format are the reference's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
 import pickle
 
 import numpy as np
@@ -24,6 +30,7 @@ import torch
 
 from .. import native
 from ..ec import host as ec
+from ..field.device import get_device_field
 from ..field.params import BN254_FR
 from ..plonkish.assignment import run_synthesis
 from ..plonkish.column import Column, ColumnKind, Rotation
@@ -431,3 +438,134 @@ def to_host_limbs(arrays) -> np.ndarray:
     if (out >> 16).any():
         raise ValueError("field array holds a limb >= 2^16")
     return out
+
+
+def commit_lagrange(params, domain: EvaluationDomain, values_host: list, device=None, commit="native"):
+    """Commit a column given in Lagrange form: iNTT on ``device`` (the CPU
+    when None), then the MSM on ``commit``'s backend."""
+    evals = get_device_field(FR).encode(values_host, device=device)
+    return commit_coeffs_batch(params, [domain.lagrange_to_coeff(evals)], backend=commit)[0]
+
+
+def _intt_columns(domain, values_lists, device=None):
+    """Column value lists -> stacked (F, 16, n) Montgomery coefficient limbs.
+
+    Without a device, the native C++ NTT (host numpy uint32, the reference's
+    default branch); with one (or with no native engine), an int32 tensor on
+    that device (the CPU when None): the columns are uploaded in one copy
+    and each goes through ``domain.lagrange_to_coeff``."""
+    n = domain.n
+    if device is None and native.available():
+        if not values_lists:
+            return np.zeros((0, 16, n), np.uint32)
+        cols = []
+        for vals in values_lists:
+            c = native.ntt_fr(native.pack_ints([int(v) % FR.p for v in vals]), inverse=True)
+            cols.append(native.unpack_device(native.to_mont(c, "fr")))
+        return np.stack(cols)
+    device = torch.device(device or "cpu")
+    if not values_lists:
+        return torch.zeros((0, 16, n), dtype=torch.int32, device=device)
+    flat = get_device_field(FR).encode([v for vals in values_lists for v in vals], device=device)
+    evals = flat.reshape(16, len(values_lists), n)
+    return torch.stack([domain.lagrange_to_coeff(evals[:, i].contiguous()) for i in range(len(values_lists))])
+
+
+def _synthesize_columns(circuit, k: int, F, device=None):
+    """Witness-free synthesis -> (structure, fixed/sigma value lists, coeffs).
+
+    The shared body of keygen_vk / keygen_pk (halo2 runs this synthesis once
+    per entry point too)."""
+    circuit_no_wit = circuit.without_witnesses()
+    cs, _config, assignment = run_synthesis(circuit_no_wit, k, [], witness=False, field=F)
+    fin = assignment.finalize()
+    structure = PlonkStructure(cs, k)
+
+    fixed_values = [list(col) for col in fin.fixed] + [list(s) for s in fin.selectors]
+    sigma_values = structure.build_sigma_values(fin.copies)
+
+    fixed_coeffs = _intt_columns(structure.domain, fixed_values, device)
+    sigma_coeffs = _intt_columns(structure.domain, sigma_values, device)
+    return structure, fixed_values, sigma_values, fixed_coeffs, sigma_coeffs
+
+
+def _check_commit(device, commit: str) -> None:
+    if commit not in ("native", "device"):
+        raise ValueError(f"commit must be 'native' or 'device', got {commit!r}")
+    if commit == "device" and device is None:
+        raise ValueError("commit='device' needs a device for the coefficients")
+
+
+def _vk_from_coeffs(params, k, structure, nfixed, fixed_coeffs, sigma_coeffs, commit="native"):
+    all_coeffs = [fixed_coeffs[i] for i in range(nfixed)] + [
+        sigma_coeffs[i] for i in range(sigma_coeffs.shape[0])
+    ]
+    all_commitments = commit_coeffs_batch(params, all_coeffs, backend=commit) if all_coeffs else []
+    fixed_commitments = all_commitments[:nfixed]
+    sigma_commitments = all_commitments[nfixed:]
+
+    h = hashlib.blake2b(digest_size=32)
+    h.update(f"halo2_tpu-vk-k{k}".encode())
+    for pt in fixed_commitments + sigma_commitments:
+        x, y = ec.g1_to_ints(pt)
+        h.update(x.to_bytes(32, "little") + y.to_bytes(32, "little"))
+    digest = int.from_bytes(h.digest(), "little") % FR.p
+    return VerifyingKey(k, structure, fixed_commitments, sigma_commitments, digest)
+
+
+def _proving_key(vk, fixed_values, sigma_values, fixed_coeffs, sigma_coeffs, device) -> ProvingKey:
+    """A pk with host uint32 coefficients.  Tensors computed on ``device``
+    are copied to the host once each and also seed the pk's per-device cache
+    (``TorchEngine.pk_coeff``), so a prove there does not upload them again."""
+    if isinstance(fixed_coeffs, np.ndarray):
+        return ProvingKey(vk, fixed_values, sigma_values, fixed_coeffs, sigma_coeffs)
+    host = [t.cpu().numpy().view(np.uint32) for t in (fixed_coeffs, sigma_coeffs)]
+    pk = ProvingKey(vk, fixed_values, sigma_values, *host)
+    device = torch.device(device or "cpu")
+    pk._torch_coeffs = {("fixed", device): fixed_coeffs, ("sigma", device): sigma_coeffs}
+    return pk
+
+
+def keygen_vk(params, circuit, k: int, F, device=None, commit="native") -> VerifyingKey:
+    """Verifying key alone: synthesis, fixed/sigma iNTTs, commitments, digest
+    (halo2 `keygen_vk`)."""
+    _check_commit(device, commit)
+    structure, fixed_values, _sv, fixed_coeffs, sigma_coeffs = _synthesize_columns(
+        circuit, k, F, device
+    )
+    return _vk_from_coeffs(
+        params, k, structure, len(fixed_values), fixed_coeffs, sigma_coeffs, commit
+    )
+
+
+def keygen_pk(params, vk: VerifyingKey, circuit, k: int, F, device=None) -> ProvingKey:
+    """Proving key from an existing vk: re-synthesizes and rebuilds the
+    fixed/sigma polynomials (halo2 `keygen_pk` re-runs synthesis the same
+    way).  It commits nothing."""
+    _st, fixed_values, sigma_values, fixed_coeffs, sigma_coeffs = _synthesize_columns(
+        circuit, k, F, device
+    )
+    return _proving_key(vk, fixed_values, sigma_values, fixed_coeffs, sigma_coeffs, device)
+
+
+def keygen(params, circuit, k: int, F, device=None, commit="native") -> ProvingKey:
+    """vk + pk in one pass (synthesis and iNTTs shared; the split entry
+    points above are halo2's API, which full_prover times)."""
+    _check_commit(device, commit)
+    structure, fixed_values, sigma_values, fixed_coeffs, sigma_coeffs = _synthesize_columns(
+        circuit, k, F, device
+    )
+    vk = _vk_from_coeffs(
+        params, k, structure, len(fixed_values), fixed_coeffs, sigma_coeffs, commit
+    )
+    return _proving_key(vk, fixed_values, sigma_values, fixed_coeffs, sigma_coeffs, device)
+
+
+def keygen_cached(params, circuit, k: int, F, cache_path: str, device=None, commit="native") -> ProvingKey:
+    """keygen with a pk/vk disk cache in the reference's saved format."""
+    if os.path.exists(cache_path):
+        return ProvingKey.load(cache_path, circuit, k, F)
+    pk = keygen(params, circuit, k, F, device, commit)
+    os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
+    pk.save(cache_path)
+    return pk

@@ -7,8 +7,9 @@ it as a ``lax.scan`` VM inside one jitted program; here it is a Python loop
 over the instructions, each a field op vectorized over every row, so on the
 card every multiply is one launch of the Montgomery kernel.
 
-The MockProver's gate checker (``build_gate_checker``, ``encode_columns``) is
-not ported yet.
+Shared between the MockProver's gate and lookup checks
+(``build_gate_checker``, ``build_expr_batch_eval`` over ``encode_columns``)
+and the prover's quotient evaluation.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..field.device import DeviceField
+from .column import ColumnKind
 from .expression import (
     Constant,
     Expression,
@@ -139,11 +141,69 @@ def _run_program(prog: Program, df: DeviceField, columns: dict) -> torch.Tensor:
     return torch.stack([slots[s].expand(16, n) for s in prog.output_slots()])
 
 
+def encode_columns(df: DeviceField, finalized, device=None) -> dict:
+    """Materialized host columns -> (C, 16, n) Montgomery tensors on
+    ``device`` (the CPU when None), each kind uploaded in one copy."""
+    n = finalized.assignment.n
+
+    def enc(cols):
+        if not cols:
+            return torch.zeros((0, 16, n), dtype=torch.int32, device=device)
+        flat = df.encode([v for col in cols for v in col], device=device)  # (16, C * n)
+        return flat.reshape(16, len(cols), n).transpose(0, 1).contiguous()
+
+    return {
+        ColumnKind.ADVICE.value: enc(finalized.advice),
+        ColumnKind.FIXED.value: enc(finalized.fixed),
+        ColumnKind.INSTANCE.value: enc(finalized.instance),
+        "selector": enc(finalized.selectors),
+    }
+
+
+# evaluators cached by (expression structure, field[, rot_scale]), as the
+# reference caches its jitted programs: building a Program walks the whole
+# expression DAG
+_CHECKER_CACHE: dict = {}
+
+
+def build_gate_checker(cs, df: DeviceField):
+    """Returns (fn, meta): fn(columns) -> (C, n) bool nonzero mask, one row
+    per gate constraint; meta[i] = (gate index, constraint index)."""
+    meta = []
+    exprs = []
+    for gi, gate in enumerate(cs.gates):
+        for ci, c in enumerate(gate.constraints):
+            meta.append((gi, ci))
+            exprs.append(c)
+
+    key = ("gates", tuple(exprs), df.spec.name)
+    cached = _CHECKER_CACHE.get(key)
+    if cached is not None:
+        return cached, meta
+
+    prog = Program(exprs)
+
+    def fn(columns):
+        if not exprs:
+            return torch.zeros((0, 1), dtype=torch.bool)
+        outs = _run_program(prog, df, columns)
+        return (outs != 0).any(dim=1)  # (C, n) nonzero mask
+
+    _CHECKER_CACHE[key] = fn
+    return fn, meta
+
+
 def build_expr_batch_eval(cs, df: DeviceField, exprs, rot_scale: int = 1):
     """Evaluation of arbitrary expressions: fn(columns) -> (len(exprs), 16, n)."""
+    key = ("batch", tuple(exprs), df.spec.name, rot_scale)
+    cached = _CHECKER_CACHE.get(key)
+    if cached is not None:
+        return cached
+
     prog = Program(exprs, rot_scale=rot_scale)
 
     def fn(columns):
         return _run_program(prog, df, columns)
 
+    _CHECKER_CACHE[key] = fn
     return fn

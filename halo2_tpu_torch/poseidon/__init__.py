@@ -1,5 +1,5 @@
-"""Poseidon: the reference's grain constants and the host sponge.  The batched
-device sponge (``permute_device``/``hash_device``) is not ported yet."""
+"""Poseidon: the reference's grain constants, the host sponge and the batched
+device sponge (``permute_device``/``hash_device``) on torch tensors."""
 
 from .._refpath import reference_dir
 
@@ -12,7 +12,9 @@ from .primitives import (  # noqa: E402
     MySpec,
     P128Pow5T3,
     Spec,
+    hash_device,
     permute,
+    permute_device,
     poseidon_hash,
 )
 
@@ -24,6 +26,8 @@ __all__ = [
     "MySpec",
     "P128Pow5T3",
     "Spec",
+    "hash_device",
     "permute",
+    "permute_device",
     "poseidon_hash",
 ]

@@ -1,15 +1,26 @@
-"""Poseidon primitive: specs and the host sponge (halo2_tpu/poseidon/
-primitives.py lines 24-151, carried over unchanged because that file also
-holds the JAX device sponge and so cannot be loaded here).
+"""Poseidon primitive: specs, the host sponge, and a batched device sponge.
 
-Mirrors halo2_gadgets ``poseidon::primitives`` (Spec, ConstantLength domain,
-Hash).  These digests feed instance columns, so they must match the
-reference bit-exactly.  The batched device sponge (``permute_device``,
-``hash_device``) is not ported yet.
+The specs and the host sponge are halo2_tpu/poseidon/primitives.py lines
+24-144, carried over unchanged because that file also holds the JAX device
+sponge and so cannot be loaded here.  They mirror halo2_gadgets
+``poseidon::primitives`` (Spec, ConstantLength domain, Hash); these digests
+feed instance columns, so they must match the reference bit-exactly.
+
+The device sponge (``permute_device``, ``hash_device``; the reference's
+lines 152-224) keeps the state as a ``(W, 16, B)`` int32 Montgomery tensor,
+vectorized over the batch axis B.  The reference's three ``lax.scan``s over
+the rounds are Python loops here: on a CUDA tensor every sbox square is a
+launch of the ``mont_sqr`` kernel and every other multiply one of
+``mont_mul``; on a CPU tensor the same calls run their plain versions.
 """
 
 from __future__ import annotations
 
+import functools
+
+import torch
+
+from ..field.device import DeviceField, get_device_field
 from ..field.host import PrimeField
 from .grain import generate_constants
 
@@ -133,3 +144,78 @@ class Hash:
 def poseidon_hash(F, spec: Spec, message) -> PrimeField:
     """Convenience one-shot hash with ConstantLength<len(message)>."""
     return Hash(F, spec, ConstantLength(len(message))).hash(message)
+
+
+# --------------------------------------------------------------------------
+# Device (batched) permutation
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _device_constants(field_spec, width, r_f_total, r_p, secure_mds, device: torch.device):
+    """Round constants (R, W, 16, 1) and MDS matrix (W, W, 16, 1) as
+    Montgomery int32 tensors on ``device``: each entry a (16, 1) column that
+    broadcasts over the batch."""
+    rcs, mds, _ = generate_constants(field_spec, width, r_f_total, r_p, secure_mds)
+    df = get_device_field(field_spec)
+
+    def table(rows):
+        flat = df.encode([v for row in rows for v in row], device=device)  # (16, rows * W)
+        return flat.reshape(16, len(rows), width).permute(1, 2, 0).unsqueeze(-1).contiguous()
+
+    return table(rcs), table(mds)
+
+
+def permute_device(df: DeviceField, spec: Spec, state: torch.Tensor) -> torch.Tensor:
+    """Batched Poseidon permutation: state (W, 16, B) Montgomery limbs ->
+    the same shape.  A round is W round-constant adds, the x^5 sbox (two
+    squares and a multiply) on W words (full round) or one (partial round),
+    and the MDS product: W^2 multiplies and W (W - 1) adds."""
+    W = spec.width
+    r_f = spec.full_rounds() // 2
+    r_p = spec.partial_rounds()
+    rc_dev, mds_dev = _device_constants(
+        df.spec, W, spec.full_rounds(), r_p, spec.secure_mds(), state.device
+    )
+
+    def sbox(x):
+        x2 = df.square(x)
+        return df.mul(df.square(x2), x)
+
+    def apply_mds(st):
+        out = []
+        for i in range(W):
+            acc = df.mul(st[0], mds_dev[i, 0])
+            for j in range(1, W):
+                acc = df.add(acc, df.mul(st[j], mds_dev[i, j]))
+            out.append(acc)
+        return out
+
+    st = list(state.unbind(0))
+    for r in range(2 * r_f + r_p):
+        st = [df.add(st[i], rc_dev[r, i]) for i in range(W)]
+        if r_f <= r < r_f + r_p:  # partial round
+            st[0] = sbox(st[0])
+        else:
+            st = [sbox(w) for w in st]
+        st = apply_mds(st)
+    return torch.stack(st)
+
+
+def hash_device(df: DeviceField, spec: Spec, L: int, messages: torch.Tensor) -> torch.Tensor:
+    """Batched ConstantLength<L> hash: messages (L, 16, B) Montgomery limbs
+    -> digests (16, B)."""
+    if messages.shape[0] != L:
+        raise ValueError(f"hash_device: {messages.shape[0]} message words, ConstantLength<{L}>")
+    B = messages.shape[-1]
+    rate = spec.rate
+    k = (L + rate - 1) // rate
+    state = messages.new_zeros((spec.width, 16, B))
+    state[rate] = df.encode([L << 64], device=messages.device)  # the capacity element
+    padded = torch.cat([messages, messages.new_zeros((k * rate - L, 16, B))])
+    for c in range(k):
+        chunk = padded[c * rate : (c + 1) * rate]
+        for i in range(rate):
+            state[i] = df.add(state[i], chunk[i])
+        state = permute_device(df, spec, state)
+    return state[0]

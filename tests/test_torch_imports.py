@@ -41,8 +41,26 @@ SLICE_MODULES = [
     "halo2_tpu_torch.kzg.engine",
     "halo2_tpu_torch.kzg.prover",
     "halo2_tpu_torch.kzg.verifier",
-    "halo2_tpu_torch.circuits.merkle_sum_tree",
+    "halo2_tpu_torch.dev",
+    "halo2_tpu_torch.dev.mock_prover",
+    "halo2_tpu_torch.circuits.utils",
+    "halo2_tpu_torch.circuits.add_carry_v1",
+    "halo2_tpu_torch.circuits.add_carry_v2",
     "halo2_tpu_torch.circuits.hash_v1",
+    "halo2_tpu_torch.circuits.hash_v2",
+    "halo2_tpu_torch.circuits.inclusion_check",
+    "halo2_tpu_torch.circuits.inclusion_check_v2",
+    "halo2_tpu_torch.circuits.less_than",
+    "halo2_tpu_torch.circuits.less_than_v2",
+    "halo2_tpu_torch.circuits.less_than_v3",
+    "halo2_tpu_torch.circuits.merkle_sum_tree",
+    "halo2_tpu_torch.circuits.merkle_v1",
+    "halo2_tpu_torch.circuits.merkle_v2",
+    "halo2_tpu_torch.circuits.merkle_v3",
+    "halo2_tpu_torch.circuits.overflow_check",
+    "halo2_tpu_torch.circuits.overflow_check_v2",
+    "halo2_tpu_torch.circuits.poseidon",
+    "halo2_tpu_torch.circuits.safe_accumulator",
     "chip_smoke",
 ]
 
@@ -74,10 +92,17 @@ def test_slice_imports_without_jax():
     resolved = {k: f for k, f in out["files"].items() if f.startswith(REF_DIR + os.sep)}
     assert "halo2_tpu_torch.circuits.merkle_sum_tree" in resolved
     assert "halo2_tpu_torch.kzg.verifier" in resolved
+    assert "halo2_tpu_torch.dev.failures" in resolved
+    assert "halo2_tpu_torch.circuits.utils" in resolved
     for name, path in resolved.items():
         with open(path) as f:
             assert not JAX_IMPORT.search(f.read()), f"{name} resolves to JAX-bearing {path}"
-    for name in ("halo2_tpu_torch.field.device", "halo2_tpu_torch.ec.device", "halo2_tpu_torch.kzg.prover"):
+    for name in (
+        "halo2_tpu_torch.field.device",
+        "halo2_tpu_torch.ec.device",
+        "halo2_tpu_torch.kzg.prover",
+        "halo2_tpu_torch.dev.mock_prover",
+    ):
         assert out["files"][name].startswith(PORT_DIR + os.sep)
 
 
