@@ -7,29 +7,33 @@ passes or raises:
 
 0. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 1. build of the CUDA kernels from halo2_tpu_torch/csrc (and of the native
-   host engine), with their times and each kernel's registers and spills;
+   host engine), with their times, each kernel's registers and spills, and
+   the curve kernels' SASS instruction and IMAD counts (cuobjdump);
 2. every kernel against its plain PyTorch version on the card, limb for
    limb: mont_mul and mont_sqr for BN254 Fr, BN254 Fq and Pasta Fp at m in
    {1, 511, 513, 2^11, 2^15, 2^20} with edge values (mont_mul also with a
-   broadcast operand); jac_madd and jac_add at the same m on BN254 G1 points
-   with z != 1, flags included, with the exception lanes first (P == Q,
-   P == -Q, P at infinity, Q at infinity, a masked mixed-add lane); the NTT
-   stage kernels at n in {2^9, 2^11, 2^15, 2^20}, forward and inverse, and
-   iNTT(NTT(x)) == x; at 2^11, 2^15 and 2^20 the time per call of kernel
-   and plain version (CUDA events around back-to-back calls) and each
-   kernel's device time per launch (torch.profiler);
+   broadcast operand); jac_madd and jac_add, both variants (narrow, wide),
+   the P == Q doubling included, at m in JAC_SIZES (both sides of the
+   variant switch) on BN254 G1 points with z != 1, with the exception lanes
+   first (P == Q, P == -Q, P at infinity, Q at infinity, a masked mixed-add
+   lane), reading no P == Q flag back, and each variant's device time per
+   launch at every m >= 32 on operands without those lanes; the NTT stage kernels at n in {2^9, 2^11, 2^15,
+   2^20}, forward and inverse, and iNTT(NTT(x)) == x; at 2^11, 2^15 and
+   2^20 the time per call of kernel and plain version (CUDA events around
+   back-to-back calls) and each kernel's device time per launch
+   (torch.profiler);
 3. the device MSM: msm_points at 2^16 (the k = 16 SRS, random.Random(42)
    scalars) and 2^20 (that SRS and random.Random(9) scalars tiled 16 times)
    equals the native host MSM on the same arrays; the time of each (median
-   of 3 runs after a warm-up), the device run's kernel launches and its
-   device -> host reads of the P == Q flags;
+   of 3 runs after a warm-up), the device run's kernel launches, and no
+   device -> host read of P == Q flags;
 4. the flagship prove: merkle-sum-tree depth 15, k = 11 (built as
    scripts/north_star.py builds it), proved three times with
    random.Random(7) and the commitments on the native host MSM, then twice
    with commit="device" (the device MSM); every proof's bytes must equal
    tests/data/mst_d15_k11_rng7.proof (the reference's proof), the verifier
    must accept it and reject a tampered root;
-5. the SRS setup on the card: ParamsKZG.setup(16, device=cuda) equals
+5. the SRS setup on the card: ParamsKZG.setup(16) equals
    .srs/kzg_bn254_k16_s857536.pkl limb for limb;
 6. keygen on the card: the flagship through keygen_vk then keygen_pk
    (native commits) and through keygen(..., commit="device"), each equal to
@@ -45,14 +49,17 @@ passes or raises:
    merkle-sum tree; its first 1024 lanes equal the plain versions on the
    CPU and 256 spread lanes equal the host poseidon_hash; hashes/s.
 
-Every path of phases 3-8 runs once with the launch counts set to 0 just
-before and read just after, and fails if a kernel it must launch was not
-launched: mont_mul and the NTT kernels in the proves and the keygens,
+Phases 3-8 call the entry points without a device: they run on the card
+by default.  The device-commit paths of phases 3-6 must read no P == Q flag
+back.  Every path of phases 3-8 runs once with the launch counts set to 0
+just before and read just after, and fails if a kernel it must launch was
+not launched: mont_mul and the NTT kernels in the proves and the keygens,
 jac_madd and jac_add in the device-commit prove, the device-commit keygen
 and the MSM, mont_sqr, mont_mul and jac_add in the setup, mont_mul in the
 MockProver, mont_mul and mont_sqr in the sponge.  The line before the last
 is a JSON object with one entry per kernel (its launches summed over those
-runs); the last is {"ok": true, "device": {...}}.  Without a CUDA device, or
+runs, its time at 2^15 beside its bound from this run's inputs); the last
+is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside the repository, the script fails before printing either.
 """
 
@@ -71,6 +78,11 @@ FIXTURE = os.path.join(ROOT, "tests", "data", "mst_d15_k11_rng7.proof")
 PK_CACHE = os.path.join(ROOT, ".srs", "pk_mst_d15_k11.pkl")
 SRS16 = os.path.join(ROOT, ".srs", "kzg_bn254_k16_s857536.pkl")
 MUL_SIZES = (1, 511, 513, 1 << 11, 1 << 15, 1 << 20)
+# the group-law widths: the suffix scans' 32 and 128 lanes (flagship) and
+# 2,816 (2^16 MSM), the variant switch's 8,192 and 16,384
+# (ec/cuda_jac.py:NARROW_MAX_LANES), the bucket rounds' 180,224 (2^16 MSM),
+# and 2^20
+JAC_SIZES = (1, 32, 128, 2816, 1 << 11, 1 << 13, 1 << 14, 1 << 15, 180224, 1 << 20)
 NTT_SIZES = (1 << 9, 1 << 11, 1 << 15, 1 << 20)
 TIMED_SIZES = (1 << 11, 1 << 15, 1 << 20)
 REPORT_SIZE = 1 << 15  # the flagship's extended domain: the ms in the JSON line
@@ -177,10 +189,49 @@ def phase_build():
     for line in _build.log_path().read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build]   {line.strip()}", flush=True)
+    for name, (total, wide, other) in _sass_counts(_build.library_path()).items():
+        print(
+            f"[build] SASS {name}: {total} instructions, {wide} IMAD.WIDE, {other} other IMAD "
+            f"(IMAD.MOV not counted)",
+            flush=True,
+        )
     t0 = time.perf_counter()
     if not native.available():
         raise RuntimeError("native host engine did not build (g++ missing?)")
     print(f"[build] native host engine: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def _sass_counts(library) -> dict:
+    """Static instruction counts of each curve kernel in the built library's
+    SASS (``cuobjdump -sass``): (instructions, IMAD.WIDE, other IMADs but
+    IMAD.MOV); empty when the toolkit has no cuobjdump."""
+    from halo2_tpu_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        print("[build] SASS counts not measured: no cuobjdump beside nvcc", flush=True)
+        return {}
+    text = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            name = next((k for k in ("jac_madd_wide", "jac_madd_narrow", "jac_add_wide", "jac_add_narrow") if k in fn), None)
+            if name:
+                counts[name] = [0, 0, 0]
+        elif name and line.startswith("/*") and "*/" in line:
+            ops = line.split("*/", 1)[1].split()
+            if ops and ops[0].startswith("@"):
+                ops = ops[1:]
+            if not ops or ops[0].startswith("/*"):
+                continue  # the second half of an instruction's encoding
+            counts[name][0] += 1
+            if ops[0].startswith("IMAD.WIDE"):
+                counts[name][1] += 1
+            elif ops[0].startswith("IMAD") and not ops[0].startswith("IMAD.MOV"):
+                counts[name][2] += 1
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 def _time_kernel(name, symbol, m, kernel, plain, times, plain_calls=3):
@@ -247,7 +298,7 @@ def phase_kernels(device):
                 )
         print(f"[kernels] mont_mul, mont_sqr {spec.name}: equal to plain at m={list(MUL_SIZES)}", flush=True)
 
-    _check_jac_kernels(device, err, times)
+    classes = _check_jac_kernels(device, err, times)
 
     spec = BN254_FR
     for n in NTT_SIZES:
@@ -297,15 +348,22 @@ def phase_kernels(device):
                 flush=True,
             )
         print(f"[kernels] ntt n={n}: kernels equal to plain, iNTT(NTT(x)) == x", flush=True)
-    return err, times
+    for n in TIMED_SIZES:
+        bounds = _bounds(classes, n)
+        print(
+            f"[kernels] bounds at n={n} (ms, what bounds it): "
+            + ", ".join(f"{k} {v[0]:.6f} {v[1]}" for k, v in bounds.items()),
+            flush=True,
+        )
+    return err, times, _bounds(classes, REPORT_SIZE)
 
 
-def _curve_lanes(device, m):
+def _curve_lanes(device, m, exceptions=True):
     """BN254 G1 operands for the group-law kernels at m lanes: p Jacobian
     with z != 1, q affine (mixed add) and Jacobian with z != 1 (full add),
-    from the k = 16 SRS's points.  Lanes 0-4 are the exception lanes: P == Q,
-    P == -Q, P at infinity, Q at infinity (a (0, 0) masked lane of the mixed
-    add), and a masked mixed-add lane."""
+    from the k = 16 SRS's points.  With ``exceptions``, lanes 0-4 are the
+    exception lanes: P == Q, P == -Q, P at infinity, Q at infinity (a (0, 0)
+    masked lane of the mixed add), and a masked mixed-add lane."""
     import numpy as np
     import torch
 
@@ -322,6 +380,8 @@ def _curve_lanes(device, m):
     qx, qy = x[:, n - 1 : n - 1 + m].contiguous(), y[:, n - 1 : n - 1 + m].contiguous()
     q = ecd.jac_double(ecd.jac_from_affine(qx, qy))
     valid = torch.ones(m, dtype=torch.bool, device=device)
+    if not exceptions:
+        return p, q, qx, qy, valid
     front = min(2, m)
     ax, ay = ecd.jac_to_affine({k: v[:, :front].contiguous() for k, v in p.items()})
     ay = torch.stack([ay[:, 0], ecd.df().neg(ay)[:, -1]], dim=1)  # lane 0: P, lane 1: -P
@@ -342,30 +402,104 @@ def _curve_lanes(device, m):
 
 
 def _check_jac_kernels(device, err, times):
-    """jac_madd and jac_add against their plain versions, limb for limb,
-    flags included, before and after the P == Q doubling."""
+    """jac_madd and jac_add, every variant, against their plain versions
+    (the P == Q doubling included), limb for limb, at every JAC_SIZES width,
+    with the exception lanes first; the device time per launch of each
+    variant at each width of 32 lanes or more, on operands without the
+    exception lanes (what the MSM's scans give them).  Returns the lane
+    classes of the operands at each TIMED_SIZES width, for the bounds."""
     from halo2_tpu_torch.ec import cuda_jac
 
-    for m in MUL_SIZES:
+    classes = {}
+    for m in JAC_SIZES:
         p, q, qx, qy, valid = _curve_lanes(device, m)
+        gp, gq, gqx, gqy, gvalid = _curve_lanes(device, m, exceptions=False)
         cases = (
-            ("jac_madd", lambda: cuda_jac.jac_madd_flagged(p, qx, qy, valid),
-             lambda: cuda_jac.jac_madd_flagged_plain(p, qx, qy, valid),
-             lambda: cuda_jac.jac_madd_cuda(p, qx, qy, valid), lambda: cuda_jac.jac_madd_plain(p, qx, qy, valid)),
-            ("jac_add", lambda: cuda_jac.jac_add_flagged(p, q), lambda: cuda_jac.jac_add_flagged_plain(p, q),
-             lambda: cuda_jac.jac_add_cuda(p, q), lambda: cuda_jac.jac_add_plain(p, q)),
+            ("jac_madd", lambda w: cuda_jac._jac_madd(p, qx, qy, valid, w),
+             lambda: cuda_jac.jac_madd_plain(p, qx, qy, valid),
+             lambda w: cuda_jac._jac_madd(gp, gqx, gqy, gvalid, w)),
+            ("jac_add", lambda w: cuda_jac._jac_add(p, q, w), lambda: cuda_jac.jac_add_plain(p, q),
+             lambda w: cuda_jac._jac_add(gp, gq, w)),
         )
-        for name, flagged, flagged_plain, full, full_plain in cases:
-            (out_k, same_k), (out_p, same_p) = flagged(), flagged_plain()
-            if not (same_k.equal(same_p) and bool(same_k[0])) or int(same_k.sum()) != 1:
-                raise AssertionError(f"{name} m={m}: the P == Q flags differ or are wrong")
-            got_full, want_full = full(), full_plain()
-            for k in ("x", "y", "z"):
-                err[name] = max(err[name], _max_abs_err(f"{name} m={m} {k}", out_k[k], out_p[k]))
-                _max_abs_err(f"{name} m={m} {k} doubled", got_full[k], want_full[k])
+        for name, kernel, plain, general in cases:
+            want = plain()
+            for which in cuda_jac.VARIANTS:
+                with _FlagReads() as flags:
+                    got = kernel(which)
+                if flags.reads:
+                    raise AssertionError(f"{name} m={m} {which}: {flags.reads} P == Q flag reads")
+                for k in ("x", "y", "z"):
+                    err[name] = max(err[name], _max_abs_err(f"{name} m={m} {which} {k}", got[k], want[k]))
+                if m >= 32:
+                    t_d = _kernel_device_ms(lambda: general(which), f"{name}_{which}_kernel")
+                    times[(name, which, m)] = t_d
+                    print(f"[kernels] {name} m={m} {which}: {t_d:.4f} ms on the device (general lanes)", flush=True)
             if m in TIMED_SIZES:
-                _time_kernel(name, f"{name}_kernel", m, flagged, flagged_plain, times, plain_calls=2)
-        print(f"[kernels] jac_madd, jac_add m={m}: equal to plain, flags included", flush=True)
+                _time_kernel(name, f"{name}_", m, lambda: kernel(None), plain, times, plain_calls=2)
+        if m in TIMED_SIZES:
+            classes[m] = _lane_classes(p, q, qx, qy, valid)
+        print(
+            f"[kernels] jac_madd, jac_add m={m}: every variant equal to plain, P == Q doubling "
+            f"included, no flag reads (default variant {cuda_jac.variant(m)})",
+            flush=True,
+        )
+    return classes
+
+
+def _lane_classes(p, q, qx, qy, valid) -> dict:
+    """The lanes of the group-law operands by the work their formulas need:
+    finite sums (madd: valid, P finite; add: both finite) and P == Q lanes,
+    from the plain versions' flags."""
+    from halo2_tpu_torch.ec import cuda_jac
+    from halo2_tpu_torch.ec import device as ecd
+
+    _, same_madd = cuda_jac.jac_madd_flagged_plain(p, qx, qy, valid)
+    _, same_add = cuda_jac.jac_add_flagged_plain(p, q)
+    p_fin, q_fin = ~ecd.is_infinity(p), ~ecd.is_infinity(q)
+    return {
+        "jac_madd": (int((valid & p_fin).sum()), int(same_madd.sum())),
+        "jac_add": (int((p_fin & q_fin).sum()), int(same_add.sum())),
+    }
+
+
+# IMADs of one Montgomery product and one square on 8 x 32-bit words (64
+# 32x32->64 products of two IMADs each, plus the reduction's; the square
+# shares its 28 cross products), the integer rate of one H100 (132 SMs x 64
+# IMAD lanes x 1.98 GHz, half its published 67 TFLOP/s float32 rate) and its
+# published memory rate.
+IMAD_MUL, IMAD_SQR = 272, 216
+IMAD_PER_S = 132 * 64 * 1.98e9
+BYTES_PER_S = 3.35e12
+ELEM = 64  # bytes of one (16,) int32 field element
+
+
+def _bounds(classes: dict, n: int) -> dict:
+    """Least time (ms) and what bounds it, per kernel, for the work of this
+    run's calls at n elements or lanes (NTT: n elements, the large stage at
+    half-size n/2): each input read once, each output written once, against
+    the IMADs of the products that the inputs need."""
+    classes = classes[n]
+    dbl = 2 * IMAD_MUL + 5 * IMAD_SQR  # dbl-2009-l
+    work = {  # (bytes, IMADs)
+        "mont_mul": (3 * ELEM * n, IMAD_MUL * n),
+        "mont_sqr": (2 * ELEM * n, IMAD_SQR * n),
+        # 9 stages of n/2 butterflies, the first without a twiddle multiply
+        "ntt_small_stages": (2 * ELEM * n + ELEM * 511, IMAD_MUL * 8 * n // 2),
+        "ntt_large_stage": (2 * ELEM * n + ELEM * n // 2, IMAD_MUL * n // 2),
+        "jac_madd": (
+            (5 * ELEM + 4 + 3 * ELEM) * n,
+            (7 * IMAD_MUL + 4 * IMAD_SQR) * classes["jac_madd"][0] + dbl * classes["jac_madd"][1],
+        ),
+        "jac_add": (
+            9 * ELEM * n,
+            (12 * IMAD_MUL + 4 * IMAD_SQR) * classes["jac_add"][0] + dbl * classes["jac_add"][1],
+        ),
+    }
+    out = {}
+    for name, (nbytes, imads) in work.items():
+        t_bytes, t_ops = nbytes / BYTES_PER_S * 1e3, imads / IMAD_PER_S * 1e3
+        out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return out
 
 
 def _flagship_circuit():
@@ -420,26 +554,30 @@ def _require(path: str, counts: dict, names) -> None:
 
 
 class _FlagReads:
-    """Counts the group ops' device -> host reads of their P == Q flags
-    (one per jac_add/jac_madd call) and the doublings they led to."""
+    """Counts the group ops' device -> host reads of their P == Q flags: one
+    per call of a plain version's ``_double_fixup``.  The kernels double on
+    the card, so the CUDA path makes none."""
 
     def __enter__(self):
         from halo2_tpu_torch.ec import cuda_jac
 
         self.module, self.orig = cuda_jac, cuda_jac._double_fixup
-        self.reads = self.doublings = 0
+        self.reads = 0
 
-        def counted(out, same, p, d):
+        def counted(*args):
             self.reads += 1
-            res = self.orig(out, same, p, d)
-            self.doublings += res is not out
-            return res
+            return self.orig(*args)
 
         cuda_jac._double_fixup = counted
         return self
 
     def __exit__(self, *exc):
         self.module._double_fixup = self.orig
+
+
+def _no_flag_reads(path: str, flags: _FlagReads) -> None:
+    if flags.reads:
+        raise AssertionError(f"{path}: {flags.reads} P == Q flag reads on the CUDA path")
 
 
 def phase_msm(device):
@@ -479,6 +617,7 @@ def phase_msm(device):
         want = native.msm_g1_mont(*packed)
         if got != want or got == (0, 0):
             raise AssertionError(f"MSM {label}: device {got} != native {want}")
+        _no_flag_reads(f"MSM {label}", flags)
         _require(f"MSM {label}", counts, ("jac_madd", "jac_add"))
         runs.append(counts)
         t_dev, t_nat = [], []
@@ -497,7 +636,7 @@ def phase_msm(device):
             f"[msm] {label}: equal to native; device {dev * 1e3:.1f} ms ({points / dev:.4g} points/s, "
             f"first run {first * 1e3:.1f} ms, runs {[round(t * 1e3, 1) for t in t_dev]}), native "
             f"{nat * 1e3:.1f} ms ({points / nat:.4g} points/s, runs {[round(t * 1e3, 1) for t in t_nat]}); "
-            f"first run: launches {counts}, P == Q flag reads {flags.reads}, doublings {flags.doublings}",
+            f"first run: launches {counts}, P == Q flag reads {flags.reads}",
             flush=True,
         )
     return runs
@@ -516,13 +655,13 @@ def _prove(params, pk, circuit, public, want, device, commit, reps):
         _reset_launches()
         PHASE_TIMINGS.clear()
         torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        proof = create_proof(
-            params, pk, circuit, [list(public)], rng=random.Random(7), device=device, commit=commit
-        )
-        torch.cuda.synchronize(device)
-        dt = time.perf_counter() - t0
+        with _FlagReads() as flags:
+            t0 = time.perf_counter()
+            proof = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7), commit=commit)
+            torch.cuda.synchronize(device)
+            dt = time.perf_counter() - t0
         counts = _read_launches()
+        _no_flag_reads(f"commit={commit} prove", flags)
         if launches is None:
             launches = counts
         phases = ", ".join(f"{k_}={v:.3f}" for k_, v in PHASE_TIMINGS.items())
@@ -587,10 +726,12 @@ def phase_setup(device):
     want = ParamsKZG.load(SRS16)
     _reset_launches()
     torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    got = ParamsKZG.setup(16, device=device)
-    dt = time.perf_counter() - t0
+    with _FlagReads() as flags:
+        t0 = time.perf_counter()
+        got = ParamsKZG.setup(16)
+        dt = time.perf_counter() - t0
     counts = _read_launches()
+    _no_flag_reads("setup", flags)
     for name in ("g1_x", "g1_y"):
         if not np.array_equal(getattr(got, name), getattr(want, name)):
             raise AssertionError(f"setup(16) on the card: {name} differs from {SRS16}")
@@ -642,10 +783,10 @@ def phase_keygen(device):
     _reset_launches()
     _sync(device)
     t0 = time.perf_counter()
-    vk = keygen_vk(params, circuit, k, Fr, device=device)
+    vk = keygen_vk(params, circuit, k, Fr)
     _sync(device)
     t_vk = time.perf_counter() - t0
-    pk = keygen_pk(params, vk, circuit, k, Fr, device=device)
+    pk = keygen_pk(params, vk, circuit, k, Fr)
     _sync(device)
     t_pk = time.perf_counter() - t0 - t_vk
     split_counts = _read_launches()
@@ -653,11 +794,13 @@ def phase_keygen(device):
     _check_key("keygen_vk + keygen_pk", pk, want)
 
     _reset_launches()
-    t0 = time.perf_counter()
-    pk_dev = keygen(params, circuit, k, Fr, device=device, commit="device")
-    _sync(device)
-    t_fused = time.perf_counter() - t0
+    with _FlagReads() as flags:
+        t0 = time.perf_counter()
+        pk_dev = keygen(params, circuit, k, Fr, commit="device")
+        _sync(device)
+        t_fused = time.perf_counter() - t0
     fused_counts = _read_launches()
+    _no_flag_reads("keygen, device commits", flags)
     _require(
         "keygen, device commits", fused_counts,
         ("mont_mul", "ntt_small_stages", "ntt_large_stage", "jac_madd", "jac_add"),
@@ -672,7 +815,7 @@ def phase_keygen(device):
 
     _reset_launches()
     t0 = time.perf_counter()
-    proof = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7), device=device)
+    proof = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7))
     _sync(device)
     t_prove = time.perf_counter() - t0
     prove_counts = _read_launches()
@@ -748,7 +891,7 @@ def phase_mock(device):
         _reset_launches()
         _sync(device)
         t0 = time.perf_counter()
-        prover = MockProver.run(k, circuit, instances, F=F, device=device)
+        prover = MockProver.run(k, circuit, instances, F=F)
         t_run = time.perf_counter() - t0
         failures = prover.verify()
         _sync(device)
@@ -859,7 +1002,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     phase_build()
-    err, times = phase_kernels(device)
+    err, times, bounds = phase_kernels(device)
     runs = phase_msm(device) + phase_prove(device) + phase_setup(device)
     runs += phase_keygen(device) + phase_mock(device) + phase_poseidon(device)
     launches = {name: sum(r[name] for r in runs) for name, _, _ in KERNELS}
@@ -875,6 +1018,11 @@ def main() -> int:
                 "max_abs_err": err[name],
                 "ms": times[(name, REPORT_SIZE)][0],
                 "plain_ms": times[(name, REPORT_SIZE)][1],
+                "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1],
+                # no single PyTorch call computes a 256-bit Montgomery
+                # product, a prime-field NTT or a curve add
+                "library_ms": None,
             }
             for name, source, replaces in KERNELS
         ]

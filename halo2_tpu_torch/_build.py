@@ -111,8 +111,8 @@ def lib() -> ctypes.CDLL:
                 "mont_sqr": [vp, vp, i32, vp, vp],
                 "ntt_small_stages": [vp, vp, i32, vp, i32, vp, vp],
                 "ntt_large_stage": [vp, vp, i32, i32, vp, i32, vp, vp],
-                "jac_madd": [vp] * 10 + [i32, vp, vp],
-                "jac_add": [vp] * 10 + [i32, vp, vp],
+                "jac_madd": [vp] * 9 + [i32, vp, i32, vp],
+                "jac_add": [vp] * 9 + [i32, vp, i32, vp],
             }
             for name, types in argtypes.items():
                 fn = getattr(handle, f"h2t_{name}")

@@ -1,35 +1,57 @@
-// BN254 G1 group law in Jacobian coordinates, one thread per lane: the mixed
-// add of a Jacobian point and an affine point (jac_madd) and the complete
-// Jacobian add (jac_add).
+// BN254 G1 group law in Jacobian coordinates: the mixed add of a Jacobian
+// point and an affine point (jac_madd) and the complete Jacobian add
+// (jac_add), each in two variants: one thread per lane (wide) and four warps
+// per 32 lanes (narrow).
 //
 // Replace halo2_tpu/ec/pallas_jac.py:_madd_kernel and :_add_kernel.  They
-// compute the group law of those TPU kernels (same infinity handling, same
-// `valid` mask, same P == Q flag), but from the reference's canonical
-// formulas, halo2_tpu/ec/device.py:_jac_madd_jnp (madd-2007-bl) and
-// :_jac_add_jnp (add-2007-bl): every field value stays canonical (< p), so
-// the output equals the plain version (ec/cuda_jac.py) limb for limb.  The
-// TPU kernels' lambda = 1/2 scaled output and lazy < 2p bounds are not
-// carried over.  As there, the doubling for P == Q lanes is not in the
-// kernel: the lane's `same` flag is set and the wrapper applies jac_double.
+// compute the reference's canonical formulas, halo2_tpu/ec/device.py:
+// _jac_madd_jnp (madd-2007-bl) and :_jac_add_jnp (add-2007-bl), WITH their
+// P == Q branch: a finite lane whose two points are equal takes the doubling
+// dbl-2009-l (ec/device.py:jac_double) inside the kernel, so the wrapper reads
+// nothing back.  Every field value stays canonical (< p), so the output equals
+// the plain versions (ec/cuda_jac.py) limb for limb.  The TPU kernels'
+// lambda = 1/2 scaled output and lazy < 2p bounds are not carried over.
 //
 // Points are (16, m) int32 limb arrays per coordinate over BN254 Fq,
 // Montgomery form, limb-major (field.cuh); z == 0 marks infinity.
 //
 // What bounds them: integer multiplies.  A lane takes 11 (madd) or 16 (add)
-// Montgomery products of about 136 32-bit multiply-adds each (each a pair
-// of IMADs for the 64-bit product), against 520 bytes (madd: 5 coordinates
-// of 64 bytes and a flag in, 3 and a flag out) or 580 bytes (add) of memory
-// traffic: about 0.4 ns of the H100's integer units (132 SMs x 64 lanes at
-// ~1.7 GHz) against 0.16 ns of its published 3.35 TB/s per lane.  This design keeps every intermediate in registers;
-// inputs needed only by an exception lane are read again from memory there.
-// nvcc -Xptxas -v (CUDA 12.9, sm_90a): jac_madd_kernel 102 registers,
-// jac_add_kernel 136 registers, no spills, no stack frame.
+// Montgomery products of 64 32x32->64 multiplies plus 64 for the reduction
+// (field_cc.cuh), against 516 bytes (madd: 5 coordinates of 64 bytes and a
+// flag in, 3 out) or 576 bytes (add) of memory.  The design answers two
+// regimes:
+// - narrow calls, up to NARROW_MAX_LANES = 8,192 lanes (ec/cuda_jac.py; the
+//   suffix scans' 32 to 2,816 lanes): few warps on 132 SMs, so the time is
+//   one thread's chain of dependent products.  Four warps per 32 lanes split
+//   each formula's independent products between them and trade the values
+//   through shared memory: jac_add's chain is 5 products deep instead of 16,
+//   jac_madd's 5 instead of 11, the doubling's 3 instead of 7.  (The split
+//   must be across warps: four threads of one warp on four branches run one
+//   after another.  CGBN's layout, 8 threads per lane with one word each and
+//   the carries passed by shuffles and votes, measured about 2x slower at
+//   these widths: every step of its products waits on a shuffle.)
+// - wide calls, above that (the MSM's bucket rounds): one thread per lane,
+//   every intermediate in registers, the field ops as PTX carry chains that
+//   ptxas fuses into IMAD.WIDE.U32.X (field_cc.cuh), and a register budget
+//   set by __launch_bounds__.
+// The wrapper picks the variant from m.  Registers, spills and times per
+// width (nvcc -Xptxas -v, CUDA 12.9, sm_90a; one H100): PERF.md.
 
-#include "field.cuh"
+#include "field_cc.cuh"
 
 using namespace h2t;
 
 namespace {
+
+constexpr int WIDE_THREADS = 128;
+// Blocks of WIDE_THREADS a wide kernel's SM must hold at once, which caps its
+// registers at 128.  On one H100, 4 blocks (128 registers, no spills) beat 3
+// (130/124 registers): jac_add at 2^20 lanes 0.3276 vs 0.3332 ms, jac_madd
+// 0.2509 vs 0.2528 ms (chip_smoke.py phase 2, PERF.md).
+constexpr int WIDE_MIN_BLOCKS = 4;
+constexpr int NARROW_WARPS = 4;   // narrow: warps per block, one a product
+constexpr int NARROW_LANES = 32;  // narrow: lanes per block
+constexpr int NARROW_THREADS = NARROW_WARPS * NARROW_LANES;
 
 // The modulus of Fq and its Montgomery one (R mod p), passed by value.
 struct CurveConsts {
@@ -45,11 +67,6 @@ CurveConsts consts_from_host(const uint32_t* words) {
   return c;
 }
 
-__device__ __forceinline__ void mod_dbl(const uint32_t a[WORDS], const Modulus& M,
-                                        uint32_t r[WORDS]) {
-  mod_add(a, a, M, r);
-}
-
 // Copy lane idx of a (16, m) coordinate to the output unchanged.
 __device__ __forceinline__ void copy_elem(const uint32_t* __restrict__ src,
                                           uint32_t* __restrict__ dst, size_t ld, size_t idx) {
@@ -57,9 +74,43 @@ __device__ __forceinline__ void copy_elem(const uint32_t* __restrict__ src,
   for (int j = 0; j < 2 * WORDS; ++j) dst[j * ld + idx] = src[j * ld + idx];
 }
 
-__device__ __forceinline__ void store_one(uint32_t* __restrict__ dst, size_t ld, size_t idx,
-                                          const CurveConsts& C) {
-  store_elem(dst, ld, idx, C.one);
+__device__ __forceinline__ void store_zero(uint32_t* __restrict__ dst, size_t ld, size_t idx) {
+#pragma unroll
+  for (int j = 0; j < 2 * WORDS; ++j) dst[j * ld + idx] = 0;
+}
+
+// ---------------------------------------------------------------- wide
+// One thread per lane.
+
+// dbl-2009-l of (x, y, z), as ec/device.py:jac_double computes it.
+__device__ __forceinline__ void dbl_wide(const uint32_t x[WORDS], const uint32_t y[WORDS],
+                                         const uint32_t z[WORDS], const Modulus& M, uint32_t* ox,
+                                         uint32_t* oy, uint32_t* oz, size_t ld, size_t idx) {
+  uint32_t a[WORDS], b[WORDS], c[WORDS], t[WORDS], dd[WORDS], e[WORDS];
+  cc::sqr(x, M, a);
+  cc::sqr(y, M, b);
+  cc::sqr(b, M, c);
+  cc::add(x, b, M, t);
+  cc::sqr(t, M, t);
+  cc::sub(t, a, M, t);
+  cc::sub(t, c, M, t);
+  cc::dbl(t, M, dd);  // dd = 2((x + b)^2 - a - c)
+  cc::dbl(a, M, e);
+  cc::add(e, a, M, e);  // e = 3a
+  cc::sqr(e, M, t);  // f = e^2
+  cc::dbl(dd, M, b);
+  cc::sub(t, b, M, t);  // x3 = f - 2 dd
+  store_elem(ox, ld, idx, t);
+  cc::sub(dd, t, M, t);
+  cc::mul(e, t, M, t);
+  cc::dbl(c, M, c);
+  cc::dbl(c, M, c);
+  cc::dbl(c, M, c);
+  cc::sub(t, c, M, t);  // y3 = e (dd - x3) - 8c
+  store_elem(oy, ld, idx, t);
+  cc::mul(y, z, M, t);
+  cc::dbl(t, M, t);  // z3 = 2 y z
+  store_elem(oz, ld, idx, t);
 }
 
 // x3 = rr^2 - j - 2v and y3 = rr (v - x3) - 2 w j, the tail both adds share
@@ -69,31 +120,28 @@ __device__ __forceinline__ void add_tail(const uint32_t rr[WORDS], const uint32_
                                          const Modulus& M, uint32_t x3[WORDS],
                                          uint32_t y3[WORDS]) {
   uint32_t t[WORDS], u[WORDS];
-  mont_sqr(rr, M, t);
-  mod_sub(t, j, M, t);
-  mod_dbl(v, M, u);
-  mod_sub(t, u, M, x3);
-  mod_sub(v, x3, M, t);
-  mont_mul(rr, t, M, t);
-  mont_mul(w, j, M, u);
-  mod_dbl(u, M, u);
-  mod_sub(t, u, M, y3);
+  cc::sqr(rr, M, t);
+  cc::sub(t, j, M, t);
+  cc::dbl(v, M, u);
+  cc::sub(t, u, M, x3);
+  cc::sub(v, x3, M, t);
+  cc::mul(rr, t, M, t);
+  cc::mul(w, j, M, u);
+  cc::dbl(u, M, u);
+  cc::sub(t, u, M, y3);
 }
 
-}  // namespace
-
-// out = p + (qx, qy) where valid, else p; same = valid & P == Q & P finite.
-// madd-2007-bl: 7 multiplies and 4 squares.
-__global__ void jac_madd_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
-                                const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
-                                const uint32_t* __restrict__ qy, const int* __restrict__ valid,
-                                uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-                                uint32_t* __restrict__ oz, int* __restrict__ same, int m,
-                                CurveConsts C) {
+// out = p + (qx, qy) where valid, else p.  madd-2007-bl: 7 multiplies and 4
+// squares; P == Q doubles.
+__global__ void __launch_bounds__(WIDE_THREADS, WIDE_MIN_BLOCKS)
+jac_madd_wide_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                     const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
+                     const uint32_t* __restrict__ qy, const int* __restrict__ valid,
+                     uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                     uint32_t* __restrict__ oz, int m, CurveConsts C) {
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<size_t>(m)) return;
   const Modulus& M = C.M;
-  same[idx] = 0;
   if (!valid[idx]) {  // masked lane: p unchanged
     copy_elem(px, ox, m, idx);
     copy_elem(py, oy, m, idx);
@@ -105,53 +153,54 @@ __global__ void jac_madd_kernel(const uint32_t* __restrict__ px, const uint32_t*
   if (is_zero(z1)) {  // p at infinity: the result is (qx, qy, 1)
     copy_elem(qx, ox, m, idx);
     copy_elem(qy, oy, m, idx);
-    store_one(oz, m, idx, C);
+    store_elem(oz, m, idx, C.one);
     return;
   }
   uint32_t z1z1[WORDS], h[WORDS], hh[WORDS], i4[WORDS], j[WORDS], rr[WORDS], v[WORDS];
-  uint32_t t[WORDS], u[WORDS];
-  mont_sqr(z1, M, z1z1);
+  uint32_t t[WORDS], u[WORDS], x1[WORDS], y1[WORDS];
+  cc::sqr(z1, M, z1z1);
   load_elem(qx, m, idx, t);
-  mont_mul(t, z1z1, M, u);  // u2
-  load_elem(px, m, idx, t);  // x1
-  mod_sub(u, t, M, h);
-  mont_sqr(h, M, hh);
-  mod_dbl(hh, M, i4);
-  mod_dbl(i4, M, i4);
-  mont_mul(h, i4, M, j);
-  mont_mul(t, i4, M, v);  // x1 * i
-  mont_mul(z1, z1z1, M, t);
+  cc::mul(t, z1z1, M, u);  // u2
+  load_elem(px, m, idx, x1);
+  cc::sub(u, x1, M, h);
+  cc::mul(z1, z1z1, M, t);
   load_elem(qy, m, idx, u);
-  mont_mul(u, t, M, u);  // s2
-  uint32_t y1[WORDS];
+  cc::mul(u, t, M, u);  // s2
   load_elem(py, m, idx, y1);
-  mod_sub(u, y1, M, t);
-  mod_dbl(t, M, rr);
+  cc::sub(u, y1, M, t);
+  cc::dbl(t, M, rr);
+  if (is_zero(h) && is_zero(rr)) {  // P == Q
+    dbl_wide(x1, y1, z1, M, ox, oy, oz, m, idx);
+    return;
+  }
+  cc::sqr(h, M, hh);
+  cc::dbl(hh, M, i4);
+  cc::dbl(i4, M, i4);
+  cc::mul(h, i4, M, j);
+  cc::mul(x1, i4, M, v);
   uint32_t x3[WORDS], y3[WORDS];
   add_tail(rr, j, v, y1, M, x3, y3);
-  mod_add(z1, h, M, t);  // z3 = (z1 + h)^2 - z1z1 - hh
-  mont_sqr(t, M, t);
-  mod_sub(t, z1z1, M, t);
-  mod_sub(t, hh, M, u);
   store_elem(ox, m, idx, x3);
   store_elem(oy, m, idx, y3);
+  cc::add(z1, h, M, t);  // z3 = (z1 + h)^2 - z1z1 - hh
+  cc::sqr(t, M, t);
+  cc::sub(t, z1z1, M, t);
+  cc::sub(t, hh, M, u);
   store_elem(oz, m, idx, u);
-  same[idx] = is_zero(h) && is_zero(rr);
 }
 
 // out = p + q, complete: p or q at infinity returns the other, P == -Q gives
-// infinity (0, 1, 0), P == Q sets same.  add-2007-bl: 12 multiplies and 4
+// infinity (0, 1, 0), P == Q doubles.  add-2007-bl: 12 multiplies and 4
 // squares.
-__global__ void jac_add_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
-                               const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
-                               const uint32_t* __restrict__ qy, const uint32_t* __restrict__ qz,
-                               uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-                               uint32_t* __restrict__ oz, int* __restrict__ same, int m,
-                               CurveConsts C) {
+__global__ void __launch_bounds__(WIDE_THREADS, WIDE_MIN_BLOCKS)
+jac_add_wide_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                    const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
+                    const uint32_t* __restrict__ qy, const uint32_t* __restrict__ qz,
+                    uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                    uint32_t* __restrict__ oz, int m, CurveConsts C) {
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<size_t>(m)) return;
   const Modulus& M = C.M;
-  same[idx] = 0;
   uint32_t z1[WORDS], z2[WORDS];
   load_elem(pz, m, idx, z1);
   load_elem(qz, m, idx, z2);
@@ -167,75 +216,453 @@ __global__ void jac_add_kernel(const uint32_t* __restrict__ px, const uint32_t* 
     copy_elem(qz, oz, m, idx);
     return;
   }
-  uint32_t z1z1[WORDS], z2z2[WORDS], s1[WORDS], zz[WORDS], t[WORDS], u[WORDS];
-  mont_sqr(z1, M, z1z1);
-  mont_sqr(z2, M, z2z2);
+  uint32_t z1z1[WORDS], z2z2[WORDS], s1[WORDS], t[WORDS], u[WORDS];
+  cc::sqr(z1, M, z1z1);
+  cc::sqr(z2, M, z2z2);
   load_elem(py, m, idx, t);
-  mont_mul(t, z2, M, t);
-  mont_mul(t, z2z2, M, s1);  // s1 = y1 z2 z2z2
+  cc::mul(t, z2, M, t);
+  cc::mul(t, z2z2, M, s1);  // s1 = y1 z2 z2z2
   load_elem(qy, m, idx, t);
-  mont_mul(t, z1, M, t);
-  mont_mul(t, z1z1, M, u);  // s2 = y2 z1 z1z1
+  cc::mul(t, z1, M, t);
+  cc::mul(t, z1z1, M, u);  // s2 = y2 z1 z1z1
   uint32_t r[WORDS];
-  mod_sub(u, s1, M, r);
-  mont_mul(z1, z2, M, zz);
+  cc::sub(u, s1, M, r);
   uint32_t u1[WORDS], h[WORDS];
   load_elem(px, m, idx, t);
-  mont_mul(t, z2z2, M, u1);
+  cc::mul(t, z2z2, M, u1);
   load_elem(qx, m, idx, t);
-  mont_mul(t, z1z1, M, u);  // u2
-  mod_sub(u, u1, M, h);
-  const bool h_zero = is_zero(h), r_zero = is_zero(r);
-  if (h_zero && !r_zero) {  // P == -Q: infinity
-    const uint32_t zero[WORDS] = {0, 0, 0, 0, 0, 0, 0, 0};
-    store_elem(ox, m, idx, zero);
-    store_one(oy, m, idx, C);
-    store_elem(oz, m, idx, zero);
+  cc::mul(t, z1z1, M, u);  // u2
+  cc::sub(u, u1, M, h);
+  if (is_zero(h)) {
+    if (is_zero(r)) {  // P == Q
+      load_elem(px, m, idx, t);
+      load_elem(py, m, idx, u);
+      dbl_wide(t, u, z1, M, ox, oy, oz, m, idx);
+    } else {  // P == -Q: infinity
+      store_zero(ox, m, idx);
+      store_elem(oy, m, idx, C.one);
+      store_zero(oz, m, idx);
+    }
     return;
   }
   uint32_t i4[WORDS], j[WORDS], v[WORDS], rr[WORDS];
-  mont_sqr(h, M, t);  // hh
-  mod_dbl(t, M, i4);
-  mod_dbl(i4, M, i4);
-  mont_mul(h, i4, M, j);
-  mod_dbl(r, M, rr);
-  mont_mul(u1, i4, M, v);
+  cc::mul(z1, z2, M, t);  // z3 = 2 z1 z2 h
+  cc::dbl(t, M, t);
+  cc::mul(t, h, M, t);
+  store_elem(oz, m, idx, t);
+  cc::sqr(h, M, t);  // hh
+  cc::dbl(t, M, i4);
+  cc::dbl(i4, M, i4);
+  cc::mul(h, i4, M, j);
+  cc::dbl(r, M, rr);
+  cc::mul(u1, i4, M, v);
   uint32_t x3[WORDS], y3[WORDS];
   add_tail(rr, j, v, s1, M, x3, y3);
-  mod_dbl(zz, M, t);  // z3 = 2 z1 z2 h
-  mont_mul(t, h, M, u);
   store_elem(ox, m, idx, x3);
   store_elem(oy, m, idx, y3);
-  store_elem(oz, m, idx, u);
-  same[idx] = h_zero && r_zero;
 }
 
+// ---------------------------------------------------------------- narrow
+// A block of four warps serves 32 lanes: warp w of the block works on lane
+// (threadIdx.x % 32) at the w-th product of each level of the formula, so a
+// lane's chain of dependent products is spread over four warps and every
+// branch on w is uniform within a warp.  Products are traded through the
+// block's shared slots, and __syncthreads ends each level.  Every thread
+// goes through every level (lanes past m, or whose result is an exception,
+// compute values nobody stores); the doubling's levels run when some lane of
+// the block needs them (__syncthreads_or).  Last, warps 0, 1 and 2 store x,
+// y and z of their 32 lanes, choosing per lane among the exception results.
+
+// A block's shared values: slot s, word k of lane l at sh[s][k][l], so a
+// warp's 32 lanes read consecutive banks.
+struct Slots {
+  uint32_t (*sh)[WORDS][NARROW_LANES];
+  int lane;
+  __device__ __forceinline__ void put(int s, const uint32_t v[WORDS]) const {
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) sh[s][k][lane] = v[k];
+  }
+  __device__ __forceinline__ void get(int s, uint32_t v[WORDS]) const {
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) v[k] = sh[s][k][lane];
+  }
+};
+
+// The doubling's slots, after each kernel's own (base).
+enum DblSlot { D_A, D_B, D_C, D_T, D_F, D_X, D_Y, D_Z, D_SLOTS };
+
+// dbl-2009-l of P over the block's four warps, into slots D_X, D_Y, D_Z:
+// 3 levels of products (x^2, y^2, y z | b^2, (x + b)^2, (3a)^2 | e (dd - x3)).
+__device__ __forceinline__ void dbl_narrow(const Slots& S, int base, int w, const uint32_t* px,
+                                           const uint32_t* py, const uint32_t* pz, size_t ld,
+                                           size_t i, const Modulus& M) {
+  uint32_t t[WORDS], u[WORDS], v[WORDS];
+  if (w == 0) {
+    load_elem(px, ld, i, u);
+    cc::sqr(u, M, t);
+    S.put(base + D_A, t);
+  } else if (w == 1) {
+    load_elem(py, ld, i, u);
+    cc::sqr(u, M, t);
+    S.put(base + D_B, t);
+  } else if (w == 2) {
+    load_elem(py, ld, i, u);
+    load_elem(pz, ld, i, v);
+    cc::mul(u, v, M, t);
+    cc::dbl(t, M, t);
+    S.put(base + D_Z, t);  // z3 = 2 y z
+  }
+  __syncthreads();
+  if (w == 0) {
+    S.get(base + D_B, u);
+    cc::sqr(u, M, t);
+    S.put(base + D_C, t);  // c = b^2
+  } else if (w == 1) {
+    S.get(base + D_B, u);
+    load_elem(px, ld, i, v);
+    cc::add(v, u, M, t);
+    cc::sqr(t, M, t);
+    S.put(base + D_T, t);  // (x + b)^2
+  } else if (w == 2) {
+    S.get(base + D_A, u);
+    cc::dbl(u, M, t);
+    cc::add(t, u, M, t);
+    cc::sqr(t, M, t);
+    S.put(base + D_F, t);  // f = (3a)^2
+  }
+  __syncthreads();
+  if (w == 0) {
+    uint32_t a[WORDS], c[WORDS], dd[WORDS];
+    S.get(base + D_A, a);
+    S.get(base + D_C, c);
+    S.get(base + D_T, t);
+    cc::sub(t, a, M, t);
+    cc::sub(t, c, M, t);
+    cc::dbl(t, M, dd);
+    S.get(base + D_F, t);
+    cc::dbl(dd, M, u);
+    cc::sub(t, u, M, t);  // x3 = f - 2 dd
+    S.put(base + D_X, t);
+    cc::dbl(a, M, v);
+    cc::add(v, a, M, v);  // e = 3a
+    cc::sub(dd, t, M, t);
+    cc::mul(v, t, M, t);
+    cc::dbl(c, M, c);
+    cc::dbl(c, M, c);
+    cc::dbl(c, M, c);
+    cc::sub(t, c, M, t);  // y3 = e (dd - x3) - 8c
+    S.put(base + D_Y, t);
+  }
+  __syncthreads();
+}
+
+enum MaddSlot { M_Z1Z1, M_U2, M_Z1C, M_S2, M_HH, M_ZH2, M_J, M_V, M_RR2, M_X3, M_T, M_W, M_Z3,
+                M_SLOTS };
+
+__global__ void __launch_bounds__(NARROW_THREADS)
+jac_madd_narrow_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                       const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
+                       const uint32_t* __restrict__ qy, const int* __restrict__ valid,
+                       uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                       uint32_t* __restrict__ oz, int m, CurveConsts C) {
+  __shared__ uint32_t sh[M_SLOTS + D_SLOTS][WORDS][NARROW_LANES];
+  const int lane = threadIdx.x % NARROW_LANES, w = threadIdx.x / NARROW_LANES;
+  const size_t idx = static_cast<size_t>(blockIdx.x) * NARROW_LANES + lane;
+  const bool active = idx < static_cast<size_t>(m);
+  const size_t i = active ? idx : static_cast<size_t>(m) - 1;  // where to read
+  const Slots S{sh, lane};
+  const Modulus& M = C.M;
+  // every global read up front, so their latencies overlap once: z1, x1
+  // and y1 for all, qx for warp 0, qy for warp 2
+  uint32_t z1[WORDS], x1[WORDS], y1[WORDS], q[WORDS], t[WORDS], u[WORDS];
+  const bool is_valid = active && valid[i];
+  load_elem(pz, m, i, z1);
+  load_elem(px, m, i, x1);
+  load_elem(py, m, i, y1);
+  if (w == 0 || w == 2) load_elem(w == 0 ? qx : qy, m, i, q);
+  if (w == 0) {
+    cc::sqr(z1, M, t);
+    S.put(M_Z1Z1, t);
+  }
+  __syncthreads();
+  if (w == 0) {
+    S.get(M_Z1Z1, u);
+    cc::mul(q, u, M, t);
+    S.put(M_U2, t);  // u2 = qx z1z1
+  } else if (w == 1) {
+    S.get(M_Z1Z1, u);
+    cc::mul(z1, u, M, t);
+    S.put(M_Z1C, t);  // z1^3
+  }
+  __syncthreads();
+  uint32_t h[WORDS], rr[WORDS];
+  S.get(M_U2, t);
+  cc::sub(t, x1, M, h);
+  if (w == 0) {
+    cc::add(z1, h, M, t);
+    cc::sqr(t, M, t);
+    S.put(M_ZH2, t);  // (z1 + h)^2
+  } else if (w == 1) {
+    cc::sqr(h, M, t);
+    S.put(M_HH, t);
+  } else if (w == 2) {
+    S.get(M_Z1C, u);
+    cc::mul(q, u, M, t);
+    S.put(M_S2, t);  // s2 = qy z1^3
+  }
+  __syncthreads();
+  S.get(M_S2, t);
+  cc::sub(t, y1, M, t);
+  cc::dbl(t, M, rr);
+  if (w == 0) {
+    S.get(M_HH, t);
+    cc::dbl(t, M, t);
+    cc::dbl(t, M, t);
+    cc::mul(h, t, M, t);
+    S.put(M_J, t);  // j = h i
+  } else if (w == 1) {
+    S.get(M_HH, t);
+    cc::dbl(t, M, t);
+    cc::dbl(t, M, t);
+    cc::mul(x1, t, M, t);
+    S.put(M_V, t);  // v = x1 i
+  } else if (w == 2) {
+    cc::sqr(rr, M, t);
+    S.put(M_RR2, t);
+  } else {
+    S.get(M_ZH2, t);
+    S.get(M_Z1Z1, u);
+    cc::sub(t, u, M, t);
+    S.get(M_HH, u);
+    cc::sub(t, u, M, t);
+    S.put(M_Z3, t);  // z3 = (z1 + h)^2 - z1z1 - hh
+  }
+  __syncthreads();
+  if (w == 0) {
+    uint32_t v[WORDS];
+    S.get(M_RR2, t);
+    S.get(M_J, u);
+    cc::sub(t, u, M, t);
+    S.get(M_V, v);
+    cc::dbl(v, M, u);
+    cc::sub(t, u, M, t);  // x3 = rr^2 - j - 2v
+    S.put(M_X3, t);
+    cc::sub(v, t, M, t);
+    cc::mul(rr, t, M, t);
+    S.put(M_T, t);  // rr (v - x3)
+  } else if (w == 1) {
+    S.get(M_J, u);
+    cc::mul(y1, u, M, t);
+    S.put(M_W, t);  // y1 j
+  }
+  const bool p_inf = is_zero(z1);
+  const bool same = is_valid && !p_inf && is_zero(h) && is_zero(rr);
+  if (__syncthreads_or(same)) dbl_narrow(S, M_SLOTS, w, px, py, pz, m, i, M);
+  if (!active || w >= 3) return;
+  const uint32_t* p_in[3] = {px, py, pz};
+  uint32_t* out[3] = {ox, oy, oz};
+  if (!is_valid) {  // masked lane: p unchanged
+    copy_elem(p_in[w], out[w], m, idx);
+    return;
+  }
+  if (p_inf) {  // p at infinity: (qx, qy, 1)
+    if (w == 2) store_elem(oz, m, idx, C.one);
+    else copy_elem(w == 0 ? qx : qy, out[w], m, idx);
+    return;
+  }
+  if (same) {
+    S.get(M_SLOTS + D_X + w, t);
+  } else if (w == 0) {
+    S.get(M_X3, t);
+  } else if (w == 1) {
+    S.get(M_T, t);
+    S.get(M_W, u);
+    cc::dbl(u, M, u);
+    cc::sub(t, u, M, t);  // y3 = rr (v - x3) - 2 y1 j
+  } else {
+    S.get(M_Z3, t);
+  }
+  store_elem(out[w], m, idx, t);
+}
+
+enum AddSlot { A_Z1Z1, A_Z2Z2, A_Y1Z2, A_Y2Z1, A_U1, A_U2, A_S1, A_S2, A_HH, A_RR2, A_J, A_V,
+               A_X3, A_T, A_W, A_Z3, A_SLOTS };
+
+__global__ void __launch_bounds__(NARROW_THREADS)
+jac_add_narrow_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                      const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
+                      const uint32_t* __restrict__ qy, const uint32_t* __restrict__ qz,
+                      uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                      uint32_t* __restrict__ oz, int m, CurveConsts C) {
+  __shared__ uint32_t sh[A_SLOTS + D_SLOTS][WORDS][NARROW_LANES];
+  const int lane = threadIdx.x % NARROW_LANES, w = threadIdx.x / NARROW_LANES;
+  const size_t idx = static_cast<size_t>(blockIdx.x) * NARROW_LANES + lane;
+  const bool active = idx < static_cast<size_t>(m);
+  const size_t i = active ? idx : static_cast<size_t>(m) - 1;  // where to read
+  const Slots S{sh, lane};
+  const Modulus& M = C.M;
+  // every global read up front, so their latencies overlap once: z1 and z2
+  // for all, and x1, x2, y1, y2 for warps 0-3
+  uint32_t z1[WORDS], z2[WORDS], e[WORDS], t[WORDS], u[WORDS];
+  load_elem(pz, m, i, z1);
+  load_elem(qz, m, i, z2);
+  const uint32_t* own[4] = {px, qx, py, qy};
+  load_elem(own[w], m, i, e);
+  if (w == 0) {
+    cc::sqr(z1, M, t);
+    S.put(A_Z1Z1, t);
+  } else if (w == 1) {
+    cc::sqr(z2, M, t);
+    S.put(A_Z2Z2, t);
+  } else if (w == 2) {
+    cc::mul(e, z2, M, t);
+    S.put(A_Y1Z2, t);
+  } else {
+    cc::mul(e, z1, M, t);
+    S.put(A_Y2Z1, t);
+  }
+  __syncthreads();
+  if (w == 0) {
+    S.get(A_Z2Z2, u);
+    cc::mul(e, u, M, t);
+    S.put(A_U1, t);  // u1 = x1 z2z2
+  } else if (w == 1) {
+    S.get(A_Z1Z1, u);
+    cc::mul(e, u, M, t);
+    S.put(A_U2, t);  // u2 = x2 z1z1
+  } else if (w == 2) {
+    S.get(A_Y1Z2, t);
+    S.get(A_Z2Z2, u);
+    cc::mul(t, u, M, t);
+    S.put(A_S1, t);  // s1 = y1 z2 z2z2
+  } else {
+    S.get(A_Y2Z1, t);
+    S.get(A_Z1Z1, u);
+    cc::mul(t, u, M, t);
+    S.put(A_S2, t);  // s2 = y2 z1 z1z1
+  }
+  __syncthreads();
+  uint32_t h[WORDS], r[WORDS];
+  S.get(A_U2, t);
+  S.get(A_U1, u);
+  cc::sub(t, u, M, h);
+  S.get(A_S2, t);
+  S.get(A_S1, u);
+  cc::sub(t, u, M, r);
+  uint32_t zz[WORDS];
+  if (w == 0) {
+    cc::sqr(h, M, t);
+    S.put(A_HH, t);
+  } else if (w == 1) {
+    cc::mul(z1, z2, M, zz);  // kept in this warp's registers for z3
+  } else if (w == 2) {
+    cc::dbl(r, M, u);
+    cc::sqr(u, M, t);
+    S.put(A_RR2, t);  // rr^2
+  }
+  __syncthreads();
+  if (w == 0) {
+    S.get(A_HH, t);
+    cc::dbl(t, M, t);
+    cc::dbl(t, M, t);
+    cc::mul(h, t, M, t);
+    S.put(A_J, t);  // j = h i
+  } else if (w == 1) {
+    cc::dbl(zz, M, t);
+    cc::mul(t, h, M, t);
+    S.put(A_Z3, t);  // z3 = 2 z1 z2 h
+  } else if (w == 2) {
+    S.get(A_HH, t);
+    cc::dbl(t, M, t);
+    cc::dbl(t, M, t);
+    S.get(A_U1, u);
+    cc::mul(u, t, M, t);
+    S.put(A_V, t);  // v = u1 i
+  }
+  __syncthreads();
+  if (w == 0) {
+    uint32_t v[WORDS], rr[WORDS];
+    S.get(A_RR2, t);
+    S.get(A_J, u);
+    cc::sub(t, u, M, t);
+    S.get(A_V, v);
+    cc::dbl(v, M, u);
+    cc::sub(t, u, M, t);  // x3 = rr^2 - j - 2v
+    S.put(A_X3, t);
+    cc::sub(v, t, M, t);
+    cc::dbl(r, M, rr);
+    cc::mul(rr, t, M, t);
+    S.put(A_T, t);  // rr (v - x3)
+  } else if (w == 2) {
+    S.get(A_J, u);
+    S.get(A_S1, t);
+    cc::mul(t, u, M, t);
+    S.put(A_W, t);  // s1 j
+  }
+  const bool q_inf = is_zero(z2), p_inf = is_zero(z1);
+  const bool h_zero = is_zero(h), r_zero = is_zero(r);
+  const bool same = active && !q_inf && !p_inf && h_zero && r_zero;
+  if (__syncthreads_or(same)) dbl_narrow(S, A_SLOTS, w, px, py, pz, m, i, M);
+  if (!active || w >= 3) return;
+  uint32_t* out[3] = {ox, oy, oz};
+  if (q_inf || p_inf) {  // q at infinity (checked last in the reference): p; else q
+    const uint32_t* src[2][3] = {{qx, qy, qz}, {px, py, pz}};
+    copy_elem(src[q_inf][w], out[w], m, idx);
+    return;
+  }
+  if (h_zero && r_zero) {  // P == Q
+    S.get(A_SLOTS + D_X + w, t);
+  } else if (h_zero) {  // P == -Q: infinity (0, 1, 0)
+    if (w == 1) {
+      store_elem(oy, m, idx, C.one);
+    } else {
+      store_zero(out[w], m, idx);
+    }
+    return;
+  } else if (w == 0) {
+    S.get(A_X3, t);
+  } else if (w == 1) {
+    S.get(A_T, t);
+    S.get(A_W, u);
+    cc::dbl(u, M, u);
+    cc::sub(t, u, M, t);  // y3 = rr (v - x3) - 2 s1 j
+  } else {
+    S.get(A_Z3, t);
+  }
+  store_elem(out[w], m, idx, t);
+}
+
+}  // namespace
+
+// variant 0: wide (one thread per lane), 1: narrow (four warps per 32 lanes).
 extern "C" int h2t_jac_madd(const void* px, const void* py, const void* pz, const void* qx,
                             const void* qy, const void* valid, void* ox, void* oy, void* oz,
-                            void* same, int m, const void* consts, void* stream) {
+                            int m, const void* consts, int variant, void* stream) {
   const CurveConsts C = consts_from_host(static_cast<const uint32_t*>(consts));
-  const int threads = 128;
-  const int blocks = (m + threads - 1) / threads;
-  jac_madd_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto k = variant ? jac_madd_narrow_kernel : jac_madd_wide_kernel;
+  const int lanes = variant ? NARROW_LANES : WIDE_THREADS;
+  const int threads = variant ? NARROW_THREADS : WIDE_THREADS;
+  k<<<(m + lanes - 1) / lanes, threads, 0, s>>>(
       static_cast<const uint32_t*>(px), static_cast<const uint32_t*>(py),
       static_cast<const uint32_t*>(pz), static_cast<const uint32_t*>(qx),
       static_cast<const uint32_t*>(qy), static_cast<const int*>(valid),
-      static_cast<uint32_t*>(ox), static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz),
-      static_cast<int*>(same), m, C);
+      static_cast<uint32_t*>(ox), static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz), m, C);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int h2t_jac_add(const void* px, const void* py, const void* pz, const void* qx,
-                           const void* qy, const void* qz, void* ox, void* oy, void* oz,
-                           void* same, int m, const void* consts, void* stream) {
+                           const void* qy, const void* qz, void* ox, void* oy, void* oz, int m,
+                           const void* consts, int variant, void* stream) {
   const CurveConsts C = consts_from_host(static_cast<const uint32_t*>(consts));
-  const int threads = 128;
-  const int blocks = (m + threads - 1) / threads;
-  jac_add_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto k = variant ? jac_add_narrow_kernel : jac_add_wide_kernel;
+  const int lanes = variant ? NARROW_LANES : WIDE_THREADS;
+  const int threads = variant ? NARROW_THREADS : WIDE_THREADS;
+  k<<<(m + lanes - 1) / lanes, threads, 0, s>>>(
       static_cast<const uint32_t*>(px), static_cast<const uint32_t*>(py),
       static_cast<const uint32_t*>(pz), static_cast<const uint32_t*>(qx),
       static_cast<const uint32_t*>(qy), static_cast<const uint32_t*>(qz),
-      static_cast<uint32_t*>(ox), static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz),
-      static_cast<int*>(same), m, C);
+      static_cast<uint32_t*>(ox), static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz), m, C);
   return static_cast<int>(cudaGetLastError());
 }

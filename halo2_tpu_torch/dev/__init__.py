@@ -1,11 +1,7 @@
-"""The MockProver on torch tensors.  ``failures`` and ``layout`` are the
-reference's host modules; ``mock_prover`` is the port's."""
+"""The MockProver on torch tensors.  ``failures`` and ``layout`` are copies
+of the reference's host modules; ``mock_prover`` is the port's."""
 
-from .._refpath import reference_dir
-
-__path__.append(reference_dir("dev"))
-
-from .failures import (  # noqa: E402
+from .failures import (
     CellNotAssigned,
     ConstraintNotSatisfied,
     InRegion,
@@ -13,7 +9,7 @@ from .failures import (  # noqa: E402
     OutsideRegion,
     Permutation,
 )
-from .mock_prover import MockProver  # noqa: E402
+from .mock_prover import MockProver
 
 __all__ = [
     "MockProver",

@@ -9,8 +9,8 @@ the membership test on the host.  ``verify()`` returns the reference's
 structured failures (``dev/failures.py``), in the reference's order.
 
 On a CUDA device every multiply of the gate and lookup programs is a launch
-of the Montgomery kernel; on the CPU (``device=None``) the same calls run
-its plain version.  Each check brings its result back in one copy.
+of the Montgomery kernel (``device=None`` means the CUDA device); on the CPU
+(``device="cpu"``) the same calls run its plain version.  Each check brings its result back in one copy.
 
     prover = MockProver.run(k, circuit, [public_inputs], F=Fp, device="cuda")
     assert prover.verify() == []
@@ -19,8 +19,7 @@ its plain version.  Each check brings its result back in one copy.
 
 from __future__ import annotations
 
-import torch
-
+from .._device import resolve_device
 from ..field.device import get_device_field
 from ..field.host import PrimeField
 from ..plonkish.assignment import run_synthesis
@@ -41,12 +40,13 @@ class MockProver:
         self.assignment = assignment
         self.finalized = finalized
         self.F = F
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self._columns = None
         self._failures = None
 
     @classmethod
     def run(cls, k: int, circuit, instances: list, F: type[PrimeField], device=None):
+        device = resolve_device(device)
         cs, _config, assignment = run_synthesis(
             circuit, k, instances, witness=True, field=F
         )

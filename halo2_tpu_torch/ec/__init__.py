@@ -1,13 +1,9 @@
-"""Curve arithmetic: the reference's host module (``host``), and the port's
+"""Curve arithmetic: a copy of the reference's host module (``host``), and the port's
 device Jacobian ops and Pippenger MSM (``device``) with their CUDA group-law
 kernels (``cuda_jac``)."""
 
-from .._refpath import reference_dir
-
-__path__.append(reference_dir("ec"))
-
-from . import device, host  # noqa: E402
-from .device import (  # noqa: E402
+from . import device, host
+from .device import (
     is_infinity,
     jac,
     jac_add,

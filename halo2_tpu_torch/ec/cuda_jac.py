@@ -5,17 +5,20 @@ PyTorch versions, and the wrappers that pick one by the tensors' device
 The kernels (``csrc/jac.cu``) replace ``halo2_tpu/ec/pallas_jac.py``'s
 ``_madd_kernel`` (mixed Jacobian + affine add) and ``_add_kernel`` (complete
 Jacobian add).  They compute the reference's canonical formulas
-(``ec/device.py:_jac_madd_jnp`` and ``_jac_add_jnp``), so their output equals
-the plain versions here limb for limb.  A point is a dict ``{x, y, z}`` of
-``(16, *batch)`` int32 Montgomery limb tensors over BN254 Fq; z == 0 marks
-infinity.
+(``ec/device.py:_jac_madd_jnp`` and ``_jac_add_jnp``) with their P == Q
+doubling, so their output equals the plain versions here limb for limb and
+the wrappers read nothing back from the card.  A point is a dict ``{x, y,
+z}`` of ``(16, *batch)`` int32 Montgomery limb tensors over BN254 Fq; z == 0
+marks infinity.
 
-Each kernel returns the sum and a per-lane ``same`` flag (P == Q, both
-finite); :func:`_double_fixup` then applies ``jac_double`` on flagged lanes,
-behind one device -> host read of ``same.any()`` (the reference's
-``lax.cond``).  :func:`jac_madd_cuda` / :func:`jac_add_cuda` run the plain
-versions for CPU tensors and launch the kernels for CUDA tensors; there is no
-fallback between the two.  ``LAUNCHES`` counts kernel launches.
+Each kernel has two variants: ``wide`` (one thread per lane) and ``narrow``
+(four warps per 32 lanes splitting each formula's independent products);
+:func:`variant` picks one from the lane count.  The plain versions flag the
+P == Q lanes and double them in :func:`_double_fixup`, behind one device ->
+host read of ``same.any()`` (the reference's ``lax.cond``).
+:func:`jac_madd_cuda` / :func:`jac_add_cuda` run the plain versions for CPU
+tensors and launch the kernels for CUDA tensors; there is no fallback
+between the two.  ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -141,6 +144,18 @@ def jac_add_plain(p, q):
 
 
 # ------------------------------------------------------------------ wrappers
+# Up to this many lanes the narrow variant is the faster (measured on one
+# H100, PERF.md): the wide one then fills few of the 132 SMs, and its time is
+# one thread's chain of 16 (add) or 11 (madd) dependent products.
+NARROW_MAX_LANES = 1 << 13
+VARIANTS = {"wide": 0, "narrow": 1}
+
+
+def variant(m: int) -> str:
+    """The kernel variant for a call over ``m`` lanes."""
+    return "narrow" if m <= NARROW_MAX_LANES else "wide"
+
+
 @functools.lru_cache(maxsize=None)
 def _curve_consts() -> np.ndarray:
     """(17,) uint32 kernel argument: Fq's p words and n0, then R mod p."""
@@ -156,69 +171,66 @@ def _check_points(op: str, batch, points: dict) -> None:
             raise ValueError(f"{op}: {name} has batch {tuple(t.shape[1:])}, expected {tuple(batch)}")
 
 
-def _launch(kernel: str, ins, flags, batch):
-    """Launch ``kernel`` over the flattened batch: returns ``(point, same)``."""
+def _launch(kernel: str, ins, which):
+    """Launch ``kernel`` over the flattened batch of ``ins`` in variant
+    ``which`` (None: :func:`variant` of the lane count); returns the point."""
     from .. import _build
 
     x = ins[0]
     out = {k: torch.empty_like(x) for k in ("x", "y", "z")}
-    same = torch.zeros(batch, dtype=torch.int32, device=x.device)
     m = x.numel() // L
     if m:
         _build.launch(
-            kernel, x.device, *(t.data_ptr() for t in ins + flags),
-            out["x"].data_ptr(), out["y"].data_ptr(), out["z"].data_ptr(), same.data_ptr(),
-            m, _curve_consts().ctypes.data,
+            kernel, x.device, *(t.data_ptr() for t in ins),
+            out["x"].data_ptr(), out["y"].data_ptr(), out["z"].data_ptr(),
+            m, _curve_consts().ctypes.data, VARIANTS[which or variant(m)],
         )
         LAUNCHES[kernel] += 1
-    return out, same != 0
+    return out
 
 
-def jac_madd_flagged(p, qx, qy, valid):
-    """:func:`jac_madd_flagged_plain` for CPU tensors, the ``jac_madd``
-    kernel for CUDA tensors.  Contiguous int32 inputs of one batch shape;
-    ``valid`` is a bool tensor of that batch shape."""
+def jac_madd_cuda(p, qx, qy, valid):
+    """Mixed add p + (qx, qy) where ``valid`` else p, with the P == Q
+    doubling: the ``jac_madd`` kernel on CUDA tensors (its variant chosen
+    from the lane count), the plain version on CPU ones.  Contiguous int32
+    inputs of one batch shape; ``valid`` is a bool tensor of that batch
+    shape."""
+    return _jac_madd(p, qx, qy, valid)
+
+
+def _jac_madd(p, qx, qy, valid, which=None):
+    """:func:`jac_madd_cuda` in variant ``which`` (None: :func:`variant`);
+    the checks that hold every variant to the plain version force one."""
     batch = p["x"].shape[1:]
     _check_points("jac_madd", batch, {"px": p["x"], "py": p["y"], "pz": p["z"], "qx": qx, "qy": qy})
     if valid.dtype != torch.bool or tuple(valid.shape) != tuple(batch) or valid.device != qx.device:
         raise ValueError(f"jac_madd: valid must be bool {tuple(batch)} on {qx.device}")
     if qx.device.type == "cpu":
-        return jac_madd_flagged_plain(p, qx, qy, valid)
+        return jac_madd_plain(p, qx, qy, valid)
     if qx.device.type != "cuda":
         raise ValueError(f"jac_madd: unsupported device {qx.device}")
-    ins = [p["x"], p["y"], p["z"], qx, qy]
-    return _launch("jac_madd", ins, [valid.to(torch.int32)], batch)
+    ins = [p["x"], p["y"], p["z"], qx, qy, valid.to(torch.int32)]
+    return _launch("jac_madd", ins, which)
 
 
-def jac_add_flagged(p, q):
-    """:func:`jac_add_flagged_plain` for CPU tensors, the ``jac_add`` kernel
-    for CUDA tensors.  Contiguous int32 inputs of one batch shape."""
+def jac_add_cuda(p, q):
+    """Complete Jacobian add p + q, with the P == Q doubling: the
+    ``jac_add`` kernel on CUDA tensors (its variant chosen from the lane
+    count), the plain version on CPU ones.  Contiguous int32 inputs of one
+    batch shape."""
+    return _jac_add(p, q)
+
+
+def _jac_add(p, q, which=None):
+    """:func:`jac_add_cuda` in variant ``which`` (None: :func:`variant`)."""
     batch = p["x"].shape[1:]
     _check_points(
         "jac_add", batch,
         {"px": p["x"], "py": p["y"], "pz": p["z"], "qx": q["x"], "qy": q["y"], "qz": q["z"]},
     )
     if q["x"].device.type == "cpu":
-        return jac_add_flagged_plain(p, q)
+        return jac_add_plain(p, q)
     if q["x"].device.type != "cuda":
         raise ValueError(f"jac_add: unsupported device {q['x'].device}")
     ins = [p["x"], p["y"], p["z"], q["x"], q["y"], q["z"]]
-    return _launch("jac_add", ins, [], batch)
-
-
-def jac_madd_cuda(p, qx, qy, valid):
-    """Mixed add p + (qx, qy) where ``valid`` else p, with the P == Q
-    doubling: the kernel on CUDA tensors, the plain version on CPU ones."""
-    from .device import df
-
-    out, same = jac_madd_flagged(p, qx, qy, valid)
-    return _double_fixup(out, same, p, df())
-
-
-def jac_add_cuda(p, q):
-    """Complete Jacobian add: the kernel on CUDA tensors, the plain version
-    on CPU ones."""
-    from .device import df
-
-    out, same = jac_add_flagged(p, q)
-    return _double_fixup(out, same, p, df())
+    return _launch("jac_add", ins, which)

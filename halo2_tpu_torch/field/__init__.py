@@ -1,11 +1,7 @@
-"""Field arithmetic: the reference's host modules (``params``, ``host``) plus
+"""Field arithmetic: copies of the reference's host modules (``params``, ``host``) plus
 the torch :class:`DeviceField` and its CUDA Montgomery multiply."""
 
-from .._refpath import reference_dir
-
-__path__.append(reference_dir("field"))
-
-from .params import (  # noqa: E402
+from .params import (
     FieldSpec,
     LIMB_BITS,
     NUM_LIMBS,
@@ -17,8 +13,8 @@ from .params import (  # noqa: E402
     to_limbs,
     from_limbs,
 )
-from .host import PrimeField, field_class, Fp, Fr, Fq, Fq_pasta  # noqa: E402
-from .device import DeviceField, get_device_field  # noqa: E402
+from .host import PrimeField, field_class, Fp, Fr, Fq, Fq_pasta
+from .device import DeviceField, get_device_field
 
 __all__ = [
     "FieldSpec",

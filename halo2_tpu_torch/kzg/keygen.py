@@ -11,10 +11,11 @@ default branch) or the device Pippenger, chosen by the ``backend``
 argument.
 
 Keygen (``keygen_vk``/``keygen_pk``/``keygen``) takes ``device`` and
-``commit``: with a device, the fixed and sigma columns' iNTTs run there
-(the NTT kernels and the Montgomery kernel on a CUDA device), the
-reference's device branch; without one, on the native host NTT, its default
-branch.  Both give the same canonical Montgomery limbs, and the key, its
+``commit``: the fixed and sigma columns' iNTTs run on ``device`` (the CUDA
+device when None: the NTT kernels and the Montgomery kernel; ``"cpu"``:
+their plain versions), the reference's device branch, or with
+``device=NATIVE_NTT`` on the native host NTT, the reference's default
+branch.  All give the same canonical Montgomery limbs, and the key, its
 digest and its saved format are the reference's.
 """
 
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import native
+from .._device import resolve_device
 from ..ec import host as ec
 from ..field.device import get_device_field
 from ..field.params import BN254_FR
@@ -38,6 +40,8 @@ from ..plonkish.expression import Constant, Expression, Query
 from ..poly.domain import EvaluationDomain, get_domain
 
 FR = BN254_FR
+# keygen's ``device`` for the native host NTT (the reference's default branch)
+NATIVE_NTT = "native"
 
 
 # ------------------------------------------------------------------ structure
@@ -441,21 +445,30 @@ def to_host_limbs(arrays) -> np.ndarray:
 
 
 def commit_lagrange(params, domain: EvaluationDomain, values_host: list, device=None, commit="native"):
-    """Commit a column given in Lagrange form: iNTT on ``device`` (the CPU
-    when None), then the MSM on ``commit``'s backend."""
-    evals = get_device_field(FR).encode(values_host, device=device)
+    """Commit a column given in Lagrange form: iNTT on ``device`` (the CUDA
+    device when None), then the MSM on ``commit``'s backend."""
+    evals = get_device_field(FR).encode(values_host, device=resolve_device(device))
     return commit_coeffs_batch(params, [domain.lagrange_to_coeff(evals)], backend=commit)[0]
+
+
+def _keygen_device(device):
+    """Keygen's ``device``: NATIVE_NTT as given, else a torch device (the
+    CUDA device when None)."""
+    return NATIVE_NTT if device == NATIVE_NTT else resolve_device(device)
 
 
 def _intt_columns(domain, values_lists, device=None):
     """Column value lists -> stacked (F, 16, n) Montgomery coefficient limbs.
 
-    Without a device, the native C++ NTT (host numpy uint32, the reference's
-    default branch); with one (or with no native engine), an int32 tensor on
-    that device (the CPU when None): the columns are uploaded in one copy
-    and each goes through ``domain.lagrange_to_coeff``."""
+    With ``device=NATIVE_NTT``, the native C++ NTT (host numpy uint32, the
+    reference's default branch); with a torch device, an int32 tensor on
+    that device: the columns are uploaded in one copy and each goes through
+    ``domain.lagrange_to_coeff``."""
+    device = _keygen_device(device)
     n = domain.n
-    if device is None and native.available():
+    if device == NATIVE_NTT:
+        if not native.available():
+            raise RuntimeError("device='native' needs the native host engine (no C++ compiler)")
         if not values_lists:
             return np.zeros((0, 16, n), np.uint32)
         cols = []
@@ -463,7 +476,6 @@ def _intt_columns(domain, values_lists, device=None):
             c = native.ntt_fr(native.pack_ints([int(v) % FR.p for v in vals]), inverse=True)
             cols.append(native.unpack_device(native.to_mont(c, "fr")))
         return np.stack(cols)
-    device = torch.device(device or "cpu")
     if not values_lists:
         return torch.zeros((0, 16, n), dtype=torch.int32, device=device)
     flat = get_device_field(FR).encode([v for vals in values_lists for v in vals], device=device)
@@ -471,7 +483,7 @@ def _intt_columns(domain, values_lists, device=None):
     return torch.stack([domain.lagrange_to_coeff(evals[:, i].contiguous()) for i in range(len(values_lists))])
 
 
-def _synthesize_columns(circuit, k: int, F, device=None):
+def _synthesize_columns(circuit, k: int, F, device):
     """Witness-free synthesis -> (structure, fixed/sigma value lists, coeffs).
 
     The shared body of keygen_vk / keygen_pk (halo2 runs this synthesis once
@@ -492,8 +504,8 @@ def _synthesize_columns(circuit, k: int, F, device=None):
 def _check_commit(device, commit: str) -> None:
     if commit not in ("native", "device"):
         raise ValueError(f"commit must be 'native' or 'device', got {commit!r}")
-    if commit == "device" and device is None:
-        raise ValueError("commit='device' needs a device for the coefficients")
+    if commit == "device" and device == NATIVE_NTT:
+        raise ValueError("commit='device' needs a torch device for the coefficients")
 
 
 def _vk_from_coeffs(params, k, structure, nfixed, fixed_coeffs, sigma_coeffs, commit="native"):
@@ -521,7 +533,6 @@ def _proving_key(vk, fixed_values, sigma_values, fixed_coeffs, sigma_coeffs, dev
         return ProvingKey(vk, fixed_values, sigma_values, fixed_coeffs, sigma_coeffs)
     host = [t.cpu().numpy().view(np.uint32) for t in (fixed_coeffs, sigma_coeffs)]
     pk = ProvingKey(vk, fixed_values, sigma_values, *host)
-    device = torch.device(device or "cpu")
     pk._torch_coeffs = {("fixed", device): fixed_coeffs, ("sigma", device): sigma_coeffs}
     return pk
 
@@ -529,6 +540,7 @@ def _proving_key(vk, fixed_values, sigma_values, fixed_coeffs, sigma_coeffs, dev
 def keygen_vk(params, circuit, k: int, F, device=None, commit="native") -> VerifyingKey:
     """Verifying key alone: synthesis, fixed/sigma iNTTs, commitments, digest
     (halo2 `keygen_vk`)."""
+    device = _keygen_device(device)
     _check_commit(device, commit)
     structure, fixed_values, _sv, fixed_coeffs, sigma_coeffs = _synthesize_columns(
         circuit, k, F, device
@@ -542,6 +554,7 @@ def keygen_pk(params, vk: VerifyingKey, circuit, k: int, F, device=None) -> Prov
     """Proving key from an existing vk: re-synthesizes and rebuilds the
     fixed/sigma polynomials (halo2 `keygen_pk` re-runs synthesis the same
     way).  It commits nothing."""
+    device = _keygen_device(device)
     _st, fixed_values, sigma_values, fixed_coeffs, sigma_coeffs = _synthesize_columns(
         circuit, k, F, device
     )
@@ -551,6 +564,7 @@ def keygen_pk(params, vk: VerifyingKey, circuit, k: int, F, device=None) -> Prov
 def keygen(params, circuit, k: int, F, device=None, commit="native") -> ProvingKey:
     """vk + pk in one pass (synthesis and iNTTs shared; the split entry
     points above are halo2's API, which full_prover times)."""
+    device = _keygen_device(device)
     _check_commit(device, commit)
     structure, fixed_values, sigma_values, fixed_coeffs, sigma_coeffs = _synthesize_columns(
         circuit, k, F, device

@@ -3,8 +3,8 @@
 The SRS stays host numpy, as in the reference: ``g1_x``/``g1_y`` are
 (16, n) uint32 Montgomery limbs over BN254 Fq, read by the native host MSM.
 ``load`` reads the reference's pickles (numpy arrays and ints only).
-``setup`` computes G * tau^i on the host for n <= 4096 or a CPU device, and
-otherwise takes the reference's device branch: one batched double-and-add
+``setup`` computes G * tau^i on the host for n <= 4096 or ``device="cpu"``,
+and otherwise takes the reference's device branch: one batched double-and-add
 over the 256 bit rows of the powers (:func:`..ec.device.scalar_mul_batched`,
 the ``jac_add`` and ``mont_sqr`` kernels), then ``jac_to_affine``.
 """
@@ -18,6 +18,7 @@ import random
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..ec import host as ec
 from ..field.device import get_device_field
 from ..field.params import BN254_FQ, BN254_FR
@@ -58,10 +59,10 @@ class ParamsKZG:
 
     @classmethod
     def setup(cls, k: int, seed: int = 0xD15C0, device=None):
-        """The seeded SRS; G * tau^i on ``device`` (the CPU when None) when
-        it is not the CPU and n > 4096, on the host otherwise."""
+        """The seeded SRS; G * tau^i on ``device`` (the CUDA device when
+        None) when it is not the CPU and n > 4096, on the host otherwise."""
         n = 1 << k
-        device = torch.device(device or "cpu")
+        device = resolve_device(device)
         rng = random.Random(seed)
         tau = rng.randrange(1, ec.R)
         powers = [1] * n
@@ -97,15 +98,16 @@ class ParamsKZG:
         return cls(data["k"], data["g1_x"], data["g1_y"], g2, s_g2)
 
     @classmethod
-    def setup_cached(cls, k: int, seed: int = 0xD15C0, cache_dir: str = None):
+    def setup_cached(cls, k: int, seed: int = 0xD15C0, cache_dir: str = None, device=None):
         """Load ``<cache_dir>/kzg_bn254_k{k}_s{seed}.pkl`` (the repo's ``.srs/``
-        by default, shared with the reference), or set up and save it."""
+        by default, shared with the reference), or set up on ``device`` and
+        save it."""
         cache_dir = cache_dir or os.path.join(os.path.dirname(__file__), "..", "..", ".srs")
         os.makedirs(cache_dir, exist_ok=True)
         path = os.path.join(cache_dir, f"kzg_bn254_k{k}_s{seed}.pkl")
         if os.path.exists(path):
             return cls.load(path)
-        params = cls.setup(k, seed)
+        params = cls.setup(k, seed, device)
         params.save(path)
         return params
 

@@ -25,6 +25,7 @@ from collections import Counter
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..field.params import BN254_FR
 from ..plonkish.assignment import run_synthesis
 from ..plonkish.column import Column, ColumnKind, Rotation
@@ -63,11 +64,11 @@ def create_proof(
     params, pk: ProvingKey, circuit, instances, rng=None, device=None, commit="native"
 ) -> bytes:
     """halo2 `create_proof` (reference src/circuits/utils.rs:40-48) with the
-    row-axis work on ``device`` (a torch device; the CPU when None) and the
+    row-axis work on ``device`` (a torch device; the CUDA device when None) and the
     commitments on the native host Pippenger (``commit="native"``) or the
     device Pippenger on ``device`` (``commit="device"``)."""
     rng = rng or _random.Random()
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
     t = time.perf_counter()
     st = pk.vk.structure
     cs, k, n, u = st.cs, st.k, st.n, st.u

@@ -1,14 +1,10 @@
-"""The reference's PLONKish frontend, re-exported; ``evaluator`` is the port's."""
+"""A copy of the reference's PLONKish frontend; ``evaluator`` is the port's."""
 
-from .._refpath import reference_dir
-
-__path__.append(reference_dir("plonkish"))
-
-from .column import Column, ColumnKind, Rotation, Selector  # noqa: E402
-from .expression import Constant, Expression, Query, SelectorExpr, VirtualCells  # noqa: E402
-from .value import Value  # noqa: E402
-from .cs import ConstraintSystem, Gate, Lookup  # noqa: E402
-from .assignment import (  # noqa: E402
+from .column import Column, ColumnKind, Rotation, Selector
+from .expression import Constant, Expression, Query, SelectorExpr, VirtualCells
+from .value import Value
+from .cs import ConstraintSystem, Gate, Lookup
+from .assignment import (
     AssignedCell,
     Assignment,
     BoundsError,
@@ -18,7 +14,7 @@ from .assignment import (  # noqa: E402
     SynthesisError,
     run_synthesis,
 )
-from .circuit import Circuit  # noqa: E402
+from .circuit import Circuit
 
 __all__ = [
     "Column",

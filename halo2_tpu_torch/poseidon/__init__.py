@@ -1,12 +1,8 @@
-"""Poseidon: the reference's grain constants, the host sponge and the batched
+"""Poseidon: a copy of the reference's grain constants, the host sponge and the batched
 device sponge (``permute_device``/``hash_device``) on torch tensors."""
 
-from .._refpath import reference_dir
-
-__path__.append(reference_dir("poseidon"))
-
-from .grain import Grain, generate_constants  # noqa: E402
-from .primitives import (  # noqa: E402
+from .grain import Grain, generate_constants
+from .primitives import (
     ConstantLength,
     Hash,
     MySpec,

@@ -122,28 +122,41 @@ def _points(m, device):
     return p, q, qx, qy, valid
 
 
+@pytest.fixture
+def flag_reads(monkeypatch):
+    """Counts calls of the plain versions' P == Q fix-up, each one device ->
+    host read; the CUDA path must make none."""
+    calls = []
+    orig = cuda_jac._double_fixup
+
+    def counted(*args):
+        calls.append(1)
+        return orig(*args)
+
+    monkeypatch.setattr(cuda_jac, "_double_fixup", counted)
+    return calls
+
+
 @pytest.mark.parametrize("m", [8, 513, 4096])
-def test_jac_kernels_match_plain(device, m):
+def test_jac_kernels_match_plain(device, m, flag_reads):
     p, q, qx, qy, valid = _points(m, device)
     before = dict(cuda_jac.LAUNCHES)
-    for got, want in (
-        (cuda_jac.jac_madd_flagged(p, qx, qy, valid), cuda_jac.jac_madd_flagged_plain(p, qx, qy, valid)),
-        (cuda_jac.jac_add_flagged(p, q), cuda_jac.jac_add_flagged_plain(p, q)),
-    ):
+    for which in cuda_jac.VARIANTS:
+        got_madd = cuda_jac._jac_madd(p, qx, qy, valid, which)
+        got_add = cuda_jac._jac_add(p, q, which)
         torch.cuda.synchronize(device)
-        assert torch.equal(got[1], want[1])
-        assert got[1][:4].tolist() == [True, False, False, False]
+        assert flag_reads == [], which
+        want_madd = cuda_jac.jac_madd_plain(p, qx, qy, valid)
+        want_add = cuda_jac.jac_add_plain(p, q)
         for k in ("x", "y", "z"):
-            assert torch.equal(got[0][k], want[0][k]), k
-    full = cuda_jac.jac_add_cuda(p, q)
-    plain = cuda_jac.jac_add_plain(p, q)
-    for k in full:
-        assert torch.equal(full[k], plain[k]), k
-    assert cuda_jac.LAUNCHES["jac_madd"] == before["jac_madd"] + 1
-    assert cuda_jac.LAUNCHES["jac_add"] == before["jac_add"] + 2
+            assert torch.equal(got_madd[k], want_madd[k]), (which, k)
+            assert torch.equal(got_add[k], want_add[k]), (which, k)
+        flag_reads.clear()
+    assert cuda_jac.LAUNCHES["jac_madd"] == before["jac_madd"] + len(cuda_jac.VARIANTS)
+    assert cuda_jac.LAUNCHES["jac_add"] == before["jac_add"] + len(cuda_jac.VARIANTS)
 
 
-def test_msm_points_matches_native(device):
+def test_msm_points_matches_native(device, flag_reads):
     n = 1 << 12
     rng = random.Random(12)
     px, py, x, y = _srs(n, device)
@@ -154,3 +167,18 @@ def test_msm_points_matches_native(device):
     assert got == want
     assert cuda_jac.LAUNCHES["jac_madd"] > before["jac_madd"]
     assert cuda_jac.LAUNCHES["jac_add"] > before["jac_add"]
+    assert flag_reads == []
+
+
+def test_entry_points_default_to_the_card(device):
+    from halo2_tpu_torch._device import resolve_device
+    from halo2_tpu_torch.circuits.less_than import LessThanCircuit
+    from halo2_tpu_torch.dev import MockProver
+    from halo2_tpu_torch.field import Fp
+    from halo2_tpu_torch.plonkish import Value
+
+    assert resolve_device(None).type == "cuda"
+    circuit = LessThanCircuit(Fp, Value.known(Fp.from_u64(3)))
+    prover = MockProver.run(10, circuit, [[Fp.from_u64(i) for i in range(754)]], F=Fp)
+    assert prover.device.type == "cuda"
+    assert prover.verify() == []

@@ -186,13 +186,23 @@ def test_plain_group_ops_match_pallas_kernels_as_points(interpret_pallas, name):
 def test_group_op_wrappers_check_inputs():
     p, qx, qy, valid = _case("madd")[1]
     with pytest.raises(ValueError):  # valid must be bool of the batch shape
-        cuda_jac.jac_madd_flagged(p, qx, qy, valid.to(torch.int32))
+        cuda_jac.jac_madd_cuda(p, qx, qy, valid.to(torch.int32))
     with pytest.raises(ValueError):  # batch mismatch
-        cuda_jac.jac_madd_flagged(p, qx[:, :4].contiguous(), qy[:, :4].contiguous(), valid[:4])
+        cuda_jac.jac_madd_cuda(p, qx[:, :4].contiguous(), qy[:, :4].contiguous(), valid[:4])
     with pytest.raises(ValueError):  # not contiguous
-        cuda_jac.jac_add_flagged(p, {k: v.flip(1).t().contiguous().t() for k, v in p.items()})
+        cuda_jac.jac_add_cuda(p, {k: v.flip(1).t().contiguous().t() for k, v in p.items()})
     with pytest.raises(TypeError):
-        cuda_jac.jac_add_flagged(p, {k: v.to(torch.int64) for k, v in p.items()})
+        cuda_jac.jac_add_cuda(p, {k: v.to(torch.int64) for k, v in p.items()})
+
+
+@pytest.mark.parametrize(
+    "m, want",
+    [(1, "narrow"), (128, "narrow"), (2816, "narrow"), (cuda_jac.NARROW_MAX_LANES, "narrow"),
+     (cuda_jac.NARROW_MAX_LANES + 1, "wide"), (180224, "wide"), (1 << 20, "wide")],
+)
+def test_kernel_variant_is_chosen_from_the_lane_count(m, want):
+    assert cuda_jac.variant(m) == want
+    assert set(cuda_jac.VARIANTS) == {"narrow", "wide"}
 
 
 def test_double_and_scalar_mul_match_host():
@@ -260,7 +270,7 @@ def test_msm_points_matches_reference_jax():
 
 def test_setup_device_branch_matches_host():
     k = 4
-    params = ParamsKZG.setup(k)  # n = 16: the host branch
+    params = ParamsKZG.setup(k, device="cpu")  # n = 16: the host branch
     with open(os.path.join(ROOT, ".srs", f"kzg_bn254_k{k}_s857536.pkl"), "rb") as f:
         saved = pickle.load(f)
     assert np.array_equal(params.g1_x, saved["g1_x"])

@@ -1,10 +1,12 @@
-"""The port imports without JAX, as it must on the machine with the card.
+"""The port stands alone and imports without JAX, as it must on the machine
+with the card.
 
 A subprocess blocks ``jax`` (``sys.modules["jax"] = None``) and imports every
-module of the ported slice, the flagship circuit and chip_smoke.py.  JAX must
-never load, the reference package ``halo2_tpu`` must never be imported under
-its own name, and every module that resolves to a file under ``halo2_tpu/``
-(the port's ``__path__`` scheme) must be one that holds no JAX code.
+module of the port, the flagship circuit and chip_smoke.py.  JAX must never
+load, the reference package ``halo2_tpu`` must never be imported, and every
+``halo2_tpu_torch`` module's file and every ``__path__`` entry of its
+packages must lie under ``halo2_tpu_torch/``: the port keeps its own copies
+of the reference's host modules.
 """
 
 import json
@@ -14,7 +16,6 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REF_DIR = os.path.join(ROOT, "halo2_tpu")
 PORT_DIR = os.path.join(ROOT, "halo2_tpu_torch")
 JAX_IMPORT = re.compile(r"^\s*(import jax|from jax)\b", re.M)
 
@@ -65,18 +66,20 @@ SLICE_MODULES = [
 ]
 
 _PROBE = r"""
-import importlib, json, os, sys
+import importlib, json, os, pkgutil, sys
 sys.modules["jax"] = None
-for name in json.loads(sys.argv[1]):
+import halo2_tpu_torch
+names = json.loads(sys.argv[1])
+walk = pkgutil.walk_packages(halo2_tpu_torch.__path__, "halo2_tpu_torch.")
+names += [m.name for m in walk if "._engine_" not in m.name]  # not the native engine's library
+for name in names:
     importlib.import_module(name)
 loaded = [k for k, v in sys.modules.items() if v is not None and (k == "jax" or k.startswith("jax."))]
 ref = [k for k in sys.modules if k == "halo2_tpu" or k.startswith("halo2_tpu.")]
-files = {
-    k: os.path.abspath(m.__file__)
-    for k, m in list(sys.modules.items())
-    if k.startswith("halo2_tpu_torch") and getattr(m, "__file__", None)
-}
-print(json.dumps({"jax": loaded, "reference_package": ref, "files": files}))
+port = {k: m for k, m in list(sys.modules.items()) if k.startswith("halo2_tpu_torch")}
+files = {k: os.path.abspath(m.__file__) for k, m in port.items() if getattr(m, "__file__", None)}
+paths = {k: [os.path.abspath(p) for p in m.__path__] for k, m in port.items() if hasattr(m, "__path__")}
+print(json.dumps({"jax": loaded, "reference_package": ref, "files": files, "paths": paths}))
 """
 
 
@@ -89,19 +92,17 @@ def test_slice_imports_without_jax():
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["jax"] == []
     assert out["reference_package"] == []
-    resolved = {k: f for k, f in out["files"].items() if f.startswith(REF_DIR + os.sep)}
-    assert "halo2_tpu_torch.circuits.merkle_sum_tree" in resolved
-    assert "halo2_tpu_torch.kzg.verifier" in resolved
-    assert "halo2_tpu_torch.dev.failures" in resolved
-    assert "halo2_tpu_torch.circuits.utils" in resolved
-    for name, path in resolved.items():
-        with open(path) as f:
-            assert not JAX_IMPORT.search(f.read()), f"{name} resolves to JAX-bearing {path}"
+    assert len(out["files"]) > 80
+    outside = {k: f for k, f in out["files"].items() if not f.startswith(PORT_DIR + os.sep)}
+    assert outside == {}
+    outside = {k: p for k, ps in out["paths"].items() for p in ps if not (p + os.sep).startswith(PORT_DIR + os.sep)}
+    assert outside == {}
     for name in (
-        "halo2_tpu_torch.field.device",
-        "halo2_tpu_torch.ec.device",
-        "halo2_tpu_torch.kzg.prover",
-        "halo2_tpu_torch.dev.mock_prover",
+        "halo2_tpu_torch.circuits.merkle_sum_tree",
+        "halo2_tpu_torch.kzg.verifier",
+        "halo2_tpu_torch.dev.failures",
+        "halo2_tpu_torch.circuits.utils",
+        "halo2_tpu_torch.native",
     ):
         assert out["files"][name].startswith(PORT_DIR + os.sep)
 

@@ -4,11 +4,10 @@ Each circuit is built twice, once from each package's own classes.  The
 reference's ``keygen`` (its native host NTT and MSM) gives the key; the
 port's ``keygen_vk``/``keygen_pk``/``keygen`` must give the same saved dict
 (digest, commitments, fixed and sigma values and coefficients) on both of
-its iNTT branches: the native host NTT (``device=None``) and the torch NTT
-on a device (``device="cpu"``: the NTT and Montgomery kernels' plain
+its iNTT branches: the native host NTT (``device="native"``) and the torch
+NTT on a device (``device="cpu"``: the NTT and Montgomery kernels' plain
 versions), and with either commit backend.  The port's ``full_prover``
-(``circuits/utils.py``, loaded from the reference under the port's name)
-must return the reference's proof bytes.
+(its copy of ``circuits/utils.py``) must return the reference's proof bytes.
 """
 
 import os
@@ -58,7 +57,7 @@ def reference_keys(tmp_path_factory):
     return out
 
 
-@pytest.mark.parametrize("device", [None, "cpu"], ids=["native-ntt", "torch-ntt"])
+@pytest.mark.parametrize("device", ["native", "cpu"], ids=["native-ntt", "torch-ntt"])
 @pytest.mark.parametrize("vector", list(VECTORS))
 def test_keygen_matches_reference(reference_keys, vector, device):
     build, k = VECTORS[vector]
@@ -76,7 +75,7 @@ def test_keygen_matches_reference(reference_keys, vector, device):
     assert vk.digest == want["digest"]
     _assert_same_key(split.to_saved(), want)
 
-    if device is not None:
+    if device != "native":
         # the coefficients computed on the device seed the engine's cache
         for which, host in (("fixed", pk.fixed_coeffs), ("sigma", pk.sigma_coeffs)):
             cached = pk._torch_coeffs[(which, torch.device(device))]
@@ -92,19 +91,19 @@ def test_device_commit_backend_gives_the_same_points(reference_keys):
     vk = port_kzg.keygen_vk(params, circuit, 4, port_field.Fr, device="cpu", commit="device")
     assert vk.digest == pk.vk.digest
     with pytest.raises(ValueError):
-        port_kzg.keygen(params, circuit, 4, port_field.Fr, commit="device")
+        port_kzg.keygen(params, circuit, 4, port_field.Fr, device="native", commit="device")
     with pytest.raises(ValueError):
         port_kzg.keygen_vk(params, circuit, 4, port_field.Fr, device="cpu", commit="gpu")
 
 
-@pytest.mark.parametrize("device", [None, "cpu"], ids=["default", "cpu"])
-def test_commit_lagrange_is_the_fixed_commitment(device):
+@pytest.mark.parametrize("keygen_device", ["native", "cpu"], ids=["native-keygen", "cpu"])
+def test_commit_lagrange_is_the_fixed_commitment(keygen_device):
     circuit, _ = _hash_v1(PORT)
     params = port_kzg.ParamsKZG.setup_cached(4)
-    pk = port_kzg.keygen(params, circuit, 4, port_field.Fr)
+    pk = port_kzg.keygen(params, circuit, 4, port_field.Fr, device=keygen_device)
     domain = pk.vk.structure.domain
     for values, point in zip(pk.fixed_values, pk.vk.fixed_commitments):
-        got = commit_lagrange(params, domain, values, device=device)
+        got = commit_lagrange(params, domain, values, device="cpu")
         assert got == point
 
 
@@ -127,7 +126,7 @@ def test_full_prover_matches_reference(capsys):
     ref_circuit, ref_public = _hash_v1(REF)
     want, ref_ok, _ = ref_utils.full_prover(ref_circuit, 4, ref_public, rng=random.Random(42))
     circuit, public = _hash_v1(PORT)
-    got, ok, times = port_utils.full_prover(circuit, 4, public, rng=random.Random(42))
+    got, ok, times = port_utils.full_prover(circuit, 4, public, rng=random.Random(42), device="cpu")
     assert ref_ok and ok
     assert got == want
     assert set(times) == {"vk", "pk", "prove", "verify"}

@@ -150,7 +150,7 @@ def test_vectors_cover_every_failure_kind():
     "vector", ["merkle_sum_tree-k10-non_binary_index", "overflow_check-k4-overflow"]
 )
 def test_gate_checker_mask_matches_reference(vector):
-    ref_prover, port_prover = _run(REF, vector), _run(PORT, vector)
+    ref_prover, port_prover = _run(REF, vector), _run(PORT, vector, device="cpu")
     spec = ref_prover.F.SPEC
     ref_df = ref_device_field(spec)
     ref_fn, ref_meta = ref_gate_checker(ref_prover.cs, ref_df)

@@ -109,7 +109,7 @@ def test_proof_bytes_match_reference(tmp_path, build, k, seed, tamper, commit):
     pk = PortProvingKey.load(path, circuit, k, port_field.Fr)
     assert pk.vk.digest == ref_pk.vk.digest
     got = port_kzg.create_proof(
-        params, pk, circuit, [list(public)], rng=random.Random(seed), commit=commit
+        params, pk, circuit, [list(public)], rng=random.Random(seed), device="cpu", commit=commit
     )
 
     assert got == want
