@@ -17,11 +17,18 @@ passes or raises:
    variant switch) on BN254 G1 points with z != 1, with the exception lanes
    first (P == Q, P == -Q, P at infinity, Q at infinity, a masked mixed-add
    lane), reading no P == Q flag back, and each variant's device time per
-   launch at every m >= 32 on operands without those lanes; the NTT stage kernels at n in {2^9, 2^11, 2^15,
-   2^20}, forward and inverse, and iNTT(NTT(x)) == x; at 2^11, 2^15 and
-   2^20 the time per call of kernel and plain version (CUDA events around
-   back-to-back calls) and each kernel's device time per launch
-   (torch.profiler);
+   launch at every m >= 32 on operands without those lanes; the NTT stage
+   kernels for BN254 Fr (carry-chain arithmetic) and Pasta Fp (64-bit
+   accumulators),
+   forward and inverse, on batches of C columns (C in {1, 3, 83} at n in
+   {2^11, 2^15}, C = 1 at 2^9 and 2^20; 83 is the flagship's coset batch),
+   and the batched iNTT(NTT(x)) == x; each NTT kernel's device time per
+   launch and per column with its share of the C-scaled bound at 2^11,
+   2^15 and 2^20 (C = 1) and the 2^15 batch of 83 (there also per call
+   with CUDA events, to check the profiler); at 2^11, 2^15 and 2^20 the time
+   per call of kernel and plain version (CUDA events around back-to-back
+   calls) and each kernel's device time per launch (torch.profiler; a
+   reading below the kernel's bound is taken again, then fails);
 3. the device MSM: msm_points at 2^16 (the k = 16 SRS, random.Random(42)
    scalars) and 2^20 (that SRS and random.Random(9) scalars tiled 16 times)
    equals the native host MSM on the same arrays; the time of each (median
@@ -83,8 +90,13 @@ MUL_SIZES = (1, 511, 513, 1 << 11, 1 << 15, 1 << 20)
 # (ec/cuda_jac.py:NARROW_MAX_LANES), the bucket rounds' 180,224 (2^16 MSM),
 # and 2^20
 JAC_SIZES = (1, 32, 128, 2816, 1 << 11, 1 << 13, 1 << 14, 1 << 15, 180224, 1 << 20)
-NTT_SIZES = (1 << 9, 1 << 11, 1 << 15, 1 << 20)
 TIMED_SIZES = (1 << 11, 1 << 15, 1 << 20)
+# the coset NTT batch of the flagship prove: 20 advice, 11 fixed, 7 selector,
+# 1 instance, 4 permutation z, 24 lookup and 16 sigma columns
+FLAGSHIP_C = 83
+# (columns, n) of the NTT kernels' checks, and those timed
+NTT_CASES = tuple((c, n) for c in (1, 3, FLAGSHIP_C) for n in (1 << 11, 1 << 15)) + ((1, 1 << 9), (1, 1 << 20))
+NTT_TIMED = tuple((1, n) for n in TIMED_SIZES) + ((FLAGSHIP_C, 1 << 15),)
 REPORT_SIZE = 1 << 15  # the flagship's extended domain: the ms in the JSON line
 
 
@@ -109,33 +121,44 @@ def _ms_per_call(fn, calls: int, runs: int = 5) -> float:
     return statistics.median(times)
 
 
-def _kernel_device_ms(fn, symbol: str, calls: int = 20, tries: int = 3) -> float:
-    """Device time of one launch of the kernel whose name contains ``symbol``,
-    from torch.profiler's per-kernel sums over ``calls`` calls of fn(): the
-    mean over the launches the profiler recorded.  It can drop a few, and
-    on some runs all of them: then it profiles again, and after ``tries``
-    empty profiles the time is not measured (nan)."""
+def _kernel_device_ms(fn, symbol: str, bound_ms: float, calls: int = 20, tries: int = 3) -> float:
+    """Device time of one launch of the kernel whose name contains ``symbol``:
+    the median, over the launches that torch.profiler recorded in ``calls``
+    calls of fn(), of each launch's own start-to-end interval on the card.
+    A profile that recorded no launch, more than ``calls``, or a median below
+    ``bound_ms`` (the least time the card could take, so not a time) is
+    printed with every matching event and taken again; after ``tries`` such
+    profiles it raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for attempt in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total_us, count = 0.0, 0
-        for e in prof.key_averages():
-            if symbol in e.key and e.device_type == torch.autograd.DeviceType.CUDA:
-                total_us += e.self_device_time_total
-                count += e.count
-        if count > calls:
-            raise AssertionError(f"profiler saw {count} launches of {symbol} in {calls} calls")
-        if count:
-            return total_us / count / 1e3
-    print(f"[kernels] the profiler recorded no launch of {symbol} in {tries} tries", flush=True)
-    return float("nan")
+        launches = [
+            e for e in prof.events() if symbol in e.name and e.device_type == torch.autograd.DeviceType.CUDA
+        ]
+        us = sorted(e.time_range.elapsed_us() for e in launches)
+        self_us = sum(e.self_device_time_total for e in launches)  # what key_averages() sums
+        if us and abs(self_us - sum(us)) > 0.05 * sum(us):
+            print(
+                f"[kernels] {symbol}: key_averages() would read {self_us / sum(us):.0%} of the launches' "
+                f"intervals ({sum(e.is_async for e in launches)} of {len(us)} events marked async)",
+                flush=True,
+            )
+        if 0 < len(us) <= calls and statistics.median(us) / 1e3 >= bound_ms:
+            return statistics.median(us) / 1e3
+        print(
+            f"[kernels] profile {attempt} of {symbol} set aside: {len(us)} launches in {calls} calls, "
+            f"bound {bound_ms:.6f} ms; events (name, async, us): "
+            + "; ".join(f"{e.name[:60]}, {e.is_async}, {e.time_range.elapsed_us()}" for e in launches),
+            flush=True,
+        )
+    raise AssertionError(f"{symbol}: no profile of {calls} calls gave a device time in {tries} tries")
 
 
 def _max_abs_err(name: str, got, want) -> float:
@@ -234,12 +257,12 @@ def _sass_counts(library) -> dict:
     return {k: tuple(v) for k, v in counts.items()}
 
 
-def _time_kernel(name, symbol, m, kernel, plain, times, plain_calls=3):
+def _time_kernel(name, symbol, m, kernel, plain, times, bound_ms, plain_calls=3):
     """Time per call of kernel and plain version at m lanes, and the
     kernel's device time per launch; record and print them."""
     t_k = _ms_per_call(kernel, 50)
     t_p = _ms_per_call(plain, plain_calls, runs=3)
-    t_d = _kernel_device_ms(kernel, symbol)
+    t_d = _kernel_device_ms(kernel, symbol, bound_ms)
     times[(name, m)] = (t_k, t_p)
     print(
         f"[kernels] {name} m={m}: kernel {t_k:.4f} ms per call ({t_d:.4f} ms on the "
@@ -255,8 +278,6 @@ def phase_kernels(device):
     from halo2_tpu_torch.field.cuda_mul import mont_mul, mont_mul_plain, mont_sqr, mont_sqr_plain
     from halo2_tpu_torch.field.device import get_device_field
     from halo2_tpu_torch.field.params import BN254_FQ, BN254_FR, PASTA_FP
-    from halo2_tpu_torch.poly import cuda_ntt
-    from halo2_tpu_torch.poly.domain import _ntt_raw, twiddle_table
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0x5EED)
@@ -281,7 +302,7 @@ def phase_kernels(device):
             if spec is BN254_FR and m in TIMED_SIZES:
                 t_k = _ms_per_call(lambda: mont_mul(spec, a, b), 50)
                 t_p = _ms_per_call(lambda: mont_mul_plain(spec, a, b), 3, runs=3)
-                t_d = _kernel_device_ms(lambda: mont_mul(spec, a, b), "mont_mul_kernel")
+                t_d = _kernel_device_ms(lambda: mont_mul(spec, a, b), "mont_mul_kernel", _bound(*_field_work(m)["mont_mul"])[0])
                 times[("mont_mul", m)] = (t_k, t_p)
                 print(
                     f"[kernels] mont_mul bn254_fr m={m}: kernel {t_k:.4f} ms per call "
@@ -294,60 +315,14 @@ def phase_kernels(device):
             if spec is BN254_FR and m in TIMED_SIZES:
                 _time_kernel(
                     "mont_sqr", "mont_sqr_kernel", m, lambda: mont_sqr(spec, a),
-                    lambda: mont_sqr_plain(spec, a), times,
+                    lambda: mont_sqr_plain(spec, a), times, _bound(*_field_work(m)["mont_sqr"])[0],
                 )
         print(f"[kernels] mont_mul, mont_sqr {spec.name}: equal to plain at m={list(MUL_SIZES)}", flush=True)
 
     classes = _check_jac_kernels(device, err, times)
 
-    spec = BN254_FR
-    for n in NTT_SIZES:
-        x = _random_field(spec, (n,), gen, device)
-        for inverse in (False, True):
-            tw = twiddle_table(spec, n, inverse, device)
-            small = cuda_ntt.ntt_small_stages(spec, x, tw)
-            err["ntt_small_stages"] = max(
-                err["ntt_small_stages"],
-                _max_abs_err(f"ntt_small_stages n={n} inv={inverse}", small,
-                             cuda_ntt.ntt_small_stages_plain(spec, x, tw)),
-            )
-            y_k, y_p = small, small
-            m = cuda_ntt.TILE
-            while m < n:
-                step_k = cuda_ntt.ntt_large_stage(spec, y_k, tw, m)
-                err["ntt_large_stage"] = max(
-                    err["ntt_large_stage"],
-                    _max_abs_err(f"ntt_large_stage n={n} m={m} inv={inverse}", step_k,
-                                 cuda_ntt.ntt_large_stage_plain(spec, y_k, tw, m)),
-                )
-                y_k = step_k
-                y_p = cuda_ntt.ntt_large_stage_plain(spec, y_p, tw, m)
-                m *= 2
-            _max_abs_err(f"ntt ladder n={n} inv={inverse}", y_k, y_p)
-        fwd = _ntt_raw(spec, n, False)(x)
-        back = _ntt_raw(spec, n, True)(fwd)
-        if not torch.equal(back, x):
-            raise AssertionError(f"iNTT(NTT(x)) != x at n={n}")
-        if n in TIMED_SIZES:
-            tw = twiddle_table(spec, n, False, device)
-            small = lambda: cuda_ntt.ntt_small_stages(spec, x, tw)  # noqa: E731
-            large = lambda: cuda_ntt.ntt_large_stage(spec, x, tw, n // 2)  # noqa: E731
-            t_sk, t_lk = _ms_per_call(small, 50), _ms_per_call(large, 50)
-            t_sd = _kernel_device_ms(small, "ntt_small_stages_kernel")
-            t_ld = _kernel_device_ms(large, "ntt_large_stage_kernel")
-            t_sp = _ms_per_call(lambda: cuda_ntt.ntt_small_stages_plain(spec, x, tw), 2, runs=3)
-            t_lp = _ms_per_call(lambda: cuda_ntt.ntt_large_stage_plain(spec, x, tw, n // 2), 2, runs=3)
-            t_full = _ms_per_call(lambda: _ntt_raw(spec, n, False)(x), 10)
-            times[("ntt_small_stages", n)] = (t_sk, t_sp)
-            times[("ntt_large_stage", n)] = (t_lk, t_lp)
-            print(
-                f"[kernels] ntt n={n}: small stages kernel {t_sk:.4f} ms per call ({t_sd:.4f} ms "
-                f"on the device), plain {t_sp:.4f} ms per call; large stage m={n // 2} kernel "
-                f"{t_lk:.4f} ms per call ({t_ld:.4f} ms on the device), plain {t_lp:.4f} ms per "
-                f"call; forward NTT through the kernels {t_full:.4f} ms per call",
-                flush=True,
-            )
-        print(f"[kernels] ntt n={n}: kernels equal to plain, iNTT(NTT(x)) == x", flush=True)
+    _check_ntt_kernels(device, gen, err, times)
+
     for n in TIMED_SIZES:
         bounds = _bounds(classes, n)
         print(
@@ -356,6 +331,87 @@ def phase_kernels(device):
             flush=True,
         )
     return err, times, _bounds(classes, REPORT_SIZE)
+
+
+def _check_ntt_kernels(device, gen, err, times):
+    """Both NTT stage kernels against their plain versions, limb for limb,
+    for BN254 Fr (the kernels' carry-chain arithmetic) and Pasta Fp (the
+    64-bit-accumulator one), forward and inverse, at every NTT_CASES batch:
+    the small stages, then every large stage of the ladder; the
+    batched iNTT(NTT(x)) == x.  Then the device time per launch and per
+    column of each kernel at NTT_TIMED, with its share of the bound for the
+    batch, and the time per call of kernel and plain version at 2^11, 2^15
+    and 2^20 for one column."""
+    import torch
+
+    from halo2_tpu_torch.field.params import BN254_FR, PASTA_FP
+    from halo2_tpu_torch.poly import cuda_ntt
+    from halo2_tpu_torch.poly.domain import _ntt_raw, twiddle_table
+
+    batches = {}
+    for spec in (BN254_FR, PASTA_FP):
+        for cols, n in NTT_CASES:
+            x = _random_field(spec, (n,), gen, device) if cols == 1 else (
+                _random_field(spec, (cols, n), gen, device).transpose(0, 1).contiguous()
+            )
+            label = f"{spec.name} C={cols} n={n}"
+            for inverse in (False, True):
+                tw = twiddle_table(spec, n, inverse, device)
+                want = cuda_ntt.ntt_small_stages_plain(spec, x, tw)
+                got = cuda_ntt.ntt_small_stages(spec, x, tw)
+                e = _max_abs_err(f"ntt_small_stages {label} inv={inverse}", got, want)
+                err["ntt_small_stages"] = max(err["ntt_small_stages"], e)
+                y, m = want, cuda_ntt.TILE
+                while m < n:
+                    step = cuda_ntt.ntt_large_stage(spec, y, tw, m)
+                    e = _max_abs_err(
+                        f"ntt_large_stage {label} m={m} inv={inverse}", step,
+                        cuda_ntt.ntt_large_stage_plain(spec, y, tw, m),
+                    )
+                    err["ntt_large_stage"] = max(err["ntt_large_stage"], e)
+                    y, m = step, m * 2
+            if not torch.equal(_ntt_raw(spec, n, True)(_ntt_raw(spec, n, False)(x)), x):
+                raise AssertionError(f"iNTT(NTT(x)) != x for {label}")
+            if (cols, n) in NTT_TIMED:
+                batches[(spec, cols, n)] = x
+            print(f"[kernels] ntt {label}: both kernels equal to plain, iNTT(NTT(x)) == x", flush=True)
+
+    for (spec, cols, n), x in batches.items():
+        tw = twiddle_table(spec, n, False, device)
+        bound = _ntt_bounds(n, cols)
+        parts = []
+        for name, call in (
+            ("ntt_small_stages", lambda: cuda_ntt.ntt_small_stages(spec, x, tw)),
+            ("ntt_large_stage", lambda: cuda_ntt.ntt_large_stage(spec, x, tw, n // 2)),
+        ):
+            t_d = _kernel_device_ms(call, f"{name}_kernel", bound[name][0])
+            times[(name, spec.name, cols, n)] = t_d
+            parts.append(
+                f"{name} {t_d:.4f} ms a launch, {t_d / cols:.5f} a column, {bound[name][0] / t_d:.0%} of "
+                f"the bound {bound[name][0]:.6f}"
+            )
+            if cols == FLAGSHIP_C:  # a check on the profiler: launch gaps are small beside 0.1-0.4 ms
+                parts.append(f"{name} {_ms_per_call(call, 20):.4f} ms a call (CUDA events)")
+        print(f"[kernels] ntt {spec.name} C={cols} n={n} on the device: " + "; ".join(parts), flush=True)
+
+    spec = BN254_FR
+    for n in TIMED_SIZES:
+        x = batches[(spec, 1, n)]
+        tw = twiddle_table(spec, n, False, device)
+        small = lambda: cuda_ntt.ntt_small_stages(spec, x, tw)  # noqa: E731
+        large = lambda: cuda_ntt.ntt_large_stage(spec, x, tw, n // 2)  # noqa: E731
+        t_sk, t_lk = _ms_per_call(small, 50), _ms_per_call(large, 50)
+        t_sp = _ms_per_call(lambda: cuda_ntt.ntt_small_stages_plain(spec, x, tw), 2, runs=3)
+        t_lp = _ms_per_call(lambda: cuda_ntt.ntt_large_stage_plain(spec, x, tw, n // 2), 2, runs=3)
+        t_full = _ms_per_call(lambda: _ntt_raw(spec, n, False)(x), 10)
+        times[("ntt_small_stages", n)] = (t_sk, t_sp)
+        times[("ntt_large_stage", n)] = (t_lk, t_lp)
+        print(
+            f"[kernels] ntt {spec.name} n={n}: small stages kernel {t_sk:.4f} ms per call, plain "
+            f"{t_sp:.4f} ms per call; large stage m={n // 2} kernel {t_lk:.4f} ms per call, plain "
+            f"{t_lp:.4f} ms per call; forward NTT through the kernels {t_full:.4f} ms per call",
+            flush=True,
+        )
 
 
 def _curve_lanes(device, m, exceptions=True):
@@ -414,6 +470,9 @@ def _check_jac_kernels(device, err, times):
     for m in JAC_SIZES:
         p, q, qx, qy, valid = _curve_lanes(device, m)
         gp, gq, gqx, gqy, gvalid = _curve_lanes(device, m, exceptions=False)
+        general_bound = _jac_bounds({"jac_madd": (m, 0), "jac_add": (m, 0)}, m)
+        if m in TIMED_SIZES:
+            classes[m] = _lane_classes(p, q, qx, qy, valid)
         cases = (
             ("jac_madd", lambda w: cuda_jac._jac_madd(p, qx, qy, valid, w),
              lambda: cuda_jac.jac_madd_plain(p, qx, qy, valid),
@@ -431,13 +490,12 @@ def _check_jac_kernels(device, err, times):
                 for k in ("x", "y", "z"):
                     err[name] = max(err[name], _max_abs_err(f"{name} m={m} {which} {k}", got[k], want[k]))
                 if m >= 32:
-                    t_d = _kernel_device_ms(lambda: general(which), f"{name}_{which}_kernel")
+                    t_d = _kernel_device_ms(lambda: general(which), f"{name}_{which}_kernel", general_bound[name][0])
                     times[(name, which, m)] = t_d
                     print(f"[kernels] {name} m={m} {which}: {t_d:.4f} ms on the device (general lanes)", flush=True)
             if m in TIMED_SIZES:
-                _time_kernel(name, f"{name}_", m, lambda: kernel(None), plain, times, plain_calls=2)
-        if m in TIMED_SIZES:
-            classes[m] = _lane_classes(p, q, qx, qy, valid)
+                bound = _jac_bounds(classes[m], m)[name][0]
+                _time_kernel(name, f"{name}_", m, lambda: kernel(None), plain, times, bound, plain_calls=2)
         print(
             f"[kernels] jac_madd, jac_add m={m}: every variant equal to plain, P == Q doubling "
             f"included, no flag reads (default variant {cuda_jac.variant(m)})",
@@ -478,28 +536,59 @@ def _bounds(classes: dict, n: int) -> dict:
     run's calls at n elements or lanes (NTT: n elements, the large stage at
     half-size n/2): each input read once, each output written once, against
     the IMADs of the products that the inputs need."""
-    classes = classes[n]
+    return {
+        **{name: _bound(*w) for name, w in _field_work(n).items()},
+        **_ntt_bounds(n, 1),
+        **_jac_bounds(classes[n], n),
+    }
+
+
+def _bound(nbytes: int, imads: int) -> tuple:
+    t_bytes, t_ops = nbytes / BYTES_PER_S * 1e3, imads / IMAD_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _field_work(n: int) -> dict:
+    """(bytes, IMADs) of one mont_mul (full-width b) and one mont_sqr over n elements."""
+    return {"mont_mul": (3 * ELEM * n, IMAD_MUL * n), "mont_sqr": (2 * ELEM * n, IMAD_SQR * n)}
+
+
+def _jac_bounds(classes: dict, m: int) -> dict:
+    """Bounds of jac_madd and jac_add over m lanes whose work ``classes``
+    gives per kernel as (finite sums, P == Q doublings)."""
     dbl = 2 * IMAD_MUL + 5 * IMAD_SQR  # dbl-2009-l
-    work = {  # (bytes, IMADs)
-        "mont_mul": (3 * ELEM * n, IMAD_MUL * n),
-        "mont_sqr": (2 * ELEM * n, IMAD_SQR * n),
-        # 9 stages of n/2 butterflies, the first without a twiddle multiply
-        "ntt_small_stages": (2 * ELEM * n + ELEM * 511, IMAD_MUL * 8 * n // 2),
-        "ntt_large_stage": (2 * ELEM * n + ELEM * n // 2, IMAD_MUL * n // 2),
-        "jac_madd": (
-            (5 * ELEM + 4 + 3 * ELEM) * n,
+    return {
+        "jac_madd": _bound(
+            (5 * ELEM + 4 + 3 * ELEM) * m,
             (7 * IMAD_MUL + 4 * IMAD_SQR) * classes["jac_madd"][0] + dbl * classes["jac_madd"][1],
         ),
-        "jac_add": (
-            9 * ELEM * n,
+        "jac_add": _bound(
+            9 * ELEM * m,
             (12 * IMAD_MUL + 4 * IMAD_SQR) * classes["jac_add"][0] + dbl * classes["jac_add"][1],
         ),
     }
-    out = {}
-    for name, (nbytes, imads) in work.items():
-        t_bytes, t_ops = nbytes / BYTES_PER_S * 1e3, imads / IMAD_PER_S * 1e3
-        out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-    return out
+
+
+def _stage_products(n: int, m: int) -> int:
+    """Montgomery products of one butterfly stage with half-size m over n
+    elements that the transform needs: n / 2m blocks of m butterflies, all
+    but the one whose twiddle is w^0 = 1."""
+    return n // (2 * m) * (m - 1)
+
+
+def _ntt_work(n: int, cols: int) -> dict:
+    """(bytes, IMADs) of each NTT kernel's launch over ``cols`` columns of n
+    elements (the large stage at half-size n/2); the twiddle table is read
+    once for the batch."""
+    small = sum(_stage_products(n, 1 << lm) for lm in range(1, 9))  # m = 2 .. 256; m = 1 has none
+    return {
+        "ntt_small_stages": (2 * ELEM * n * cols + ELEM * 511, IMAD_MUL * small * cols),
+        "ntt_large_stage": (2 * ELEM * n * cols + ELEM * n // 2, IMAD_MUL * _stage_products(n, n // 2) * cols),
+    }
+
+
+def _ntt_bounds(n: int, cols: int) -> dict:
+    return {name: _bound(*w) for name, w in _ntt_work(n, cols).items()}
 
 
 def _flagship_circuit():
@@ -665,8 +754,10 @@ def _prove(params, pk, circuit, public, want, device, commit, reps):
         if launches is None:
             launches = counts
         phases = ", ".join(f"{k_}={v:.3f}" for k_, v in PHASE_TIMINGS.items())
+        ntt = counts["ntt_small_stages"] + counts["ntt_large_stage"]
         print(
-            f"[prove] commit={commit} rep {rep}: {dt:.3f} s, {len(proof)} bytes, launches {counts}; "
+            f"[prove] commit={commit} rep {rep}: {dt:.3f} s, {len(proof)} bytes, NTT launches {ntt}, "
+            f"launches {counts}; "
             f"phases (s): {phases}",
             flush=True,
         )

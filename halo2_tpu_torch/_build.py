@@ -109,8 +109,8 @@ def lib() -> ctypes.CDLL:
             argtypes = {
                 "mont_mul": [vp, vp, vp, i32, i32, vp, vp],
                 "mont_sqr": [vp, vp, i32, vp, vp],
-                "ntt_small_stages": [vp, vp, i32, vp, i32, vp, vp],
-                "ntt_large_stage": [vp, vp, i32, i32, vp, i32, vp, vp],
+                "ntt_small_stages": [vp, vp, i32, i32, vp, vp, i32, vp],
+                "ntt_large_stage": [vp, vp, i32, i32, i32, vp, vp, i32, vp],
                 "jac_madd": [vp] * 9 + [i32, vp, i32, vp],
                 "jac_add": [vp] * 9 + [i32, vp, i32, vp],
             }

@@ -143,11 +143,22 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check(a, b)
     if a.device.type == "cpu":
         return mont_mul_plain(spec, a, b)
+    return _mont_mul_into(spec, a, b, torch.empty_like(a))
+
+
+def _mont_mul_into(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """:func:`mont_mul` written to ``out`` (contiguous, a's shape, dtype and
+    device), for callers that fill one column of a batch; CPU tensors: the
+    plain version copied in."""
+    _check(a, b)
+    if out.shape != a.shape or out.dtype != a.dtype or out.device != a.device or not out.is_contiguous():
+        raise ValueError(f"mont_mul: out must be a contiguous int32 {tuple(a.shape)} on {a.device}")
+    if a.device.type == "cpu":
+        return out.copy_(mont_mul_plain(spec, a, b))
     if a.device.type != "cuda":
         raise ValueError(f"mont_mul: unsupported device {a.device}")
     from .. import _build
 
-    out = torch.empty_like(a)
     m = a.numel() // L
     if m == 0:
         return out

@@ -70,7 +70,16 @@ class TorchEngine:
         return self.domain.coeff_to_extended(coeffs)
 
     def coeff_to_extended_many(self, coeffs_list):
-        return [self.coeff_to_extended(c) for c in coeffs_list]
+        """Every column padded into one zeroed (C, 16, extended_n) tensor,
+        then one batched coset scale and forward NTT: on the card, one
+        gather and one kernel ladder for all C columns.  Returns the
+        columns as views of the batch."""
+        if not coeffs_list:
+            return []
+        padded = coeffs_list[0].new_zeros((len(coeffs_list), 16, self.domain.extended_n))
+        for i, c in enumerate(coeffs_list):
+            padded[i, :, : c.shape[-1]] = c
+        return list(self.domain.coeff_to_extended(padded).unbind(0))
 
     def extended_to_coeff(self, epoly):
         return self.domain.extended_to_coeff(epoly)

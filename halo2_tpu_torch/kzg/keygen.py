@@ -381,13 +381,18 @@ def commit_coeffs_batch(params, coeffs_list, backend: str = "native") -> list:
     Pippenger.  ``backend="device"`` (the reference's
     ``HALO2_TPU_COMMIT_BACKEND=device``): int32 tensors on one device go to
     the device Pippenger (:func:`..ec.device.msm_points`) there, over the SRS
-    uploaded once per (params, device)."""
+    uploaded once per (params, device).
+
+    Without the native engine, ``"native"`` takes the reference's fallbacks,
+    on the inputs' own device: host arrays (numpy, CPU tensors) go to the
+    Python-int ``ec.msm_host`` over ``params.g1_host()``, CUDA tensors to the
+    device Pippenger."""
     if backend == "device":
         return _commit_device(params, coeffs_list)
     if backend != "native":
         raise ValueError(f"commit backend must be 'native' or 'device', got {backend!r}")
     if not native.available():
-        raise RuntimeError("commitments need the native host engine (no C++ compiler)")
+        return _commit_without_native(params, coeffs_list)
     m = coeffs_list[0].shape[-1]
     cached = getattr(params, "_native_srs", None)
     if cached is None:
@@ -398,6 +403,26 @@ def commit_coeffs_batch(params, coeffs_list, backend: str = "native") -> list:
     packed = native.pack_device(np.moveaxis(stacked, 1, 0).reshape(16, -1))
     canon = native.from_mont(packed, "fr").reshape(len(coeffs_list), m, 4)
     return [ec.g1_from_ints(x, y) for x, y in native.msm_g1_mont_batch(px, py, canon)]
+
+
+def _commit_without_native(params, coeffs_list) -> list:
+    """The reference's no-native branches of ``commit_coeffs_batch``: the host
+    MSM for host arrays, the device MSM for CUDA tensors; raises otherwise."""
+    kinds = {c.device.type if isinstance(c, torch.Tensor) else "cpu" for c in coeffs_list}
+    if kinds == {"cuda"}:
+        return _commit_device(params, coeffs_list)
+    if kinds != {"cpu"}:
+        raise RuntimeError(
+            f"commitments without the native host engine take host arrays or CUDA tensors, got {sorted(kinds)}"
+        )
+    dfr = get_device_field(FR)
+    pts = params.g1_host()[: coeffs_list[0].shape[-1]]
+    out = []
+    for coeffs in coeffs_list:
+        if isinstance(coeffs, np.ndarray):
+            coeffs = torch.from_numpy(np.ascontiguousarray(coeffs, np.uint32).view(np.int32))
+        out.append(ec.msm_host(pts, [int(v) for v in dfr.decode(coeffs)]))
+    return out
 
 
 def _device_srs(params, device: torch.device):
@@ -462,8 +487,8 @@ def _intt_columns(domain, values_lists, device=None):
 
     With ``device=NATIVE_NTT``, the native C++ NTT (host numpy uint32, the
     reference's default branch); with a torch device, an int32 tensor on
-    that device: the columns are uploaded in one copy and each goes through
-    ``domain.lagrange_to_coeff``."""
+    that device: the columns are uploaded in one copy and go through one
+    batched ``domain.lagrange_to_coeff``."""
     device = _keygen_device(device)
     n = domain.n
     if device == NATIVE_NTT:
@@ -479,8 +504,8 @@ def _intt_columns(domain, values_lists, device=None):
     if not values_lists:
         return torch.zeros((0, 16, n), dtype=torch.int32, device=device)
     flat = get_device_field(FR).encode([v for vals in values_lists for v in vals], device=device)
-    evals = flat.reshape(16, len(values_lists), n)
-    return torch.stack([domain.lagrange_to_coeff(evals[:, i].contiguous()) for i in range(len(values_lists))])
+    evals = flat.reshape(16, len(values_lists), n).transpose(0, 1).contiguous()  # (F, 16, n)
+    return domain.lagrange_to_coeff(evals)
 
 
 def _synthesize_columns(circuit, k: int, F, device):

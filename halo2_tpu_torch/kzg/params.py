@@ -77,6 +77,19 @@ class ParamsKZG:
             g1_x, g1_y = device_g1_powers(powers, device)
         return cls(k, g1_x, g1_y, ec.G2, ec.ec_mul(ec.G2, tau))
 
+    def g1_host(self) -> list:
+        """SRS points as host ints (lazily decoded from the limb arrays)."""
+        if getattr(self, "_g1_host", None) is None:
+            d = get_device_field(BN254_FQ)
+            xs, ys = (
+                d.decode(torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32)))
+                for a in (self.g1_x, self.g1_y)
+            )
+            self._g1_host = [
+                ec.g1_from_ints(int(x), int(y)) for x, y in zip(xs, ys)
+            ]
+        return self._g1_host
+
     # ------------------------------------------------------------ persistence
     def save(self, path: str):
         data = {

@@ -5,10 +5,18 @@ The kernels (``csrc/ntt.cu``) replace
 ``halo2_tpu/poly/pallas_ntt.py:_small_stages_kernel`` (every stage with
 half-size m <= TILE / 2, fused per TILE-element tile) and
 ``_large_stage_kernel`` (one stage with m >= TILE).  Input is the
-bit-reversed ``(16, n)`` int32 field array, n a power of two >= TILE.
+bit-reversed int32 field array, n a power of two >= TILE: one column
+``(16, n)``, or a batch of C columns ``(C, 16, n)``, contiguous, column c the
+``(16, n)`` block at offset ``c * 16 * n``.  One launch covers the batch.
 
-Twiddles come as one ``(16, n - 1)`` table: the m twiddles of the stage with
-half-size m start at column m - 1 (see :func:`.domain.twiddle_table`).
+Twiddles come as one ``(16, n - 1)`` table shared by every column: the m
+twiddles of the stage with half-size m start at column m - 1 (see
+:func:`.domain.twiddle_table`).
+
+The kernels' arithmetic is a template argument: the PTX carry chains of
+``csrc/field_cc.cuh``, whose bounds hold for p < 2^254 (both BN254 fields),
+or ``csrc/field.cuh``'s 64-bit accumulators for any other modulus (the
+255-bit Pasta fields); :func:`_arith` picks it from the modulus.
 
 ``LAUNCHES`` counts kernel launches by kernel name.
 """
@@ -24,18 +32,28 @@ from ..field.params import FieldSpec
 L = 16
 TILE = 512
 LAUNCHES = {"ntt_small_stages": 0, "ntt_large_stage": 0}
+# the kernels' arithmetic, as the C entry points number it
+ARITH = {"cc": 0, "wide": 1}
+
+
+def _arith(spec: FieldSpec) -> str:
+    """``"cc"`` (``field_cc.cuh``) when p < 2^254, else ``"wide"`` (``field.cuh``)."""
+    return "cc" if spec.p.bit_length() <= 254 else "wide"
 
 
 # ------------------------------------------------------------- plain versions
 def _stage_plain(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, m: int) -> torch.Tensor:
-    """One butterfly stage with half-size m: (a, b) -> (a + b w, a - b w)."""
+    """One butterfly stage with half-size m over the last axis of a
+    ``(*lead, 16, n)`` array: (a, b) -> (a + b w, a - b w)."""
     df = get_device_field(spec)
-    n = x.shape[1]
-    v = x.reshape(L, n // (2 * m), 2, m)
-    a, b = v[:, :, 0, :], v[:, :, 1, :]
+    lead, n = x.shape[:-2], x.shape[-1]
+    v = x.movedim(-2, 0).reshape(L, *lead, n // (2 * m), 2, m)  # limbs first
+    a, b = v[..., 0, :], v[..., 1, :]
     if m > 1:
-        b = mont_mul_plain(spec, b, tw[:, m - 1 : 2 * m - 1].unsqueeze(1))
-    return torch.stack([df.add(a, b), df.sub(a, b)], dim=2).reshape(L, n)
+        w = tw[:, m - 1 : 2 * m - 1].reshape(L, *(1,) * (len(lead) + 1), m)
+        b = mont_mul_plain(spec, b, w)
+    y = torch.stack([df.add(a, b), df.sub(a, b)], dim=-2).reshape(L, *lead, n)
+    return y.movedim(0, -2).contiguous()
 
 
 def ntt_small_stages_plain(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
@@ -53,12 +71,14 @@ def ntt_large_stage_plain(
 
 
 # -------------------------------------------------------------------- wrappers
-def _check(x: torch.Tensor, tw: torch.Tensor, kernel: str) -> int:
+def _check(x: torch.Tensor, tw: torch.Tensor, kernel: str) -> tuple:
+    """Raise unless x is a contiguous int32 (16, n) or (C, 16, n) and tw the
+    (16, n - 1) table beside it; returns (n, C)."""
     if x.dtype != torch.int32 or tw.dtype != torch.int32:
         raise TypeError(f"{kernel}: x and tw must be int32, got {x.dtype}, {tw.dtype}")
-    if x.dim() != 2 or x.shape[0] != L:
-        raise ValueError(f"{kernel}: x must be (16, n), got {tuple(x.shape)}")
-    n = x.shape[1]
+    if x.dim() not in (2, 3) or x.shape[-2] != L:
+        raise ValueError(f"{kernel}: x must be (16, n) or (C, 16, n), got {tuple(x.shape)}")
+    n = x.shape[-1]
     if n < TILE or n & (n - 1):
         raise ValueError(f"{kernel}: n must be a power of two >= {TILE}, got {n}")
     if tuple(tw.shape) != (L, n - 1):
@@ -69,44 +89,53 @@ def _check(x: torch.Tensor, tw: torch.Tensor, kernel: str) -> int:
         raise ValueError(f"{kernel}: x on {x.device}, tw on {tw.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{kernel}: unsupported device {x.device}")
-    return n
+    cols = x.shape[0] if x.dim() == 3 else 1
+    if cols > 65535:  # the kernels' grid y
+        raise ValueError(f"{kernel}: at most 65535 columns, got {cols}")
+    return n, cols
 
 
-def _launch(kernel: str, x: torch.Tensor, *args) -> torch.Tensor:
+def _launch(kernel: str, spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, *args) -> torch.Tensor:
     from .. import _build
 
+    if x.data_ptr() % 16:
+        raise ValueError(f"{kernel}: x must be 16-byte aligned for the kernel's vector loads")
     out = torch.empty_like(x)
-    _build.launch(kernel, x.device, x.data_ptr(), out.data_ptr(), *args)
-    LAUNCHES[kernel] += 1
+    if x.numel():
+        _build.launch(
+            kernel, x.device, x.data_ptr(), out.data_ptr(), *args, tw.data_ptr(),
+            modulus_words(spec).ctypes.data, ARITH[_arith(spec)],
+        )
+        LAUNCHES[kernel] += 1
     return out
 
 
 def ntt_small_stages(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
-    """Every stage with half-size m = 1 .. TILE / 2."""
-    n = _check(x, tw, "ntt_small_stages")
+    """Every stage with half-size m = 1 .. TILE / 2, on each column."""
+    n, cols = _check(x, tw, "ntt_small_stages")
     if x.device.type == "cpu":
         return ntt_small_stages_plain(spec, x, tw)
-    return _launch("ntt_small_stages", x, n, tw.data_ptr(), n - 1, modulus_words(spec).ctypes.data)
+    return _launch("ntt_small_stages", spec, x, tw, n, cols)
 
 
 def ntt_large_stage(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, m: int) -> torch.Tensor:
-    """The stage with half-size m (TILE <= m <= n / 2, a power of two)."""
-    n = _check(x, tw, "ntt_large_stage")
+    """The stage with half-size m (TILE <= m <= n / 2, a power of two), on
+    each column."""
+    n, cols = _check(x, tw, "ntt_large_stage")
     if m < TILE or m > n // 2 or m & (m - 1):
         raise ValueError(f"ntt_large_stage: bad half-size m={m} for n={n}")
     if x.device.type == "cpu":
         return ntt_large_stage_plain(spec, x, tw, m)
-    return _launch(
-        "ntt_large_stage", x, n, m, tw.data_ptr(), n - 1, modulus_words(spec).ctypes.data
-    )
+    return _launch("ntt_large_stage", spec, x, tw, n, cols, m)
 
 
 def ntt_stages(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
-    """The whole butterfly ladder over a bit-reversed (16, n) input, n >= TILE:
-    the fused small stages, then one launch per large stage."""
+    """The whole butterfly ladder over a bit-reversed (16, n) or (C, 16, n)
+    input, n >= TILE: the fused small stages, then one launch per large
+    stage, each over every column."""
     x = ntt_small_stages(spec, x, tw)
     m = TILE
-    while m < x.shape[1]:
+    while m < x.shape[-1]:
         x = ntt_large_stage(spec, x, tw, m)
         m *= 2
     return x

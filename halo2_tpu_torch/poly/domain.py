@@ -2,7 +2,8 @@
 halo2_tpu/poly/domain.py).
 
 The NTT is the reference's iterative Cooley-Tukey: one bit-reversal gather,
-then log2(n) butterfly stages.  For n >= TILE (512) the stages run through
+then log2(n) butterfly stages, over one (16, n) column or over every column
+of a (C, 16, n) batch at once.  For n >= TILE (512) the stages run through
 the CUDA kernels of :mod:`.cuda_ntt` (their plain versions on the CPU); a
 smaller n runs the stage ladder of ``mul``/``add``/``sub``, as the reference
 splits at the same size.  Tensors that the transforms need (bit-reversal
@@ -16,6 +17,7 @@ import functools
 import numpy as np
 import torch
 
+from ..field.cuda_mul import _mont_mul_into
 from ..field.device import get_device_field
 from ..field.params import FieldSpec
 from .cuda_ntt import TILE, ntt_stages
@@ -67,26 +69,42 @@ def _n_inv(spec: FieldSpec, n: int, device: torch.device) -> torch.Tensor:
     return get_device_field(spec).encode([pow(n, -1, spec.p)], device=device)
 
 
+def _mul_columns(spec: FieldSpec, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x * b for a (16, n) x, or for each column of a (C, 16, n) x (one
+    Montgomery launch a column, into one batch tensor); b is (16, n) or one
+    (16, 1) element."""
+    if x.dim() == 2:
+        return get_device_field(spec).mul(x, b)
+    out = torch.empty_like(x)
+    for c in range(x.shape[0]):
+        _mont_mul_into(spec, x[c], b, out[c])
+    return out
+
+
 def _ntt_raw(spec: FieldSpec, n: int, inverse: bool):
-    """(16, n) Montgomery tensor -> its NTT (natural order in and out)."""
+    """(16, n) or (C, 16, n) Montgomery tensor -> the NTT of each column
+    (natural order in and out)."""
     df = get_device_field(spec)
 
     def fn(coeffs: torch.Tensor) -> torch.Tensor:
         device = coeffs.device
-        x = coeffs.index_select(1, _rev_index(n, device))
+        x = coeffs.index_select(-1, _rev_index(n, device))
         if n >= TILE:
             x = ntt_stages(spec, x, twiddle_table(spec, n, inverse, device))
         else:
+            lead = x.shape[:-2]
+            x = x.movedim(-2, 0)  # limbs first, as the field ops take them
             m = 1
             for tw in _stage_twiddles(spec, n, inverse):
-                v = x.reshape(16, n // (2 * m), 2, m)
-                a = v[:, :, 0, :]
+                v = x.reshape(16, *lead, n // (2 * m), 2, m)
+                a = v[..., 0, :]
                 tw_t = torch.from_numpy(tw.view(np.int32)).to(device)
-                b = df.mul(v[:, :, 1, :], tw_t.unsqueeze(1))
-                x = torch.stack([df.add(a, b), df.sub(a, b)], dim=2).reshape(16, n)
+                b = df.mul(v[..., 1, :], tw_t.reshape(16, *(1,) * (len(lead) + 1), m))
+                x = torch.stack([df.add(a, b), df.sub(a, b)], dim=-2).reshape(16, *lead, n)
                 m *= 2
+            x = x.movedim(0, -2).contiguous()
         if inverse:
-            x = df.mul(x, _n_inv(spec, n, device))
+            x = _mul_columns(spec, x, _n_inv(spec, n, device))
         return x
 
     return fn
@@ -116,26 +134,30 @@ class EvaluationDomain:
 
     # ------------------------------------------------------------- transforms
     def lagrange_to_coeff(self, evals: torch.Tensor) -> torch.Tensor:
-        """(16, n) evals on H -> coefficients."""
+        """(16, n) evals on H, or a (C, 16, n) batch of columns -> coefficients."""
         return _ntt_raw(self.spec, self.n, True)(evals)
 
     def coeff_to_lagrange(self, coeffs: torch.Tensor) -> torch.Tensor:
         return _ntt_raw(self.spec, self.n, False)(coeffs)
 
     def coeff_to_extended(self, coeffs: torch.Tensor) -> torch.Tensor:
-        """(16, m) coeffs -> (16, extended_n) evals on the extended coset:
-        pad, scale by the coset powers, forward NTT."""
+        """(16, m) coeffs, or a (C, 16, m) batch of columns -> (16,
+        extended_n) evals on the extended coset (per column): pad, scale by
+        the coset powers, forward NTT."""
         ext_n = self.extended_n
-        padded = coeffs.new_zeros((16, ext_n))
-        padded[:, : coeffs.shape[1]] = coeffs
-        scaled = self.df.mul(padded, self._coset_powers(ext_n, coeffs.device))
+        padded = coeffs
+        if coeffs.shape[-1] != ext_n:
+            padded = coeffs.new_zeros((*coeffs.shape[:-1], ext_n))
+            padded[..., : coeffs.shape[-1]] = coeffs
+        scaled = _mul_columns(self.spec, padded.contiguous(), self._coset_powers(ext_n, coeffs.device))
         return _ntt_raw(self.spec, ext_n, False)(scaled)
 
     def extended_to_coeff(self, evals: torch.Tensor) -> torch.Tensor:
-        """(16, extended_n) coset evals -> (16, extended_n) coefficients."""
+        """(16, extended_n) coset evals, or a (C, 16, extended_n) batch ->
+        coefficients of the same shape."""
         ext_n = self.extended_n
         coeffs = _ntt_raw(self.spec, ext_n, True)(evals)
-        return self.df.mul(coeffs, self._coset_powers_inv(ext_n, evals.device))
+        return _mul_columns(self.spec, coeffs, self._coset_powers_inv(ext_n, evals.device))
 
     def _powers(self, g: int, n: int) -> list:
         p = self.spec.p

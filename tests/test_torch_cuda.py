@@ -73,6 +73,23 @@ def test_ntt_kernels_match_plain(device, k, inverse):
     assert torch.equal(_ntt_raw(spec, n, True)(_ntt_raw(spec, n, False)(x)), x)
 
 
+@pytest.mark.parametrize("spec", [BN254_FR, PASTA_FP], ids=lambda s: s.name)
+def test_batched_ntt_kernels_match_plain(device, spec):
+    """Three columns in one launch, both arithmetics (``cuda_ntt._arith``)."""
+    n = 1 << 11
+    x = torch.stack([_encoded(spec, n, 20 + c, device) for c in range(3)])
+    tw = twiddle_table(spec, n, False, device)
+    before = dict(cuda_ntt.LAUNCHES)
+    y = cuda_ntt.ntt_small_stages(spec, x, tw)
+    z = cuda_ntt.ntt_large_stage(spec, y, tw, 512)
+    assert cuda_ntt.LAUNCHES["ntt_small_stages"] == before["ntt_small_stages"] + 1
+    assert cuda_ntt.LAUNCHES["ntt_large_stage"] == before["ntt_large_stage"] + 1
+    torch.cuda.synchronize(device)
+    assert torch.equal(y, cuda_ntt.ntt_small_stages_plain(spec, x, tw))
+    assert torch.equal(z, cuda_ntt.ntt_large_stage_plain(spec, y, tw, 512))
+    assert torch.equal(_ntt_raw(spec, n, True)(_ntt_raw(spec, n, False)(x)), x)
+
+
 def test_cuda_ntt_matches_cpu_ntt(device):
     spec, n = BN254_FR, 1 << 11
     x = _encoded(spec, n, 5, torch.device("cpu"))

@@ -19,12 +19,14 @@ import pytest
 import torch
 
 import halo2_tpu.circuits.utils as ref_utils
+import halo2_tpu.ec.host as ec_ref
 import halo2_tpu.field as ref_field
 import halo2_tpu.kzg as ref_kzg
 import halo2_tpu_torch.circuits.utils as port_utils
+import halo2_tpu_torch.ec.host as ec_port
 import halo2_tpu_torch.field as port_field
 import halo2_tpu_torch.kzg as port_kzg
-from halo2_tpu_torch.kzg.keygen import commit_lagrange, keygen_cached
+from halo2_tpu_torch.kzg.keygen import commit_coeffs_batch, commit_lagrange, keygen_cached
 from test_torch_prover import PORT, REF, _hash_v1, _mst_k9
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
@@ -131,3 +133,29 @@ def test_full_prover_matches_reference(capsys):
     assert got == want
     assert set(times) == {"vk", "pk", "prove", "verify"}
     assert "Time to generate vk" in capsys.readouterr().out
+
+
+def test_g1_host_matches_reference():
+    got = port_kzg.ParamsKZG.setup(4, device="cpu").g1_host()
+    want = ref_kzg.ParamsKZG.setup(4).g1_host()
+    assert len(got) == len(want) == 16
+    assert [ec_port.g1_to_ints(p) for p in got] == [ec_ref.g1_to_ints(p) for p in want]
+
+
+def test_commit_without_native_engine_matches_reference(reference_keys, monkeypatch):
+    """Without the native engine, the default commit backend takes the
+    reference's host-MSM fallback over ``g1_host()`` for host inputs: the
+    keys' commitments equal the reference's."""
+    import halo2_tpu_torch.native as port_native
+
+    monkeypatch.setattr(port_native, "available", lambda: False)
+    circuit, _ = _hash_v1(PORT)
+    params = port_kzg.ParamsKZG.setup_cached(4)
+    pk = port_kzg.keygen(params, circuit, 4, port_field.Fr, device="cpu")
+    _assert_same_key(pk.to_saved(), reference_keys["hash_v1-k4"])
+    want = [pk.vk.fixed_commitments[0], pk.vk.sigma_commitments[0]]
+    host = [pk.fixed_coeffs[0], pk.sigma_coeffs[0]]
+    assert commit_coeffs_batch(params, host) == want
+    meta = [torch.from_numpy(c.view(np.int32)).to("meta") for c in host]
+    with pytest.raises(RuntimeError):
+        commit_coeffs_batch(params, meta)

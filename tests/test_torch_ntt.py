@@ -27,9 +27,11 @@ from halo2_tpu.kzg.engine import NativeEngine
 from halo2_tpu.poly.domain import _ntt_fn
 from halo2_tpu.poly.domain import get_domain as ref_domain
 from halo2_tpu_torch.field.device import get_device_field as port_field
-from halo2_tpu_torch.field.params import BN254_FR
+from halo2_tpu_torch.field.params import BN254_FQ, BN254_FR, PASTA_FP, PASTA_FQ
+from halo2_tpu_torch.kzg.engine import TorchEngine
 from halo2_tpu_torch.poly import cuda_ntt
 from halo2_tpu_torch.poly.domain import get_domain as port_domain
+from halo2_tpu_torch.poly.domain import twiddle_table
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 P = BN254_FR.p
@@ -116,3 +118,87 @@ def test_ntt_wrappers_check_their_inputs():
         cuda_ntt.ntt_large_stage(spec, x, tw, 256)
     with pytest.raises(TypeError):
         cuda_ntt.ntt_small_stages(spec, x.to(torch.int64), tw)
+
+
+@pytest.mark.parametrize("spec", [BN254_FR, PASTA_FP], ids=lambda s: s.name)
+@pytest.mark.parametrize("n", [512, 2048])
+def test_batched_stage_plain_versions_equal_per_column(spec, n):
+    """The stage functions over a (3, 16, n) batch equal them on each column,
+    with the one (16, n - 1) twiddle table shared."""
+    df = port_field(spec)
+    rng = random.Random(n)
+    cols = [df.encode([0, 1, spec.p - 1] + [rng.randrange(spec.p) for _ in range(n - 3)]) for _ in range(3)]
+    batch = torch.stack(cols)
+    for inverse in (False, True):
+        tw = twiddle_table(spec, n, inverse, torch.device("cpu"))
+        small = cuda_ntt.ntt_small_stages(spec, batch, tw)
+        assert small.shape == batch.shape and small.is_contiguous()
+        for c in range(3):
+            assert torch.equal(small[c], cuda_ntt.ntt_small_stages(spec, cols[c], tw))
+        for m in (512, n // 2) if n > 512 else ():
+            large = cuda_ntt.ntt_large_stage(spec, small, tw, m)
+            for c in range(3):
+                assert torch.equal(large[c], cuda_ntt.ntt_large_stage(spec, small[c], tw, m))
+        full = cuda_ntt.ntt_stages(spec, batch, tw)
+        for c in range(3):
+            assert torch.equal(full[c], cuda_ntt.ntt_stages(spec, cols[c], tw))
+
+
+def test_arith_switch_is_by_modulus_size():
+    assert [cuda_ntt._arith(s) for s in (BN254_FR, BN254_FQ, PASTA_FP, PASTA_FQ)] == ["cc", "cc", "wide", "wide"]
+
+
+def test_mont_mul_into_fills_one_column_of_a_batch():
+    """The batched transforms' per-column product writes into its slot of
+    the batch and nowhere else, and refuses an out it cannot fill."""
+    from halo2_tpu_torch.field.cuda_mul import _mont_mul_into, mont_mul
+
+    df = port_field(BN254_FR)
+    rng = random.Random(3)
+    batch = torch.stack([df.encode([rng.randrange(P) for _ in range(8)]) for _ in range(3)])
+    b = df.encode([rng.randrange(P)])
+    out = torch.zeros_like(batch)
+    assert _mont_mul_into(BN254_FR, batch[1], b, out[1]) is not None
+    assert torch.equal(out[1], mont_mul(BN254_FR, batch[1], b))
+    assert not out[0].any() and not out[2].any()
+    with pytest.raises(ValueError):
+        _mont_mul_into(BN254_FR, batch[1], b, out[1][:, :4])
+    with pytest.raises(ValueError):
+        _mont_mul_into(BN254_FR, batch[1], b, out.transpose(1, 2)[1])
+
+
+@pytest.mark.parametrize("k", [5, 9])
+def test_coeff_to_extended_many_matches_reference_domain(k):
+    """TorchEngine's one batched pad + coset scale + NTT over three columns
+    (one shorter than n) equals the reference's per-column coeff_to_extended."""
+    rd, pd = ref_domain(REF_FR, k, DEGREE), port_domain(BN254_FR, k, DEGREE)
+    eng = TorchEngine(None, types.SimpleNamespace(domain=pd), "cpu")
+    cols = [ref_field(REF_FR).encode_np(_values(pd.n, seed=20 + i)) for i in range(3)]
+    cols[2] = cols[2][:, : pd.n // 2]
+    got = eng.coeff_to_extended_many([torch.from_numpy(c.view(np.int32)) for c in cols])
+    assert len(got) == 3
+    for g, c in zip(got, cols):
+        assert g.shape == (16, pd.extended_n) and g.is_contiguous()
+        assert np.array_equal(g.numpy().view(np.uint32), np.asarray(rd.coeff_to_extended(c)))
+    back = pd.extended_to_coeff(torch.stack(got))
+    for b, g in zip(back, got):
+        assert torch.equal(b, pd.extended_to_coeff(g))
+    assert eng.coeff_to_extended_many([]) == []
+
+
+@pytest.mark.parametrize("k", [4, 9])
+def test_batched_intt_columns_matches_reference(k, monkeypatch):
+    """keygen's batched iNTT on the CPU equals the reference's per-column
+    device branch (its ``jnp.stack`` of ``lagrange_to_coeff``), which it
+    takes without the native engine."""
+    import halo2_tpu.native as ref_native
+    from halo2_tpu.kzg.keygen import _intt_columns as ref_intt_columns
+    from halo2_tpu_torch.kzg.keygen import _intt_columns
+
+    n = 1 << k
+    values = [_values(n, seed=40 + i) for i in range(3)]
+    monkeypatch.setattr(ref_native, "available", lambda: False)
+    want = np.asarray(ref_intt_columns(ref_domain(REF_FR, k, DEGREE), ref_field(REF_FR), values, n))
+    got = _intt_columns(port_domain(BN254_FR, k, DEGREE), values, device="cpu")
+    assert got.shape == (3, 16, n)
+    assert np.array_equal(got.numpy().view(np.uint32), want)
