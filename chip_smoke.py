@@ -28,7 +28,16 @@ passes or raises:
    with CUDA events, to check the profiler); at 2^11, 2^15 and 2^20 the time
    per call of kernel and plain version (CUDA events around back-to-back
    calls) and each kernel's device time per launch (torch.profiler; a
-   reading below the kernel's bound is taken again, then fails);
+   reading below the kernel's bound is taken again, then fails); mod_add
+   and mod_sub (and the negation, a subtract from a broadcast zero) for
+   BN254 Fr, BN254 Fq and Pasta Fp at the same m, the 16 pairs of edge
+   values first, with a broadcast element on either side; the expression VM
+   (vm_eval, one launch per program) on the flagship's quotient program at
+   its 2^15 rows (rot_scale 16: the 2042 rotation wraps; the challenges as
+   stride-0 views), the Poseidon experiment's gates and the less-than
+   experiment's lookup expressions (Pasta Fp), and a program whose outputs
+   are a bare query and a bare constant; the times of the new kernels as
+   for the others, the VM's at the flagship;
 3. the device MSM: msm_points at 2^16 (the k = 16 SRS, random.Random(42)
    scalars) and 2^20 (that SRS and random.Random(9) scalars tiled 16 times)
    equals the native host MSM on the same arrays; the time of each (median
@@ -39,7 +48,10 @@ passes or raises:
    random.Random(7) and the commitments on the native host MSM, then twice
    with commit="device" (the device MSM); every proof's bytes must equal
    tests/data/mst_d15_k11_rng7.proof (the reference's proof), the verifier
-   must accept it and reject a tampered root;
+   must accept it and reject a tampered root; each prove's quotient phase
+   and kernel launches; then one more native-commit prove under
+   torch.profiler: its launches split by this package's kernels and by
+   PyTorch's ops, and the device's busy time;
 5. the SRS setup on the card: ParamsKZG.setup(16) equals
    .srs/kzg_bn254_k16_s857536.pkl limb for limb;
 6. keygen on the card: the flagship through keygen_vk then keygen_pk
@@ -61,11 +73,13 @@ by default.  The device-commit paths of phases 3-6 must read no P == Q flag
 back.  Every path of phases 3-8 runs once with the launch counts set to 0
 just before and read just after, and fails if a kernel it must launch was
 not launched: mont_mul and the NTT kernels in the proves and the keygens,
-jac_madd and jac_add in the device-commit prove, the device-commit keygen
-and the MSM, mont_sqr, mont_mul and jac_add in the setup, mont_mul in the
-MockProver, mont_mul and mont_sqr in the sponge.  The line before the last
-is a JSON object with one entry per kernel (its launches summed over those
-runs, its time at 2^15 beside its bound from this run's inputs); the last
+vm_eval in every prove, jac_madd, jac_add and mod_sub (the MSM's signed
+digits negate their points) in the device-commit prove and the
+device-commit keygen, jac_madd and jac_add in the MSM, mont_sqr, mont_mul and jac_add in the setup, vm_eval in every
+MockProver run, mont_mul, mont_sqr and mod_add in the sponge.  The line
+before the last is a JSON object with one entry per kernel (its launches
+summed over those runs, its time at 2^15 beside its bound from this run's
+inputs); the last
 is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside the repository, the script fails before printing either.
 """
@@ -266,7 +280,7 @@ def _time_kernel(name, symbol, m, kernel, plain, times, bound_ms, plain_calls=3)
     times[(name, m)] = (t_k, t_p)
     print(
         f"[kernels] {name} m={m}: kernel {t_k:.4f} ms per call ({t_d:.4f} ms on the "
-        f"device), plain {t_p:.4f} ms per call",
+        f"device, {bound_ms / t_d:.0%} of the bound {bound_ms:.6f}), plain {t_p:.4f} ms per call",
         flush=True,
     )
 
@@ -319,9 +333,13 @@ def phase_kernels(device):
                 )
         print(f"[kernels] mont_mul, mont_sqr {spec.name}: equal to plain at m={list(MUL_SIZES)}", flush=True)
 
+    _check_field_ops(device, gen, err, times)
+
     classes = _check_jac_kernels(device, err, times)
 
     _check_ntt_kernels(device, gen, err, times)
+
+    vm_bound = _check_vm(device, gen, err, times)
 
     for n in TIMED_SIZES:
         bounds = _bounds(classes, n)
@@ -330,7 +348,155 @@ def phase_kernels(device):
             + ", ".join(f"{k} {v[0]:.6f} {v[1]}" for k, v in bounds.items()),
             flush=True,
         )
-    return err, times, _bounds(classes, REPORT_SIZE)
+    return err, times, {**_bounds(classes, REPORT_SIZE), "vm_eval": vm_bound}
+
+
+def _check_field_ops(device, gen, err, times):
+    """mod_add and mod_sub against their plain versions, limb for limb, for
+    BN254 Fr, BN254 Fq and Pasta Fp at every MUL_SIZES width: the 16 pairs of
+    edge values (0, 1, p - 1, p - 2) first, a broadcast element on the right
+    (add, sub) and on the left (sub), and the negation (a subtract from a
+    broadcast zero); for BN254 Fr at TIMED_SIZES the time per call of kernel
+    and plain version and the kernel's device time per launch."""
+    from halo2_tpu_torch.field import cuda_ops
+    from halo2_tpu_torch.field.device import get_device_field
+    from halo2_tpu_torch.field.params import BN254_FQ, BN254_FR, PASTA_FP
+
+    for spec in (BN254_FR, BN254_FQ, PASTA_FP):
+        p = spec.p
+        edges = get_device_field(spec).encode([0, 1, p - 1, p - 2], device=device)
+        for m in MUL_SIZES:
+            a = _random_field(spec, (m,), gen, device)
+            b = _random_field(spec, (m,), gen, device)
+            k = min(16, m)
+            a[:, :k] = edges.repeat_interleave(4, dim=1)[:, :k]
+            b[:, :k] = edges.repeat(1, 4)[:, :k]
+            col = _random_field(spec, (1,), gen, device)
+            cases = [("mod_add", f"b={tag}", a, bb) for tag, bb in (("full", b), ("bcast", col), ("edge-bcast", edges[:, 2:3].contiguous()))]
+            cases += [("mod_sub", f"b={tag}", a, bb) for tag, bb in (("full", b), ("bcast", col))]
+            cases += [("mod_sub", f"a={tag}", aa, b) for tag, aa in (("bcast", col), ("edge-bcast", edges[:, 2:3].contiguous()))]
+            for name, tag, x, y in cases:
+                got = getattr(cuda_ops, name)(spec, x, y)
+                want = getattr(cuda_ops, f"{name}_plain")(spec, x, y)
+                err[name] = max(err[name], _max_abs_err(f"{name} {spec.name} m={m} {tag}", got, want))
+            e = _max_abs_err(f"mod_neg {spec.name} m={m}", cuda_ops.mod_neg(spec, a), cuda_ops.mod_neg_plain(spec, a))
+            err["mod_sub"] = max(err["mod_sub"], e)
+            if spec is BN254_FR and m in TIMED_SIZES:
+                for name in ("mod_add", "mod_sub"):
+                    kernel, plain = getattr(cuda_ops, name), getattr(cuda_ops, f"{name}_plain")
+                    _time_kernel(
+                        name, f"{name}_kernel", m, lambda: kernel(spec, a, b), lambda: plain(spec, a, b),
+                        times, _bound(*_field_work(m)[name])[0],
+                    )
+        print(
+            f"[kernels] mod_add, mod_sub, mod_neg {spec.name}: equal to plain at m={list(MUL_SIZES)}, "
+            f"edge pairs and broadcast elements included",
+            flush=True,
+        )
+
+
+def _synthesized_cs(circuit, k, F):
+    from halo2_tpu_torch.plonkish.assignment import run_synthesis
+
+    cs, _cfg, _asn = run_synthesis(circuit.without_witnesses(), k, [], witness=False, field=F)
+    return cs
+
+
+def _vm_programs():
+    """(label, Program, field spec, rows, stride-0 aux columns) for the VM
+    checks: the flagship's combined quotient at its extended domain (2^15
+    rows, rot_scale 16, so the 2042 rotation wraps to row shift 32,672; the
+    challenges beta, gamma, theta and y as expanded views, as the prover
+    hands them over), the Poseidon experiment's gates (Pasta Fp, k = 7), the
+    less-than experiment's lookup expressions (Pasta Fp, k = 10; the
+    Poseidon circuit has no lookup), and a program with no instruction whose
+    outputs are a bare query and a bare constant."""
+    from halo2_tpu_torch.field import Fr
+    from halo2_tpu_torch.field.params import BN254_FR, PASTA_FP
+    from halo2_tpu_torch.kzg.keygen import AuxLayout, PlonkStructure
+    from halo2_tpu_torch.plonkish.column import Column, ColumnKind, Rotation
+    from halo2_tpu_torch.plonkish.evaluator import Program
+    from halo2_tpu_torch.plonkish.expression import Constant, Query
+
+    k = 11
+    flagship, _public = _flagship_circuit()
+    st = PlonkStructure(_synthesized_cs(flagship, k, Fr), k)
+    vectors = {label: (kk, circuit, F) for label, kk, circuit, _inst, F, _kinds in _mock_vectors()}
+    k_pos, poseidon, Fp = vectors["poseidon valid"]
+    k_lt, less_than, _ = vectors["less_than not in table"]
+    pcs, lcs = _synthesized_cs(poseidon, k_pos, Fp), _synthesized_cs(less_than, k_lt, Fp)
+    query = Query(Column(ColumnKind.ADVICE, 0), Rotation(-1))
+    challenges = (AuxLayout.BETA, AuxLayout.GAMMA, AuxLayout.THETA, AuxLayout.Y)
+    return [
+        ("flagship quotient", st.quotient_program(16), BN254_FR, (1 << k) * 16, challenges),
+        ("poseidon gates", Program([c for g in pcs.gates for c in g.constraints]), PASTA_FP, 1 << k_pos, ()),
+        ("less_than lookups", Program([e for lk in lcs.lookups for pair in lk.pairs for e in pair]), PASTA_FP, 1 << k_lt, ()),
+        ("bare query and constant", Program([query, Constant(5)]), BN254_FR, 1 << k, ()),
+    ]
+
+
+def _vm_columns(prog, spec, n, gen, device, stride0):
+    """kind -> random canonical columns for every queried kind: the views of
+    one (C, 16, n) batch, as the prover's coset batch and the MockProver's
+    encoded columns are; the aux columns in ``stride0`` one element expanded
+    to (16, n)."""
+    counts = {}
+    for kind, ci, _rot in prog.queries:
+        counts[kind] = max(counts.get(kind, 0), ci + 1)
+    cols = {}
+    for kind, c in counts.items():
+        batch = list(_random_field(spec, (c, n), gen, device).transpose(0, 1).contiguous().unbind(0))
+        if kind == "aux":
+            for ci in stride0:
+                if ci < c:
+                    batch[ci] = _random_field(spec, (1,), gen, device).expand(16, n)
+        cols[kind] = batch
+    return cols
+
+
+def _vm_work(prog, queries, n: int, n_consts: int) -> tuple:
+    """(bytes, IMADs) of one VM launch over n rows: each distinct full-width
+    column read once, each broadcast element and constant once, each output
+    written once; 272 IMADs a product and row.  The scratch registers are the
+    design's own cost, not counted."""
+    full, one = set(), set()
+    for t in queries:
+        t = t.expand(16, n)
+        (full if t.stride(1) else one).add((t.data_ptr(), t.stride(0)))
+    products = sum(op == 1 for op, _a, _b in prog.instrs)
+    nbytes = (len(full) + len(prog.output_slots())) * ELEM * n + (len(one) + n_consts) * ELEM
+    return nbytes, IMAD_MUL * products * n
+
+
+def _check_vm(device, gen, err, times):
+    """vm_eval against vm_eval_plain on the card, limb for limb, for every
+    _vm_programs case; at the flagship the kernel's device time per launch,
+    time per call and the plain version's, with the share of the bound.
+    Returns the flagship's bound (ms, what bounds it)."""
+    from halo2_tpu_torch.plonkish import cuda_vm
+
+    flagship_bound = None
+    for label, prog, spec, n, stride0 in _vm_programs():
+        cols = _vm_columns(prog, spec, n, gen, device, stride0)
+        table = cuda_vm.compile_program(prog, spec)
+        queries = [cols[kind][ci] for kind, ci, _rot in prog.queries]
+        consts = table.consts_on(device)
+        kernel = lambda: cuda_vm.vm_eval(table, queries, consts, n)  # noqa: E731
+        plain = lambda: cuda_vm.vm_eval_plain(table, queries, consts, n)  # noqa: E731
+        err["vm_eval"] = max(err["vm_eval"], _max_abs_err(f"vm_eval {label}", kernel(), plain()))
+        ops = {name: sum(op == code for op, _a, _b in prog.instrs) for code, name in enumerate(("add", "mul", "neg"))}
+        print(
+            f"[kernels] vm_eval {label} ({spec.name}, n={n}, {len(prog.queries)} queries, "
+            f"{len(prog.consts)} constants, {len(prog.instrs)} instructions {ops}, {table.num_regs} registers, "
+            f"{len(table.outputs)} outputs): equal to plain",
+            flush=True,
+        )
+        if label == "flagship quotient":
+            flagship_bound = _bound(*_vm_work(prog, queries, n, len(prog.consts)))
+            rot = sorted({r * prog.rot_scale % n for _k, _c, r in prog.queries})
+            print(f"[kernels] vm_eval flagship row shifts {rot}, bound {flagship_bound[0]:.6f} ms ({flagship_bound[1]})", flush=True)
+            _time_kernel("vm_eval", "vm_eval_kernel", n, kernel, plain, times, flagship_bound[0], plain_calls=1)
+    return flagship_bound
 
 
 def _check_ntt_kernels(device, gen, err, times):
@@ -549,8 +715,14 @@ def _bound(nbytes: int, imads: int) -> tuple:
 
 
 def _field_work(n: int) -> dict:
-    """(bytes, IMADs) of one mont_mul (full-width b) and one mont_sqr over n elements."""
-    return {"mont_mul": (3 * ELEM * n, IMAD_MUL * n), "mont_sqr": (2 * ELEM * n, IMAD_SQR * n)}
+    """(bytes, IMADs) of one mont_mul (full-width b), one mont_sqr and one
+    mod_add or mod_sub (full-width operands, no product) over n elements."""
+    return {
+        "mont_mul": (3 * ELEM * n, IMAD_MUL * n),
+        "mont_sqr": (2 * ELEM * n, IMAD_SQR * n),
+        "mod_add": (3 * ELEM * n, 0),
+        "mod_sub": (3 * ELEM * n, 0),
+    }
 
 
 def _jac_bounds(classes: dict, m: int) -> dict:
@@ -620,10 +792,11 @@ def _flagship_circuit():
 
 def _launch_tables():
     from halo2_tpu_torch.ec import cuda_jac
-    from halo2_tpu_torch.field import cuda_mul
+    from halo2_tpu_torch.field import cuda_mul, cuda_ops
+    from halo2_tpu_torch.plonkish import cuda_vm
     from halo2_tpu_torch.poly import cuda_ntt
 
-    return cuda_mul.LAUNCHES, cuda_ntt.LAUNCHES, cuda_jac.LAUNCHES
+    return cuda_mul.LAUNCHES, cuda_ntt.LAUNCHES, cuda_jac.LAUNCHES, cuda_vm.LAUNCHES, cuda_ops.LAUNCHES
 
 
 def _reset_launches():
@@ -756,14 +929,80 @@ def _prove(params, pk, circuit, public, want, device, commit, reps):
         phases = ", ".join(f"{k_}={v:.3f}" for k_, v in PHASE_TIMINGS.items())
         ntt = counts["ntt_small_stages"] + counts["ntt_large_stage"]
         print(
-            f"[prove] commit={commit} rep {rep}: {dt:.3f} s, {len(proof)} bytes, NTT launches {ntt}, "
-            f"launches {counts}; "
-            f"phases (s): {phases}",
+            f"[prove] commit={commit} rep {rep}: {dt:.3f} s, quotient phase {PHASE_TIMINGS['quotient']:.3f} s, "
+            f"{len(proof)} bytes, NTT launches {ntt}, kernel launches {counts}; phases (s): {phases}",
             flush=True,
         )
         if proof != want:
             raise AssertionError(f"commit={commit} rep {rep}: proof differs from the reference proof in {FIXTURE}")
     return proof, launches
+
+
+def profile_prove(device, params=None, pk=None, warm: int = 1) -> None:
+    """One native-commit flagship prove under torch.profiler, after ``warm``
+    proves: its device launches, split into this package's kernels (by
+    kernel) and PyTorch's own ops (by op), copies, the device's busy time
+    (the launches' intervals summed) against the wall, and the phase times.
+    It uses only the port's entry points, so it also profiles an older
+    checkout of the port: run it from that checkout's root with this file
+    loaded by path, as scripts/torch_compare.sh does."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from halo2_tpu_torch.field import Fr
+    from halo2_tpu_torch.kzg import ParamsKZG, ProvingKey, create_proof
+    from halo2_tpu_torch.kzg.prover import PHASE_TIMINGS
+
+    circuit, public = _flagship_circuit()
+    if params is None:
+        params = ParamsKZG.setup_cached(11)
+        pk = ProvingKey.load(PK_CACHE, circuit, 11, Fr)
+    with open(FIXTURE, "rb") as f:
+        want = f.read()
+    prove = lambda: create_proof(params, pk, circuit, [list(public)], rng=random.Random(7))  # noqa: E731
+    for _ in range(warm):
+        prove()
+    torch.cuda.synchronize(device)
+    PHASE_TIMINGS.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        proof = prove()
+        torch.cuda.synchronize(device)
+        wall = (time.perf_counter() - t0) * 1e3
+    if proof != want:
+        raise AssertionError(f"the profiled prove differs from {FIXTURE}")
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+    ours = collections.Counter()
+    torch_ops = collections.Counter()
+    us = collections.Counter()
+    for e in kernels:
+        # each of this package's kernel symbols holds its name and an underscore
+        name = next((k for k, _, _ in KERNELS if f"{k}_" in e.name), None)
+        (ours if name else torch_ops)[name or e.name[:70]] += 1
+        us[name or e.name[:70]] += e.time_range.elapsed_us()
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    n_ours = sum(ours.values())
+    print(
+        f"[profile] native-commit prove after {warm} warm-up: {wall:.1f} ms wall under the profiler; "
+        f"{len(kernels)} kernel launches ({n_ours} of this package's kernels, {len(kernels) - n_ours} "
+        f"PyTorch ops) and {len(copies)} copies/sets; device busy {busy:.2f} ms ({busy / wall:.2%} of "
+        f"the wall); phases (s): " + ", ".join(f"{k}={v:.3f}" for k, v in PHASE_TIMINGS.items()),
+        flush=True,
+    )
+    print(
+        "[profile]   kernels (launches, device ms): "
+        + "; ".join(f"{k} {n} {us[k] / 1e3:.3f}" for k, n in ours.most_common()),
+        flush=True,
+    )
+    print(
+        "[profile]   PyTorch ops, top 12 (launches, device ms): "
+        + "; ".join(f"{k} {n} {us[k] / 1e3:.3f}" for k, n in torch_ops.most_common(12)),
+        flush=True,
+    )
 
 
 def phase_prove(device):
@@ -785,13 +1024,14 @@ def phase_prove(device):
 
     torch.cuda.reset_peak_memory_stats(device)
     proof, native_counts = _prove(params, pk, circuit, public, want, device, "native", 3)
-    _require("native-commit prove", native_counts, ("mont_mul", "ntt_small_stages", "ntt_large_stage"))
+    _require("native-commit prove", native_counts, ("mont_mul", "ntt_small_stages", "ntt_large_stage", "vm_eval"))
     _, device_counts = _prove(params, pk, circuit, public, want, device, "device", 2)
     _require(
         "device-commit prove", device_counts,
-        ("mont_mul", "ntt_small_stages", "ntt_large_stage", "jac_madd", "jac_add"),
+        ("mont_mul", "ntt_small_stages", "ntt_large_stage", "jac_madd", "jac_add", "vm_eval", "mod_sub"),
     )
     print(f"[prove] peak device memory {torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB", flush=True)
+    profile_prove(device, params, pk)
 
     t0 = time.perf_counter()
     ok = verify_proof(params.verifier_params(), pk.vk, proof, [list(public)])
@@ -894,7 +1134,7 @@ def phase_keygen(device):
     _no_flag_reads("keygen, device commits", flags)
     _require(
         "keygen, device commits", fused_counts,
-        ("mont_mul", "ntt_small_stages", "ntt_large_stage", "jac_madd", "jac_add"),
+        ("mont_mul", "ntt_small_stages", "ntt_large_stage", "jac_madd", "jac_add", "mod_sub"),
     )
     _check_key("keygen, device commits", pk_dev, want)
     print(
@@ -910,7 +1150,7 @@ def phase_keygen(device):
     _sync(device)
     t_prove = time.perf_counter() - t0
     prove_counts = _read_launches()
-    _require("prove with the generated pk", prove_counts, ("mont_mul", "ntt_small_stages", "ntt_large_stage"))
+    _require("prove with the generated pk", prove_counts, ("mont_mul", "ntt_small_stages", "ntt_large_stage", "vm_eval"))
     if proof != want_proof:
         raise AssertionError(f"the proof with the generated pk differs from {FIXTURE}")
     if not verify_proof(params.verifier_params(), pk.vk, proof, [list(public)]):
@@ -990,8 +1230,10 @@ def phase_mock(device):
         counts = _read_launches()
         results[label] = ([repr(f) for f in failures], {type(f).__name__ for f in failures}, t_card, counts)
     runs = [counts for *_, counts in results.values()]
-    # the less-than vector's gate and lookup expressions hold no product
-    _require("MockProver", {name: sum(r[name] for r in runs) for name in runs[0]}, ("mont_mul",))
+    # each gate check and lookup evaluation is one VM launch (its products
+    # run inside the kernel); every vector's card run must launch it
+    for label, counts in zip(results, runs):
+        _require(f"MockProver {label}", counts, ("vm_eval",))
     cpu = torch.device("cpu")
     for label, k, circuit, instances, F, kinds in vectors:
         t0 = time.perf_counter()
@@ -1007,7 +1249,7 @@ def phase_mock(device):
         print(
             f"[mock] {label} (k={k}, {F.SPEC.name}): {len(got)} failures {sorted(got_kinds)}, equal on "
             f"card and CPU; synthesis {t_run:.3f} s, verify on the card {t_card:.3f} s, on the CPU "
-            f"{t_cpu:.3f} s; card launches: mont_mul {counts['mont_mul']}",
+            f"{t_cpu:.3f} s; card launches: vm_eval {counts['vm_eval']}",
             flush=True,
         )
     return runs
@@ -1044,7 +1286,7 @@ def phase_poseidon(device, batch: int = 1 << 20):
     _sync(device)
     first = time.perf_counter() - t0
     counts = _read_launches()
-    _require("hash_device", counts, ("mont_mul", "mont_sqr"))
+    _require("hash_device", counts, ("mont_mul", "mont_sqr", "mod_add"))
     peak = torch.cuda.max_memory_allocated(device) / 2**20 if device.type == "cuda" else float("nan")
 
     lanes = min(1024, batch)
@@ -1084,6 +1326,10 @@ KERNELS = (
     ("ntt_large_stage", "halo2_tpu_torch/csrc/ntt.cu", "halo2_tpu/poly/pallas_ntt.py:97"),
     ("jac_madd", "halo2_tpu_torch/csrc/jac.cu", "halo2_tpu/ec/pallas_jac.py:76"),
     ("jac_add", "halo2_tpu_torch/csrc/jac.cu", "halo2_tpu/ec/pallas_jac.py:127"),
+    # no Pallas counterpart: the reference's scanned VM and its jnp add/sub/neg
+    ("vm_eval", "halo2_tpu_torch/csrc/vm.cu", "halo2_tpu/plonkish/evaluator.py:121"),
+    ("mod_add", "halo2_tpu_torch/csrc/field_ops.cu", "halo2_tpu/field/device.py:145"),
+    ("mod_sub", "halo2_tpu_torch/csrc/field_ops.cu", "halo2_tpu/field/device.py:150"),
 )
 
 
@@ -1112,7 +1358,8 @@ def main() -> int:
                 "bound_ms": bounds[name][0],
                 "bound_by": bounds[name][1],
                 # no single PyTorch call computes a 256-bit Montgomery
-                # product, a prime-field NTT or a curve add
+                # product or modular add, a prime-field NTT, a curve add or
+                # an expression program over field columns
                 "library_ms": None,
             }
             for name, source, replaces in KERNELS

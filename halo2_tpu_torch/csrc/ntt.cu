@@ -40,7 +40,7 @@
 // several large stages per pass (a larger radix or a four-step transform)
 // is the next step.
 
-#include "field_cc.cuh"
+#include "arith.cuh"
 
 using namespace h2t;
 
@@ -51,36 +51,6 @@ constexpr int EPT = 4;      // elements per thread, small-stages kernel
 constexpr int SMALL_THREADS = TILE / EPT;
 constexpr int LIMBS = 2 * WORDS;
 constexpr int LARGE_THREADS = 256;
-
-struct CcArith {
-  static __device__ __forceinline__ void mul(const uint32_t a[WORDS], const uint32_t b[WORDS],
-                                             const Modulus& M, uint32_t r[WORDS]) {
-    cc::mul(a, b, M, r);
-  }
-  static __device__ __forceinline__ void add(const uint32_t a[WORDS], const uint32_t b[WORDS],
-                                             const Modulus& M, uint32_t r[WORDS]) {
-    cc::add(a, b, M, r);
-  }
-  static __device__ __forceinline__ void sub(const uint32_t a[WORDS], const uint32_t b[WORDS],
-                                             const Modulus& M, uint32_t r[WORDS]) {
-    cc::sub(a, b, M, r);
-  }
-};
-
-struct WideArith {
-  static __device__ __forceinline__ void mul(const uint32_t a[WORDS], const uint32_t b[WORDS],
-                                             const Modulus& M, uint32_t r[WORDS]) {
-    mont_mul(a, b, M, r);
-  }
-  static __device__ __forceinline__ void add(const uint32_t a[WORDS], const uint32_t b[WORDS],
-                                             const Modulus& M, uint32_t r[WORDS]) {
-    mod_add(a, b, M, r);
-  }
-  static __device__ __forceinline__ void sub(const uint32_t a[WORDS], const uint32_t b[WORDS],
-                                             const Modulus& M, uint32_t r[WORDS]) {
-    mod_sub(a, b, M, r);
-  }
-};
 
 // b *= twiddle (column idx of the table)
 template <class A>

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..field.cuda_mul import check_limbs, modulus_words, mont_mul_plain, mont_sqr_plain
+from ..field.cuda_ops import mod_add_plain, mod_neg_plain, mod_sub_plain
 from ..field.device import DeviceField
 from ..field.params import BN254_FQ, NUM_LIMBS, to_limbs
 
@@ -37,14 +38,24 @@ LAUNCHES = {"jac_madd": 0, "jac_add": 0}
 
 
 class _PlainField(DeviceField):
-    """DeviceField whose multiplies are the plain versions on any device, so
-    the plain group ops launch no kernel of this package."""
+    """DeviceField whose multiplies, adds and subtracts are the plain
+    versions on any device, so the plain group ops launch no kernel of this
+    package."""
 
     def mul(self, a, b):
         return mont_mul_plain(self.spec, a, b)
 
     def square(self, a):
         return mont_sqr_plain(self.spec, a)
+
+    def add(self, a, b):
+        return mod_add_plain(self.spec, *self._bcast(a, b)[:2])
+
+    def sub(self, a, b):
+        return mod_sub_plain(self.spec, *self._bcast(a, b)[:2])
+
+    def neg(self, a):
+        return mod_neg_plain(self.spec, a)
 
 
 @functools.lru_cache(maxsize=None)

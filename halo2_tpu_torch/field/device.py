@@ -7,11 +7,12 @@ A *field array* keeps the reference's layout: ``(16, *batch)`` little-endian
 ``uint32`` lacks the CPU ops the plain arithmetic needs.
 
 ``mul`` and ``square`` go to :func:`.cuda_mul.mont_mul` and
-:func:`.cuda_mul.mont_sqr` (the CUDA kernels for a CUDA tensor, their plain
-versions for a CPU tensor).  ``add``/``sub``/``neg`` are plain torch ops, as
-they are ``jnp`` ops in the reference; they compute in int64 and return
-int32.  ``pow_fixed``/``inv`` are a Python loop over the exponent's bits,
-which the host knows (the reference's ``lax.scan``).
+:func:`.cuda_mul.mont_sqr`, ``add``/``sub``/``neg``/``double`` to
+:func:`.cuda_ops.mod_add`, :func:`.cuda_ops.mod_sub` and
+:func:`.cuda_ops.mod_neg`: the CUDA kernels for a CUDA tensor, their plain
+versions (int64 torch ops) for a CPU tensor.  ``pow_fixed``/``inv`` are a
+Python loop over the exponent's bits, which the host knows (the reference's
+``lax.scan``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import functools
 import numpy as np
 import torch
 
-from .cuda_mul import carry, mont_mul, mont_sqr
+from .cuda_mul import mont_mul, mont_sqr
+from .cuda_ops import mod_add, mod_neg, mod_sub
 from .params import FieldSpec, LIMB_BITS, LIMB_MASK, NUM_LIMBS, to_limbs
 
 L = NUM_LIMBS
@@ -37,18 +39,17 @@ class DeviceField:
     def __init__(self, spec: FieldSpec):
         self.spec = spec
         self.p = spec.p
-        self._p_np = _col(spec.p_limbs())
         self._one_mont_np = _col(to_limbs(spec.r))
         self._r2_np = _col(to_limbs(spec.r2))
         self._one_raw_np = _col(to_limbs(1))
         self._inv_exp_bits = [(spec.p - 2) >> i & 1 for i in range(spec.num_bits)]
 
     @functools.lru_cache(maxsize=None)
-    def _const(self, name: str, device: torch.device, ndim: int, dtype=torch.int32):
+    def _const(self, name: str, device: torch.device, ndim: int):
         """A (16,) limb constant shaped (16, 1, ..., 1) to broadcast over
         ``ndim`` batch axes."""
         arr = getattr(self, f"_{name}_np").astype(np.int64)
-        t = torch.from_numpy(arr).to(device=device, dtype=dtype)
+        t = torch.from_numpy(arr).to(device=device, dtype=torch.int32)
         return t.reshape((L,) + (1,) * ndim)
 
     # ---------------------------------------------------------------- shapes
@@ -65,26 +66,31 @@ class DeviceField:
         return one.expand((L,) + tuple(batch_shape))
 
     # ------------------------------------------------------------------- ops
-    def _cond_sub_p(self, s):
-        """int64 canonical limbs of a value < 2p -> int32 value mod p."""
-        p = self._const("p", s.device, s.dim() - 1, torch.int64)
-        d, borrow = carry(s - p)
-        return torch.where(borrow < 0, s, d).to(torch.int32)
+    def _operands(self, a, b, swap: bool):
+        """a and b for a kernel, broadcast as the reference's ``_bcast``: both
+        full width, or one of them one element (a broadcast column for the
+        kernel).  With ``swap`` (the op commutes) that one goes right; without
+        it either side may be (the subtract takes both).  Any other broadcast
+        is materialized."""
+        full = (L,) + tuple(torch.broadcast_shapes(a.shape[1:], b.shape[1:]))
+        if swap and tuple(a.shape) != full:
+            a, b = b, a
+        if tuple(a.shape) == full:
+            fits = b.shape == a.shape or b.numel() == L
+        else:
+            fits = not swap and a.numel() == L and tuple(b.shape) == full
+        if not fits:
+            a, b = a.expand(full), b.expand(full)
+        return a.contiguous(), b.contiguous()
 
     def add(self, a, b):
-        a, b, _ = self._bcast(a, b)
-        s, _ = carry(a.to(torch.int64) + b.to(torch.int64))  # < 2p < 2^256
-        return self._cond_sub_p(s)
+        return mod_add(self.spec, *self._operands(a, b, swap=True))
 
     def sub(self, a, b):
-        a, b, _ = self._bcast(a, b)
-        d, borrow = carry(a.to(torch.int64) - b.to(torch.int64))
-        p = self._const("p", d.device, d.dim() - 1, torch.int64)
-        wrapped, _ = carry(d + p)
-        return torch.where(borrow < 0, wrapped, d).to(torch.int32)
+        return mod_sub(self.spec, *self._operands(a, b, swap=False))
 
     def neg(self, a):
-        return self.sub(self.zeros(a.shape[1:], device=a.device), a)
+        return mod_neg(self.spec, a.contiguous())
 
     def double(self, a):
         return self.add(a, a)
@@ -93,13 +99,7 @@ class DeviceField:
         """Montgomery product a * b * R^-1 mod p, broadcasting as the
         reference's ``_bcast``.  A one-element operand stays a broadcast
         column for the kernel; any other broadcast is materialized."""
-        batch = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
-        full = (L,) + tuple(batch)
-        if tuple(a.shape) != full:
-            a, b = b, a  # the product commutes
-        if tuple(a.shape) != full or (b.shape != a.shape and b.numel() != L):
-            a, b = a.expand(full), b.expand(full)
-        return mont_mul(self.spec, a.contiguous(), b.contiguous())
+        return mont_mul(self.spec, *self._operands(a, b, swap=True))
 
     def square(self, a):
         return mont_sqr(self.spec, a.contiguous())

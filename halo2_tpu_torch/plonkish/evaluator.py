@@ -3,9 +3,11 @@
 
 Expressions are CSE'd into a static SSA :class:`Program` (one instruction per
 unique node, carried over unchanged from the reference).  The reference runs
-it as a ``lax.scan`` VM inside one jitted program; here it is a Python loop
-over the instructions, each a field op vectorized over every row, so on the
-card every multiply is one launch of the Montgomery kernel.
+it as a ``lax.scan`` VM inside one jitted program; here
+:func:`.cuda_vm.compile_program` turns it into flat tables (registers
+allocated by liveness) and :func:`.cuda_vm.vm_eval` runs them: on the card
+the whole program is one kernel launch, on the CPU the kernel's plain
+version.
 
 Shared between the MockProver's gate and lookup checks
 (``build_gate_checker``, ``build_expr_batch_eval`` over ``encode_columns``)
@@ -18,6 +20,7 @@ import torch
 
 from ..field.device import DeviceField
 from .column import ColumnKind
+from .cuda_vm import compile_program, vm_eval
 from .expression import (
     Constant,
     Expression,
@@ -116,29 +119,14 @@ def _run_program(prog: Program, df: DeviceField, columns: dict) -> torch.Tensor:
     """Execute the program; returns (num_outputs, 16, n) Montgomery tensors.
 
     ``columns[kind][ci]`` is a (16, n) tensor (a stacked (C, 16, n) tensor or
-    a list of them).  A rotation by r rows reads row i + r * rot_scale,
+    a list of them; a (16, n) view of one element, as ``expand`` gives, is
+    read as such).  A rotation by r rows reads row i + r * rot_scale,
     wrapping, as ``jnp.roll(arr, -r)`` does in the reference."""
     col = next((c for v in columns.values() for c in v), None)
     assert col is not None, "no columns to evaluate over"
-    n, device = col.shape[-1], col.device
-
-    slots = []
-    for kind, ci, rot in prog.queries:
-        arr = columns[kind][ci]
-        r = rot * prog.rot_scale
-        slots.append(torch.roll(arr, -r, dims=-1) if r else arr)
-    # constants stay (16, 1) columns that broadcast over the rows
-    for v in prog.consts:
-        slots.append(df.encode([v], device=device))
-    for op, s1, s2 in prog.instrs:
-        a, b = slots[s1], slots[s2]
-        if op == _ADD:
-            slots.append(df.add(a, b))
-        elif op == _MUL:
-            slots.append(df.mul(a, b))
-        else:
-            slots.append(df.neg(a))
-    return torch.stack([slots[s].expand(16, n) for s in prog.output_slots()])
+    table = compile_program(prog, df.spec)
+    queries = [columns[kind][ci] for kind, ci, _rot in prog.queries]
+    return vm_eval(table, queries, table.consts_on(col.device), col.shape[-1])
 
 
 def encode_columns(df: DeviceField, finalized, device=None) -> dict:

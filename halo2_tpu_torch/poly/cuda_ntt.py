@@ -16,7 +16,8 @@ twiddles of the stage with half-size m start at column m - 1 (see
 The kernels' arithmetic is a template argument: the PTX carry chains of
 ``csrc/field_cc.cuh``, whose bounds hold for p < 2^254 (both BN254 fields),
 or ``csrc/field.cuh``'s 64-bit accumulators for any other modulus (the
-255-bit Pasta fields); :func:`_arith` picks it from the modulus.
+255-bit Pasta fields); :func:`_arith` (``field.cuda_ops.arith``) picks it
+from the modulus.
 
 ``LAUNCHES`` counts kernel launches by kernel name.
 """
@@ -26,33 +27,27 @@ from __future__ import annotations
 import torch
 
 from ..field.cuda_mul import modulus_words, mont_mul_plain
-from ..field.device import get_device_field
+from ..field.cuda_ops import ARITH, mod_add_plain, mod_sub_plain
+from ..field.cuda_ops import arith as _arith
 from ..field.params import FieldSpec
 
 L = 16
 TILE = 512
 LAUNCHES = {"ntt_small_stages": 0, "ntt_large_stage": 0}
-# the kernels' arithmetic, as the C entry points number it
-ARITH = {"cc": 0, "wide": 1}
-
-
-def _arith(spec: FieldSpec) -> str:
-    """``"cc"`` (``field_cc.cuh``) when p < 2^254, else ``"wide"`` (``field.cuh``)."""
-    return "cc" if spec.p.bit_length() <= 254 else "wide"
 
 
 # ------------------------------------------------------------- plain versions
 def _stage_plain(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, m: int) -> torch.Tensor:
     """One butterfly stage with half-size m over the last axis of a
-    ``(*lead, 16, n)`` array: (a, b) -> (a + b w, a - b w)."""
-    df = get_device_field(spec)
+    ``(*lead, 16, n)`` array: (a, b) -> (a + b w, a - b w), in plain torch
+    ops only (the yardstick of both kernels)."""
     lead, n = x.shape[:-2], x.shape[-1]
     v = x.movedim(-2, 0).reshape(L, *lead, n // (2 * m), 2, m)  # limbs first
     a, b = v[..., 0, :], v[..., 1, :]
     if m > 1:
         w = tw[:, m - 1 : 2 * m - 1].reshape(L, *(1,) * (len(lead) + 1), m)
         b = mont_mul_plain(spec, b, w)
-    y = torch.stack([df.add(a, b), df.sub(a, b)], dim=-2).reshape(L, *lead, n)
+    y = torch.stack([mod_add_plain(spec, a, b), mod_sub_plain(spec, a, b)], dim=-2).reshape(L, *lead, n)
     return y.movedim(0, -2).contiguous()
 
 

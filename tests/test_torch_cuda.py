@@ -18,9 +18,11 @@ import torch
 from halo2_tpu_torch import native
 from halo2_tpu_torch.ec import cuda_jac
 from halo2_tpu_torch.ec import device as ecd
-from halo2_tpu_torch.field import cuda_mul
+from halo2_tpu_torch.field import cuda_mul, cuda_ops
 from halo2_tpu_torch.field.device import get_device_field
 from halo2_tpu_torch.field.params import BN254_FQ, BN254_FR, PASTA_FP
+from halo2_tpu_torch.plonkish import cuda_vm
+from halo2_tpu_torch.plonkish.evaluator import Program, _run_program
 from halo2_tpu_torch.poly import cuda_ntt
 from halo2_tpu_torch.poly.domain import _ntt_raw, twiddle_table
 
@@ -199,3 +201,113 @@ def test_entry_points_default_to_the_card(device):
     prover = MockProver.run(10, circuit, [[Fp.from_u64(i) for i in range(754)]], F=Fp)
     assert prover.device.type == "cuda"
     assert prover.verify() == []
+
+
+@pytest.mark.parametrize("spec", [BN254_FR, BN254_FQ, PASTA_FP], ids=lambda s: s.name)
+@pytest.mark.parametrize("m", [1, 511, 513, 4096])
+def test_field_op_kernels_match_plain(device, spec, m):
+    """mod_add, mod_sub and mod_neg (a subtract from a broadcast zero): full
+    operands, and one broadcast element on the right (add, sub) and on the
+    left (sub)."""
+    a = _encoded(spec, m, 6, device)
+    b = _encoded(spec, m, 7, device).flip(1).contiguous()
+    one = _encoded(spec, 1, 8, device)
+    before = dict(cuda_ops.LAUNCHES)
+    cases = [
+        (cuda_ops.mod_add(spec, a, b), cuda_ops.mod_add_plain(spec, a, b)),
+        (cuda_ops.mod_add(spec, a, one), cuda_ops.mod_add_plain(spec, a, one)),
+        (cuda_ops.mod_sub(spec, a, b), cuda_ops.mod_sub_plain(spec, a, b)),
+        (cuda_ops.mod_sub(spec, a, one), cuda_ops.mod_sub_plain(spec, a, one)),
+        (cuda_ops.mod_sub(spec, one, b), cuda_ops.mod_sub_plain(spec, one, b)),
+        (cuda_ops.mod_neg(spec, a), cuda_ops.mod_neg_plain(spec, a)),
+    ]
+    torch.cuda.synchronize(device)
+    for i, (got, want) in enumerate(cases):
+        assert torch.equal(got, want), i
+    assert cuda_ops.LAUNCHES["mod_add"] == before["mod_add"] + 2
+    assert cuda_ops.LAUNCHES["mod_sub"] == before["mod_sub"] + 4
+
+
+def _flagship_program(rot_scale):
+    """The flagship's combined quotient program (merkle-sum tree, k = 11)."""
+    from halo2_tpu_torch.circuits import merkle_sum_tree as m
+    from halo2_tpu_torch.field import Fr
+    from halo2_tpu_torch.kzg.keygen import PlonkStructure
+    from halo2_tpu_torch.plonkish.assignment import run_synthesis
+
+    leaf = m.Node(Fr.from_u64(10), Fr.from_u64(100))
+    elements = [m.Node(Fr.from_u64(h), Fr.from_u64(b)) for h, b in [(1, 10), (5, 50)]]
+    indices = [Fr.from_u64(0), Fr.from_u64(1)]
+    root = m.compute_merkle_sum_root(Fr, leaf, elements, indices)
+    circuit = m.MerkleSumTreeCircuit(
+        Fr, leaf.hash, leaf.balance, [n.hash for n in elements],
+        [n.balance for n in elements], indices, root.balance + Fr.from_u64(1),
+    )
+    cs, _cfg, _asn = run_synthesis(circuit.without_witnesses(), 11, [], witness=False, field=Fr)
+    return PlonkStructure(cs, 11).quotient_program(rot_scale)
+
+
+def _vm_columns(prog, spec, n, device, stride0=()):
+    """kind -> list of (16, n) random canonical columns; the aux columns in
+    ``stride0`` as one element expanded to (16, n)."""
+    counts = {}
+    for kind, ci, _rot in prog.queries:
+        counts[kind] = max(counts.get(kind, 0), ci + 1)
+    cols = {}
+    for kind, c in counts.items():
+        cols[kind] = [
+            _encoded(spec, 1, 100 + ci, device).expand(16, n) if kind == "aux" and ci in stride0
+            else _encoded(spec, n, 100 + ci, device)
+            for ci in range(c)
+        ]
+    return cols
+
+
+@pytest.mark.parametrize("case", ["flagship", "bare"])
+def test_vm_kernel_matches_plain(device, case):
+    """The whole program in one launch, equal to the plain version: the
+    flagship's quotient at n = 2^12 (rot_scale 16: the 2042 rotation wraps)
+    with the challenges as stride-0 views, and a program with no
+    instruction whose outputs are a bare query and a bare constant."""
+    from halo2_tpu_torch.kzg.keygen import AuxLayout
+    from halo2_tpu_torch.plonkish.column import Column, ColumnKind, Rotation
+    from halo2_tpu_torch.plonkish.expression import Constant, Query
+
+    spec, n = BN254_FR, 1 << 12
+    if case == "flagship":
+        prog = _flagship_program(16)
+        stride0 = (AuxLayout.BETA, AuxLayout.GAMMA, AuxLayout.THETA, AuxLayout.Y)
+    else:
+        prog = Program([Query(Column(ColumnKind.ADVICE, 0), Rotation(-1)), Constant(5)])
+        stride0 = ()
+    cols = _vm_columns(prog, spec, n, device, stride0)
+    table = cuda_vm.compile_program(prog, spec)
+    queries = [cols[kind][ci] for kind, ci, _rot in prog.queries]
+    before = cuda_vm.LAUNCHES["vm_eval"]
+    got = cuda_vm.vm_eval(table, queries, table.consts_on(device), n)
+    torch.cuda.synchronize(device)
+    assert cuda_vm.LAUNCHES["vm_eval"] == before + 1
+    assert torch.equal(got, cuda_vm.vm_eval_plain(table, queries, table.consts_on(device), n))
+    assert torch.equal(_run_program(prog, get_device_field(spec), cols), got)
+    cpu = {k: [c.cpu() for c in v] for k, v in cols.items()}
+    assert torch.equal(_run_program(prog, get_device_field(spec), cpu), got.cpu())
+
+
+def test_vm_kernel_pasta_gates(device):
+    """The Poseidon experiment's gates (Pasta Fp: field.cuh's arithmetic)."""
+    from halo2_tpu_torch.circuits.poseidon import PoseidonCircuit
+    from halo2_tpu_torch.field import Fp
+    from halo2_tpu_torch.plonkish import Value
+    from halo2_tpu_torch.plonkish.assignment import run_synthesis
+    from halo2_tpu_torch.poseidon import MySpec, poseidon_hash
+
+    spec_p = MySpec(5, 4)
+    message = [Fp.from_u64(99)] * 4
+    circuit = PoseidonCircuit(Fp, spec_p, 4, [Value.known(x) for x in message], Value.known(poseidon_hash(Fp, spec_p, message)))
+    cs, _cfg, _asn = run_synthesis(circuit.without_witnesses(), 7, [], witness=False, field=Fp)
+    prog = Program([c for gate in cs.gates for c in gate.constraints])
+    cols = _vm_columns(prog, PASTA_FP, 128, device)
+    got = _run_program(prog, get_device_field(PASTA_FP), cols)
+    torch.cuda.synchronize(device)
+    cpu = {k: [c.cpu() for c in v] for k, v in cols.items()}
+    assert torch.equal(got.cpu(), _run_program(prog, get_device_field(PASTA_FP), cpu))

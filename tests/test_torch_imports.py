@@ -24,11 +24,13 @@ SLICE_MODULES = [
     "halo2_tpu_torch._build",
     "halo2_tpu_torch.field",
     "halo2_tpu_torch.field.cuda_mul",
+    "halo2_tpu_torch.field.cuda_ops",
     "halo2_tpu_torch.field.device",
     "halo2_tpu_torch.poly",
     "halo2_tpu_torch.poly.cuda_ntt",
     "halo2_tpu_torch.poly.domain",
     "halo2_tpu_torch.plonkish",
+    "halo2_tpu_torch.plonkish.cuda_vm",
     "halo2_tpu_torch.plonkish.evaluator",
     "halo2_tpu_torch.poseidon",
     "halo2_tpu_torch.poseidon.primitives",
