@@ -19,13 +19,15 @@ passes or raises:
    lane), reading no P == Q flag back, and each variant's device time per
    launch at every m >= 32 on operands without those lanes; the NTT stage
    kernels for BN254 Fr (carry-chain arithmetic) and Pasta Fp (64-bit
-   accumulators),
-   forward and inverse, on batches of C columns (C in {1, 3, 83} at n in
-   {2^11, 2^15}, C = 1 at 2^9 and 2^20; 83 is the flagship's coset batch),
-   and the batched iNTT(NTT(x)) == x; each NTT kernel's device time per
-   launch and per column with its share of the C-scaled bound at 2^11,
-   2^15 and 2^20 (C = 1) and the 2^15 batch of 83 (there also per call
-   with CUDA events, to check the profiler); at 2^11, 2^15 and 2^20 the time
+   accumulators), forward and inverse, on batches of C columns (C in
+   {1, 3, 83} at n in {2^11, 2^15}, C = 1 at 2^9 and 2^20; 83 is the
+   flagship's coset batch), the large stages one a launch and as the passes
+   of large_stage_plan(n) (several stages a launch), and the batched
+   iNTT(NTT(x)) == x; each NTT kernel's device time per launch (each pass
+   of the plan) and per column with its share of the C-scaled bound at
+   2^11, 2^15 and 2^20 (C = 1) and the 2^15 batch of 83 (there and at 2^20
+   also per call with CUDA events, the plan against one launch a large
+   stage); at 2^11, 2^15 and 2^20 the time
    per call of kernel and plain version (CUDA events around back-to-back
    calls) and each kernel's device time per launch (torch.profiler; a
    reading below the kernel's bound is taken again, then fails); mod_add
@@ -34,10 +36,14 @@ passes or raises:
    values first, with a broadcast element on either side; the expression VM
    (vm_eval, one launch per program) on the flagship's quotient program at
    its 2^15 rows (rot_scale 16: the 2042 rotation wraps; the challenges as
-   stride-0 views), the Poseidon experiment's gates and the less-than
-   experiment's lookup expressions (Pasta Fp), and a program whose outputs
-   are a bare query and a bare constant; the times of the new kernels as
-   for the others, the VM's at the flagship;
+   stride-0 views), the Poseidon experiment's gates (Pasta Fp; also at
+   101 rows, a partial last block) and the less-than experiment's lookup
+   expressions (Pasta Fp), a program whose outputs are a bare query and a
+   bare constant, programs of 100 and 150 live registers (shared memory
+   above 48 KB a block; 32-row blocks) and one scheduled on a single
+   stream, each with its streams, phases, registers, rows and shared
+   memory a block; the times of the new kernels as for the others, the
+   VM's at the flagship;
 3. the device MSM: msm_points at 2^16 (the k = 16 SRS, random.Random(42)
    scalars) and 2^20 (that SRS and random.Random(9) scalars tiled 16 times)
    equals the native host MSM on the same arrays; the time of each (median
@@ -409,8 +415,13 @@ def _vm_programs():
     challenges beta, gamma, theta and y as expanded views, as the prover
     hands them over), the Poseidon experiment's gates (Pasta Fp, k = 7), the
     less-than experiment's lookup expressions (Pasta Fp, k = 10; the
-    Poseidon circuit has no lookup), and a program with no instruction whose
-    outputs are a bare query and a bare constant."""
+    Poseidon circuit has no lookup), the Poseidon gates again at 101 rows
+    (a partial last block), a program with no instruction whose outputs
+    are a bare query and a bare constant, two programs of 100 and 150
+    live registers (100 x 32 bytes x 64 rows is 200 KB of shared memory a
+    block, above the 48 KB a launch gets by default; 150 registers take
+    the 32-row block), and a balanced tree of 256 products, which four
+    streams would hold all live, so it runs on one."""
     from halo2_tpu_torch.field import Fr
     from halo2_tpu_torch.field.params import BN254_FR, PASTA_FP
     from halo2_tpu_torch.kzg.keygen import AuxLayout, PlonkStructure
@@ -430,9 +441,22 @@ def _vm_programs():
     return [
         ("flagship quotient", st.quotient_program(16), BN254_FR, (1 << k) * 16, challenges),
         ("poseidon gates", Program([c for g in pcs.gates for c in g.constraints]), PASTA_FP, 1 << k_pos, ()),
+        ("poseidon gates, partial block", Program([c for g in pcs.gates for c in g.constraints]), PASTA_FP, 101, ()),
         ("less_than lookups", Program([e for lk in lcs.lookups for pair in lk.pairs for e in pair]), PASTA_FP, 1 << k_lt, ()),
         ("bare query and constant", Program([query, Constant(5)]), BN254_FR, 1 << k, ()),
+        ("100 live registers", Program([query * Constant(i + 2) for i in range(100)]), BN254_FR, 1 << k, ()),
+        ("150 live registers", Program([query * Constant(i + 2) for i in range(150)]), PASTA_FP, 1000, ()),
+        ("product tree", Program([_product_tree(query, 0, 256)]), BN254_FR, 1 << k, ()),
     ]
+
+
+def _product_tree(query, lo, hi):
+    """query^(hi - lo) times the constants lo + 2 .. hi + 1, a balanced tree."""
+    from halo2_tpu_torch.plonkish.expression import Constant
+
+    if hi - lo == 1:
+        return query * Constant(lo + 2)
+    return _product_tree(query, lo, (lo + hi) // 2) * _product_tree(query, (lo + hi) // 2, hi)
 
 
 def _vm_columns(prog, spec, n, gen, device, stride0):
@@ -485,10 +509,12 @@ def _check_vm(device, gen, err, times):
         plain = lambda: cuda_vm.vm_eval_plain(table, queries, consts, n)  # noqa: E731
         err["vm_eval"] = max(err["vm_eval"], _max_abs_err(f"vm_eval {label}", kernel(), plain()))
         ops = {name: sum(op == code for op, _a, _b in prog.instrs) for code, name in enumerate(("add", "mul", "neg"))}
+        rows, smem = cuda_vm.rows_per_block(table.num_regs)
         print(
             f"[kernels] vm_eval {label} ({spec.name}, n={n}, {len(prog.queries)} queries, "
             f"{len(prog.consts)} constants, {len(prog.instrs)} instructions {ops}, {table.num_regs} registers, "
-            f"{len(table.outputs)} outputs): equal to plain",
+            f"{len(table.outputs)} outputs; {table.streams} streams, {table.phases} phases, {rows} rows a "
+            f"block, {smem} bytes of shared memory a block): equal to plain",
             flush=True,
         )
         if label == "flagship quotient":
@@ -499,15 +525,30 @@ def _check_vm(device, gen, err, times):
     return flagship_bound
 
 
+def _large_ladder(spec, x, tw, fn=None, fused: bool = True):
+    """The large stages of one transform through ``fn`` (default the
+    kernel's wrapper): every pass of large_stage_plan(n), or with ``fused``
+    False every stage in a launch of its own."""
+    from halo2_tpu_torch.poly import cuda_ntt
+
+    fn = fn or cuda_ntt.ntt_large_stage
+    for m0, stages in cuda_ntt.large_stage_plan(x.shape[-1]):
+        for m, r in [(m0, stages)] if fused else [(m0 << i, 1) for i in range(stages)]:
+            x = fn(spec, x, tw, m, r)
+    return x
+
+
 def _check_ntt_kernels(device, gen, err, times):
     """Both NTT stage kernels against their plain versions, limb for limb,
     for BN254 Fr (the kernels' carry-chain arithmetic) and Pasta Fp (the
     64-bit-accumulator one), forward and inverse, at every NTT_CASES batch:
-    the small stages, then every large stage of the ladder; the
-    batched iNTT(NTT(x)) == x.  Then the device time per launch and per
-    column of each kernel at NTT_TIMED, with its share of the bound for the
-    batch, and the time per call of kernel and plain version at 2^11, 2^15
-    and 2^20 for one column."""
+    the small stages, then every large stage of the ladder on its own
+    (stages=1), then every pass of large_stage_plan(n) (several stages a
+    launch); the batched iNTT(NTT(x)) == x.  Then the device time per
+    launch and per column of each kernel at NTT_TIMED, the large stages as
+    every pass of the plan, with its share of the bound for the batch, and
+    the time per call of kernel and plain version at 2^11, 2^15 and 2^20
+    for one column (the large stages: the whole plan)."""
     import torch
 
     from halo2_tpu_torch.field.params import BN254_FR, PASTA_FP
@@ -521,43 +562,66 @@ def _check_ntt_kernels(device, gen, err, times):
                 _random_field(spec, (cols, n), gen, device).transpose(0, 1).contiguous()
             )
             label = f"{spec.name} C={cols} n={n}"
+            plan = cuda_ntt.large_stage_plan(n)
             for inverse in (False, True):
                 tw = twiddle_table(spec, n, inverse, device)
                 want = cuda_ntt.ntt_small_stages_plain(spec, x, tw)
                 got = cuda_ntt.ntt_small_stages(spec, x, tw)
                 e = _max_abs_err(f"ntt_small_stages {label} inv={inverse}", got, want)
                 err["ntt_small_stages"] = max(err["ntt_small_stages"], e)
-                y, m = want, cuda_ntt.TILE
-                while m < n:
-                    step = cuda_ntt.ntt_large_stage(spec, y, tw, m)
-                    e = _max_abs_err(
-                        f"ntt_large_stage {label} m={m} inv={inverse}", step,
-                        cuda_ntt.ntt_large_stage_plain(spec, y, tw, m),
-                    )
-                    err["ntt_large_stage"] = max(err["ntt_large_stage"], e)
-                    y, m = step, m * 2
+                for fused in (False, True):
+                    def step(sp, y, t, m, r):
+                        got = cuda_ntt.ntt_large_stage(sp, y, t, m, r)
+                        e = _max_abs_err(
+                            f"ntt_large_stage {label} m={m} stages={r} inv={inverse}", got,
+                            cuda_ntt.ntt_large_stage_plain(sp, y, t, m, r),
+                        )
+                        err["ntt_large_stage"] = max(err["ntt_large_stage"], e)
+                        return got
+
+                    _large_ladder(spec, want, tw, step, fused)
             if not torch.equal(_ntt_raw(spec, n, True)(_ntt_raw(spec, n, False)(x)), x):
                 raise AssertionError(f"iNTT(NTT(x)) != x for {label}")
             if (cols, n) in NTT_TIMED:
                 batches[(spec, cols, n)] = x
-            print(f"[kernels] ntt {label}: both kernels equal to plain, iNTT(NTT(x)) == x", flush=True)
+            print(
+                f"[kernels] ntt {label}: both kernels equal to plain (the large stages one at a time and "
+                f"as the passes {plan}), iNTT(NTT(x)) == x",
+                flush=True,
+            )
 
     for (spec, cols, n), x in batches.items():
         tw = twiddle_table(spec, n, False, device)
-        bound = _ntt_bounds(n, cols)
-        parts = []
-        for name, call in (
-            ("ntt_small_stages", lambda: cuda_ntt.ntt_small_stages(spec, x, tw)),
-            ("ntt_large_stage", lambda: cuda_ntt.ntt_large_stage(spec, x, tw, n // 2)),
-        ):
-            t_d = _kernel_device_ms(call, f"{name}_kernel", bound[name][0])
-            times[(name, spec.name, cols, n)] = t_d
+        small_bound = _ntt_bounds(n, cols)["ntt_small_stages"]
+        call = lambda: cuda_ntt.ntt_small_stages(spec, x, tw)  # noqa: E731
+        t_d = _kernel_device_ms(call, "ntt_small_stages_kernel", small_bound[0])
+        times[("ntt_small_stages", spec.name, cols, n)] = t_d
+        parts = [
+            f"ntt_small_stages {t_d:.4f} ms a launch, {t_d / cols:.5f} a column, {small_bound[0] / t_d:.0%} "
+            f"of the bound {small_bound[0]:.6f}"
+        ]
+        if cols == FLAGSHIP_C:  # a check on the profiler: launch gaps are small beside 0.1-0.4 ms
+            parts.append(f"ntt_small_stages {_ms_per_call(call, 20):.4f} ms a call (CUDA events)")
+        ladder = 0.0
+        for m0, stages in cuda_ntt.large_stage_plan(n):
+            bound = _bound(*_ntt_work(n, cols, m0, stages))
+            call = lambda: cuda_ntt.ntt_large_stage(spec, x, tw, m0, stages)  # noqa: E731
+            t_d = _kernel_device_ms(call, "ntt_large_stage_kernel", bound[0])
+            ladder += t_d
             parts.append(
-                f"{name} {t_d:.4f} ms a launch, {t_d / cols:.5f} a column, {bound[name][0] / t_d:.0%} of "
-                f"the bound {bound[name][0]:.6f}"
+                f"ntt_large_stage m0={m0} stages={stages} {t_d:.4f} ms a launch, {t_d / cols:.5f} a column, "
+                f"{bound[0] / t_d:.0%} of the bound {bound[0]:.6f} ({bound[1]})"
             )
-            if cols == FLAGSHIP_C:  # a check on the profiler: launch gaps are small beside 0.1-0.4 ms
-                parts.append(f"{name} {_ms_per_call(call, 20):.4f} ms a call (CUDA events)")
+        times[("ntt_large_stage", spec.name, cols, n)] = ladder
+        large_bound = _ntt_bounds(n, cols)["ntt_large_stage"]
+        parts.append(f"the large stages {ladder:.4f} ms, {large_bound[0] / ladder:.0%} of {large_bound[0]:.6f}")
+        if cols == FLAGSHIP_C or n == TIMED_SIZES[-1]:  # the plan against one launch a stage, CUDA events
+            fused = _ms_per_call(lambda: _large_ladder(spec, x, tw), 20)
+            alone = _ms_per_call(lambda: _large_ladder(spec, x, tw, fused=False), 20)
+            parts.append(
+                f"the large stages as the plan's passes {fused:.4f} ms a call, one launch a stage {alone:.4f} "
+                f"(CUDA events)"
+            )
         print(f"[kernels] ntt {spec.name} C={cols} n={n} on the device: " + "; ".join(parts), flush=True)
 
     spec = BN254_FR
@@ -565,17 +629,17 @@ def _check_ntt_kernels(device, gen, err, times):
         x = batches[(spec, 1, n)]
         tw = twiddle_table(spec, n, False, device)
         small = lambda: cuda_ntt.ntt_small_stages(spec, x, tw)  # noqa: E731
-        large = lambda: cuda_ntt.ntt_large_stage(spec, x, tw, n // 2)  # noqa: E731
+        large = lambda: _large_ladder(spec, x, tw)  # noqa: E731
         t_sk, t_lk = _ms_per_call(small, 50), _ms_per_call(large, 50)
         t_sp = _ms_per_call(lambda: cuda_ntt.ntt_small_stages_plain(spec, x, tw), 2, runs=3)
-        t_lp = _ms_per_call(lambda: cuda_ntt.ntt_large_stage_plain(spec, x, tw, n // 2), 2, runs=3)
+        t_lp = _ms_per_call(lambda: _large_ladder(spec, x, tw, cuda_ntt.ntt_large_stage_plain), 2, runs=3)
         t_full = _ms_per_call(lambda: _ntt_raw(spec, n, False)(x), 10)
         times[("ntt_small_stages", n)] = (t_sk, t_sp)
         times[("ntt_large_stage", n)] = (t_lk, t_lp)
         print(
             f"[kernels] ntt {spec.name} n={n}: small stages kernel {t_sk:.4f} ms per call, plain "
-            f"{t_sp:.4f} ms per call; large stage m={n // 2} kernel {t_lk:.4f} ms per call, plain "
-            f"{t_lp:.4f} ms per call; forward NTT through the kernels {t_full:.4f} ms per call",
+            f"{t_sp:.4f} ms per call; large stages (passes {cuda_ntt.large_stage_plan(n)}) kernel {t_lk:.4f} "
+            f"ms per call, plain {t_lp:.4f} ms per call; forward NTT through the kernels {t_full:.4f} ms per call",
             flush=True,
         )
 
@@ -699,8 +763,8 @@ ELEM = 64  # bytes of one (16,) int32 field element
 
 def _bounds(classes: dict, n: int) -> dict:
     """Least time (ms) and what bounds it, per kernel, for the work of this
-    run's calls at n elements or lanes (NTT: n elements, the large stage at
-    half-size n/2): each input read once, each output written once, against
+    run's calls at n elements or lanes (NTT: n elements, the large stages as
+    the passes of large_stage_plan(n)): each input read once, each output written once, against
     the IMADs of the products that the inputs need."""
     return {
         **{name: _bound(*w) for name, w in _field_work(n).items()},
@@ -748,19 +812,32 @@ def _stage_products(n: int, m: int) -> int:
     return n // (2 * m) * (m - 1)
 
 
-def _ntt_work(n: int, cols: int) -> dict:
-    """(bytes, IMADs) of each NTT kernel's launch over ``cols`` columns of n
-    elements (the large stage at half-size n/2); the twiddle table is read
-    once for the batch."""
-    small = sum(_stage_products(n, 1 << lm) for lm in range(1, 9))  # m = 2 .. 256; m = 1 has none
-    return {
-        "ntt_small_stages": (2 * ELEM * n * cols + ELEM * 511, IMAD_MUL * small * cols),
-        "ntt_large_stage": (2 * ELEM * n * cols + ELEM * n // 2, IMAD_MUL * _stage_products(n, n // 2) * cols),
-    }
+def _ntt_work(n: int, cols: int, m0: int, stages: int) -> tuple:
+    """(bytes, IMADs) of one ntt_large_stage launch over ``cols`` columns of
+    n elements, the stages m0 .. m0 2^(stages - 1): each element read and
+    written once, each twiddle the stages read (stage m: m of them, columns
+    m - 1 .. 2m - 2 of the table) read once for the batch."""
+    ms = [m0 << s for s in range(stages)]
+    return 2 * ELEM * n * cols + ELEM * sum(ms), IMAD_MUL * sum(_stage_products(n, m) for m in ms) * cols
 
 
 def _ntt_bounds(n: int, cols: int) -> dict:
-    return {name: _bound(*w) for name, w in _ntt_work(n, cols).items()}
+    """The bound of each NTT kernel's work in one transform of ``cols``
+    columns of n elements: one small-stages launch (the 511 twiddles of m =
+    1 .. 256 read once), and the large stages as the launches of
+    large_stage_plan(n), their bounds summed (bounded by what bounds the
+    larger part of the sum)."""
+    from halo2_tpu_torch.poly import cuda_ntt
+
+    small = sum(_stage_products(n, 1 << lm) for lm in range(1, 9))  # m = 2 .. 256; m = 1 has none
+    passes = [_bound(*_ntt_work(n, cols, m0, r)) for m0, r in cuda_ntt.large_stage_plan(n)]
+    by_ops = sum(t for t, by in passes if by == "operations")
+    return {
+        "ntt_small_stages": _bound(2 * ELEM * n * cols + ELEM * 511, IMAD_MUL * small * cols),
+        "ntt_large_stage": (
+            sum(t for t, _ in passes), "operations" if 2 * by_ops > sum(t for t, _ in passes) else "bytes"
+        ),
+    }
 
 
 def _flagship_circuit():
@@ -1003,6 +1080,39 @@ def profile_prove(device, params=None, pk=None, warm: int = 1) -> None:
         + "; ".join(f"{k} {n} {us[k] / 1e3:.3f}" for k, n in torch_ops.most_common(12)),
         flush=True,
     )
+
+
+def time_proves(device, reps: int = 5) -> list:
+    """Wall times (s) of ``reps`` warm native-commit flagship proves after
+    one warm-up, each ending in a synchronize and equal to the fixture.  It
+    uses only the port's entry points, so it also times an older checkout of
+    the port (scripts/torch_compare.sh), as profile_prove does."""
+    import torch
+
+    from halo2_tpu_torch.field import Fr
+    from halo2_tpu_torch.kzg import ParamsKZG, ProvingKey, create_proof
+
+    circuit, public = _flagship_circuit()
+    params = ParamsKZG.setup_cached(11)
+    pk = ProvingKey.load(PK_CACHE, circuit, 11, Fr)
+    with open(FIXTURE, "rb") as f:
+        want = f.read()
+    times = []
+    for rep in range(reps + 1):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        proof = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7))
+        torch.cuda.synchronize(device)
+        if proof != want:
+            raise AssertionError(f"prove {rep} differs from {FIXTURE}")
+        if rep:
+            times.append(time.perf_counter() - t0)
+    print(
+        f"[proves] {reps} warm native-commit proves (s): {[round(t, 3) for t in times]}; "
+        f"median {statistics.median(times):.3f}",
+        flush=True,
+    )
+    return times
 
 
 def phase_prove(device):

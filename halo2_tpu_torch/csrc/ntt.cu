@@ -22,8 +22,8 @@
 // IMAD.WIDE, 272 32-bit multiply-adds) plus a mod-add and a mod-sub, against
 // 256 bytes of element traffic.  The nine fused small stages do eight
 // multiplies per element pair per pass over memory, so they are bound by the
-// integer units; each large stage is one pass for one multiply, bound by
-// memory.
+// integer units; a pass of r large stages does r, so six (2^15) are bound
+// by the integer units and five or fewer by memory.
 //
 // ntt_small_stages: one block per 512-element tile of one column, grid
 // (n / 512, C), so a batch of columns fills the card where one short column
@@ -36,9 +36,31 @@
 // butterflies per thread per stage.  The last stage (m = 256) pairs elements
 // k and k + 256 and writes them straight to device memory.
 //
-// ntt_large_stage: one thread per butterfly, grid (n / 512, C).  Fusing
-// several large stages per pass (a larger radix or a four-step transform)
-// is the next step.
+// ntt_large_stage: r = 1 .. 6 consecutive large stages m0, 2 m0, ..,
+// m0 2^(r-1) in one pass over memory (cuda_ntt.large_stage_plan balances a
+// transform's log2(n) - 9 large stages over ceil((log2(n) - 9) / 6) passes:
+// one at 2^11 and 2^15, two at 2^20).  The elements those stages combine
+// differ only in index bits log2(m0) .. log2(m0) + r - 1, so a group is 2^r
+// elements at stride m0, and a block takes FUSE_T = 16 groups of consecutive
+// low offsets: 16 x 2^r elements, 32 KB of shared memory at r = 6, every
+// limb row read and written as 64-byte runs.  It loads them into shared
+// memory (word-major, bit 4 of the slot flipped where bit 5 is set, so that
+// a warp's two half-warps of butterflies fall on different banks at every
+// stage), runs the r stages there with a barrier between stages, 256
+// threads (fewer below r = 5) taking E / 2 butterflies a stage, and writes
+// them back.  Grid (n / (16 x 2^r), C).  The twiddles come from the same
+// table: stage m's butterfly at offset j of its 2m-block reads column
+// (m - 1) + j.  At 2^20 the second pass's stages (m = 2^15 .. 2^19) read
+// 31 x 2^15 distinct twiddles, 64 MB, more than the 50 MB L2: each is read
+// once, counted in the bound (chip_smoke._ntt_work) rather than built from
+// two smaller tables at one more product each.  What bounds a pass: at
+// 2^15 x 83 the IMADs of its six stages (0.133 ms) above its bytes (0.105
+// ms, one read and one write of the batch); at 2^20 the IMADs of the first
+// pass (0.051 ms) and the bytes of the second (0.059).  One NVIDIA H100
+// 80GB HBM3 at 700 W (PERF.md) ran the 2^15 x 83 pass in 0.26 ms (51 % of
+// its bound; six one-stage launches took 0.69) and the two 2^20 passes in
+// 0.12 ms each (45 %; eleven launches took 0.69).  A lone column is short of
+// blocks: 32 at 2^15, 0.022 ms.
 
 #include "arith.cuh"
 
@@ -50,7 +72,9 @@ constexpr int TILE = 512;  // elements per block, small-stages kernel
 constexpr int EPT = 4;      // elements per thread, small-stages kernel
 constexpr int SMALL_THREADS = TILE / EPT;
 constexpr int LIMBS = 2 * WORDS;
-constexpr int LARGE_THREADS = 256;
+constexpr int LARGE_THREADS = 256;  // most threads a block, large stages
+constexpr int FUSE_T = 16;          // consecutive low offsets a block, large stages
+constexpr int MAX_STAGES = 6;       // large stages a pass: 32 KB of shared memory
 
 // b *= twiddle (column idx of the table)
 template <class A>
@@ -160,25 +184,69 @@ ntt_small_stages_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ o
   }
 }
 
+// The shared-memory slot of tile element e: bit 4 flipped where bit 5 is
+// set.  A stage's butterfly b = 16 q + t pairs the elements 16 h0 + t and
+// 16 (h0 + 2^s) + t; a warp holds q and q + 1 (q even), whose first elements
+// are 16 apart (s > 0, the same bit 5) or 32 apart (s = 0, bit 5 differs),
+// so with the flip the two half-warps take different banks.
+__device__ __forceinline__ int slot(int e) { return e ^ ((e >> 1) & FUSE_T); }
+
 template <class A>
 __global__ void __launch_bounds__(LARGE_THREADS)
-ntt_large_stage_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, int n, int m,
-                       const uint32_t* __restrict__ tw, Modulus M) {
+ntt_large_stage_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, int n, int m0,
+                        int stages, const uint32_t* __restrict__ tw, Modulus M) {
+  extern __shared__ __align__(16) uint32_t s[];  // [WORDS][E]
   const size_t col = static_cast<size_t>(blockIdx.y) * LIMBS * n;
   x += col;
   out += col;
-  const size_t kb = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (kb >= static_cast<size_t>(n / 2)) return;
-  const size_t j = kb & static_cast<size_t>(m - 1);
-  const size_t i0 = 2 * (kb - j) + j;
-  const size_t i1 = i0 + m;
-  uint32_t a[WORDS], b[WORDS];
-  load_elem(x, n, i0, a);
-  load_elem(x, n, i1, b);
-  twiddle<A>(b, tw, n - 1, (m - 1) + static_cast<int>(j), M);
-  butterfly<A>(a, b, M);
-  store_elem(out, n, i0, a);
-  store_elem(out, n, i1, b);
+  const int E = FUSE_T << stages;
+  const int groups = m0 / FUSE_T;  // blocks along the low offsets
+  const int j0 = static_cast<int>(blockIdx.x % groups) * FUSE_T;
+  const size_t base = static_cast<size_t>(blockIdx.x / groups) * (static_cast<size_t>(m0) << stages) + j0;
+
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    uint32_t w[WORDS];
+    load_elem(x, n, base + (e & (FUSE_T - 1)) + static_cast<size_t>(e / FUSE_T) * m0, w);
+    const int p = slot(e);
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) s[k * E + p] = w[k];
+  }
+  __syncthreads();
+
+  const int half = E / 2;
+  for (int st = 0; st < stages; ++st) {
+    const int m = m0 << st;
+    const int low = (1 << st) - 1;
+    for (int b = threadIdx.x; b < half; b += blockDim.x) {
+      const int t = b & (FUSE_T - 1);
+      const int q = b / FUSE_T;
+      const int h0 = ((q >> st) << (st + 1)) | (q & low);
+      const int p0 = slot(h0 * FUSE_T + t);
+      const int p1 = slot((h0 + (1 << st)) * FUSE_T + t);
+      uint32_t a[WORDS], v[WORDS];
+#pragma unroll
+      for (int k = 0; k < WORDS; ++k) {
+        a[k] = s[k * E + p0];
+        v[k] = s[k * E + p1];
+      }
+      twiddle<A>(v, tw, n - 1, (m - 1) + j0 + t + (q & low) * m0, M);
+      butterfly<A>(a, v, M);
+#pragma unroll
+      for (int k = 0; k < WORDS; ++k) {
+        s[k * E + p0] = a[k];
+        s[k * E + p1] = v[k];
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    uint32_t w[WORDS];
+    const int p = slot(e);
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) w[k] = s[k * E + p];
+    store_elem(out, n, base + (e & (FUSE_T - 1)) + static_cast<size_t>(e / FUSE_T) * m0, w);
+  }
 }
 
 template <class A>
@@ -190,11 +258,13 @@ void launch_small(const void* x, void* out, int n, int cols, const void* tw, con
 }
 
 template <class A>
-void launch_large(const void* x, void* out, int n, int cols, int m, const void* tw, const Modulus& M,
-                  cudaStream_t stream) {
-  const int blocks = (n / 2 + LARGE_THREADS - 1) / LARGE_THREADS;
-  ntt_large_stage_kernel<A><<<dim3(blocks, cols), LARGE_THREADS, 0, stream>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), n, m,
+void launch_large(const void* x, void* out, int n, int cols, int m0, int stages, const void* tw,
+                  const Modulus& M, cudaStream_t stream) {
+  const int elems = FUSE_T << stages;
+  const int threads = elems / 2 < LARGE_THREADS ? elems / 2 : LARGE_THREADS;
+  const size_t smem = static_cast<size_t>(elems) * WORDS * sizeof(uint32_t);
+  ntt_large_stage_kernel<A><<<dim3(n / elems, cols), threads, smem, stream>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), n, m0, stages,
       static_cast<const uint32_t*>(tw), M);
 }
 
@@ -217,16 +287,20 @@ extern "C" int h2t_ntt_small_stages(const void* x, void* out, int n, int cols, c
   return static_cast<int>(cudaGetLastError());
 }
 
-// One stage with half-size m (a power of two, 512 <= m <= n / 2) on each of
-// ``cols`` columns.  arith as above.
-extern "C" int h2t_ntt_large_stage(const void* x, void* out, int n, int cols, int m, const void* tw,
-                                   const void* modulus, int arith, void* stream) {
+// The ``stages`` consecutive stages with half-sizes m0, 2 m0, .., m0 2^(stages
+// - 1) (m0 a power of two >= 512, 1 <= stages <= MAX_STAGES, m0 2^stages <=
+// n) on each of ``cols`` columns.  arith as above.
+extern "C" int h2t_ntt_large_stage(const void* x, void* out, int n, int cols, int m0, int stages,
+                                   const void* tw, const void* modulus, int arith, void* stream) {
+  if (stages < 1 || stages > MAX_STAGES || m0 < TILE || (m0 & (m0 - 1)) ||
+      static_cast<long long>(m0) << stages > n)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Modulus M = modulus_from_host(static_cast<const uint32_t*>(modulus));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (arith == 0) {
-    launch_large<CcArith>(x, out, n, cols, m, tw, M, s);
+    launch_large<CcArith>(x, out, n, cols, m0, stages, tw, M, s);
   } else if (arith == 1) {
-    launch_large<WideArith>(x, out, n, cols, m, tw, M, s);
+    launch_large<WideArith>(x, out, n, cols, m0, stages, tw, M, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

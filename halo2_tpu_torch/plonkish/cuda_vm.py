@@ -20,16 +20,34 @@ The table:
 - instructions: ``(I, 4)`` int32 ``(op, src1, src2, dst)``, op 0 = add, 1 =
   multiply, 2 = negate (src1 only); a source is ``tag | index << 2`` with
   tag 0 = query, 1 = constant, 2 = register; dst is a register;
-- outputs: ``(O,)`` sources, which may be a bare query or constant.
+- outputs: ``(O,)`` sources, which may be a bare query or constant;
+- the schedule: each row's instructions are spread over :data:`STREAMS`
+  streams (one warp of the kernel's block each) in phases that a barrier
+  ends.  ``offsets[p * streams + s]`` is where stream s of phase p starts in
+  the instruction table, which lists them phase by phase, stream by stream;
+  run in that order, one after another, the table computes the program
+  (:func:`vm_eval_plain` does), since every result read across streams was
+  made in an earlier phase.
 
-Registers are allocated by liveness: an instruction's operands whose last
-reader it is are freed before its result takes a register (the lowest free
-one), so the result may reuse an operand's register (both operands are read
-before the store); an output stays live to the end.
+:func:`_schedule` lists the instructions critical path first, each on the
+stream where it can start first (a result of another stream costs a
+barrier), then places the fewest barriers that separate every such
+producer from its reader.  Registers are then allocated in table order: a
+result takes the lowest register whose value every reader has read before
+it, as far as the schedule orders them (an earlier phase, or earlier in
+the same stream; an instruction's own operands count, since both are read
+before the store, so a result may take an operand's register); an output
+stays live to the end.  The kernel keeps a block's registers in shared
+memory, 32 bytes a register and row: :func:`rows_per_block` sizes the
+block.  A program whose registers over :data:`STREAMS` streams would not
+fit 32 rows (:data:`MAX_REGS`) is scheduled on one stream in its own order,
+which needs the fewest; one that does not fit even so is refused with
+``ValueError``.
 """
 
 from __future__ import annotations
 
+import bisect
 import heapq
 import weakref
 
@@ -47,6 +65,17 @@ LAUNCHES = {"vm_eval": 0}
 OP_ADD, OP_MUL, OP_NEG = 0, 1, 2
 SRC_QUERY, SRC_CONST, SRC_REG = 0, 1, 2
 _MAX_INDEX = 1 << 29  # a source's index, shifted left by 2, stays an int32
+# the kernel's blocks: 64 rows, or 32 when 64 rows of registers do not fit
+# the shared memory one block may hold on an H100 (227 KB); each row's
+# instructions spread over STREAMS warps
+BLOCK_ROWS = (64, 32)
+SMEM_MAX = 232448
+STREAMS = 4
+MAX_REGS = SMEM_MAX // (WORDS * 4 * BLOCK_ROWS[-1])  # 227
+# the scheduler's weights, about the cycles of one instruction a warp, and of
+# reading another stream's result (a barrier)
+_COST = {OP_ADD: 40, OP_MUL: 330, OP_NEG: 40}
+_BARRIER = 400
 
 
 class VMTable:
@@ -54,15 +83,25 @@ class VMTable:
     docstring); device copies of its instructions, outputs and constants
     are made once per device."""
 
-    def __init__(self, spec: FieldSpec, queries, rot_scale: int, consts, instrs, outputs, num_regs: int):
+    def __init__(
+        self, spec: FieldSpec, queries, rot_scale: int, consts, instrs, outputs, num_regs: int,
+        streams: int, offsets, order,
+    ):
         self.spec = spec
         self.queries = list(queries)
         self.rot_scale = rot_scale
         self.consts = consts  # (C, 8) uint32
-        self.instrs = instrs  # (I, 4) int32
+        self.instrs = instrs  # (I, 4) int32, phase by phase, stream by stream
         self.outputs = outputs  # (O,) int32
         self.num_regs = num_regs
+        self.streams = streams
+        self.offsets = offsets  # (P * streams + 1,) int32: phase p, stream s from offsets[p * streams + s]
+        self.order = order  # (I,) the Program's index of each instruction
         self._device: dict = {}
+
+    @property
+    def phases(self) -> int:
+        return (len(self.offsets) - 1) // self.streams
 
     def shifts(self, n: int) -> list[int]:
         """Each query's row shift over n rows, in [0, n)."""
@@ -79,7 +118,7 @@ class VMTable:
         if hit is None:
             hit = tuple(
                 torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(device)
-                for x in (self.consts, self.instrs, self.outputs)
+                for x in (self.consts, self.instrs, self.outputs, self.offsets)
             )
             self._device[device] = hit
         return hit
@@ -100,42 +139,115 @@ def _words(spec: FieldSpec, v: int) -> list[int]:
     return [(m >> (32 * k)) & 0xFFFFFFFF for k in range(WORDS)]
 
 
+def _schedule(ops, deps, users, streams: int):
+    """(phase, stream, start) of each instruction: a list schedule over
+    ``streams`` streams (critical path first, each on the stream where it
+    can start first, a dependency on another stream's result costing
+    :data:`_BARRIER`), then the fewest barriers that put every such
+    dependency's producer in an earlier phase than its reader.  One stream
+    runs the program in its own order."""
+    ni = len(ops)
+    if streams == 1:
+        return [0] * ni, [0] * ni, list(range(ni))
+    cost = [_COST[op] for op in ops]
+    below = [0] * ni  # the longest path from each instruction to the end
+    for j in reversed(range(ni)):
+        below[j] = cost[j] + max((below[u] for u in users[j]), default=0)
+    waiting = [len(d) for d in deps]
+    ready = [(-below[j], j) for j in range(ni) if not waiting[j]]
+    heapq.heapify(ready)
+    start, end, stream = [0] * ni, [0] * ni, [0] * ni
+    avail = [0] * streams
+    while ready:
+        _, j = heapq.heappop(ready)
+        t, s = min(
+            (max([avail[s]] + [end[d] + (0 if stream[d] == s else _BARRIER) for d in deps[j]]), s)
+            for s in range(streams)
+        )
+        start[j], end[j], stream[j] = t, t + cost[j], s
+        avail[s] = end[j]
+        for u in users[j]:
+            waiting[u] -= 1
+            if not waiting[u]:
+                heapq.heappush(ready, (-below[u], u))
+    barriers: list[int] = []  # times; a dependency across streams needs one in [end(i), start(j)]
+    for right, left in sorted((start[j], end[i]) for j in range(ni) for i in deps[j] if stream[i] != stream[j]):
+        if not barriers or barriers[-1] < left:
+            barriers.append(right)
+    phase = [bisect.bisect_right(barriers, start[j]) for j in range(ni)]
+    return phase, stream, start
+
+
 def _compile(prog, spec: FieldSpec) -> VMTable:
+    """The table over :data:`STREAMS` streams, or over one (the program's
+    order, the fewest registers) when those streams' registers would not
+    fit the kernel's shared memory."""
+    table = _compile_streams(prog, spec, STREAMS)
+    if table.num_regs > MAX_REGS:
+        table = _compile_streams(prog, spec, 1)
+    return table
+
+
+def _compile_streams(prog, spec: FieldSpec, streams: int) -> VMTable:
     nq, nc, ni = len(prog.queries), len(prog.consts), len(prog.instrs)
     base = nq + nc
     if max(nq, nc, ni) >= _MAX_INDEX:
         raise ValueError(f"vm: program too large ({nq} queries, {nc} constants, {ni} instructions)")
-    outs = prog.output_slots()
-    last = [-1] * ni  # the last instruction that reads each result; ni: an output
-    for j, (op, s1, s2) in enumerate(prog.instrs):
-        for s in (s1,) if op == OP_NEG else (s1, s2):
-            if s >= base:
-                last[s - base] = j
-    for s in outs:
-        if s >= base:
-            last[s - base] = ni
-    reg_of = [0] * ni
-    free: list[int] = []
-    num_regs = 0
-    instrs = np.zeros((ni, 4), np.int32)
-    for j, (op, s1, s2) in enumerate(prog.instrs):
+    ops = [op for op, _s1, _s2 in prog.instrs]
+    for j, op in enumerate(ops):
         if op not in (OP_ADD, OP_MUL, OP_NEG):
             raise ValueError(f"vm: unknown opcode {op} at instruction {j}")
+    srcs = [(s1,) if op == OP_NEG else (s1, s2) for op, s1, s2 in prog.instrs]
+    deps = [sorted({s - base for s in ss if s >= base}) for ss in srcs]
+    users: list[list[int]] = [[] for _ in range(ni)]
+    for j, d in enumerate(deps):
+        for i in d:
+            users[i].append(j)
+    outs = prog.output_slots()
+    live_out = {s - base for s in outs if s >= base}
+    phase, stream, start = _schedule(ops, deps, users, streams)
+    order = sorted(range(ni), key=lambda j: (phase[j], stream[j], start[j]))
+    pos = [0] * ni
+    for k, j in enumerate(order):
+        pos[j] = k
+    # a result's last accesses: the latest phase that makes or reads it, the
+    # streams that do so in that phase, and the last table position there
+    last = []
+    for v in range(ni):
+        at = [v, *users[v]]
+        p = max(phase[u] for u in at)
+        at = [u for u in at if phase[u] == p]
+        last.append((p, {stream[u] for u in at}, max(pos[u] for u in at)))
+
+    def free_for(v: int, j: int) -> bool:
+        """Every access to v's register happens before j's store: in an
+        earlier phase, or earlier in j's own stream (j itself reads its
+        operands before it stores).  An output stays."""
+        p, streams_at, at = last[v]
+        return v not in live_out and (p < phase[j] or (p == phase[j] and streams_at == {stream[j]} and at <= pos[j]))
+
+    reg_of = [0] * ni
+    held: list[int] = []  # register -> the instruction whose result it holds
+    instrs = np.zeros((ni, 4), np.int32)
+    for k, j in enumerate(order):
+        op, s1, s2 = prog.instrs[j]
         t1, t2 = _tag(s1, nq, nc, reg_of), _tag(s2, nq, nc, reg_of)
-        for s in {s1} if op == OP_NEG else {s1, s2}:
-            if s >= base and last[s - base] == j:
-                heapq.heappush(free, reg_of[s - base])
-        if free:
-            reg = heapq.heappop(free)
+        reg = next((r for r, v in enumerate(held) if free_for(v, j)), len(held))
+        if reg == len(held):
+            held.append(j)
         else:
-            reg, num_regs = num_regs, num_regs + 1
+            held[reg] = j
         reg_of[j] = reg
-        if last[j] < 0:  # read by nothing: free at once
-            heapq.heappush(free, reg)
-        instrs[j] = (op, t1, t2, reg)
+        instrs[k] = (op, t1, t2, reg)
+    phases = max(phase, default=0) + 1
+    offsets = np.searchsorted(
+        [phase[j] * streams + stream[j] for j in order], np.arange(phases * streams + 1)
+    ).astype(np.int32)
     outputs = np.array([_tag(s, nq, nc, reg_of) for s in outs], np.int32)
     consts = np.array([_words(spec, v) for v in prog.consts], np.uint32).reshape(nc, WORDS)
-    return VMTable(spec, prog.queries, prog.rot_scale, consts, instrs, outputs, num_regs)
+    return VMTable(
+        spec, prog.queries, prog.rot_scale, consts, instrs, outputs, len(held), streams, offsets, np.array(order)
+    )
 
 
 # compiled tables per (program, field name), dropped with their program
@@ -195,6 +307,18 @@ def vm_eval_plain(table: VMTable, queries, consts: torch.Tensor, n: int) -> torc
 
 
 # --------------------------------------------------------------------- wrapper
+def rows_per_block(num_regs: int) -> tuple[int, int]:
+    """(rows a block, shared-memory bytes a block) of the kernel for a
+    program with ``num_regs`` registers: the first of :data:`BLOCK_ROWS`
+    whose registers, ``num_regs`` x 32 bytes a row, fit :data:`SMEM_MAX`.
+    Raises ``ValueError`` when not even 32 rows fit: a limit of the kernel."""
+    for rows in BLOCK_ROWS:
+        smem = num_regs * WORDS * 4 * rows
+        if smem <= SMEM_MAX:
+            return rows, smem
+    raise ValueError(f"vm_eval: {num_regs} registers do not fit the kernel's shared memory (at most {MAX_REGS})")
+
+
 def _check(table: VMTable, queries, consts: torch.Tensor, n: int) -> torch.device:
     """Raise unless every query is an int32 tensor that expands to (16, n)
     and consts the table's (C, 8) int32 words, all on one device; returns
@@ -232,8 +356,10 @@ def vm_eval(table: VMTable, queries, consts: torch.Tensor, n: int) -> torch.Tens
     one int32 tensor per query, ``(16, n)`` or ``(16, 1)``, any strides
     (views of a batch, expanded constants); ``consts``:
     :meth:`VMTable.consts_on`.  CPU tensors: plain version; CUDA tensors: one
-    kernel launch."""
+    kernel launch.  Raises ``ValueError`` for a program whose registers the
+    kernel cannot hold (:func:`rows_per_block`), on either device."""
     device = _check(table, queries, consts, n)
+    rows, _smem = rows_per_block(table.num_regs)
     if device.type == "cpu":
         return vm_eval_plain(table, queries, consts, n)
     if device.type != "cuda":
@@ -244,13 +370,12 @@ def vm_eval(table: VMTable, queries, consts: torch.Tensor, n: int) -> torch.Tens
     out = torch.empty((n_out, L, n), dtype=torch.int32, device=device)
     if n_out == 0:
         return out
-    _, instrs_d, outputs_d = table._on(device)
+    _, instrs_d, outputs_d, offsets_d = table._on(device)
     consts = consts.contiguous()
     entries = torch.from_numpy(_query_table(table, queries, n)).to(device)
-    regs = torch.empty((max(table.num_regs, 1), WORDS, n), dtype=torch.int32, device=device)
     _build.launch(
-        "vm_eval", device, entries.data_ptr(), consts.data_ptr(), instrs_d.data_ptr(),
-        len(table.instrs), outputs_d.data_ptr(), n_out, regs.data_ptr(), out.data_ptr(), n,
+        "vm_eval", device, entries.data_ptr(), consts.data_ptr(), instrs_d.data_ptr(), offsets_d.data_ptr(),
+        table.phases, table.streams, outputs_d.data_ptr(), n_out, table.num_regs, rows, out.data_ptr(), n,
         modulus_words(table.spec).ctypes.data, ARITH[arith(table.spec)],
     )
     LAUNCHES["vm_eval"] += 1

@@ -4,7 +4,9 @@ and the wrappers that pick one by the tensor's device.
 The kernels (``csrc/ntt.cu``) replace
 ``halo2_tpu/poly/pallas_ntt.py:_small_stages_kernel`` (every stage with
 half-size m <= TILE / 2, fused per TILE-element tile) and
-``_large_stage_kernel`` (one stage with m >= TILE).  Input is the
+``_large_stage_kernel`` (one stage with m >= TILE; here up to
+:data:`MAX_FUSED` consecutive large stages in one pass, as
+:func:`large_stage_plan` groups them).  Input is the
 bit-reversed int32 field array, n a power of two >= TILE: one column
 ``(16, n)``, or a batch of C columns ``(C, 16, n)``, contiguous, column c the
 ``(16, n)`` block at offset ``c * 16 * n``.  One launch covers the batch.
@@ -33,6 +35,7 @@ from ..field.params import FieldSpec
 
 L = 16
 TILE = 512
+MAX_FUSED = 6  # large stages a launch: 16 x 2^6 elements, 32 KB of shared memory a block
 LAUNCHES = {"ntt_small_stages": 0, "ntt_large_stage": 0}
 
 
@@ -60,9 +63,28 @@ def ntt_small_stages_plain(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor) -
 
 
 def ntt_large_stage_plain(
-    spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, m: int
+    spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, m: int, stages: int = 1
 ) -> torch.Tensor:
-    return _stage_plain(spec, x, tw, m)
+    for s in range(stages):
+        x = _stage_plain(spec, x, tw, m << s)
+    return x
+
+
+def large_stage_plan(n: int) -> list[tuple[int, int]]:
+    """The passes of an n-point transform's large stages, ``[(m0, stages),
+    ...]``: its log2(n) - 9 stages m = TILE .. n / 2, in order, in
+    ceil((log2(n) - 9) / MAX_FUSED) passes whose sizes differ by at most
+    one, the longer first (2^11: one pass of 2; 2^15: one of 6; 2^20: 6 + 5)."""
+    total = n.bit_length() - TILE.bit_length()
+    if total <= 0:
+        return []
+    passes = -(-total // MAX_FUSED)
+    plan, m = [], TILE
+    for i in range(passes):
+        r = total // passes + (i < total % passes)
+        plan.append((m, r))
+        m <<= r
+    return plan
 
 
 # -------------------------------------------------------------------- wrappers
@@ -113,24 +135,23 @@ def ntt_small_stages(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor) -> torc
     return _launch("ntt_small_stages", spec, x, tw, n, cols)
 
 
-def ntt_large_stage(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, m: int) -> torch.Tensor:
-    """The stage with half-size m (TILE <= m <= n / 2, a power of two), on
-    each column."""
+def ntt_large_stage(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, m: int, stages: int = 1) -> torch.Tensor:
+    """The ``stages`` consecutive stages with half-sizes m, 2m, ..,
+    m 2^(stages - 1) (m >= TILE a power of two, 1 <= stages <=
+    MAX_FUSED, m 2^stages <= n), on each column, in one launch."""
     n, cols = _check(x, tw, "ntt_large_stage")
-    if m < TILE or m > n // 2 or m & (m - 1):
-        raise ValueError(f"ntt_large_stage: bad half-size m={m} for n={n}")
+    if m < TILE or m & (m - 1) or not 1 <= stages <= MAX_FUSED or m << stages > n:
+        raise ValueError(f"ntt_large_stage: bad half-size m={m} or stages={stages} for n={n}")
     if x.device.type == "cpu":
-        return ntt_large_stage_plain(spec, x, tw, m)
-    return _launch("ntt_large_stage", spec, x, tw, n, cols, m)
+        return ntt_large_stage_plain(spec, x, tw, m, stages)
+    return _launch("ntt_large_stage", spec, x, tw, n, cols, m, stages)
 
 
 def ntt_stages(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     """The whole butterfly ladder over a bit-reversed (16, n) or (C, 16, n)
-    input, n >= TILE: the fused small stages, then one launch per large
-    stage, each over every column."""
+    input, n >= TILE: the fused small stages, then one launch per pass of
+    :func:`large_stage_plan`, each over every column."""
     x = ntt_small_stages(spec, x, tw)
-    m = TILE
-    while m < x.shape[-1]:
-        x = ntt_large_stage(spec, x, tw, m)
-        m *= 2
+    for m, stages in large_stage_plan(x.shape[-1]):
+        x = ntt_large_stage(spec, x, tw, m, stages)
     return x

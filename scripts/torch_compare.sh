@@ -5,10 +5,13 @@
 # tree, this chip_smoke.py loaded by path from the old tree's root so that
 # the old package is the one profiled.  The logs go to the directory given
 # second (default .chip_scratch/compare, gitignored); the lines that carry
-# the end-to-end numbers are printed.  From the repository root:
+# the end-to-end numbers are printed.  Last, warm native-commit proves
+# (chip_smoke.time_proves, five a process) from each tree in turns: old,
+# new, new, old, old, new.  With "proves" as the third argument only those
+# run.  From the repository root:
 #
 #   git archive <commit> | tar -x -C .chip_scratch/parent   # a gitignored dir
-#   bash scripts/torch_compare.sh .chip_scratch/parent [log dir]
+#   bash scripts/torch_compare.sh .chip_scratch/parent [log dir] [proves]
 set -u
 ROOT=$(cd "$(dirname "$0")/.." && pwd)
 OLD=$(cd "$1" && pwd)
@@ -17,20 +20,34 @@ mkdir -p "$OUT"
 OUT=$(cd "$OUT" && pwd)
 cd "$ROOT"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
-for run in parent1 change1 change2 parent2; do
+RUNS="parent1 change1 change2 parent2"
+[ "${3:-}" = proves ] && RUNS=""
+for run in $RUNS; do
   t0=$(date +%s)
   case $run in
     parent*) (cd "$OLD" && timeout 900 python3 chip_smoke.py > "$OUT/$run.log" 2>&1); rc=$? ;;
     change*) timeout 900 python3 chip_smoke.py > "$OUT/$run.log" 2>&1; rc=$? ;;
   esac
   echo "$run rc=$rc $(( $(date +%s) - t0 )) s"
-  grep -E "^\[(prove|mock|poseidon|profile|done)\]|vm_eval m=|mod_add m=|mod_sub m=" "$OUT/$run.log" | grep -v keygen | cut -c1-400
+  grep -E "^\[(prove|mock|poseidon|profile|done)\]|vm_eval m=|mod_add m=|mod_sub m=|bn254_fr C=(83 n=32768|1 n=1048576) on the device" "$OUT/$run.log" | grep -v keygen | cut -c1-900
 done
 PROF="import importlib.util
 s = importlib.util.spec_from_file_location('chip_smoke_new', '$ROOT/chip_smoke.py')
 m = importlib.util.module_from_spec(s); s.loader.exec_module(m)
 m.profile_prove(m.phase_device())"
-(cd "$OLD" && timeout 300 python3 -c "$PROF" > "$OUT/profile_parent.log" 2>&1; echo "profile parent rc=$?")
-grep profile "$OUT/profile_parent.log" | cut -c1-1500
-timeout 300 python3 -c "$PROF" > "$OUT/profile_change.log" 2>&1; echo "profile change rc=$?"
-grep profile "$OUT/profile_change.log" | cut -c1-1500
+if [ -n "$RUNS" ]; then
+  (cd "$OLD" && timeout 300 python3 -c "$PROF" > "$OUT/profile_parent.log" 2>&1; echo "profile parent rc=$?")
+  grep profile "$OUT/profile_parent.log" | cut -c1-1500
+  timeout 300 python3 -c "$PROF" > "$OUT/profile_change.log" 2>&1; echo "profile change rc=$?"
+  grep profile "$OUT/profile_change.log" | cut -c1-1500
+fi
+PROVES=${PROF/profile_prove/time_proves}
+i=0
+for run in parent change change parent parent change; do
+  i=$((i + 1))
+  case $run in
+    parent) (cd "$OLD" && timeout 300 python3 -c "$PROVES" > "$OUT/proves$i.log" 2>&1); rc=$? ;;
+    change) timeout 300 python3 -c "$PROVES" > "$OUT/proves$i.log" 2>&1; rc=$? ;;
+  esac
+  echo "proves $i $run rc=$rc $(grep '^\[proves\]' "$OUT/proves$i.log")"
+done

@@ -311,3 +311,98 @@ def test_vm_kernel_pasta_gates(device):
     torch.cuda.synchronize(device)
     cpu = {k: [c.cpu() for c in v] for k, v in cols.items()}
     assert torch.equal(got.cpu(), _run_program(prog, get_device_field(PASTA_FP), cpu))
+
+
+def _product_tree(query, lo, hi):
+    from halo2_tpu_torch.plonkish.expression import Constant
+
+    if hi - lo == 1:
+        return query * Constant(lo + 2)
+    return _product_tree(query, lo, (lo + hi) // 2) * _product_tree(query, (lo + hi) // 2, hi)
+
+
+@pytest.mark.parametrize("case", ["partial_block", "smem_above_48k", "rows_32", "one_stream"])
+def test_vm_kernel_block_shapes(device, case):
+    """The kernel's block shapes against the plain version: the flagship
+    over four streams at 4,079 rows (a partial last block), 100 live
+    registers (200 KB of shared memory a block, above the default 48 KB),
+    150 (32-row blocks, Pasta Fp), and a balanced product tree scheduled on
+    one stream."""
+    from halo2_tpu_torch.kzg.keygen import AuxLayout
+    from halo2_tpu_torch.plonkish.column import Column, ColumnKind, Rotation
+    from halo2_tpu_torch.plonkish.expression import Constant, Query
+
+    query = Query(Column(ColumnKind.ADVICE, 0), Rotation(-1))
+    spec, n, stride0 = BN254_FR, 1 << 11, ()
+    if case == "partial_block":
+        prog, n = _flagship_program(16), (1 << 12) - 17
+        stride0 = (AuxLayout.BETA, AuxLayout.GAMMA, AuxLayout.THETA, AuxLayout.Y)
+    elif case == "smem_above_48k":
+        prog = Program([query * Constant(i + 2) for i in range(100)])
+    elif case == "rows_32":
+        prog, spec, n = Program([query * Constant(i + 2) for i in range(150)]), PASTA_FP, 1000
+    else:
+        prog = Program([_product_tree(query, 0, 256)])
+    table = cuda_vm.compile_program(prog, spec)
+    rows, smem = cuda_vm.rows_per_block(table.num_regs)
+    expect = {
+        "partial_block": (4, 64),
+        "smem_above_48k": (4, 64),
+        "rows_32": (4, 32),
+        "one_stream": (1, 64),
+    }[case]
+    assert (table.streams, rows) == expect
+    assert (smem > 48 * 1024) == (case in ("partial_block", "smem_above_48k", "rows_32"))
+    cols = _vm_columns(prog, spec, n, device, stride0)
+    queries = [cols[kind][ci] for kind, ci, _rot in prog.queries]
+    before = cuda_vm.LAUNCHES["vm_eval"]
+    got = cuda_vm.vm_eval(table, queries, table.consts_on(device), n)
+    torch.cuda.synchronize(device)
+    assert cuda_vm.LAUNCHES["vm_eval"] == before + 1
+    assert torch.equal(got, cuda_vm.vm_eval_plain(table, queries, table.consts_on(device), n))
+
+
+@pytest.mark.parametrize("spec", [BN254_FR, PASTA_FP], ids=lambda s: s.name)
+@pytest.mark.parametrize("k", [10, 11, 13, 15, 16])
+@pytest.mark.parametrize("cols", [1, 3])
+def test_fused_large_stages_match_plain(device, spec, k, cols):
+    """Every pass of large_stage_plan(n), several stages a launch, against
+    the chained plain stages, forward and inverse; ntt_stages launches the
+    large-stage kernel once a pass."""
+    n = 1 << k
+    enc = [_encoded(spec, n, 30 + c, device) for c in range(cols)]
+    x = torch.stack(enc) if cols > 1 else enc[0]
+    plan = cuda_ntt.large_stage_plan(n)
+    assert len(plan) == -(-(k - 9) // cuda_ntt.MAX_FUSED)
+    for inverse in (False, True):
+        tw = twiddle_table(spec, n, inverse, device)
+        y = cuda_ntt.ntt_small_stages_plain(spec, x, tw)
+        for m0, stages in plan:
+            got = cuda_ntt.ntt_large_stage(spec, y, tw, m0, stages)
+            torch.cuda.synchronize(device)
+            want = cuda_ntt.ntt_large_stage_plain(spec, y, tw, m0, stages)
+            assert torch.equal(got, want), (m0, stages)
+            y = got
+        before = cuda_ntt.LAUNCHES["ntt_large_stage"]
+        full = cuda_ntt.ntt_stages(spec, x, tw)
+        assert cuda_ntt.LAUNCHES["ntt_large_stage"] == before + len(plan)
+        torch.cuda.synchronize(device)
+        assert torch.equal(full, y)
+
+
+def test_every_large_stage_span_matches_plain(device):
+    """At 2^13 every run of 1 .. 4 consecutive large stages in one launch
+    (m0 = 512 .. 4096) equals the chained plain stages."""
+    spec, n = BN254_FR, 1 << 13
+    x = torch.stack([_encoded(spec, n, 40 + c, device) for c in range(3)])
+    tw = twiddle_table(spec, n, False, device)
+    m0 = cuda_ntt.TILE
+    while m0 < n:
+        stages = 1
+        while m0 << stages <= n:
+            got = cuda_ntt.ntt_large_stage(spec, x, tw, m0, stages)
+            torch.cuda.synchronize(device)
+            want = cuda_ntt.ntt_large_stage_plain(spec, x, tw, m0, stages)
+            assert torch.equal(got, want), (m0, stages)
+            stages += 1
+        m0 *= 2

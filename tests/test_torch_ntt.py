@@ -5,12 +5,15 @@ stage ladder of field ops, from 512 up the NTT stage kernels' plain versions
 (the kernels are held against those on the card by chip_smoke.py).
 
 The reference NTT is reached two ways: its jitted ``_ntt_fn`` at n = 2^4
-and 2^9, and its native engine's ``ntt_fr``, which tests/test_native.py holds
-equal to ``_ntt_fn``, at every n = 2^4 .. 2^13 (an XLA:CPU compile of
+and 2^9 (BN254 Fr) and 2^10 .. 2^14 (Pasta Fp, whose NTT the native engine
+lacks), and its native engine's ``ntt_fr``, which tests/test_native.py holds
+equal to ``_ntt_fn``, at every n = 2^4 .. 2^14 (an XLA:CPU compile of
 ``_ntt_fn`` costs 5-20 s per size, too much to repeat ten times here).  The
 coset transforms are held against the reference ``EvaluationDomain`` at
 k = 5 and 9 (extended n = 128 and 2048, both sides of the split), and
-against the reference's native engine at k = 9.
+against the reference's native engine at k = 9.  The large stages run as the
+passes of ``large_stage_plan`` (several stages a launch on the card); the
+plan and the fused plain version are checked on their own.
 """
 
 import random
@@ -23,6 +26,7 @@ import torch
 from halo2_tpu import native
 from halo2_tpu.field.device import get_device_field as ref_field
 from halo2_tpu.field.params import BN254_FR as REF_FR
+from halo2_tpu.field.params import PASTA_FP as REF_PASTA_FP
 from halo2_tpu.kzg.engine import NativeEngine
 from halo2_tpu.poly.domain import _ntt_fn
 from halo2_tpu.poly.domain import get_domain as ref_domain
@@ -202,3 +206,94 @@ def test_batched_intt_columns_matches_reference(k, monkeypatch):
     got = _intt_columns(port_domain(BN254_FR, k, DEGREE), values, device="cpu")
     assert got.shape == (3, 16, n)
     assert np.array_equal(got.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("k", range(9, 21))
+def test_large_stage_plan_covers_every_large_stage_once(k):
+    """The plan runs the stages m = 512 .. n / 2 once each, in order, in
+    ceil((k - 9) / 6) passes of at most 6 stages whose sizes differ by at
+    most one."""
+    n = 1 << k
+    plan = cuda_ntt.large_stage_plan(n)
+    stages = [m0 << i for m0, r in plan for i in range(r)]
+    assert stages == [1 << j for j in range(9, k)]
+    assert len(plan) == -(-(k - 9) // 6)
+    sizes = [r for _m0, r in plan]
+    assert all(1 <= r <= cuda_ntt.MAX_FUSED for r in sizes)
+    assert not sizes or max(sizes) - min(sizes) <= 1
+    assert sizes == sorted(sizes, reverse=True)
+    assert plan == {11: [(512, 2)], 15: [(512, 6)], 20: [(512, 6), (32768, 5)]}.get(k, plan)
+
+
+@pytest.mark.parametrize("spec", [BN254_FR, PASTA_FP], ids=lambda s: s.name)
+@pytest.mark.parametrize("n", [1 << 11, 1 << 13])
+@pytest.mark.parametrize("cols", [1, 3])
+def test_fused_large_stages_equal_chained_single_stages(spec, n, cols):
+    """ntt_large_stage(..., m0, stages=r), plain and through the wrapper on
+    the CPU, equals r single stages chained, for every run of consecutive
+    large stages, forward and inverse."""
+    df = port_field(spec)
+    rng = random.Random(n + cols)
+    p = spec.p
+    enc = [df.encode([0, 1, p - 1] + [rng.randrange(p) for _ in range(n - 3)]) for _ in range(cols)]
+    x = torch.stack(enc) if cols > 1 else enc[0]
+    for inverse in (False, True):
+        tw = twiddle_table(spec, n, inverse, torch.device("cpu"))
+        m0 = cuda_ntt.TILE
+        while m0 < n:
+            y, r = x, 0
+            while m0 << (r + 1) <= n and r < cuda_ntt.MAX_FUSED:
+                y, r = cuda_ntt.ntt_large_stage_plain(spec, y, tw, m0 << r), r + 1
+                assert torch.equal(cuda_ntt.ntt_large_stage_plain(spec, x, tw, m0, r), y), (m0, r)
+                assert torch.equal(cuda_ntt.ntt_large_stage(spec, x, tw, m0, r), y), (m0, r)
+            m0 *= 2
+
+
+@pytest.mark.parametrize("k", range(10, 15))
+@pytest.mark.parametrize("cols", [1, 3])
+def test_ntt_stages_match_reference_native(k, cols):
+    """BN254 Fr, forward and inverse, one column or a batch of three: the
+    port's transform (small stages, then the plan's passes) equals the
+    reference's native NTT of each column."""
+    from halo2_tpu_torch.poly.domain import _ntt_raw
+
+    n = 1 << k
+    vals = [_values(n, seed=200 + 10 * k + c) for c in range(cols)]
+    enc = [port_field(BN254_FR).encode(v) for v in vals]
+    x = torch.stack(enc) if cols > 1 else enc[0]
+    for inverse in (False, True):
+        got = _ntt_raw(BN254_FR, n, inverse)(x)
+        got = list(got) if cols > 1 else [got]
+        for g, v in zip(got, vals):
+            assert _ints(g) == native.unpack_ints(native.ntt_fr(native.pack_ints(v), inverse))
+
+
+@pytest.mark.parametrize("k", range(10, 15))
+def test_ntt_stages_match_reference_jit_pasta(k):
+    """Pasta Fp (the 64-bit-accumulator arithmetic), forward: a batch of
+    three columns and one column alone through the port's transform equal
+    the reference's jitted NTT of each column."""
+    from halo2_tpu_torch.poly.domain import _ntt_raw
+
+    n = 1 << k
+    rng = random.Random(300 + k)
+    p = PASTA_FP.p
+    vals = [[0, 1, p - 1] + [rng.randrange(p) for _ in range(n - 3)] for _ in range(3)]
+    ref = _ntt_fn(REF_PASTA_FP, n, False)
+    want = [np.asarray(ref(ref_field(REF_PASTA_FP).encode_np(v))) for v in vals]
+    x = torch.stack([port_field(PASTA_FP).encode(v) for v in vals])
+    batch = _ntt_raw(PASTA_FP, n, False)(x)
+    for c in range(3):
+        assert np.array_equal(batch[c].numpy().view(np.uint32), want[c])
+    alone = _ntt_raw(PASTA_FP, n, False)(x[1].contiguous())
+    assert np.array_equal(alone.numpy().view(np.uint32), want[1])
+
+
+def test_fused_large_stage_checks_its_span():
+    spec = BN254_FR
+    x = torch.zeros((16, 4096), dtype=torch.int32)
+    tw = torch.zeros((16, 4095), dtype=torch.int32)
+    assert torch.equal(cuda_ntt.ntt_large_stage(spec, x, tw, 512, 3), x)  # m0 2^3 = n
+    for m0, stages in ((512, 0), (512, 4), (1024, 3), (512, 7), (768, 1)):
+        with pytest.raises(ValueError):
+            cuda_ntt.ntt_large_stage(spec, x, tw, m0, stages)

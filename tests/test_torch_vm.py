@@ -9,10 +9,14 @@ The programs: the flagship's combined quotient (merkle-sum tree, k = 11,
 so the permutation's last-row rotation is 2042; rot_scale 16 at a narrow
 width, with the challenge columns handed over as stride-0 views, as the
 prover does), the Poseidon experiment's gates and a dynamic lookup's
-expressions over Pasta Fp, and programs whose output is a bare query, a bare
-constant, or nothing.  The register allocation is pinned and replayed.
+expressions over Pasta Fp, 150 live products (150 registers), and programs
+whose output is a bare query, a bare constant, or nothing.  The register
+allocation is pinned and replayed; the kernel's per-warp streams are
+checked for races within a phase and replayed in another order; the
+kernel's block sizes are pinned.
 """
 
+import copy
 import importlib
 import random
 import types
@@ -95,6 +99,7 @@ def _bare(s, which):
     query = ex.Query(col.Column(col.ColumnKind.ADVICE, 1), col.Rotation(-3))
     const = ex.Constant(7)
     return {
+        "many_registers": [query * ex.Constant(i + 2) for i in range(150)],
         "bare_query": [query, query * const],
         "bare_constant": [const, ex.Constant(0), query + const],
         "query_and_constant_only": [query, const],
@@ -117,7 +122,9 @@ CASES = {
     "less_than_lookups": (lambda s: (_lookups(_less_than_cs(s)), 1), "PASTA_FP", False),
     **{
         name: ((lambda name: lambda s: (_bare(s, name), 1))(name), "BN254_FR", False)
-        for name in ("bare_query", "bare_constant", "query_and_constant_only", "empty")
+        for name in (
+            "many_registers", "bare_query", "bare_constant", "query_and_constant_only", "empty",
+        )
     },
 }
 
@@ -204,17 +211,18 @@ def test_flagship_program_shape(programs):
     assert 2042 * ROT_SCALE % WIDTH in table.shifts(WIDTH)
 
 
-# liveness: the flagship's quotient program needs 16 registers (17 results
-# are live at once only if an instruction's result is counted beside the
-# operands it reads last; the kernel reads both before it stores)
-REGISTERS = {"flagship_quotient": 16}
+# liveness over the stream schedule: the flagship's quotient program needs
+# 27 registers (16 when one stream runs it in program order; more results
+# are live at once when four streams each work on their own part of it)
+REGISTERS = {"flagship_quotient": 27, "many_registers": 150}
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_register_allocation_replays_the_program(programs, name):
-    """Replaying the compiled table symbolically gives back the Program:
-    every register source holds, when read, the result the Program names
-    (defined before use, not yet overwritten), and so does every output."""
+    """Replaying the compiled table symbolically, in table order, gives back
+    the Program: every register source holds, when read, the result the
+    Program names (defined before use, not yet overwritten), and so does
+    every output."""
     prog = programs[name][3]
     table = cuda_vm.compile_program(prog, port_params.BN254_FR)
     assert cuda_vm.compile_program(prog, port_params.BN254_FR) is table  # cached
@@ -231,7 +239,9 @@ def test_register_allocation_replays_the_program(programs, name):
             assert tag == cuda_vm.SRC_REG and holds.get(idx) == slot - nq - nc
 
     assert table.instrs.shape == (len(prog.instrs), 4)
-    for j, ((op, s1, s2), (top, t1, t2, dst)) in enumerate(zip(prog.instrs, table.instrs.tolist())):
+    assert sorted(table.order.tolist()) == list(range(len(prog.instrs)))
+    for j, (top, t1, t2, dst) in zip(table.order.tolist(), table.instrs.tolist()):
+        op, s1, s2 = prog.instrs[j]
         assert top == op
         check(t1, s1)
         check(t2, s2)
@@ -299,3 +309,137 @@ def test_unknown_opcode_raises():
     prog.instrs = [(7, 0, 0)]
     with pytest.raises(ValueError, match="opcode"):
         cuda_vm.compile_program(prog, port_params.BN254_FR)
+
+
+def _stream_ranges(table):
+    """(phase, stream, instruction rows) of the compiled schedule."""
+    off, streams = table.offsets.tolist(), table.streams
+    return [
+        (p, st, range(off[p * streams + st], off[p * streams + st + 1]))
+        for p in range(table.phases)
+        for st in range(streams)
+    ]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_streams_share_no_register_within_a_phase(programs, name):
+    """The kernel's warps of one row meet only at the barriers that end the
+    phases: within a phase no register that one stream writes is read or
+    written by another, and the phases cover the table in order."""
+    table = cuda_vm.compile_program(programs[name][3], port_params.BN254_FR)
+    assert table.offsets[0] == 0 and table.offsets[-1] == len(table.instrs)
+    assert np.all(np.diff(table.offsets) >= 0)
+    for p in range(table.phases):
+        touched = {}  # register -> {stream: wrote?}
+        for _p, st, rows in _stream_ranges(table):
+            if _p != p:
+                continue
+            for op, s1, s2, dst in table.instrs[rows.start : rows.stop].tolist():
+                for src in (s1,) if op == cuda_vm.OP_NEG else (s1, s2):
+                    if src & 3 == cuda_vm.SRC_REG:
+                        touched.setdefault(src >> 2, {}).setdefault(st, False)
+                touched.setdefault(dst, {})[st] = True
+        for reg, by in touched.items():
+            writers = [st for st, wrote in by.items() if wrote]
+            assert not writers or len(by) == 1, (p, reg, by)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_vm_streams_replayed_in_reverse_match_reference(programs, name):
+    """The per-warp streams replayed with the streams of each phase in the
+    reverse order (a plain replay: no order among the streams of a phase
+    may matter) equal the reference's ``build_expr_batch_eval``."""
+    ref_exprs, _port_exprs, rot, prog = programs[name]
+    _build, field, stride0 = CASES[name]
+    ref_cols, port_cols = _columns(prog, field, 5, stride0)
+    spec = getattr(port_params, field)
+    table = cuda_vm.compile_program(prog, spec)
+    ranges = _stream_ranges(table)
+    by_phase = [[rows for q, _st, rows in reversed(ranges) if q == p] for p in range(table.phases)]
+    order = [i for runs in by_phase for rows in runs for i in rows]
+    replay = copy.copy(table)
+    replay.instrs = table.instrs[order]
+    queries = [port_cols[kind][ci] for kind, ci, _rot in prog.queries]
+    got = cuda_vm.vm_eval_plain(replay, queries, table.consts_on("cpu"), WIDTH)
+    ref_spec = getattr(REF.params, field)
+    want = np.asarray(ref_batch_eval(None, ref_field(ref_spec), ref_exprs, rot)(ref_cols))
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+
+
+# (registers, rows a block, shared-memory bytes a block) of each program the
+# kernel runs; the Poseidon gates (the MockProver's) spread over four
+# streams keep 80 registers live
+BLOCKS = {
+    "flagship_quotient": (27, 64, 55296),
+    "poseidon_gates": (80, 64, 163840),
+    "less_than_lookups": (0, 64, 0),
+    "many_registers": (150, 32, 153600),
+}
+
+
+@pytest.mark.parametrize("name", list(BLOCKS))
+def test_rows_per_block_of_the_programs(programs, name):
+    _build, field, _stride0 = CASES[name]
+    table = cuda_vm.compile_program(programs[name][3], getattr(port_params, field))
+    regs, rows, smem = BLOCKS[name]
+    assert table.num_regs == regs
+    assert cuda_vm.rows_per_block(table.num_regs) == (rows, smem)
+    assert rows * table.streams <= 256 and smem <= cuda_vm.SMEM_MAX
+
+
+@pytest.mark.parametrize(
+    "regs, want",
+    [
+        (0, (64, 0)), (113, (64, 231424)), (114, (32, 116736)), (227, (32, 232448)),
+        (228, None), (1000, None),
+    ],
+)
+def test_rows_per_block_limits(regs, want):
+    """64 rows while 64 rows of registers fit 227 KB, then 32, then none."""
+    if want is None:
+        with pytest.raises(ValueError, match="registers"):
+            cuda_vm.rows_per_block(regs)
+    else:
+        assert cuda_vm.rows_per_block(regs) == want
+
+
+def _product_tree(side, lo, hi):
+    """The product of a query times each constant lo + 2 .. hi + 1, as a
+    balanced tree: every leaf is ready at once, so four streams would hold
+    them all live where one stream, in program order, needs log2 of them."""
+    col, ex = side.column, side.expression
+    if hi - lo == 1:
+        return ex.Query(col.Column(col.ColumnKind.ADVICE, 0), col.Rotation(0)) * ex.Constant(lo + 2)
+    mid = (lo + hi) // 2
+    return _product_tree(side, lo, mid) * _product_tree(side, mid, hi)
+
+
+def test_a_program_too_wide_for_four_streams_runs_on_one():
+    """A balanced tree of 256 products: over four streams its 256 leaves
+    would be live at once (more than 227 registers), so the program is
+    scheduled on one stream in its own order, and still equals the
+    reference."""
+    prog = Program([_product_tree(PORT, 0, 256)])
+    table = cuda_vm.compile_program(prog, port_params.BN254_FR)
+    assert (table.streams, table.phases, table.num_regs) == (1, 1, 9)
+    four = cuda_vm._compile_streams(prog, port_params.BN254_FR, cuda_vm.STREAMS)
+    assert four.num_regs > cuda_vm.MAX_REGS
+    ref_cols, port_cols = _columns(prog, "BN254_FR", 6, False)
+    queries = [port_cols[kind][ci] for kind, ci, _rot in prog.queries]
+    got = cuda_vm.vm_eval(table, queries, table.consts_on("cpu"), WIDTH)
+    ref_eval = ref_batch_eval(None, ref_field(REF.params.BN254_FR), [_product_tree(REF, 0, 256)], 1)
+    want = np.asarray(ref_eval(ref_cols))
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+
+
+def test_vm_eval_refuses_a_program_the_kernel_cannot_hold():
+    """228 live results do not fit the kernel's shared memory on any
+    schedule: vm_eval raises, on the CPU as on the card."""
+    col, ex = PORT.column, PORT.expression
+    query = ex.Query(col.Column(col.ColumnKind.ADVICE, 0), col.Rotation(0))
+    prog = Program([query * ex.Constant(i + 2) for i in range(228)])
+    table = cuda_vm.compile_program(prog, port_params.BN254_FR)
+    assert table.num_regs == 228
+    q = torch.zeros((16, WIDTH), dtype=torch.int32)
+    with pytest.raises(ValueError, match="registers"):
+        cuda_vm.vm_eval(table, [q], table.consts_on("cpu"), WIDTH)
