@@ -48,16 +48,25 @@ passes or raises:
    scalars) and 2^20 (that SRS and random.Random(9) scalars tiled 16 times)
    equals the native host MSM on the same arrays; the time of each (median
    of 3 runs after a warm-up), the device run's kernel launches, and no
-   device -> host read of P == Q flags;
+   device -> host read of P == Q flags; then msm_hybrid (a device slice and
+   the native host Pippenger on the tail, in a worker thread) on the same
+   inputs and host mirrors, at its default device share and at 0.5, each
+   equal to the native MSM, with its times, launches and the host's IFMA
+   path;
 4. the flagship prove: merkle-sum-tree depth 15, k = 11 (built as
-   scripts/north_star.py builds it), proved three times with
-   random.Random(7) and the commitments on the native host MSM, then twice
+   scripts/north_star.py builds it), proved twice with
+   random.Random(7) and the commitments on the native host MSM, then once
    with commit="device" (the device MSM); every proof's bytes must equal
    tests/data/mst_d15_k11_rng7.proof (the reference's proof), the verifier
    must accept it and reject a tampered root; each prove's quotient phase
    and kernel launches; then one more native-commit prove under
    torch.profiler: its launches split by this package's kernels and by
    PyTorch's ops, and the device's busy time;
+4b. the engines: the flagship on NativeEngine (create_proof(...,
+   engine="native"), the native C++ host engine, no kernel launched) equals
+   the fixture; at k = 13 (extended domain 2^17, .srs/pk_mst_d15_k13.pkl)
+   the native and torch engines give equal proofs, which verify; what
+   engine="auto" picks at k = 11 and k = 13;
 5. the SRS setup on the card: ParamsKZG.setup(16) equals
    .srs/kzg_bn254_k16_s857536.pkl limb for limb;
 6. keygen on the card: the flagship through keygen_vk then keygen_pk
@@ -81,7 +90,8 @@ just before and read just after, and fails if a kernel it must launch was
 not launched: mont_mul and the NTT kernels in the proves and the keygens,
 vm_eval in every prove, jac_madd, jac_add and mod_sub (the MSM's signed
 digits negate their points) in the device-commit prove and the
-device-commit keygen, jac_madd and jac_add in the MSM, mont_sqr, mont_mul and jac_add in the setup, vm_eval in every
+device-commit keygen, jac_madd and jac_add in the MSM and in every hybrid
+MSM whose device share is above 0, none in a NativeEngine prove, mont_sqr, mont_mul and jac_add in the setup, vm_eval in every
 MockProver run, mont_mul, mont_sqr and mod_add in the sponge.  The line
 before the last is a JSON object with one entry per kernel (its launches
 summed over those runs, its time at 2^15 beside its bound from this run's
@@ -222,12 +232,22 @@ def phase_device():
     return torch.device("cuda", 0)
 
 
+def _timed(fn):
+    t0 = time.perf_counter()
+    return fn(), time.perf_counter() - t0
+
+
 def phase_build():
+    """The CUDA kernels (nvcc) and the native host engine (g++), built at
+    once: each build waits on its compiler processes."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from halo2_tpu_torch import _build, native
 
-    t0 = time.perf_counter()
-    _build.lib()
-    dt = time.perf_counter() - t0
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host = pool.submit(_timed, native.available)
+        _, dt = _timed(_build.lib)
+        host_ok, host_dt = host.result()
     print(f"[build] CUDA kernels: {dt:.2f} s -> {_build.library_path().name}", flush=True)
     for line in _build.log_path().read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -238,10 +258,9 @@ def phase_build():
             f"(IMAD.MOV not counted)",
             flush=True,
         )
-    t0 = time.perf_counter()
-    if not native.available():
+    if not host_ok:
         raise RuntimeError("native host engine did not build (g++ missing?)")
-    print(f"[build] native host engine: {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] native host engine: {host_dt:.2f} s (beside the CUDA build)", flush=True)
 
 
 def _sass_counts(library) -> dict:
@@ -978,6 +997,51 @@ def phase_msm(device):
             f"first run: launches {counts}, P == Q flag reads {flags.reads}",
             flush=True,
         )
+        runs += _check_hybrid(label, device, args, (px, py, sc), want)
+    return runs
+
+
+def _check_hybrid(label, device, args, host, want) -> list:
+    """msm_hybrid at its default device share and at 0.5 against the native
+    MSM ``want``; returns the launch counts of each first run."""
+    import numpy as np
+    import torch
+
+    from halo2_tpu_torch import native
+    from halo2_tpu_torch.ec import device as ecd
+
+    points = host[0].shape[1]
+    one = [native.pack_device(np.ascontiguousarray(a[:, :1])) for a in host[:2]]
+    ifma = "IFMA (msm_g1_mont52)" if native.points_to52(*one) is not None else "64-bit (msm_g1_mont)"
+    runs = []
+    for frac in (None, 0.5):
+        share = ecd._hybrid_device_frac(points) if frac is None else frac
+        _reset_launches()
+        _sync(device)
+        with _FlagReads() as flags:
+            t0 = time.perf_counter()
+            pt = ecd.msm_hybrid(*args, *host, device_frac=frac)
+            got = ecd.jac_host_affine(pt)
+            first = time.perf_counter() - t0
+        counts = _read_launches()
+        if got != want:
+            raise AssertionError(f"hybrid MSM {label} at device share {share}: {got} != native {want}")
+        _no_flag_reads(f"hybrid MSM {label}", flags)
+        if share > 0:
+            _require(f"hybrid MSM {label} at device share {share}", counts, ("jac_madd", "jac_add"))
+        runs.append(counts)
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ecd.msm_hybrid(*args, *host, device_frac=frac)["x"].cpu()
+            ts.append(time.perf_counter() - t0)
+        med = statistics.median(ts)
+        print(
+            f"[msm] hybrid {label} at device share {share} ({'default' if frac is None else 'given'}): equal "
+            f"to native; {med * 1e3:.1f} ms ({points / med:.4g} points/s, runs "
+            f"{[round(t * 1e3, 1) for t in ts]}, first {first * 1e3:.1f} ms); host tail {ifma}; launches {counts}",
+            flush=True,
+        )
     return runs
 
 
@@ -1133,9 +1197,9 @@ def phase_prove(device):
         want = f.read()
 
     torch.cuda.reset_peak_memory_stats(device)
-    proof, native_counts = _prove(params, pk, circuit, public, want, device, "native", 3)
+    proof, native_counts = _prove(params, pk, circuit, public, want, device, "native", 2)
     _require("native-commit prove", native_counts, ("mont_mul", "ntt_small_stages", "ntt_large_stage", "vm_eval"))
-    _, device_counts = _prove(params, pk, circuit, public, want, device, "device", 2)
+    _, device_counts = _prove(params, pk, circuit, public, want, device, "device", 1)
     _require(
         "device-commit prove", device_counts,
         ("mont_mul", "ntt_small_stages", "ntt_large_stage", "jac_madd", "jac_add", "vm_eval", "mod_sub"),
@@ -1154,6 +1218,57 @@ def phase_prove(device):
         raise AssertionError("the verifier accepted a tampered root")
     print("[prove] proofs equal the reference fixture; tampered root rejected", flush=True)
     return [native_counts, device_counts]
+
+
+def phase_engines(device):
+    """The flagship on NativeEngine against the fixture, the k = 13 proofs of
+    both engines against each other, and engine="auto"'s picks; returns the
+    launch counts of each prove."""
+    from halo2_tpu_torch.field import Fr
+    from halo2_tpu_torch.kzg import ParamsKZG, ProvingKey, create_proof, verify_proof
+    from halo2_tpu_torch.kzg.engine import DEVICE_MIN_EXT, select_engine
+
+    circuit, public = _flagship_circuit()
+    with open(FIXTURE, "rb") as f:
+        fixture = f.read()
+    runs = []
+    for k, engines in ((11, ("native",)), (13, ("native", "torch"))):
+        params = ParamsKZG.setup_cached(k)
+        pk = ProvingKey.load(os.path.join(ROOT, ".srs", f"pk_mst_d15_k{k}.pkl"), circuit, k, Fr)
+        proofs = {}
+        for engine in engines:
+            _reset_launches()
+            _sync(device)
+            t0 = time.perf_counter()
+            proofs[engine] = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7), engine=engine)
+            _sync(device)
+            dt = time.perf_counter() - t0
+            counts = _read_launches()
+            if engine == "native" and any(counts.values()):
+                raise AssertionError(f"k={k}: NativeEngine launched kernels: {counts}")
+            if engine == "torch":
+                _require(f"k={k} torch prove", counts, ("mont_mul", "ntt_small_stages", "ntt_large_stage", "vm_eval"))
+            runs.append(counts)
+            print(f"[engines] k={k} engine={engine}: first prove {dt:.3f} s, {len(proofs[engine])} bytes; launches {counts}", flush=True)
+        if k == 11 and proofs["native"] != fixture:
+            raise AssertionError(f"the NativeEngine flagship proof differs from {FIXTURE}")
+        if k == 13:
+            if proofs["native"] != proofs["torch"]:
+                raise AssertionError("k=13: the native and torch engines' proofs differ")
+            if not verify_proof(params.verifier_params(), pk.vk, proofs["torch"], [list(public)]):
+                raise AssertionError("k=13: the verifier rejected the proof")
+            bad = list(public)
+            bad[2] = bad[2] + Fr.from_u64(1)
+            if verify_proof(params.verifier_params(), pk.vk, proofs["torch"], [bad]):
+                raise AssertionError("k=13: the verifier accepted a tampered root")
+        auto = select_engine(params, pk.vk.structure, device, engine="auto").name
+        print(
+            f"[engines] k={k} (extended 2^{pk.vk.structure.domain.extended_k}): engine='auto' picks {auto} "
+            f"(DEVICE_MIN_EXT 2^{DEVICE_MIN_EXT.bit_length() - 1}); "
+            + ("native proof equals the fixture" if k == 11 else "native == torch proof, verified, tampered root rejected"),
+            flush=True,
+        )
+    return runs
 
 
 def phase_setup(device):
@@ -1448,12 +1563,26 @@ def main() -> int:
     import torch
 
     t_start = time.perf_counter()
-    phase_build()
-    err, times, bounds = phase_kernels(device)
-    runs = phase_msm(device) + phase_prove(device) + phase_setup(device)
-    runs += phase_keygen(device) + phase_mock(device) + phase_poseidon(device)
+    spent = {}
+
+    def timed(name, phase, *args):
+        out, spent[name] = _timed(lambda: phase(*args))
+        return out
+
+    timed("build", phase_build)
+    err, times, bounds = timed("kernels", phase_kernels, device)
+    runs = []
+    for name, phase in (
+        ("msm", phase_msm), ("prove", phase_prove), ("engines", phase_engines), ("setup", phase_setup),
+        ("keygen", phase_keygen), ("mock", phase_mock), ("poseidon", phase_poseidon),
+    ):
+        runs += timed(name, phase, device)
     launches = {name: sum(r[name] for r in runs) for name, _, _ in KERNELS}
-    print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(
+        f"[done] all phases in {time.perf_counter() - t_start:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()) + ")",
+        flush=True,
+    )
     report = {
         "kernels": [
             {

@@ -19,14 +19,22 @@ in-place slice write into a preallocated tensor.
 
 The host tail (``_hj_dbl``, ``_hj_madd``, ``_hj_add``, ``_host_horner``) is
 carried over verbatim: the reference's file imports JAX, so this package
-cannot load it.  ``pvary_tree``, ``_msm_raw`` (device Horner for the sharded
-prover) and ``msm_hybrid`` are not ported yet.
+cannot load it.  ``msm_hybrid`` runs a leading slice of the points on the
+device Pippenger while the native host Pippenger takes the rest, in a
+worker thread.  ``pvary_tree`` and ``_msm_raw`` (device Horner for the
+sharded prover) are not ported yet.
 """
 
 from __future__ import annotations
 
+import collections
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
 import torch
 
+from .. import native
 from ..field.device import DeviceField, get_device_field
 from ..field.params import BN254_FQ, NUM_LIMBS as L
 from .cuda_jac import jac_add_cuda, jac_madd_cuda
@@ -483,6 +491,109 @@ def msm(px, py, scalars_canonical):
     device (host Horner tail inside).
     """
     return _encode_host_jac(_msm_host_point(px, py, scalars_canonical), px.device)
+
+
+def _hybrid_device_frac(n: int) -> float:
+    """The share of an n-point hybrid MSM that runs on the device: all of it.
+    On one H100 (700 W) the device alone was fastest at 2^16 and level with
+    the best split (0.75) at 2^20, on the native engine's 8 threads or 7
+    (``python -m halo2_tpu_torch.crossover``, PERF.md): the device MSM's
+    time is its host dispatch, which a smaller slice hardly shortens and the
+    host tail's threads slow down."""
+    return 1.0
+
+
+# 52-bit lane forms of host point mirrors, keyed by (id, id, slice start):
+# the SRS arrays are long-lived and reused across every MSM of a prove or a
+# bench, so the O(n) conversion is paid once.  An entry keeps the source
+# arrays (ids cannot be recycled under it, and the identity check holds), and
+# caching freezes them and the lane forms: an in-place write to a cached
+# mirror raises instead of leaving a stale lane form here.  Least recently
+# used entries go first; one 2^20-point entry is ~80 MB.
+_PTS52_CACHE: collections.OrderedDict = collections.OrderedDict()
+_PTS52_CACHE_MAX = 4
+_PTS52_LOCK = threading.Lock()
+
+
+def _host_pts52(host_px, host_py, nd):
+    """The IFMA lane form of host_px/host_py[:, nd:], or None without IFMA."""
+    key = (id(host_px), id(host_py), int(nd))
+    with _PTS52_LOCK:
+        ent = _PTS52_CACHE.get(key)
+        if ent is not None and ent[0] is host_px and ent[1] is host_py:
+            _PTS52_CACHE.move_to_end(key)
+            return ent[2], ent[3]
+    px = native.pack_device(np.asarray(host_px[:, nd:]))
+    py = native.pack_device(np.asarray(host_py[:, nd:]))
+    r = native.points_to52(px, py)
+    if r is None:
+        return None
+    for a in (host_px, host_py, *r):
+        a.flags.writeable = False
+    with _PTS52_LOCK:
+        _PTS52_CACHE[key] = (host_px, host_py, r[0], r[1])
+        while len(_PTS52_CACHE) > _PTS52_CACHE_MAX:
+            _PTS52_CACHE.popitem(last=False)
+    return r
+
+
+def _host_msm(host_px, host_py, host_scalars, nd):
+    """The native host MSM of the points from nd on: a host Jacobian tuple,
+    or None for infinity.  The IFMA Pippenger over cached lane forms where
+    the host has IFMA, the 64-bit one otherwise."""
+    sc = native.pack_device(np.asarray(host_scalars[:, nd:]))
+    pts52 = _host_pts52(host_px, host_py, nd)
+    if pts52 is not None:
+        x, y = native.msm_g1_mont52(pts52[0], pts52[1], sc)
+    else:
+        x, y = native.msm_g1_mont(
+            native.pack_device(np.asarray(host_px[:, nd:])),
+            native.pack_device(np.asarray(host_py[:, nd:])),
+            sc,
+        )
+    return (x, y, 1) if (x or y) else None
+
+
+def msm_hybrid(px, py, scalars_canonical, host_px=None, host_py=None, host_scalars=None, device_frac=None):
+    """Heterogeneous MSM: the device Pippenger runs the leading
+    ``device_frac`` of the points while the native host Pippenger runs the
+    tail in a worker thread (the native engine's ctypes calls release the
+    interpreter lock, so the main thread dispatches the device work
+    meanwhile); the two partial sums add on the host (MSM linearity).
+
+    px, py, scalars_canonical: (16, N) int32 tensors on one device, as for
+    :func:`msm`; host_*: (16, N) uint32 numpy mirrors of the same data
+    (points Montgomery, scalars canonical).  The point mirrors are cached in
+    their IFMA lane form and become read-only.  ``device_frac``: the device's
+    share, clamped to [0, 1]; None takes :func:`_hybrid_device_frac`.
+    Without mirrors or the native engine, below 2^12 points, or at a share
+    of 1, this is :func:`msm`; at a share of 0 it is the host MSM alone.
+    Returns a jac point on px's device."""
+    n = px.shape[-1]
+    if host_px is None or host_scalars is None or not native.available() or n < (1 << 12):
+        return msm(px, py, scalars_canonical)
+    frac = _hybrid_device_frac(n) if device_frac is None else min(1.0, max(0.0, float(device_frac)))
+    nd = max(0, min(n, int(n * frac)))
+    if nd == n:
+        return msm(px, py, scalars_canonical)
+    if nd == 0:
+        return _encode_host_jac(_host_msm(host_px, host_py, host_scalars, 0), px.device)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        tail = pool.submit(_host_msm, host_px, host_py, host_scalars, nd)
+        head = _msm_host_point(px[:, :nd], py[:, :nd], scalars_canonical[:, :nd])
+        acc = _hj_add(tail.result(), head, BN254_FQ.p)
+    return _encode_host_jac(acc, px.device)
+
+
+def jac_host_affine(pt) -> tuple:
+    """A single jac point (16,) on any device -> host affine ints (x, y),
+    (0, 0) = infinity, in one copy per coordinate."""
+    q = BN254_FQ.p
+    X, Y, Z = (int(df().decode(pt[c][:, None].cpu())[0]) for c in ("x", "y", "z"))
+    if Z % q == 0:
+        return 0, 0
+    zi = pow(Z, q - 2, q)
+    return X * zi * zi % q, Y * zi * zi * zi % q
 
 
 def msm_points(px, py, scalars_canonical):

@@ -1,18 +1,20 @@
 """KZG prover (halo2 `create_proof` with ProverSHPLONK) on torch tensors —
 port of halo2_tpu/kzg/prover.py.
 
-The reference's phase order and code, with :class:`.engine.TorchEngine` in
-place of ``select_engine`` (which the reference binds at import) and an
+The reference's phase order and code, with the engine chosen by
+``engine=`` (the reference reads ``HALO2_TPU_PROVER_BACKEND``) and an
 explicit ``device``:
   synthesize -> commit advice -> theta -> lookup permuted columns -> beta,
   gamma -> permutation / lookup grand products -> random poly -> y -> quotient
   h(X) on the extended coset -> x -> evaluations -> SHPLONK multiopen.
 
-Row-axis work (iNTTs, coset NTTs, the quotient instruction VM, the vanishing
-multiply, ``extended_to_coeff``) runs on ``device``; grand products and the
-multiopen run on the host, as in the reference's device engine, and the
-commitments where ``commit`` says.  For the same ``rng`` the proof bytes
-equal the reference's.
+On :class:`.engine.TorchEngine` (the default) the row-axis work (iNTTs,
+coset NTTs, the quotient instruction VM, the vanishing multiply,
+``extended_to_coeff``) runs on ``device``; grand products and the multiopen
+run on the host, as in the reference's device engine, and the commitments
+where ``commit`` says.  On :class:`.engine.NativeEngine` all of it runs on
+the native C++ host engine.  For the same ``rng`` the proof bytes equal the
+reference's on either engine.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from ..field.params import BN254_FR
 from ..plonkish.assignment import run_synthesis
 from ..plonkish.column import Column, ColumnKind, Rotation
 from ..plonkish.expression import Query
-from .engine import TorchEngine
+from .engine import select_engine
 from .expr_eval import eval_expr_rows
 from .keygen import ProvingKey, _horner
 from .shplonk import shplonk_open
@@ -42,10 +44,12 @@ P = BN254_FR.p
 PHASE_TIMINGS: dict = {}
 
 
-def _phase(name, t0, device):
-    """Add the time since t0 to PHASE_TIMINGS[name]; on a CUDA device, after
-    waiting for the work queued so far, so the time is the phase's own."""
-    if device.type == "cuda":
+def _phase(name, t0, eng):
+    """Add the time since t0 to PHASE_TIMINGS[name]; when ``eng`` works on a
+    CUDA device, after waiting for the work queued so far, so the time is
+    the phase's own."""
+    device = getattr(eng, "device", None)
+    if device is not None and device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     PHASE_TIMINGS[name] = PHASE_TIMINGS.get(name, 0.0) + dt
@@ -61,19 +65,30 @@ def _native_or_none():
 
 
 def create_proof(
-    params, pk: ProvingKey, circuit, instances, rng=None, device=None, commit="native"
+    params, pk: ProvingKey, circuit, instances, rng=None, device=None, commit="native", engine="torch"
 ) -> bytes:
-    """halo2 `create_proof` (reference src/circuits/utils.rs:40-48) with the
-    row-axis work on ``device`` (a torch device; the CUDA device when None) and the
-    commitments on the native host Pippenger (``commit="native"``) or the
-    device Pippenger on ``device`` (``commit="device"``)."""
+    """halo2 `create_proof` (reference src/circuits/utils.rs:40-48).
+
+    ``engine="torch"`` (the default): the row-axis work on ``device`` (a
+    torch device; the CUDA device when None, and without a card it raises)
+    and the commitments on the native host Pippenger (``commit="native"``)
+    or the device Pippenger on ``device`` (``commit="device"``).
+    ``engine="native"``: the whole prove on the native C++ host engine, no
+    card needed.  ``engine="auto"``: the reference's rule
+    (:func:`.engine.select_engine`), native at or below
+    ``engine.DEVICE_MIN_EXT`` extended-domain points.
+
+    The reference defaults to its rule, which picks the host engine for the
+    flagship; this port defaults to the card, so that a caller who names no
+    engine proves on the GPU and a missing card shows."""
     rng = rng or _random.Random()
-    device = resolve_device(device)
+    if engine == "torch":
+        device = resolve_device(device)  # before any work: a missing card shows at once
     t = time.perf_counter()
     st = pk.vk.structure
     cs, k, n, u = st.cs, st.k, st.n, st.u
     domain = st.domain
-    eng = TorchEngine(params, st, device, commit=commit)
+    eng = select_engine(params, st, device, engine=engine, commit=commit)
     if os.environ.get("HALO2_TPU_TIMING"):
         print(f"  [prover] engine: {eng.name}", flush=True)
     transcript = Blake2bWrite()
@@ -86,7 +101,7 @@ def create_proof(
         circuit, k, instances, witness=True, field=Fr
     )
     fin = assignment.finalize()
-    t = _phase("synthesize", t, device)
+    t = _phase("synthesize", t, eng)
 
     for col in fin.instance:
         for v in col:
@@ -105,7 +120,7 @@ def create_proof(
         for pt in eng.commit_batch(advice_coeffs):
             transcript.write_point(pt)
 
-    t = _phase("advice_commit", t, device)
+    t = _phase("advice_commit", t, eng)
     theta = int(transcript.squeeze_challenge())
 
     # host column table for per-row evaluation
@@ -152,7 +167,7 @@ def create_proof(
         for pt in eng.commit_batch(lookup_perm_coeffs):
             transcript.write_point(pt)
 
-    t = _phase("lookup_permute", t, device)
+    t = _phase("lookup_permute", t, eng)
     beta = int(transcript.squeeze_challenge())
     gamma = int(transcript.squeeze_challenge())
 
@@ -204,13 +219,13 @@ def create_proof(
         for pt in eng.commit_batch(lookup_z_coeffs):
             transcript.write_point(pt)
 
-    t = _phase("grand_products", t, device)
+    t = _phase("grand_products", t, eng)
     # ------------------------------------------------------ vanishing random
     random_poly = [rng.randrange(P) for _ in range(n)]
     random_coeffs = eng.coeffs_from_values(random_poly)  # already coefficient form
     transcript.write_point(eng.commit_batch([random_coeffs])[0])
 
-    t = _phase("random_poly", t, device)
+    t = _phase("random_poly", t, eng)
     y = int(transcript.squeeze_challenge())
 
     # ----------------------------------------------------- quotient on coset
@@ -269,7 +284,7 @@ def create_proof(
     for pt in eng.commit_batch(h_pieces):
         transcript.write_point(pt)
 
-    t = _phase("quotient", t, device)
+    t = _phase("quotient", t, eng)
     x = int(transcript.squeeze_challenge())
 
     # ------------------------------------------------------------ evaluations
@@ -327,13 +342,13 @@ def create_proof(
     for label, point in evals_order:
         transcript.write_scalar(evals[(label, point)])
 
-    t = _phase("evaluations", t, device)
+    t = _phase("evaluations", t, eng)
     # --------------------------------------------------------------- multiopen
     def commit_host_coeffs(int_coeffs):
         return eng.commit_batch([eng.coeffs_from_values(int_coeffs)])[0]
 
     shplonk_open(params, transcript, polys, queries, evals, commit=commit_host_coeffs)
-    t = _phase("multiopen", t, device)
+    t = _phase("multiopen", t, eng)
 
     return transcript.finalize()
 
@@ -400,7 +415,7 @@ _AUX_STATIC_CACHE = {}
 def _aux_extended(eng, st, beta, gamma, theta, y):
     """Static aux tensors on the extended coset + challenge broadcasts."""
     domain = st.domain
-    key = (eng.name, str(eng.device), st.k, st.u, domain.extended_k)
+    key = (eng.name, str(getattr(eng, "device", None)), st.k, st.u, domain.extended_k)
     static = _AUX_STATIC_CACHE.get(key)
     ext_n = domain.extended_n
     if static is None:

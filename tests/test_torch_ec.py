@@ -256,6 +256,7 @@ def test_msm_edge_cases():
     assert ecd.msm_points(x, y, sc) == want
     assert _affine(ecd.msm(x, y, sc)) == [want]
     assert ecd.msm_points(x, y, torch.zeros_like(sc)) == (0, 0)
+    assert ecd.jac_host_affine(ecd.msm(x, y, torch.zeros_like(sc))) == (0, 0)
 
 
 def test_msm_points_matches_reference_jax():
@@ -280,3 +281,128 @@ def test_setup_device_branch_matches_host():
     g1_x, g1_y = device_g1_powers(powers, torch.device("cpu"))
     assert np.array_equal(g1_x, params.g1_x)
     assert np.array_equal(g1_y, params.g1_y)
+
+
+# ------------------------------------------------------------- hybrid MSM
+HYBRID_N = 1 << 12
+
+
+def _hybrid_inputs():
+    """Fresh 2^12-point mirrors (new objects: no cached IFMA lane form)."""
+    rng = random.Random(12)
+    px, py = _srs(HYBRID_N)
+    sc = get_device_field(BN254_FR).encode_np([rng.randrange(BN254_FR.p) for _ in range(HYBRID_N)], to_mont=False)
+    return np.array(px), np.array(py), sc
+
+
+def _count_calls(monkeypatch, module, name):
+    calls = []
+    orig = getattr(module, name)
+
+    def counted(*args, **kw):
+        calls.append(args)
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("ifma", [True, False], ids=["ifma", "no-ifma"])
+@pytest.mark.parametrize("frac", [0.0, 0.125, 1.0])
+def test_msm_hybrid_matches_native(frac, ifma, monkeypatch):
+    """The device slice (the plain versions here) and the native tail, with
+    the host's IFMA Pippenger or (points_to52 giving None, a host without
+    IFMA) the 64-bit one, sum to the native MSM."""
+    px, py, sc = _hybrid_inputs()
+    want = _native_msm(px, py, sc)
+    if not ifma:
+        monkeypatch.setattr(native, "points_to52", lambda *a: None)
+    dev = _count_calls(monkeypatch, ecd, "_msm_wsums_raw")
+    host52 = _count_calls(monkeypatch, native, "msm_g1_mont52")
+    host64 = _count_calls(monkeypatch, native, "msm_g1_mont")
+    got = ecd.msm_hybrid(_port(px), _port(py), _port(sc), px, py, sc, device_frac=frac)
+    assert _affine(got) == [want] and ecd.jac_host_affine(got) == want
+    nd = int(HYBRID_N * frac)
+    assert [a[0].shape[-1] for a in dev] == ([nd] if nd else [])
+    tails = [a[0].shape[0] for a in (host52 if ifma else host64)]
+    assert tails == ([HYBRID_N - nd] if nd < HYBRID_N else [])
+    assert (host64 if ifma else host52) == []
+
+
+@pytest.mark.parametrize("frac, ifma", [(0.0, True), (0.0, False), (0.125, True)], ids=["0-ifma", "0-no-ifma", "0.125-ifma"])
+def test_msm_hybrid_matches_reference(frac, ifma, monkeypatch):
+    """The reference's msm_hybrid at the same split (HALO2_TPU_MSM_DEVICE_FRAC;
+    its device slice is one jit-compiled Pippenger) gives the same point."""
+    import halo2_tpu.native as ref_native
+    import jax.numpy as jnp
+
+    px, py, sc = _hybrid_inputs()
+    if not ifma:
+        monkeypatch.setattr(native, "points_to52", lambda *a: None)
+        monkeypatch.setattr(ref_native, "points_to52", lambda *a: None)
+    monkeypatch.setenv("HALO2_TPU_MSM_DEVICE_FRAC", str(frac))
+    want = ref_ecd.msm_hybrid(jnp.asarray(px), jnp.asarray(py), jnp.asarray(sc), px, py, sc)
+    got = ecd.msm_hybrid(_port(px), _port(py), _port(sc), *_hybrid_inputs(), device_frac=frac)
+    assert _affine(got) == _affine({k: np.asarray(v) for k, v in want.items()}) != [(0, 0)]
+
+
+def test_msm_hybrid_guards_are_the_device_msm(monkeypatch):
+    """Below 2^12 points, without host mirrors or without the native engine,
+    msm_hybrid is msm; the native engine is not called."""
+    sentinel = object()
+    monkeypatch.setattr(ecd, "msm", lambda *a: sentinel)
+    for name in ("msm_g1_mont52", "msm_g1_mont", "points_to52"):
+        monkeypatch.setattr(native, name, lambda *a: pytest.fail("the native MSM ran"))
+    px, py, sc = _hybrid_inputs()
+    args = [_port(a) for a in (px, py, sc)]
+    small = [a[:, : HYBRID_N - 1] for a in args]
+    assert ecd.msm_hybrid(*small, px[:, :-1], py[:, :-1], sc[:, :-1], device_frac=0.0) is sentinel
+    assert ecd.msm_hybrid(*args, device_frac=0.0) is sentinel
+    assert ecd.msm_hybrid(*args, px, py, None, device_frac=0.0) is sentinel
+    monkeypatch.setattr(native, "available", lambda: False)
+    assert ecd.msm_hybrid(*args, px, py, sc, device_frac=0.0) is sentinel
+
+
+def test_hybrid_device_frac_is_a_share():
+    for n in (1 << 12, 1 << 16, 1 << 17, 1 << 20, 1 << 22):
+        assert 0.0 <= ecd._hybrid_device_frac(n) <= 1.0
+
+
+def test_pts52_cache_is_a_small_lru_of_frozen_mirrors(monkeypatch):
+    """The lane-form cache: hits by identity, evicts the least recently used
+    beyond _PTS52_CACHE_MAX entries, never serves an entry whose arrays are
+    not the caller's, and freezes what it caches."""
+    import collections
+
+    made = []
+
+    def fake_points_to52(px, py):
+        made.append(px.shape[0])
+        return px + np.uint64(1), py + np.uint64(1)
+
+    monkeypatch.setattr(native, "points_to52", fake_points_to52)
+    monkeypatch.setattr(ecd, "_PTS52_CACHE", collections.OrderedDict())
+    size = ecd._PTS52_CACHE_MAX
+    mirrors = [
+        (np.full((16, 4), i, np.uint32), np.full((16, 4), i + 100, np.uint32)) for i in range(size + 2)
+    ]
+    first = ecd._host_pts52(*mirrors[0], 1)
+    assert made == [3]
+    assert ecd._host_pts52(*mirrors[0], 1)[0] is first[0] and made == [3]
+    for a in (*mirrors[0], *first):
+        with pytest.raises(ValueError):
+            a[0, 0] = 7
+    for px, py in mirrors[1:]:
+        ecd._host_pts52(px, py, 0)
+    assert len(ecd._PTS52_CACHE) == size
+    keys = [(id(px), id(py), nd) for (px, py), nd in zip(mirrors, [1] + [0] * (size + 1))]
+    assert list(ecd._PTS52_CACHE) == keys[2:]  # entries 0 and 1 went first
+    ecd._host_pts52(*mirrors[2], 0)  # a hit makes entry 2 the most recent
+    assert list(ecd._PTS52_CACHE)[-1] == keys[2]
+    # an entry under the caller's ids but for other arrays is not served
+    other = (np.zeros((16, 4), np.uint32), np.zeros((16, 4), np.uint32))
+    px, py = mirrors[-1]
+    ecd._PTS52_CACHE[(id(px), id(py), 0)] = (*other, *other)
+    n_made = len(made)
+    got = ecd._host_pts52(px, py, 0)
+    assert len(made) == n_made + 1 and got[0] is not other[0]

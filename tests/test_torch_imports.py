@@ -64,6 +64,9 @@ SLICE_MODULES = [
     "halo2_tpu_torch.circuits.overflow_check_v2",
     "halo2_tpu_torch.circuits.poseidon",
     "halo2_tpu_torch.circuits.safe_accumulator",
+    "halo2_tpu_torch.north_star",
+    "halo2_tpu_torch.bench",
+    "halo2_tpu_torch.crossover",
     "chip_smoke",
 ]
 
@@ -100,6 +103,9 @@ def test_slice_imports_without_jax():
     outside = {k: p for k, ps in out["paths"].items() for p in ps if not (p + os.sep).startswith(PORT_DIR + os.sep)}
     assert outside == {}
     for name in (
+        "halo2_tpu_torch.north_star",
+        "halo2_tpu_torch.bench",
+        "halo2_tpu_torch.crossover",
         "halo2_tpu_torch.circuits.merkle_sum_tree",
         "halo2_tpu_torch.kzg.verifier",
         "halo2_tpu_torch.dev.failures",
