@@ -81,18 +81,38 @@ passes or raises:
 8. the device Poseidon sponge: hash_device (MySpec(5, 4), L = 4, BN254 Fr)
    over 2^20 messages from random.Random, one level of a 2^21-leaf
    merkle-sum tree; its first 1024 lanes equal the plain versions on the
-   CPU and 256 spread lanes equal the host poseidon_hash; hashes/s.
+   CPU and 256 spread lanes equal the host poseidon_hash; hashes/s;
+9. the sharded prover (halo2_tpu_torch.parallel, create_proof(mesh=)):
+   vm_eval over row ranges of the flagship's quotient (the two halves, and
+   two ranges that start inside a kernel block, where rotations wrap)
+   equals its plain version and the full launch; (a) one rank on NCCL in
+   this process, make_mesh(1): the flagship proof equals the fixture,
+   verifies, and a tampered root fails; (b) two ranks on gloo, both on this
+   card (NCCL takes one rank a device), make_mesh(2, dp=1) so that sp = 2
+   and the NTT, the scan and the quotient exchange: on each rank the
+   flagship equals the fixture, less_than_v2 at k = 9 (random.Random(13))
+   equals the single-device proof and verifies, sharded_ntt at 2^15 and
+   2^20 (both directions) equals the domain's NTT limb for limb,
+   sharded_msm at 2^16 (phase 3's inputs) equals the native MSM, and
+   grand_product_z at 2^11 equals the host recurrence; the warm proves'
+   times at W = 1 and W = 2 beside the single-device ones (native and
+   device commits) and their phases; the transport of every collective.
 
-Phases 3-8 call the entry points without a device: they run on the card
-by default.  The device-commit paths of phases 3-6 must read no P == Q flag
-back.  Every path of phases 3-8 runs once with the launch counts set to 0
+Phases 3-9 call the entry points without a device: they run on the card
+by default (phase 9's ranks on their own card).  The device-commit paths of
+phases 3-6 must read no P == Q flag back.  Every path of phases 3-9 runs
+once with the launch counts set to 0
 just before and read just after, and fails if a kernel it must launch was
 not launched: mont_mul and the NTT kernels in the proves and the keygens,
 vm_eval in every prove, jac_madd, jac_add and mod_sub (the MSM's signed
 digits negate their points) in the device-commit prove and the
 device-commit keygen, jac_madd and jac_add in the MSM and in every hybrid
 MSM whose device share is above 0, none in a NativeEngine prove, mont_sqr, mont_mul and jac_add in the setup, vm_eval in every
-MockProver run, mont_mul, mont_sqr and mod_add in the sponge.  The line
+MockProver run, mont_mul, mont_sqr and mod_add in the sponge, and in
+phase 9 (each rank's counts set to 0 before each of its jobs and read
+after) mont_mul, mont_sqr, mod_add, mod_sub, jac_madd, jac_add and vm_eval
+in every sharded prove on every rank, both NTT kernels in the 2^20 sharded
+NTTs, and jac_madd, jac_add and mont_sqr in the sharded MSM.  The line
 before the last is a JSON object with one entry per kernel (its launches
 summed over those runs, its time at 2^15 beside its bound from this run's
 inputs); the last
@@ -109,6 +129,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+from halo2_tpu_torch.parallel.jobs import read_launches, reset_launches
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "data", "mst_d15_k11_rng7.proof")
@@ -886,25 +908,6 @@ def _flagship_circuit():
     return circuit, public
 
 
-def _launch_tables():
-    from halo2_tpu_torch.ec import cuda_jac
-    from halo2_tpu_torch.field import cuda_mul, cuda_ops
-    from halo2_tpu_torch.plonkish import cuda_vm
-    from halo2_tpu_torch.poly import cuda_ntt
-
-    return cuda_mul.LAUNCHES, cuda_ntt.LAUNCHES, cuda_jac.LAUNCHES, cuda_vm.LAUNCHES, cuda_ops.LAUNCHES
-
-
-def _reset_launches():
-    for table in _launch_tables():
-        for name in table:
-            table[name] = 0
-
-
-def _read_launches() -> dict:
-    return {name: n for table in _launch_tables() for name, n in table.items()}
-
-
 def _require(path: str, counts: dict, names) -> None:
     missing = [name for name in names if counts[name] == 0]
     if missing:
@@ -965,13 +968,13 @@ def phase_msm(device):
     for label, px, py, sc in cases:
         args = [torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device) for a in (px, py, sc)]
         packed = [native.pack_device(a) for a in (px, py, sc)]
-        _reset_launches()
+        reset_launches()
         torch.cuda.synchronize(device)
         with _FlagReads() as flags:
             t0 = time.perf_counter()
             got = ecd.msm_points(*args)
             first = time.perf_counter() - t0
-        counts = _read_launches()
+        counts = read_launches()
         want = native.msm_g1_mont(*packed)
         if got != want or got == (0, 0):
             raise AssertionError(f"MSM {label}: device {got} != native {want}")
@@ -1016,14 +1019,14 @@ def _check_hybrid(label, device, args, host, want) -> list:
     runs = []
     for frac in (None, 0.5):
         share = ecd._hybrid_device_frac(points) if frac is None else frac
-        _reset_launches()
+        reset_launches()
         _sync(device)
         with _FlagReads() as flags:
             t0 = time.perf_counter()
             pt = ecd.msm_hybrid(*args, *host, device_frac=frac)
             got = ecd.jac_host_affine(pt)
             first = time.perf_counter() - t0
-        counts = _read_launches()
+        counts = read_launches()
         if got != want:
             raise AssertionError(f"hybrid MSM {label} at device share {share}: {got} != native {want}")
         _no_flag_reads(f"hybrid MSM {label}", flags)
@@ -1055,7 +1058,7 @@ def _prove(params, pk, circuit, public, want, device, commit, reps):
 
     launches = None
     for rep in range(reps):
-        _reset_launches()
+        reset_launches()
         PHASE_TIMINGS.clear()
         torch.cuda.synchronize(device)
         with _FlagReads() as flags:
@@ -1063,7 +1066,7 @@ def _prove(params, pk, circuit, public, want, device, commit, reps):
             proof = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7), commit=commit)
             torch.cuda.synchronize(device)
             dt = time.perf_counter() - t0
-        counts = _read_launches()
+        counts = read_launches()
         _no_flag_reads(f"commit={commit} prove", flags)
         if launches is None:
             launches = counts
@@ -1237,13 +1240,13 @@ def phase_engines(device):
         pk = ProvingKey.load(os.path.join(ROOT, ".srs", f"pk_mst_d15_k{k}.pkl"), circuit, k, Fr)
         proofs = {}
         for engine in engines:
-            _reset_launches()
+            reset_launches()
             _sync(device)
             t0 = time.perf_counter()
             proofs[engine] = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7), engine=engine)
             _sync(device)
             dt = time.perf_counter() - t0
-            counts = _read_launches()
+            counts = read_launches()
             if engine == "native" and any(counts.values()):
                 raise AssertionError(f"k={k}: NativeEngine launched kernels: {counts}")
             if engine == "torch":
@@ -1280,13 +1283,13 @@ def phase_setup(device):
     from halo2_tpu_torch.kzg.params import ParamsKZG
 
     want = ParamsKZG.load(SRS16)
-    _reset_launches()
+    reset_launches()
     torch.cuda.synchronize(device)
     with _FlagReads() as flags:
         t0 = time.perf_counter()
         got = ParamsKZG.setup(16)
         dt = time.perf_counter() - t0
-    counts = _read_launches()
+    counts = read_launches()
     _no_flag_reads("setup", flags)
     for name in ("g1_x", "g1_y"):
         if not np.array_equal(getattr(got, name), getattr(want, name)):
@@ -1336,7 +1339,7 @@ def phase_keygen(device):
     with open(FIXTURE, "rb") as f:
         want_proof = f.read()
 
-    _reset_launches()
+    reset_launches()
     _sync(device)
     t0 = time.perf_counter()
     vk = keygen_vk(params, circuit, k, Fr)
@@ -1345,17 +1348,17 @@ def phase_keygen(device):
     pk = keygen_pk(params, vk, circuit, k, Fr)
     _sync(device)
     t_pk = time.perf_counter() - t0 - t_vk
-    split_counts = _read_launches()
+    split_counts = read_launches()
     _require("keygen_vk + keygen_pk", split_counts, ("mont_mul", "ntt_small_stages", "ntt_large_stage"))
     _check_key("keygen_vk + keygen_pk", pk, want)
 
-    _reset_launches()
+    reset_launches()
     with _FlagReads() as flags:
         t0 = time.perf_counter()
         pk_dev = keygen(params, circuit, k, Fr, commit="device")
         _sync(device)
         t_fused = time.perf_counter() - t0
-    fused_counts = _read_launches()
+    fused_counts = read_launches()
     _no_flag_reads("keygen, device commits", flags)
     _require(
         "keygen, device commits", fused_counts,
@@ -1369,12 +1372,12 @@ def phase_keygen(device):
         flush=True,
     )
 
-    _reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     proof = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7))
     _sync(device)
     t_prove = time.perf_counter() - t0
-    prove_counts = _read_launches()
+    prove_counts = read_launches()
     _require("prove with the generated pk", prove_counts, ("mont_mul", "ntt_small_stages", "ntt_large_stage", "vm_eval"))
     if proof != want_proof:
         raise AssertionError(f"the proof with the generated pk differs from {FIXTURE}")
@@ -1444,7 +1447,7 @@ def phase_mock(device):
     vectors = _mock_vectors()
     results = {}
     for label, k, circuit, instances, F, _kinds in vectors:
-        _reset_launches()
+        reset_launches()
         _sync(device)
         t0 = time.perf_counter()
         prover = MockProver.run(k, circuit, instances, F=F)
@@ -1452,7 +1455,7 @@ def phase_mock(device):
         failures = prover.verify()
         _sync(device)
         t_card = time.perf_counter() - t0 - t_run
-        counts = _read_launches()
+        counts = read_launches()
         results[label] = ([repr(f) for f in failures], {type(f).__name__ for f in failures}, t_card, counts)
     runs = [counts for *_, counts in results.values()]
     # each gate check and lookup evaluation is one VM launch (its products
@@ -1504,13 +1507,13 @@ def phase_poseidon(device, batch: int = 1 << 20):
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    _reset_launches()
+    reset_launches()
     _sync(device)
     t0 = time.perf_counter()
     out = hash_device(df, spec, L, messages)
     _sync(device)
     first = time.perf_counter() - t0
-    counts = _read_launches()
+    counts = read_launches()
     _require("hash_device", counts, ("mont_mul", "mont_sqr", "mod_add"))
     peak = torch.cuda.max_memory_allocated(device) / 2**20 if device.type == "cuda" else float("nan")
 
@@ -1544,6 +1547,247 @@ def phase_poseidon(device, batch: int = 1 << 20):
     return [counts]
 
 
+SHARDED_KERNELS = ("mont_mul", "mont_sqr", "mod_add", "mod_sub", "jac_madd", "jac_add", "vm_eval")
+
+
+def _check_vm_rows(device, gen) -> None:
+    """vm_eval over row ranges of the flagship's quotient program (2^15
+    rows) against vm_eval_plain over the same range on the card and the
+    same columns of the full launch: the two halves (the row blocks of two
+    ranks) and two ranges that start inside a block of the kernel, one at
+    row 37 (the -1 rotation wraps below row 16) and one ending at the last
+    row (the 2042 rotation's reads wrap past n)."""
+    from halo2_tpu_torch.plonkish import cuda_vm
+
+    _label, prog, spec, n, stride0 = _vm_programs()[0]
+    cols = _vm_columns(prog, spec, n, gen, device, stride0)
+    table = cuda_vm.compile_program(prog, spec)
+    queries = [cols[kind][ci] for kind, ci, _rot in prog.queries]
+    consts = table.consts_on(device)
+    full = cuda_vm.vm_eval(table, queries, consts, n)
+    block = cuda_vm.rows_per_block(table.num_regs)[0]
+    for row0, count in ((0, n // 2), (n // 2, n // 2), (37, 2 * block + 9), (n - 3 * block - 5, 3 * block + 5)):
+        got = cuda_vm.vm_eval(table, queries, consts, n, (row0, count))
+        plain = cuda_vm.vm_eval_plain(table, queries, consts, n, (row0, count))
+        _max_abs_err(f"vm_eval rows ({row0}, {count})", got, plain)
+        _max_abs_err(f"vm_eval rows ({row0}, {count}) against the full launch", got, full[..., row0 : row0 + count])
+    print(f"[sharded] vm_eval row ranges of the flagship quotient ({block}-row blocks): equal to plain and to the full launch", flush=True)
+
+
+def _sharded_w1(device, params, pk, circuit, public, want, reps: int):
+    """One rank on NCCL in this process: the flagship through
+    create_proof(mesh=make_mesh(1)) (the collectives over groups of one
+    rank, through parallel.comm) equals the fixture, verifies, and a
+    tampered root fails.  Returns the first prove's launches, the warm
+    proves' times and the transports."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from halo2_tpu_torch.field import Fr
+    from halo2_tpu_torch.kzg import create_proof, verify_proof
+    from halo2_tpu_torch.kzg.prover import PHASE_TIMINGS
+    from halo2_tpu_torch.parallel import comm, make_mesh
+
+    with tempfile.TemporaryDirectory(prefix="h2t_nccl_") as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "rendezvous"), rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1)
+            times, counts = [], None
+            for rep in range(reps + 1):
+                reset_launches()
+                PHASE_TIMINGS.clear()
+                _sync(device)
+                t0 = time.perf_counter()
+                proof = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7), mesh=mesh)
+                _sync(device)
+                dt = time.perf_counter() - t0
+                if proof != want:
+                    raise AssertionError(f"sharded prove W=1 (nccl), rep {rep}: differs from {FIXTURE}")
+                if rep == 0:
+                    counts = read_launches()
+                else:
+                    times.append(dt)
+            transports = dict(comm.TRANSPORTS)
+            phases = dict(PHASE_TIMINGS)
+        finally:
+            dist.destroy_process_group()
+    _require("sharded prove W=1 (nccl)", counts, SHARDED_KERNELS)
+    if not verify_proof(params.verifier_params(), pk.vk, proof, [list(public)]):
+        raise AssertionError("sharded prove W=1: the verifier rejected the proof")
+    bad = list(public)
+    bad[2] = bad[2] + Fr.from_u64(1)
+    if verify_proof(params.verifier_params(), pk.vk, proof, [bad]):
+        raise AssertionError("sharded prove W=1: the verifier accepted a tampered root")
+    return counts, times, transports, phases
+
+
+def _phases(timings: dict) -> str:
+    return ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+
+
+def phase_sharded(device, reps: int = 3):
+    """Phase 9: the sharded prover.  (a) one rank on NCCL in this process,
+    the flagship equal to the fixture; (b) two ranks on gloo, both on this
+    card (NCCL takes one rank a device), mesh (1, 2) so that the NTT, the
+    scan and the quotient exchange: the flagship equal to the fixture on
+    both ranks, less_than_v2 at k = 9 equal to the single-device proof,
+    sharded_ntt at 2^15 and 2^20 equal to the domain's NTT, sharded_msm at
+    2^16 equal to the native MSM, grand_product_z at 2^11 equal to the host
+    recurrence; and vm_eval's row ranges against its plain version.  Each
+    rank's launches are counted per job; the flagship proves must launch
+    every kernel of SHARDED_KERNELS on every rank, the 2^20 NTTs both NTT
+    kernels.  Returns the launch counts of the flagship proves."""
+    import torch
+
+    from halo2_tpu_torch.field import Fr
+    from halo2_tpu_torch.kzg import ParamsKZG, ProvingKey, create_proof
+    from halo2_tpu_torch.kzg.prover import PHASE_TIMINGS
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(9)
+    _check_vm_rows(device, gen)
+
+    circuit, public = _flagship_circuit()
+    params = ParamsKZG.setup_cached(11)
+    pk = ProvingKey.load(PK_CACHE, circuit, 11, Fr)
+    with open(FIXTURE, "rb") as f:
+        want = f.read()
+    single, single_phases = {}, {}
+    for commit in ("native", "device"):
+        ts = []
+        for rep in range(reps + 1):
+            PHASE_TIMINGS.clear()
+            _sync(device)
+            t0 = time.perf_counter()
+            proof = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7), commit=commit)
+            _sync(device)
+            if proof != want:
+                raise AssertionError(f"single-device prove ({commit} commits) differs from {FIXTURE}")
+            if rep:
+                ts.append(time.perf_counter() - t0)
+        single[commit] = ts
+        single_phases[commit] = dict(PHASE_TIMINGS)
+    w1_counts, w1_times, w1_transports, w1_phases = _sharded_w1(device, params, pk, circuit, public, want, reps)
+    print(
+        f"[sharded] W=1 (nccl): the flagship equals the fixture, verifies, tampered root rejected; launches "
+        f"{w1_counts}; transports {w1_transports}",
+        flush=True,
+    )
+    for label, timings in (("single, native commits", single_phases["native"]),
+                           ("single, device commits", single_phases["device"]), ("W=1 nccl", w1_phases)):
+        print(f"[sharded] last warm prove's phases (s), {label}: {_phases(timings)}", flush=True)
+
+    ranks, t_spawn = _sharded_group(device, 2, "gloo", 1, reps, want)
+    runs = [w1_counts] + [res[0]["launches"] for res in ranks]
+    med = {k: statistics.median(v) for k, v in (("single, native commits", single["native"]),
+                                                ("single, device commits", single["device"]), ("W=1 nccl", w1_times))}
+    w2 = [statistics.median(r[0]["out"]["times"][1:]) for r in ranks]
+    print(
+        f"[sharded] warm flagship proves, medians of {reps} (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+        + f", W=2 gloo rank 0 {w2[0]:.3f}, rank 1 {w2[1]:.3f} (single {[round(t, 3) for t in single['native']]} / "
+        f"{[round(t, 3) for t in single['device']]}, W=1 {[round(t, 3) for t in w1_times]}); the W=2 group "
+        f"in {t_spawn:.1f} s, process start included",
+        flush=True,
+    )
+    return runs
+
+
+def _sharded_group(device, world: int, backend: str, dp, reps: int, want: bytes):
+    """``world`` spawned ranks on ``backend`` (ranks on the visible cards in
+    turn), mesh (dp, world / dp), each running the flagship (``reps`` + 1
+    proves), less_than_v2 at k = 9, sharded_ntt at 2^15 and 2^20,
+    sharded_msm at 2^16 and grand_product_z at 2^11, each checked against
+    its single-device or host value and its launches.  Returns every rank's
+    job results and the group's wall time."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from halo2_tpu_torch import native
+    from halo2_tpu_torch.field import Fr
+    from halo2_tpu_torch.field.device import get_device_field
+    from halo2_tpu_torch.field.params import BN254_FR
+    from halo2_tpu_torch.kzg import ParamsKZG, create_proof, keygen
+    from halo2_tpu_torch.parallel import jobs
+    from halo2_tpu_torch.parallel.launch import spawn
+    from halo2_tpu_torch.parallel.mesh import mesh_shape
+    from halo2_tpu_torch.poly.domain import _ntt_raw
+
+    dfr = get_device_field(BN254_FR)
+    lt_circuit, lt_inst = jobs.circuit("less_than_v2")
+    lt_params = ParamsKZG.setup_cached(9)
+    lt_pk = keygen(lt_params, lt_circuit, 9, Fr)
+    lt_want = create_proof(lt_params, lt_pk, lt_circuit, lt_inst, rng=random.Random(13))
+    rng = random.Random(5)
+    x15 = dfr.encode_np([rng.randrange(BN254_FR.p) for _ in range(1 << 15)])
+    x20 = np.tile(dfr.encode_np([rng.randrange(BN254_FR.p) for _ in range(4096)]), (1, 1 << 8))
+    srs = ParamsKZG.load(SRS16)
+    rng = random.Random(42)
+    sc16 = dfr.encode_np([rng.randrange(BN254_FR.p) for _ in range(srs.n)], to_mont=False)
+    msm_want = native.msm_g1_mont(*(native.pack_device(np.ascontiguousarray(a)) for a in (srs.g1_x, srs.g1_y, sc16)))
+    rng = random.Random(21)
+    nums = [rng.randrange(1, BN254_FR.p) for _ in range(1 << 11)]
+    dens = [rng.randrange(1, BN254_FR.p) for _ in range(1 << 11)]
+    z_host = [1] * len(nums)
+    for r in range(len(nums) - 1):
+        z_host[r + 1] = z_host[r] * nums[r] % BN254_FR.p * pow(dens[r], -1, BN254_FR.p) % BN254_FR.p
+    with tempfile.TemporaryDirectory(prefix="h2t_lt_") as tmp:
+        lt_path = os.path.join(tmp, "pk_less_than_v2_k9.pkl")
+        lt_pk.save(lt_path)
+        job_list = [
+            ("prove", {"name": "flagship", "k": 11, "pk_path": PK_CACHE, "seed": 7, "reps": reps + 1}),
+            ("prove", {"name": "less_than_v2", "k": 9, "pk_path": lt_path, "seed": 13}),
+            ("ntt", {"x": x15}),
+            ("ntt", {"x": x15, "inverse": True}),
+            ("ntt", {"x": x20}),
+            ("ntt", {"x": x20, "inverse": True}),
+            ("msm", {"px": srs.g1_x, "py": srs.g1_y, "scalars": sc16}),
+            ("grand_product_z", {"num": dfr.encode_np(nums), "den": dfr.encode_np(dens)}),
+        ]
+        t0 = time.perf_counter()
+        ranks = spawn(jobs.run, world, backend, "cuda", job_list, dp=dp)
+        t_spawn = time.perf_counter() - t0
+    wants = {}
+    for x in (x15, x20):
+        xt = torch.from_numpy(x.view(np.int32)).to(device)
+        for inverse in (False, True):
+            wants[(x.shape[1], inverse)] = _ntt_raw(BN254_FR, x.shape[1], inverse)(xt).cpu().numpy()
+    label = f"W={world} ({backend})"
+    for rank, res in enumerate(ranks):
+        flag, lt = res[0], res[1]
+        if flag["out"]["proof"] != want or not flag["out"]["same"] or not flag["out"]["verified"]:
+            raise AssertionError(f"sharded prove {label}, rank {rank}: the flagship differs from {FIXTURE} or fails to verify")
+        _require(f"sharded prove {label}, rank {rank}", flag["launches"], SHARDED_KERNELS)
+        if lt["out"]["proof"] != lt_want or not lt["out"]["verified"]:
+            raise AssertionError(f"sharded prove {label}, rank {rank}: less_than_v2 k=9 differs from single-device")
+        _require(f"less_than_v2 {label}, rank {rank}", lt["launches"], SHARDED_KERNELS)
+        for job, (n, inverse) in zip(res[2:6], ((1 << 15, False), (1 << 15, True), (1 << 20, False), (1 << 20, True))):
+            _max_abs_err(f"sharded_ntt 2^{n.bit_length() - 1} inverse={inverse}, rank {rank}", torch.from_numpy(job["out"]), torch.from_numpy(wants[(n, inverse)]))
+            if n == 1 << 20:
+                _require(f"sharded_ntt 2^20, rank {rank}", job["launches"], ("ntt_small_stages", "ntt_large_stage", "mont_mul"))
+        msm, gp = res[6], res[7]
+        if msm["out"]["affine"] != msm_want:
+            raise AssertionError(f"sharded_msm 2^16, rank {rank}: {msm['out']['affine']} != native {msm_want}")
+        _require(f"sharded_msm 2^16, rank {rank}", msm["launches"], ("jac_madd", "jac_add", "mont_sqr"))
+        if [int(v) for v in dfr.decode(torch.from_numpy(gp["out"]))] != z_host:
+            raise AssertionError(f"grand_product_z 2^11, rank {rank}: differs from the host recurrence")
+        ntt_s = ", ".join(f"{j['seconds']:.3f}" for j in res[2:6])
+        print(f"[sharded] {label} rank {rank}, last warm prove's phases (s): {_phases(flag['out']['phases'])}", flush=True)
+        print(
+            f"[sharded] {label}, mesh {tuple(mesh_shape(world, dp))}, rank {rank}: the flagship equals the fixture and verifies; "
+            f"warm proves (s) {[round(t, 3) for t in flag['out']['times'][1:]]}; less_than_v2 k=9 equals "
+            f"single-device and verifies ({lt['seconds']:.3f} s); sharded_ntt 2^15 / 2^20 equal the domain's "
+            f"({ntt_s} s); sharded_msm 2^16 equals native "
+            f"({msm['seconds']:.3f} s); grand_product_z 2^11 equals the host ({gp['seconds']:.3f} s); flagship "
+            f"launches {flag['launches']}; transports {res[-1]['transports']}",
+            flush=True,
+        )
+    return ranks, t_spawn
+
+
 KERNELS = (
     ("mont_mul", "halo2_tpu_torch/csrc/mont_mul.cu", "halo2_tpu/field/pallas_mul.py:357"),
     ("mont_sqr", "halo2_tpu_torch/csrc/mont_mul.cu", "halo2_tpu/field/pallas_mul.py:363"),
@@ -1574,7 +1818,7 @@ def main() -> int:
     runs = []
     for name, phase in (
         ("msm", phase_msm), ("prove", phase_prove), ("engines", phase_engines), ("setup", phase_setup),
-        ("keygen", phase_keygen), ("mock", phase_mock), ("poseidon", phase_poseidon),
+        ("keygen", phase_keygen), ("mock", phase_mock), ("poseidon", phase_poseidon), ("sharded", phase_sharded),
     ):
         runs += timed(name, phase, device)
     launches = {name: sum(r[name] for r in runs) for name, _, _ in KERNELS}

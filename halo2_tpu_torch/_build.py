@@ -115,7 +115,7 @@ def lib() -> ctypes.CDLL:
                 "jac_add": [vp] * 9 + [i32, vp, i32, vp],
                 "mod_add": [vp, vp, vp, i32, i32, vp, i32, vp],
                 "mod_sub": [vp, vp, vp, i32, i32, i32, vp, i32, vp],
-                "vm_eval": [vp, vp, vp, vp, i32, i32, vp, i32, i32, i32, vp, i32, vp, i32, vp],
+                "vm_eval": [vp, vp, vp, vp, i32, i32, vp, i32, i32, i32, vp, i32, i32, i32, vp, i32, vp],
             }
             for name, types in argtypes.items():
                 fn = getattr(handle, f"h2t_{name}")

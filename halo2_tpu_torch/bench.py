@@ -8,8 +8,11 @@ mirrors, as bench.py runs it) and at 2^20 (the 2^16 SRS tiled 16 times), the
 forward NTT's butterflies/s at 2^20 (``poly/domain.py``'s kernels), and the
 north star's prove, verify and keygen times (``python -m
 halo2_tpu_torch.north_star --repeat 3`` in a subprocess: ``prove_s`` is a
-warm prove), beside the card's name and power limit.  Extra context goes to
-stderr.  bench.py's scaling keys wait for the sharded prover and are absent.
+warm prove), and bench.py's scaling keys (``python -m
+halo2_tpu_torch.scaling`` in a subprocess: the sharded MSM and NTT over 1,
+2 and 8 ranks, or the reference's loud ``{"scaling": "FAILED", ...}``
+marker), beside the card's name and power limit.  Extra context goes to
+stderr.
 
 ``--device cpu``, ``--engine`` and the size arguments exist for the tests,
 which run the same code at small sizes on the CPU.
@@ -148,6 +151,42 @@ def bench_northstar(north_star_args=(), timeout: int = 480) -> dict:
     }
 
 
+def bench_scaling(device_type: str, ranks=None, timeout: int = 700) -> dict:
+    """``python -m halo2_tpu_torch.scaling --device device_type`` (over the
+    group sizes ``ranks``, default the script's) in a subprocess; its last
+    JSON line.  On any failure the reference's loud marker ``{"scaling":
+    "FAILED", "scaling_error": ...}`` instead of leaving the keys out; on a
+    timeout, the last section's line marked ``PARTIAL``."""
+
+    def last_json(text):
+        for line in reversed((text or "").strip().splitlines()):
+            if line.strip().startswith("{"):
+                return json.loads(line)
+        return None
+
+    cmd = [sys.executable, "-m", "halo2_tpu_torch.scaling", "--device", device_type]
+    if ranks:
+        cmd += ["--ranks", ",".join(str(w) for w in ranks)]
+    try:
+        out = subprocess.run(
+            cmd,
+            cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+        )
+    except subprocess.TimeoutExpired as e:
+        stdout = e.stdout.decode() if isinstance(e.stdout, bytes) else e.stdout
+        found = last_json(stdout)
+        if found is None:
+            log("scaling timed out before any JSON")
+            return {"scaling": "FAILED", "scaling_error": "timeout, no JSON emitted"}
+        found["scaling"] = "PARTIAL (timeout)"
+        return found
+    found = last_json(out.stdout) if out.returncode == 0 else None
+    if found is None:
+        log(f"scaling failed (rc {out.returncode}); stderr tail: {out.stderr[-300:]}")
+        return {"scaling": "FAILED", "scaling_error": f"rc {out.returncode}: {out.stderr[-200:]}"}
+    return found
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
@@ -184,6 +223,9 @@ def main(argv=None) -> dict:
     ns = bench_northstar(["--engine", args.engine, "--device", str(device)])
     log(f"north star: {ns}")
     result.update(ns)
+    scaling = bench_scaling(device.type)
+    log(f"scaling: {scaling}")
+    result.update({k: v for k, v in scaling.items() if k not in ("device", "gpu", "power_limit")})
     result.update(
         {
             f"msm_ms_2^{k}": round(dt * 1e3, 3),

@@ -21,7 +21,10 @@
 // stride of 0 is one broadcast element: a challenge handed over as an
 // expanded view), and the row shift.  Row i reads row (i + shift) mod n,
 // shift = rotation * rot_scale mod n, as jnp.roll(column, -shift) does in the
-// reference, without the rolled copy.
+// reference, without the rolled copy.  A launch may cover a row range only
+// (the sharded prover's block of the quotient): thread row i of the launch
+// is domain row row0 + i and writes output column i, while the queries still
+// wrap at the full n.
 //
 // Design: a block holds 64 rows (32 when the registers need it) and four
 // warps, streams, per 32 rows: the host (cuda_vm._schedule) splits each row's
@@ -121,14 +124,16 @@ __global__ void __launch_bounds__(MAX_THREADS)
 vm_eval_kernel(const Query* __restrict__ queries, const uint32_t* __restrict__ consts,
                const int4* __restrict__ instrs, const int* __restrict__ offsets, int phases, int streams,
                const int* __restrict__ outputs, int n_outputs, uint32_t* __restrict__ out, int n,
-               Modulus M) {
+               int row0, int count, Modulus M) {
   extern __shared__ uint32_t smem[];  // [num_regs][WORDS][rows]
   const int rows = blockDim.x / streams;
   const int stream = threadIdx.x / rows;
   const int t = threadIdx.x - stream * rows;
-  const size_t row = static_cast<size_t>(blockIdx.x) * rows + t;
+  const size_t i = static_cast<size_t>(blockIdx.x) * rows + t;  // output column
+  const size_t row = static_cast<size_t>(row0) + i;              // domain row, < n when live
   const size_t total = static_cast<size_t>(n);
-  const bool live = row < total;
+  const size_t width = static_cast<size_t>(count);
+  const bool live = i < width;
   uint32_t* regs = smem + t;
   for (int p = 0; p < phases; ++p) {
     const int begin = __ldg(offsets + p * streams + stream);
@@ -160,50 +165,52 @@ vm_eval_kernel(const Query* __restrict__ queries, const uint32_t* __restrict__ c
   for (int o = stream; o < n_outputs; o += streams) {
     uint32_t r[WORDS];
     fetch(__ldg(outputs + o), queries, consts, regs, rows, total, row, r);
-    store_elem(out + static_cast<size_t>(o) * 2 * WORDS * total, total, row, r);
+    store_elem(out + static_cast<size_t>(o) * 2 * WORDS * width, width, i, r);
   }
 }
 
 template <class A>
 int launch(const void* queries, const void* consts, const void* instrs, const void* offsets, int phases,
            int streams, const void* outputs, int n_outputs, int num_regs, int rows, void* out, int n,
-           const Modulus& M, cudaStream_t stream) {
+           int row0, int count, const Modulus& M, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(num_regs) * WORDS * sizeof(uint32_t) * rows;
   if (rows < 32 || rows > MAX_ROWS || rows % 32 || streams < 1 || streams > MAX_STREAMS || phases < 0 ||
-      num_regs < 0 || smem > SMEM_MAX)
+      num_regs < 0 || smem > SMEM_MAX || row0 < 0 || count <= 0 || count > n - row0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (smem > SMEM_DEFAULT) {
     const cudaError_t rc =
         cudaFuncSetAttribute(vm_eval_kernel<A>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  vm_eval_kernel<A><<<(n + rows - 1) / rows, rows * streams, smem, stream>>>(
+  vm_eval_kernel<A><<<(count + rows - 1) / rows, rows * streams, smem, stream>>>(
       static_cast<const Query*>(queries), static_cast<const uint32_t*>(consts),
       static_cast<const int4*>(instrs), static_cast<const int*>(offsets), phases, streams,
-      static_cast<const int*>(outputs), n_outputs, static_cast<uint32_t*>(out), n, M);
+      static_cast<const int*>(outputs), n_outputs, static_cast<uint32_t*>(out), n, row0, count, M);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Runs the program over n rows.  queries: (Q, 4) int64 Query entries;
+// Runs the program over the rows row0 .. row0 + count - 1 of n (every row:
+// row0 = 0, count = n).  queries: (Q, 4) int64 Query entries;
 // consts: (C, 8) Montgomery words; instrs: (I, 4) int32, 16-byte aligned,
 // phase by phase, stream by stream; offsets: (phases * streams + 1,) int32,
 // stream s of phase p running instrs[offsets[p * streams + s] ..
 // offsets[p * streams + s + 1]); outputs: (O,) int32 sources; num_regs: the
 // program's registers; rows: rows a block (a multiple of 32, at most 64,
-// num_regs * 32 * rows bytes at most 227 KB); out: (O, 16, n).  arith: 0 =
-// CcArith (p < 2^254), 1 = WideArith.
+// num_regs * 32 * rows bytes at most 227 KB); out: (O, 16, count).  arith:
+// 0 = CcArith (p < 2^254), 1 = WideArith.
 extern "C" int h2t_vm_eval(const void* queries, const void* consts, const void* instrs, const void* offsets,
                            int phases, int streams, const void* outputs, int n_outputs, int num_regs, int rows,
-                           void* out, int n, const void* modulus, int arith, void* stream) {
+                           void* out, int n, int row0, int count, const void* modulus, int arith,
+                           void* stream) {
   const Modulus M = modulus_from_host(static_cast<const uint32_t*>(modulus));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (arith == 0)
     return launch<CcArith>(queries, consts, instrs, offsets, phases, streams, outputs, n_outputs, num_regs,
-                           rows, out, n, M, s);
+                           rows, out, n, row0, count, M, s);
   if (arith == 1)
     return launch<WideArith>(queries, consts, instrs, offsets, phases, streams, outputs, n_outputs, num_regs,
-                             rows, out, n, M, s);
+                             rows, out, n, row0, count, M, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

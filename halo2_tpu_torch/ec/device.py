@@ -21,8 +21,10 @@ The host tail (``_hj_dbl``, ``_hj_madd``, ``_hj_add``, ``_host_horner``) is
 carried over verbatim: the reference's file imports JAX, so this package
 cannot load it.  ``msm_hybrid`` runs a leading slice of the points on the
 device Pippenger while the native host Pippenger takes the rest, in a
-worker thread.  ``pvary_tree`` and ``_msm_raw`` (device Horner for the
-sharded prover) are not ported yet.
+worker thread.  :func:`_msm_raw` keeps the whole MSM on the device (the
+Horner combine too), for the sharded prover, whose ranks exchange the
+result.  The reference's ``pvary_tree`` only marks loop carries as
+device-varying for ``shard_map``'s type check and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -348,6 +350,42 @@ def _msm_wsums_raw(px, py, scalars_canonical):
     digits, signs = _signed_digits(digits, c)
     w = _window_sums(px, py, digits, signs, c, q_rounds=q)
     return torch.stack([w["x"], w["y"], w["z"]])
+
+
+def _horner_device(w, c: int):
+    """Stacked ``(3, 16, *B, W)`` window sums -> sum_i 2^(c i) w_i as a jac
+    point ``(16, *B)`` on their device: from the top window down, c
+    ``jac_double``s and one ``jac_add`` (the reference's ``fori_loop``
+    Horner, at width 1 for one MSM, B for a batch)."""
+    acc = jac_infinity(tuple(w.shape[2:-1]), device=w.device)
+    for i in reversed(range(w.shape[-1])):
+        for _ in range(c):
+            acc = jac_double(acc)
+        acc = jac_add(acc, jac(w[0, ..., i], w[1, ..., i], w[2, ..., i]))
+    return acc
+
+
+def _msm_raw(px, py, scalars_canonical):
+    """The fully-device MSM: :func:`_msm_wsums_raw`'s window sums and the
+    Horner combine on the device; returns a jac point ``(16,)`` on px's
+    device, which a collective can exchange (the sharded MSM's partial
+    sums).  Inputs as for :func:`msm`; scalars may also be a batch
+    ``(B, 16, N)`` of scalar sets over the same points, giving ``(16, B)``:
+    one Horner at width B for all of them.  Above ``_MSM_SLICE`` points the
+    slices' sums add on the device."""
+    n = px.shape[-1]
+    if n > _MSM_SLICE:
+        acc = None
+        for s in range(0, n, _MSM_SLICE):
+            e = min(n, s + _MSM_SLICE)
+            pt = _msm_raw(px[:, s:e], py[:, s:e], scalars_canonical[..., s:e])
+            acc = pt if acc is None else jac_add(acc, pt)
+        return acc
+    if scalars_canonical.dim() == 2:
+        w = _msm_wsums_raw(px, py, scalars_canonical)
+    else:
+        w = torch.stack([_msm_wsums_raw(px, py, sc) for sc in scalars_canonical.unbind(0)], dim=2)
+    return _horner_device(w, _msm_c(n))
 
 
 # ---------------------------------------------- host Jacobian (Python ints)

@@ -37,15 +37,19 @@ def modulus_words(spec: FieldSpec) -> np.ndarray:
 # ------------------------------------------------------------- plain version
 def carry(t: torch.Tensor):
     """Carry-propagate int64 limb columns ``(nl, *B)`` (any sign) into
-    16-bit limbs; returns ``(limbs, carry_out)``, carry_out < 0 on a borrow."""
-    out = []
-    c = None
-    for row in t.unbind(0):
-        if c is not None:
-            row = row + c
-        c = row >> LIMB_BITS
-        out.append(row & LIMB_MASK)
-    return torch.stack(out), c
+    16-bit limbs; returns ``(limbs, carry_out)``, carry_out < 0 on a borrow.
+    Every row passes its carry up at once, until no row has one: a few
+    passes of whole-tensor ops (a ripple through limbs of 0xFFFF takes one
+    more pass a limb) instead of one pass a row, which at the narrow widths
+    of a curve's Horner tail is what the plain versions' time goes to."""
+    c = torch.zeros_like(t[0])
+    while True:
+        hi = t >> LIMB_BITS
+        if not bool(hi.any()):
+            return t, c
+        t = t & LIMB_MASK
+        c = c + hi[-1]
+        t[1:] += hi[:-1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,17 +89,45 @@ def _redc_plain(spec: FieldSpec, t: torch.Tensor) -> torch.Tensor:
     return torch.where(borrow < 0, res, red).to(torch.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _terms(square: bool, device: torch.device) -> tuple:
+    """The limb products a_i b_j of a schoolbook product, as index tensors
+    ``(i, j, column i + j, weight)``: all 256 for a product; for a square
+    the 136 of the upper triangle (i <= j), the off-diagonal ones weighted
+    2, as the kernel forms them."""
+    i, j = torch.meshgrid(torch.arange(L), torch.arange(L), indexing="ij")
+    i, j = i.reshape(-1), j.reshape(-1)
+    if square:
+        keep = i <= j
+        i, j = i[keep], j[keep]
+    w = torch.where(i == j, 1, 2) if square else torch.ones_like(i)
+    return tuple(v.to(device) for v in (i, j, i + j, w))
+
+
+_PRODUCT_CHUNK = 1 << 16  # columns a pass: up to 256 int64 products each, 128 MB
+
+
+def _product_columns(a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    """int64 limbs ``(L, m)`` -> the ``(2L, m)`` column sums of the
+    schoolbook product a * b, or of the square a * a when ``b`` is None
+    (each sum < 16 * 2^32): every limb product of a chunk of columns at
+    once, summed into its column by one ``index_add_`` (exact in int64)."""
+    i, j, col, w = _terms(b is None, a.device)
+    b = a if b is None else b
+    t = a.new_zeros((2 * L, a.shape[1]))
+    for lo in range(0, a.shape[1], _PRODUCT_CHUNK):
+        hi = lo + _PRODUCT_CHUNK
+        t[:, lo:hi].index_add_(0, col, a[i, lo:hi] * b[j, lo:hi] * w[:, None])
+    return t
+
+
 def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a * b * 2^-256 mod p in int64 torch ops (the reference's loop-free
     algorithm): T = a * b, then :func:`_redc_plain`.  a, b broadcast over
     their batch axes."""
     a, b = torch.broadcast_tensors(a, b)
     shape = a.shape
-    a = a.reshape(L, -1).to(torch.int64)
-    b = b.reshape(L, -1).to(torch.int64)
-    t = a.new_zeros((2 * L, a.shape[1]))
-    for i in range(L):
-        t[i : i + L] += a[i] * b  # column sums < 16 * 2^32
+    t = _product_columns(a.reshape(L, -1).to(torch.int64), b.reshape(L, -1).to(torch.int64))
     return _redc_plain(spec, t).reshape(shape)
 
 
@@ -104,12 +136,7 @@ def mont_sqr_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     of the upper triangle (off-diagonal ones doubled), then
     :func:`_redc_plain`; equal to ``mont_mul_plain(spec, a, a)``."""
     shape = a.shape
-    a = a.reshape(L, -1).to(torch.int64)
-    t = a.new_zeros((2 * L, a.shape[1]))
-    for i in range(L):
-        t[2 * i] += a[i] * a[i]
-        t[2 * i + 1 : i + L] += 2 * a[i] * a[i + 1 :]  # column sums < 2^37
-    return _redc_plain(spec, t).reshape(shape)
+    return _redc_plain(spec, _product_columns(a.reshape(L, -1).to(torch.int64), None)).reshape(shape)
 
 
 # --------------------------------------------------------------------- wrapper

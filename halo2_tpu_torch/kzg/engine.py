@@ -15,6 +15,9 @@ Two interchangeable engines give the same proof bytes for the same rng:
 * :class:`NativeEngine` (carried over verbatim): the C++ host engine of
   ``..native``; engine polys are (m, 4) uint64 canonical numpy arrays, and
   nothing runs on a device.
+* :class:`ShardedEngine` (``create_proof(..., mesh=)``): TorchEngine's
+  polys, with every row-axis phase split over the ranks of a mesh through
+  ``..parallel``.
 
 :func:`select_engine` chooses between them as the reference does, with the
 reference's environment variables as arguments.
@@ -31,7 +34,7 @@ from ..ec import host as ec
 from ..field.device import get_device_field
 from ..field.params import BN254_FR
 from ..plonkish.evaluator import _run_program
-from .keygen import commit_coeffs_batch, to_host_limbs
+from .keygen import _device_srs, commit_coeffs_batch, to_host_limbs
 
 P = BN254_FR.p
 
@@ -168,6 +171,125 @@ class TorchEngine:
         n_polys, _, m = limbs.shape
         packed = native.pack_device(np.moveaxis(limbs, 1, 0).reshape(16, -1))
         return list(native.from_mont(packed, "fr").reshape(n_polys, m, 4))
+
+
+# ===================================================================== sharded
+class ShardedEngine(TorchEngine):
+    """The prover's row-axis phases split over the ranks of a ``(dp, sp)``
+    mesh (:mod:`..parallel`), SPMD: every rank proves with the same
+    arguments, holds every engine poly whole on its own device, computes its
+    share of each phase, exchanges, and ends with the single-device proof
+    bytes for the same rng (port of the reference's ``ShardedEngine``):
+
+    * ``to_coeffs``, ``coeff_to_extended(_many)``, ``extended_to_coeff``:
+      the four-step :func:`..parallel.ntt.sharded_ntt` over ``sp`` (the
+      coset scales replicated, as in the reference);
+    * ``commit_batch``: every commitment, whatever ``commit`` would say, on
+      :func:`..parallel.msm.sharded_msm` over the whole mesh (a call's
+      columns as one batch), over the SRS uploaded once per (params,
+      device), decoded to affine on the host;
+    * ``grand_product_z``: :func:`..parallel.scan.grand_product_z` with the
+      prover's labels;
+    * ``quotient_eval``: each rank runs the quotient program (one
+      ``vm_eval``) over its ``extended_n / S`` rows of the whole columns,
+      then an ``all_gather`` over ``sp``.
+
+    ``device``: this rank's device (None: its current CUDA device on a
+    ``"cuda"`` mesh, the CPU on a ``"cpu"`` one); a device of another type
+    than the mesh's raises, and so does a mesh whose process group is gone."""
+
+    name = "sharded"
+
+    def __init__(self, params, st, mesh, device=None):
+        import torch.distributed as dist
+
+        from ..parallel.mesh import AXES, rank_device
+
+        if not dist.is_initialized():
+            raise RuntimeError("ShardedEngine: no process group (torch.distributed is not initialized)")
+        if tuple(mesh.mesh_dim_names or ()) != AXES:
+            raise ValueError(f"ShardedEngine: a mesh of axes {AXES} (parallel.make_mesh), got {mesh.mesh_dim_names}")
+        device = rank_device(mesh) if device is None else torch.device(device)
+        if device.type != mesh.device_type:
+            raise ValueError(f"ShardedEngine: device {device} on a {mesh.device_type!r} mesh")
+        super().__init__(params, st, device, commit="device")
+        self.mesh = mesh
+
+    def _ntt(self, x, inverse: bool):
+        from ..parallel.ntt import sharded_ntt
+
+        return sharded_ntt(self.mesh, BN254_FR, x, inverse=inverse, axis="sp")
+
+    # ---- transforms (the distributed NTT)
+    def to_coeffs(self, vals):
+        return self._ntt(self.dfr.encode(vals, device=self.device), True)
+
+    def coeff_to_extended(self, coeffs):
+        return self.coeff_to_extended_many([coeffs])[0]
+
+    def coeff_to_extended_many(self, coeffs_list):
+        """Every column padded into one (C, 16, extended_n) batch, coset
+        scaled, and one sharded forward NTT for the batch (one exchange)."""
+        from ..poly.domain import _mul_columns
+
+        if not coeffs_list:
+            return []
+        ext_n = self.domain.extended_n
+        padded = coeffs_list[0].new_zeros((len(coeffs_list), 16, ext_n))
+        for i, c in enumerate(coeffs_list):
+            padded[i, :, : c.shape[-1]] = c
+        scaled = _mul_columns(BN254_FR, padded, self.domain._coset_powers(ext_n, self.device))
+        return list(self._ntt(scaled, False).unbind(0))
+
+    def extended_to_coeff(self, epoly):
+        coeffs = self._ntt(epoly, True)
+        return self.dfr.mul(coeffs, self.domain._coset_powers_inv(self.domain.extended_n, self.device))
+
+    # ---- the row-sharded quotient
+    def quotient_eval(self, columns_ext, combined_expr, rot_scale):
+        from ..parallel import comm
+        from ..parallel.mesh import axis_index, axis_size
+
+        assert combined_expr is self.st.combined_quotient(), (
+            "ShardedEngine.quotient_eval only evaluates st.combined_quotient()"
+        )
+        ext_n = self.domain.extended_n
+        shards = axis_size(self.mesh, "sp")
+        if ext_n % shards:
+            raise ValueError(f"quotient: {ext_n} rows do not divide over {shards} ranks")
+        m = ext_n // shards
+        prog = self.st.quotient_program(rot_scale)
+        part = _run_program(prog, self.dfr, columns_ext, rows=(axis_index(self.mesh, "sp") * m, m))[0]
+        return comm.all_gather(self.mesh, "sp", part).permute(1, 0, 2).reshape(16, ext_n)
+
+    # ---- the distributed grand product (the prover's real labels)
+    def grand_product_z(self, num_ints, den_ints, carry: int):
+        from ..parallel.scan import grand_product_z
+
+        u, n = len(num_ints), self.st.n
+        num = self.dfr.encode([int(v) for v in num_ints] + [1] * (n - u), device=self.device)
+        den = self.dfr.encode([int(v) for v in den_ints] + [1] * (n - u), device=self.device)
+        zi = self.dfr.decode(grand_product_z(self.mesh, BN254_FR, num, den, axis="sp"))
+        return [carry * int(zi[r]) % P for r in range(u + 1)]
+
+    # ---- distributed commitments
+    def commit_batch(self, coeffs_list):
+        """One sharded MSM for the columns of each length (a batch of scalar
+        sets over the same SRS points: one Horner and one exchange per
+        round for all of them), decoded to affine on the host."""
+        from ..ec.device import _wsums_host_affine
+        from ..parallel.msm import sharded_msm
+
+        g1_x, g1_y = _device_srs(self.params, self.device)
+        out = [None] * len(coeffs_list)
+        for m in dict.fromkeys(c.shape[-1] for c in coeffs_list):
+            idx = [i for i, c in enumerate(coeffs_list) if c.shape[-1] == m]
+            canon = torch.stack([self.dfr.from_mont_arr(coeffs_list[i]) for i in idx])
+            pt = sharded_msm(self.mesh, g1_x[:, :m], g1_y[:, :m], canon)
+            xs, ys = _wsums_host_affine(torch.stack([pt["x"], pt["y"], pt["z"]]))
+            for i, x, y in zip(idx, xs, ys):
+                out[i] = ec.g1_from_ints(x, y)
+        return out
 
 
 def _grand_product_fallback(num_ints, den_ints, carry: int):

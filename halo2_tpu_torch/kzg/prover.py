@@ -13,8 +13,9 @@ coset NTTs, the quotient instruction VM, the vanishing multiply,
 ``extended_to_coeff``) runs on ``device``; grand products and the multiopen
 run on the host, as in the reference's device engine, and the commitments
 where ``commit`` says.  On :class:`.engine.NativeEngine` all of it runs on
-the native C++ host engine.  For the same ``rng`` the proof bytes equal the
-reference's on either engine.
+the native C++ host engine.  With ``mesh=`` the row-axis phases are split
+over the ranks of a process group (:class:`.engine.ShardedEngine`).  For the
+same ``rng`` the proof bytes equal the reference's on every engine.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from ..field.params import BN254_FR
 from ..plonkish.assignment import run_synthesis
 from ..plonkish.column import Column, ColumnKind, Rotation
 from ..plonkish.expression import Query
-from .engine import select_engine
+from .engine import ShardedEngine, select_engine
 from .expr_eval import eval_expr_rows
 from .keygen import ProvingKey, _horner
 from .shplonk import shplonk_open
@@ -65,7 +66,7 @@ def _native_or_none():
 
 
 def create_proof(
-    params, pk: ProvingKey, circuit, instances, rng=None, device=None, commit="native", engine="torch"
+    params, pk: ProvingKey, circuit, instances, rng=None, device=None, commit="native", engine="torch", mesh=None
 ) -> bytes:
     """halo2 `create_proof` (reference src/circuits/utils.rs:40-48).
 
@@ -80,15 +81,29 @@ def create_proof(
 
     The reference defaults to its rule, which picks the host engine for the
     flagship; this port defaults to the card, so that a caller who names no
-    engine proves on the GPU and a missing card shows."""
+    engine proves on the GPU and a missing card shows.
+
+    ``mesh``: a ``(dp, sp)`` DeviceMesh (:func:`..parallel.make_mesh`) over
+    an initialized process group.  Every rank calls ``create_proof`` with
+    the same arguments and its own equal ``rng``; the row-axis phases are
+    split over the ranks (:class:`.engine.ShardedEngine`, on ``device`` or
+    the rank's own device), every commitment runs on the sharded device MSM
+    whatever ``commit`` says, and every rank returns the single-device
+    proof bytes.  With ``engine="native"`` it raises: the host engine has no
+    sharded form."""
     rng = rng or _random.Random()
-    if engine == "torch":
+    if mesh is not None and engine == "native":
+        raise ValueError("create_proof: mesh= proves on ShardedEngine; engine='native' has no sharded form")
+    if engine == "torch" and mesh is None:
         device = resolve_device(device)  # before any work: a missing card shows at once
     t = time.perf_counter()
     st = pk.vk.structure
     cs, k, n, u = st.cs, st.k, st.n, st.u
     domain = st.domain
-    eng = select_engine(params, st, device, engine=engine, commit=commit)
+    if mesh is not None:
+        eng = ShardedEngine(params, st, mesh, device)
+    else:
+        eng = select_engine(params, st, device, engine=engine, commit=commit)
     if os.environ.get("HALO2_TPU_TIMING"):
         print(f"  [prover] engine: {eng.name}", flush=True)
     transcript = Blake2bWrite()

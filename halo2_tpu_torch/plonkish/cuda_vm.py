@@ -15,7 +15,8 @@ The table:
 
 - queries: ``(kind, column, rotation)`` as the program lists them; row i of
   a query reads row ``(i + rotation * rot_scale) mod n`` of its column, as
-  ``jnp.roll(column, -rotation * rot_scale)`` does in the reference;
+  ``jnp.roll(column, -rotation * rot_scale)`` does in the reference (a row
+  range ``(row0, count)`` evaluates rows row0 .. row0 + count - 1 only);
 - constants: ``(C, 8)`` Montgomery words;
 - instructions: ``(I, 4)`` int32 ``(op, src1, src2, dst)``, op 0 = add, 1 =
   multiply, 2 = negate (src1 only); a source is ``tag | index << 2`` with
@@ -272,17 +273,21 @@ def _const_limbs(consts: torch.Tensor) -> torch.Tensor:
     return limbs.t().to(torch.int32)
 
 
-def vm_eval_plain(table: VMTable, queries, consts: torch.Tensor, n: int) -> torch.Tensor:
-    """The table's outputs over n rows, ``(O, 16, n)`` int32, in plain
-    torch ops: each query rolled by its shift, then one instruction at a
-    time with :func:`.cuda_mul.mont_mul_plain` and the plain add and negate
-    of :mod:`..field.cuda_ops`.  ``queries``: one tensor per query that
-    expands to ``(16, n)``; ``consts``: :meth:`VMTable.consts_on`."""
+def vm_eval_plain(table: VMTable, queries, consts: torch.Tensor, n: int, rows=None) -> torch.Tensor:
+    """The table's outputs over the rows ``rows = (row0, count)`` of n
+    (None: all n), ``(O, 16, count)`` int32, in plain torch ops: each query
+    read at rows (row0 + i + shift) mod n, then one instruction at a time
+    with :func:`.cuda_mul.mont_mul_plain` and the plain add and negate of
+    :mod:`..field.cuda_ops`.  ``queries``: one tensor per query that expands
+    to ``(16, n)``; ``consts``: :meth:`VMTable.consts_on`."""
     spec = table.spec
+    row0, count = _rows(rows, n)
     q = []
     for t, s in zip(queries, table.shifts(n)):
-        t = t.expand(L, n)
-        q.append(torch.roll(t, -s, dims=-1) if s else t)
+        if t.shape[1] != 1:
+            at = (torch.arange(row0, row0 + count, device=t.device) + s) % n
+            t = t.index_select(1, at)
+        q.append(t)
     c = _const_limbs(consts)
     regs: list = [None] * table.num_regs
 
@@ -302,8 +307,8 @@ def vm_eval_plain(table: VMTable, queries, consts: torch.Tensor, n: int) -> torc
             regs[dst] = mont_mul_plain(spec, a, fetch(s2))
         else:
             regs[dst] = mod_neg_plain(spec, a)
-    outs = [fetch(s).expand(L, n) for s in table.outputs.tolist()]
-    return torch.stack(outs) if outs else consts.new_zeros((0, L, n))
+    outs = [fetch(s).expand(L, count) for s in table.outputs.tolist()]
+    return torch.stack(outs) if outs else consts.new_zeros((0, L, count))
 
 
 # --------------------------------------------------------------------- wrapper
@@ -317,6 +322,16 @@ def rows_per_block(num_regs: int) -> tuple[int, int]:
         if smem <= SMEM_MAX:
             return rows, smem
     raise ValueError(f"vm_eval: {num_regs} registers do not fit the kernel's shared memory (at most {MAX_REGS})")
+
+
+def _rows(rows, n: int) -> tuple[int, int]:
+    """(row0, count) of a row range over n rows; None is every row."""
+    if rows is None:
+        return 0, n
+    row0, count = (int(v) for v in rows)
+    if row0 < 0 or count <= 0 or row0 + count > n:
+        raise ValueError(f"vm_eval: bad row range {tuple(rows)} of {n} rows")
+    return row0, count
 
 
 def _check(table: VMTable, queries, consts: torch.Tensor, n: int) -> torch.device:
@@ -351,23 +366,28 @@ def _query_table(table: VMTable, queries, n: int) -> np.ndarray:
     return entries
 
 
-def vm_eval(table: VMTable, queries, consts: torch.Tensor, n: int) -> torch.Tensor:
-    """The table's outputs over n rows, ``(O, 16, n)`` int32.  ``queries``:
-    one int32 tensor per query, ``(16, n)`` or ``(16, 1)``, any strides
-    (views of a batch, expanded constants); ``consts``:
-    :meth:`VMTable.consts_on`.  CPU tensors: plain version; CUDA tensors: one
-    kernel launch.  Raises ``ValueError`` for a program whose registers the
-    kernel cannot hold (:func:`rows_per_block`), on either device."""
+def vm_eval(table: VMTable, queries, consts: torch.Tensor, n: int, rows=None) -> torch.Tensor:
+    """The table's outputs over n rows, ``(O, 16, n)`` int32, or over the
+    rows ``rows = (row0, count)`` only, ``(O, 16, count)``: row i of the
+    result is row row0 + i of the domain, whose queries read rows
+    (row0 + i + shift) mod n (a row-sharded caller passes its block; the
+    columns stay whole).  ``queries``: one int32 tensor per query,
+    ``(16, n)`` or ``(16, 1)``, any strides (views of a batch, expanded
+    constants); ``consts``: :meth:`VMTable.consts_on`.  CPU tensors: plain
+    version; CUDA tensors: one kernel launch.  Raises ``ValueError`` for a
+    program whose registers the kernel cannot hold (:func:`rows_per_block`),
+    on either device."""
     device = _check(table, queries, consts, n)
-    rows, _smem = rows_per_block(table.num_regs)
+    row0, count = _rows(rows, n)
+    block_rows, _smem = rows_per_block(table.num_regs)
     if device.type == "cpu":
-        return vm_eval_plain(table, queries, consts, n)
+        return vm_eval_plain(table, queries, consts, n, (row0, count))
     if device.type != "cuda":
         raise ValueError(f"vm_eval: unsupported device {device}")
     from .. import _build
 
     n_out = len(table.outputs)
-    out = torch.empty((n_out, L, n), dtype=torch.int32, device=device)
+    out = torch.empty((n_out, L, count), dtype=torch.int32, device=device)
     if n_out == 0:
         return out
     _, instrs_d, outputs_d, offsets_d = table._on(device)
@@ -375,7 +395,8 @@ def vm_eval(table: VMTable, queries, consts: torch.Tensor, n: int) -> torch.Tens
     entries = torch.from_numpy(_query_table(table, queries, n)).to(device)
     _build.launch(
         "vm_eval", device, entries.data_ptr(), consts.data_ptr(), instrs_d.data_ptr(), offsets_d.data_ptr(),
-        table.phases, table.streams, outputs_d.data_ptr(), n_out, table.num_regs, rows, out.data_ptr(), n,
+        table.phases, table.streams, outputs_d.data_ptr(), n_out, table.num_regs, block_rows, out.data_ptr(), n,
+        row0, count,
         modulus_words(table.spec).ctypes.data, ARITH[arith(table.spec)],
     )
     LAUNCHES["vm_eval"] += 1

@@ -115,8 +115,10 @@ class Program:
         return [self._slot(r) for r in self._out_refs]
 
 
-def _run_program(prog: Program, df: DeviceField, columns: dict) -> torch.Tensor:
-    """Execute the program; returns (num_outputs, 16, n) Montgomery tensors.
+def _run_program(prog: Program, df: DeviceField, columns: dict, rows=None) -> torch.Tensor:
+    """Execute the program; returns (num_outputs, 16, n) Montgomery tensors,
+    or (num_outputs, 16, count) over the rows ``rows = (row0, count)`` only
+    (:func:`.cuda_vm.vm_eval`).
 
     ``columns[kind][ci]`` is a (16, n) tensor (a stacked (C, 16, n) tensor or
     a list of them; a (16, n) view of one element, as ``expand`` gives, is
@@ -126,7 +128,7 @@ def _run_program(prog: Program, df: DeviceField, columns: dict) -> torch.Tensor:
     assert col is not None, "no columns to evaluate over"
     table = compile_program(prog, df.spec)
     queries = [columns[kind][ci] for kind, ci, _rot in prog.queries]
-    return vm_eval(table, queries, table.consts_on(col.device), col.shape[-1])
+    return vm_eval(table, queries, table.consts_on(col.device), col.shape[-1], rows)
 
 
 def encode_columns(df: DeviceField, finalized, device=None) -> dict:

@@ -81,30 +81,39 @@ def _mul_columns(spec: FieldSpec, x: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return out
 
 
+def _ntt_unscaled(spec: FieldSpec, x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The transform of each column of a (16, n) or (C, 16, n) Montgomery
+    tensor over omega (omega^-1 when ``inverse``) without the inverse's n^-1
+    scaling (natural order in and out): the bit-reversal gather, then the
+    NTT kernels for n >= TILE, the stage ladder of ``mul``/``add``/``sub``
+    below."""
+    df = get_device_field(spec)
+    n = x.shape[-1]
+    device = x.device
+    x = x.index_select(-1, _rev_index(n, device))
+    if n >= TILE:
+        return ntt_stages(spec, x, twiddle_table(spec, n, inverse, device))
+    lead = x.shape[:-2]
+    x = x.movedim(-2, 0)  # limbs first, as the field ops take them
+    m = 1
+    for tw in _stage_twiddles(spec, n, inverse):
+        v = x.reshape(16, *lead, n // (2 * m), 2, m)
+        a = v[..., 0, :]
+        tw_t = torch.from_numpy(tw.view(np.int32)).to(device)
+        b = df.mul(v[..., 1, :], tw_t.reshape(16, *(1,) * (len(lead) + 1), m))
+        x = torch.stack([df.add(a, b), df.sub(a, b)], dim=-2).reshape(16, *lead, n)
+        m *= 2
+    return x.movedim(0, -2).contiguous()
+
+
 def _ntt_raw(spec: FieldSpec, n: int, inverse: bool):
     """(16, n) or (C, 16, n) Montgomery tensor -> the NTT of each column
     (natural order in and out)."""
-    df = get_device_field(spec)
 
     def fn(coeffs: torch.Tensor) -> torch.Tensor:
-        device = coeffs.device
-        x = coeffs.index_select(-1, _rev_index(n, device))
-        if n >= TILE:
-            x = ntt_stages(spec, x, twiddle_table(spec, n, inverse, device))
-        else:
-            lead = x.shape[:-2]
-            x = x.movedim(-2, 0)  # limbs first, as the field ops take them
-            m = 1
-            for tw in _stage_twiddles(spec, n, inverse):
-                v = x.reshape(16, *lead, n // (2 * m), 2, m)
-                a = v[..., 0, :]
-                tw_t = torch.from_numpy(tw.view(np.int32)).to(device)
-                b = df.mul(v[..., 1, :], tw_t.reshape(16, *(1,) * (len(lead) + 1), m))
-                x = torch.stack([df.add(a, b), df.sub(a, b)], dim=-2).reshape(16, *lead, n)
-                m *= 2
-            x = x.movedim(0, -2).contiguous()
+        x = _ntt_unscaled(spec, coeffs, inverse)
         if inverse:
-            x = _mul_columns(spec, x, _n_inv(spec, n, device))
+            x = _mul_columns(spec, x, _n_inv(spec, n, coeffs.device))
         return x
 
     return fn

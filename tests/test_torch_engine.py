@@ -216,7 +216,9 @@ def test_north_star_prints_the_reference_summary(capsys):
 
 def test_bench_prints_the_reference_keys(capsys, monkeypatch):
     """The bench at small sizes on the CPU; the hybrid MSM's device share is
-    pinned low so the plain-version Pippenger stays short."""
+    pinned low so the plain-version Pippenger stays short, and the scaling
+    subprocess runs its CPU check (groups of 1 and 2 ranks over 8 points
+    and 16 elements)."""
     monkeypatch.setattr(ecd, "_hybrid_device_frac", lambda n: 0.125)
     result = bench.main([
         "--device", "cpu", "--engine", "native", "--msm-log", "12", "--msm-big-log", "13",
@@ -232,3 +234,16 @@ def test_bench_prints_the_reference_keys(capsys, monkeypatch):
         assert key in line, key
     assert line["value"] > 0 and line["northstar_workload"] == "merkle_sum_tree depth=15 k=11 KZG"
     assert line["msm_device_frac_2^12"] == 0.125 and line["gpu"] is None
+    assert "scaling" not in line, line.get("scaling_error")  # no FAILED marker
+    for key in (
+        "msm_t1_s", "msm_t2_s", "msm_scaling_efficiency_2dev", "msm_t1_halfn_s", "msm_collective_overhead_2dev",
+        "ntt_t1_s", "ntt_t2_s", "ntt_scaling_efficiency_2dev", "scaling_host_cores", "scaling_note",
+    ):
+        assert key in line, key
+    assert line["scaling_backends"] == {"1": "gloo", "2": "gloo"}
+
+
+def test_bench_scaling_failure_is_loud():
+    """A scaling run that fails leaves bench.py's marker, not missing keys."""
+    out = bench.bench_scaling("cpu", ranks=(3,))
+    assert out["scaling"] == "FAILED" and "rc 1" in out["scaling_error"]

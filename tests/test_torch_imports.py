@@ -67,6 +67,16 @@ SLICE_MODULES = [
     "halo2_tpu_torch.north_star",
     "halo2_tpu_torch.bench",
     "halo2_tpu_torch.crossover",
+    "halo2_tpu_torch.scaling",
+    "halo2_tpu_torch.parallel",
+    "halo2_tpu_torch.parallel.mesh",
+    "halo2_tpu_torch.parallel.comm",
+    "halo2_tpu_torch.parallel.launch",
+    "halo2_tpu_torch.parallel.msm",
+    "halo2_tpu_torch.parallel.ntt",
+    "halo2_tpu_torch.parallel.scan",
+    "halo2_tpu_torch.parallel.pipeline",
+    "halo2_tpu_torch.parallel.jobs",
     "chip_smoke",
 ]
 
@@ -111,6 +121,9 @@ def test_slice_imports_without_jax():
         "halo2_tpu_torch.dev.failures",
         "halo2_tpu_torch.circuits.utils",
         "halo2_tpu_torch.native",
+        "halo2_tpu_torch.parallel.ntt",
+        "halo2_tpu_torch.parallel.launch",
+        "halo2_tpu_torch.scaling",
     ):
         assert out["files"][name].startswith(PORT_DIR + os.sep)
 
