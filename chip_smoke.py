@@ -97,10 +97,21 @@ passes or raises:
    grand_product_z at 2^11 equals the host recurrence; the warm proves'
    times at W = 1 and W = 2 beside the single-device ones (native and
    device commits) and their phases; the transport of every collective.
+10. the graft entries (halo2_tpu_torch.graft_entry): entry() (the
+   flagship at depth 5, k = 10, every gate constraint over its 2^10 rows
+   in one vm_eval) gives no violation on the card, and with one planted
+   advice cell the counts the same call gives on the CPU; its time per
+   call and vm_eval's device time per launch beside the bound;
+   dryrun_multichip(2) (two ranks on gloo, both on this card, mesh (1, 2))
+   and, where more than one card is visible, dryrun_multichip(count) on
+   NCCL: on every rank the sharded prove step's violations, iNTT, MSMs and
+   z, and hash_v1 (k = 4) and overflow_check_v2 (k = 5, a lookup) through
+   create_proof(mesh=) equal to the single-device proofs and verified;
+   each check's seconds and launches per rank.
 
-Phases 3-9 call the entry points without a device: they run on the card
-by default (phase 9's ranks on their own card).  The device-commit paths of
-phases 3-6 must read no P == Q flag back.  Every path of phases 3-9 runs
+Phases 3-10 call the entry points without a device: they run on the card
+by default (the ranks of phases 9 and 10 on their own card).  The device-commit paths of
+phases 3-6 must read no P == Q flag back.  Every path of phases 3-10 runs
 once with the launch counts set to 0
 just before and read just after, and fails if a kernel it must launch was
 not launched: mont_mul and the NTT kernels in the proves and the keygens,
@@ -112,7 +123,9 @@ MockProver run, mont_mul, mont_sqr and mod_add in the sponge, and in
 phase 9 (each rank's counts set to 0 before each of its jobs and read
 after) mont_mul, mont_sqr, mod_add, mod_sub, jac_madd, jac_add and vm_eval
 in every sharded prove on every rank, both NTT kernels in the 2^20 sharded
-NTTs, and jac_madd, jac_add and mont_sqr in the sharded MSM.  The line
+NTTs, and jac_madd, jac_add and mont_sqr in the sharded MSM; in phase 10
+vm_eval in entry() and every kernel of SHARDED_KERNELS in each dryrun
+check on every rank.  The line
 before the last is a JSON object with one entry per kernel (its launches
 summed over those runs, its time at 2^15 beside its bound from this run's
 inputs); the last
@@ -1788,6 +1801,87 @@ def _sharded_group(device, world: int, backend: str, dp, reps: int, want: bytes)
     return ranks, t_spawn
 
 
+# (column, row, value) of the advice cell phase 10 plants in entry()'s columns
+GRAFT_PLANTED = (2, 5, 12345)
+
+
+def _graft_dryrun(n: int) -> list:
+    """dryrun_multichip(n) on the card, each rank's checks printed with the
+    backend it ran on, their seconds and launches.  Every kernel of
+    SHARDED_KERNELS must launch in every check on every rank; returns the
+    launch counts of every check on every rank."""
+    from halo2_tpu_torch import graft_entry
+
+    t0 = time.perf_counter()
+    ranks = graft_entry.dryrun_multichip(n)
+    dt = time.perf_counter() - t0
+    graft_entry.print_reports(ranks, tag="[graft]")
+    runs = []
+    for rank in ranks:
+        for name in graft_entry.CHECKS:
+            launches = rank["checks"][name]["launches"]
+            _require(f"dryrun_multichip({n}), rank {rank['rank']}, {name}", launches, SHARDED_KERNELS)
+            runs.append(launches)
+    print(
+        f"[graft] dryrun_multichip({n}) over {sorted({r['backend'] for r in ranks})}: every check passed "
+        f"on {n} ranks in {dt:.1f} s, process start included; transports {ranks[0]['transports']}",
+        flush=True,
+    )
+    return runs
+
+
+def phase_graft(device):
+    """Phase 10: the graft entries.  entry() on the card: no violation on
+    the honest witness, with a planted cell the counts its columns give on
+    the CPU, its time per call and vm_eval's device time beside the bound;
+    dryrun_multichip(2) on this card over gloo, and dryrun_multichip(count)
+    over NCCL where more than one card is visible.  Returns the launch
+    counts of entry() and of every dryrun check on every rank."""
+    import torch
+
+    from halo2_tpu_torch import graft_entry
+    from halo2_tpu_torch.field.device import get_device_field
+    from halo2_tpu_torch.field.params import BN254_FR
+    from halo2_tpu_torch.plonkish import cuda_vm
+
+    t0 = time.perf_counter()
+    fn, (columns,) = graft_entry.entry()
+    reset_launches()
+    _sync(device)
+    honest = fn(columns).tolist()
+    counts = read_launches()
+    _require("entry()", counts, ("vm_eval",))
+    if any(honest):
+        raise AssertionError(f"entry(): the honest witness violates its gates: {honest}")
+    col, row, value = GRAFT_PLANTED
+    cell = get_device_field(BN254_FR).encode_scalar(value, device=device)
+    bad = {kind: c.clone() for kind, c in columns.items()}
+    bad["advice"][col, :, row] = cell
+    planted = fn(bad).tolist()
+    want = fn({kind: c.cpu() for kind, c in bad.items()}).tolist()
+    if planted != want or not any(planted):
+        raise AssertionError(f"entry() with a planted cell: card {planted}, CPU {want}")
+    prog = fn.program
+    queries = [columns[kind][ci] for kind, ci, _rot in prog.queries]
+    n = columns["advice"].shape[-1]
+    bound = _bound(*_vm_work(prog, queries, n, len(prog.consts)))
+    call_ms = _ms_per_call(lambda: fn(columns), 20)
+    device_ms = _kernel_device_ms(lambda: fn(columns), "vm_eval_kernel", bound[0])
+    table = cuda_vm.compile_program(prog, BN254_FR)
+    print(
+        f"[graft] entry(): {len(honest)} constraints over {n} rows, no violation; planted cell "
+        f"{GRAFT_PLANTED}: {planted} (the CPU's); launches {counts}; {call_ms:.4f} ms a call, vm_eval "
+        f"{device_ms:.4f} ms a launch on the device ({table.streams} streams, {table.num_regs} registers), "
+        f"bound {bound[0]:.6f} ms ({bound[1]}), {bound[0] / device_ms:.0%} of it; "
+        f"{time.perf_counter() - t0:.1f} s",
+        flush=True,
+    )
+    runs = [counts] + _graft_dryrun(2)
+    if torch.cuda.device_count() > 1:
+        runs += _graft_dryrun(torch.cuda.device_count())
+    return runs
+
+
 KERNELS = (
     ("mont_mul", "halo2_tpu_torch/csrc/mont_mul.cu", "halo2_tpu/field/pallas_mul.py:357"),
     ("mont_sqr", "halo2_tpu_torch/csrc/mont_mul.cu", "halo2_tpu/field/pallas_mul.py:363"),
@@ -1819,6 +1913,7 @@ def main() -> int:
     for name, phase in (
         ("msm", phase_msm), ("prove", phase_prove), ("engines", phase_engines), ("setup", phase_setup),
         ("keygen", phase_keygen), ("mock", phase_mock), ("poseidon", phase_poseidon), ("sharded", phase_sharded),
+        ("graft", phase_graft),
     ):
         runs += timed(name, phase, device)
     launches = {name: sum(r[name] for r in runs) for name, _, _ in KERNELS}

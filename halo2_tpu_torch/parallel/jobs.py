@@ -65,18 +65,25 @@ def _jac_out(pt) -> dict:
 def circuit(name: str):
     """(circuit, instances) of a named case: ``hash_v1`` (the reference's
     Hash1Circuit, 2 -> 4), ``less_than_v2`` (5 < 10, the reference's lookup
-    case of its sharded tests) or ``flagship`` (the north star)."""
+    case of its sharded tests), ``overflow_check_v2`` (2^16 - 2 + 1, a
+    per-column lookup into the fixed range table: the reference dryrun's
+    lookup case) or ``flagship`` (the north star)."""
     from ..field import Fr
+    from ..plonkish import Value
 
     if name == "hash_v1":
         from ..circuits.hash_v1 import Hash1Circuit
-        from ..plonkish import Value
 
         return Hash1Circuit(Fr, Value.known(Fr.from_u64(2))), [[Fr.from_u64(4)]]
     if name == "less_than_v2":
         from ..circuits.less_than_v2 import LessThanV2Circuit
 
         return LessThanV2Circuit(Fr, value_l=5, value_r=10, check=True), [[]]
+    if name == "overflow_check_v2":
+        from ..circuits.overflow_check_v2 import OverflowCheckCircuitV2
+
+        a, b = Value.known(Fr.from_u64((1 << 16) - 2)), Value.known(Fr.from_u64(1))
+        return OverflowCheckCircuitV2(Fr, a, b), [[]]
     if name == "flagship":
         from ..north_star import flagship
 

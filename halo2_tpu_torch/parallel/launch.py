@@ -50,6 +50,15 @@ def _rank_main(rank, fn, world_size, backend, device_type, dp, tmp, args):
     dist.destroy_process_group()
 
 
+def default_backend(world_size: int, device_type: str) -> str:
+    """``"nccl"`` when every rank can have a card of its own, ``"gloo"``
+    otherwise (NCCL refuses two ranks on one card) and on the CPU; from the
+    counts alone, never from a failed attempt."""
+    if device_type == "cuda" and world_size <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
 def spawn(fn, world_size: int, backend: str, device, *args, dp: int | None = None) -> list:
     """``fn(mesh, *args)`` on ``world_size`` ranks of a ``backend`` process
     group (``"gloo"`` or ``"nccl"``) whose ranks compute on ``device``

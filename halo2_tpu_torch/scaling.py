@@ -106,10 +106,9 @@ def _inputs(msm_log: int, ntt_log: int):
 def _group_times(world: int, dp: int, device, tasks, reps: int) -> tuple:
     """(seconds of each task, backend) over one group of ``world`` ranks
     with a (dp, world / dp) mesh: each task's time is its slowest rank's."""
-    from .parallel.launch import spawn
+    from .parallel.launch import default_backend, spawn
 
-    cards = torch.cuda.device_count() if device.type == "cuda" else 0
-    backend = "nccl" if device.type == "cuda" and world <= cards else "gloo"
+    backend = default_backend(world, device.type)
     t0 = time.perf_counter()
     per_rank = spawn(_time_rank, world, backend, device.type, tasks, reps, dp=dp)
     times = [max(ts) for ts in zip(*per_rank)]

@@ -131,7 +131,9 @@ def _points(m, device):
     q = ecd.jac_double(ecd.jac_from_affine(qx, qy))
     for k in q:
         q[k][:, 0] = p[k][:, 0]
-    q["x"][:, 1], q["y"][:, 1], q["z"][:, 1] = p["x"][:, 1], ecd.df().neg(p["y"])[:, 1], p["z"][:, 1]
+    q["x"][:, 1], q["y"][:, 1], q["z"][:, 1] = (
+        p["x"][:, 1], ecd.df().neg(p["y"])[:, 1], p["z"][:, 1]
+    )
     inf = ecd.jac_infinity((), device=device)
     for k in p:
         p[k][:, 2] = inf[k]
@@ -179,10 +181,14 @@ def test_msm_points_matches_native(device, flag_reads):
     n = 1 << 12
     rng = random.Random(12)
     px, py, x, y = _srs(n, device)
-    sc = get_device_field(BN254_FR).encode_np([rng.randrange(BN254_FR.p) for _ in range(n)], to_mont=False)
+    sc = get_device_field(BN254_FR).encode_np(
+        [rng.randrange(BN254_FR.p) for _ in range(n)], to_mont=False
+    )
     before = dict(cuda_jac.LAUNCHES)
     got = ecd.msm_points(x, y, torch.from_numpy(sc.view(np.int32)).to(device))
-    want = native.msm_g1_mont(native.pack_device(px), native.pack_device(py), native.pack_device(sc))
+    want = native.msm_g1_mont(
+        native.pack_device(px), native.pack_device(py), native.pack_device(sc)
+    )
     assert got == want
     assert cuda_jac.LAUNCHES["jac_madd"] > before["jac_madd"]
     assert cuda_jac.LAUNCHES["jac_add"] > before["jac_add"]
@@ -303,7 +309,10 @@ def test_vm_kernel_pasta_gates(device):
 
     spec_p = MySpec(5, 4)
     message = [Fp.from_u64(99)] * 4
-    circuit = PoseidonCircuit(Fp, spec_p, 4, [Value.known(x) for x in message], Value.known(poseidon_hash(Fp, spec_p, message)))
+    circuit = PoseidonCircuit(
+        Fp, spec_p, 4, [Value.known(x) for x in message],
+        Value.known(poseidon_hash(Fp, spec_p, message)),
+    )
     cs, _cfg, _asn = run_synthesis(circuit.without_witnesses(), 7, [], witness=False, field=Fp)
     prog = Program([c for gate in cs.gates for c in gate.constraints])
     cols = _vm_columns(prog, PASTA_FP, 128, device)

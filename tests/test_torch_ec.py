@@ -97,7 +97,8 @@ def _case(name):
         for k in p:
             p[k][:, 2] = np.asarray(inf[k])
         valid = np.array([True, True, True, False, True, True, True, True])
-        return (p, qx, qy, valid), ({k: _port(v) for k, v in p.items()}, _port(qx), _port(qy), torch.from_numpy(valid))
+        port = ({k: _port(v) for k, v in p.items()}, _port(qx), _port(qy), torch.from_numpy(valid))
+        return (p, qx, qy, valid), port
     n = 8 if name == "add" else 6
     x1, y1 = _sample_points(n, 3 if name == "add" else 5)
     x2, y2 = _sample_points(n, 4 if name == "add" else 6)
@@ -132,7 +133,11 @@ def _run(name, ref_in, port_in):
             cuda_jac.jac_madd_plain(*port_in),
             cuda_jac.jac_madd_cuda(*port_in),
         )
-    return ref_ecd._jac_add_jnp(*ref_in), cuda_jac.jac_add_plain(*port_in), cuda_jac.jac_add_cuda(*port_in)
+    return (
+        ref_ecd._jac_add_jnp(*ref_in),
+        cuda_jac.jac_add_plain(*port_in),
+        cuda_jac.jac_add_cuda(*port_in),
+    )
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -231,14 +236,18 @@ def _srs(n):
 
 
 def _native_msm(px, py, sc):
-    return native.msm_g1_mont(native.pack_device(px), native.pack_device(py), native.pack_device(sc))
+    return native.msm_g1_mont(
+        native.pack_device(px), native.pack_device(py), native.pack_device(sc)
+    )
 
 
 @pytest.mark.parametrize("n", [16, 33, 256, 4096])
 def test_msm_points_matches_native(n):
     rng = random.Random(n)
     px, py = _srs(n)
-    sc = get_device_field(BN254_FR).encode_np([rng.randrange(BN254_FR.p) for _ in range(n)], to_mont=False)
+    sc = get_device_field(BN254_FR).encode_np(
+        [rng.randrange(BN254_FR.p) for _ in range(n)], to_mont=False
+    )
     got = ecd.msm_points(_port(px), _port(py), _port(sc))
     assert got == _native_msm(px, py, sc)
     assert got != (0, 0)
@@ -263,7 +272,9 @@ def test_msm_points_matches_reference_jax():
     n = 32
     rng = random.Random(42)
     px, py = _srs(n)
-    sc = get_device_field(BN254_FR).encode_np([rng.randrange(BN254_FR.p) for _ in range(n)], to_mont=False)
+    sc = get_device_field(BN254_FR).encode_np(
+        [rng.randrange(BN254_FR.p) for _ in range(n)], to_mont=False
+    )
     with jax.disable_jit():  # op by op: the same values, without compiling the whole MSM
         want = ref_ecd.msm_points(px, py, sc)
     assert ecd.msm_points(_port(px), _port(py), _port(sc)) == want
@@ -291,7 +302,9 @@ def _hybrid_inputs():
     """Fresh 2^12-point mirrors (new objects: no cached IFMA lane form)."""
     rng = random.Random(12)
     px, py = _srs(HYBRID_N)
-    sc = get_device_field(BN254_FR).encode_np([rng.randrange(BN254_FR.p) for _ in range(HYBRID_N)], to_mont=False)
+    sc = get_device_field(BN254_FR).encode_np(
+        [rng.randrange(BN254_FR.p) for _ in range(HYBRID_N)], to_mont=False
+    )
     return np.array(px), np.array(py), sc
 
 
@@ -329,7 +342,11 @@ def test_msm_hybrid_matches_native(frac, ifma, monkeypatch):
     assert (host64 if ifma else host52) == []
 
 
-@pytest.mark.parametrize("frac, ifma", [(0.0, True), (0.0, False), (0.125, True)], ids=["0-ifma", "0-no-ifma", "0.125-ifma"])
+@pytest.mark.parametrize(
+    "frac, ifma",
+    [(0.0, True), (0.0, False), (0.125, True)],
+    ids=["0-ifma", "0-no-ifma", "0.125-ifma"],
+)
 def test_msm_hybrid_matches_reference(frac, ifma, monkeypatch):
     """The reference's msm_hybrid at the same split (HALO2_TPU_MSM_DEVICE_FRAC;
     its device slice is one jit-compiled Pippenger) gives the same point."""
@@ -384,7 +401,8 @@ def test_pts52_cache_is_a_small_lru_of_frozen_mirrors(monkeypatch):
     monkeypatch.setattr(ecd, "_PTS52_CACHE", collections.OrderedDict())
     size = ecd._PTS52_CACHE_MAX
     mirrors = [
-        (np.full((16, 4), i, np.uint32), np.full((16, 4), i + 100, np.uint32)) for i in range(size + 2)
+        (np.full((16, 4), i, np.uint32), np.full((16, 4), i + 100, np.uint32))
+        for i in range(size + 2)
     ]
     first = ecd._host_pts52(*mirrors[0], 1)
     assert made == [3]

@@ -62,8 +62,12 @@ def test_engines_give_the_reference_proof_bytes(hash_v1_k4, monkeypatch):
     ref_params, ref_pk, ref_circuit, ref_public = hash_v1_k4["ref"]
     params, pk, circuit, public = hash_v1_k4["port"]
     monkeypatch.setenv("HALO2_TPU_PROVER_BACKEND", "native")
-    want = ref_kzg.create_proof(ref_params, ref_pk, ref_circuit, [list(ref_public)], rng=random.Random(9))
-    native = port_kzg.create_proof(params, pk, circuit, [list(public)], rng=random.Random(9), engine="native")
+    want = ref_kzg.create_proof(
+        ref_params, ref_pk, ref_circuit, [list(ref_public)], rng=random.Random(9)
+    )
+    native = port_kzg.create_proof(
+        params, pk, circuit, [list(public)], rng=random.Random(9), engine="native"
+    )
     torch_cpu = port_kzg.create_proof(
         params, pk, circuit, [list(public)], rng=random.Random(9), device="cpu", engine="torch"
     )
@@ -74,8 +78,12 @@ def test_engines_give_the_reference_proof_bytes(hash_v1_k4, monkeypatch):
 def test_native_engine_proves_the_flagship_fixture():
     circuit, public = north_star.flagship()
     params = port_kzg.ParamsKZG.setup_cached(11)
-    pk = PortProvingKey.load(os.path.join(ROOT, ".srs", "pk_mst_d15_k11.pkl"), circuit, 11, port_field.Fr)
-    proof = port_kzg.create_proof(params, pk, circuit, [list(public)], rng=random.Random(7), engine="native")
+    pk = PortProvingKey.load(
+        os.path.join(ROOT, ".srs", "pk_mst_d15_k11.pkl"), circuit, 11, port_field.Fr
+    )
+    proof = port_kzg.create_proof(
+        params, pk, circuit, [list(public)], rng=random.Random(7), engine="native"
+    )
     with open(FIXTURE, "rb") as f:
         assert proof == f.read()
 
@@ -87,7 +95,9 @@ def test_default_engine_is_the_card(hash_v1_k4, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_kzg.create_proof(params, pk, circuit, [list(public)], rng=random.Random(9))
-    assert port_kzg.create_proof(params, pk, circuit, [list(public)], rng=random.Random(9), engine="native")
+    assert port_kzg.create_proof(
+        params, pk, circuit, [list(public)], rng=random.Random(9), engine="native"
+    )
 
 
 def _engines(hash_v1_k4):
@@ -133,7 +143,9 @@ def test_native_quotient_eval_matches_reference(hash_v1_k4):
     rng = random.Random(3)
     cols = {kind: _random_polys(rng, [port.ext_n] * m) for kind, m in size.items()}
     want = ref.quotient_eval(
-        {kind: [c.copy() for c in cs] for kind, cs in cols.items()}, ref.st.combined_quotient(), rot_scale
+        {kind: [c.copy() for c in cs] for kind, cs in cols.items()},
+        ref.st.combined_quotient(),
+        rot_scale,
     )
     got = port.quotient_eval(cols, port.st.combined_quotient(), rot_scale)
     assert np.array_equal(got, want)
@@ -143,7 +155,8 @@ def test_native_pk_coeff_and_commit_batch_match_reference(hash_v1_k4):
     ref, port, ref_pk, pk = _engines(hash_v1_k4)
     for which, count in (("fixed", len(pk.fixed_values)), ("sigma", len(pk.sigma_values))):
         for i in range(count):
-            assert np.array_equal(port.pk_coeff(pk, which, i), ref.pk_coeff(ref_pk, which, i)), (which, i)
+            want = ref.pk_coeff(ref_pk, which, i)
+            assert np.array_equal(port.pk_coeff(pk, which, i), want), (which, i)
     polys = _random_polys(random.Random(4), [port.n] * 3)
     want = [ec_ref.g1_to_ints(p) for p in ref.commit_batch([p.copy() for p in polys])]
     assert [ec_port.g1_to_ints(p) for p in port.commit_batch(polys)] == want
@@ -159,7 +172,9 @@ SELECT_CASES = [
 
 @pytest.mark.parametrize("native_available", [True, False])
 @pytest.mark.parametrize("ref_mode, engine, offset", SELECT_CASES)
-def test_select_engine_matches_reference(hash_v1_k4, monkeypatch, ref_mode, engine, offset, native_available):
+def test_select_engine_matches_reference(
+    hash_v1_k4, monkeypatch, ref_mode, engine, offset, native_available
+):
     ref_params, ref_pk = hash_v1_k4["ref"][:2]
     params, pk = hash_v1_k4["port"][:2]
     min_ext = pk.vk.structure.domain.extended_n + offset
@@ -172,7 +187,9 @@ def test_select_engine_matches_reference(hash_v1_k4, monkeypatch, ref_mode, engi
             with pytest.raises(RuntimeError):
                 ref_engine.select_engine(ref_params, ref_pk.vk.structure)
             with pytest.raises(RuntimeError, match="native"):
-                port_engine.select_engine(params, pk.vk.structure, "cpu", engine=engine, min_ext=min_ext)
+                port_engine.select_engine(
+                    params, pk.vk.structure, "cpu", engine=engine, min_ext=min_ext
+                )
             return
     want = ref_engine.select_engine(ref_params, ref_pk.vk.structure).name
     got = port_engine.select_engine(params, pk.vk.structure, "cpu", engine=engine, min_ext=min_ext)
@@ -206,7 +223,9 @@ def test_north_star_prints_the_reference_summary(capsys):
     summary = north_star.main(["--device", "cpu", "--engine", "native", "--repeat", "2"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line == summary
-    for key in ("workload", "keygen_s", "keygen_vk_s", "keygen_pk_s", "prove_s", "prove_reps_s", "verify_s"):
+    for key in (
+        "workload", "keygen_s", "keygen_vk_s", "keygen_pk_s", "prove_s", "prove_reps_s", "verify_s"
+    ):
         assert key in line, key
     assert line["workload"] == "merkle_sum_tree depth=15 k=11 KZG"
     assert len(line["prove_reps_s"]) == 2 and line["prove_s"] == line["prove_reps_s"][-1]
@@ -228,7 +247,8 @@ def test_bench_prints_the_reference_keys(capsys, monkeypatch):
     assert line == result
     assert line["metric"] == "msm_points_per_sec_2^12_bn254" and line["unit"] == "points/s"
     for key in (
-        "value", "vs_baseline", "msm_points_per_sec_2^13", "ntt_butterflies_per_sec_2^12", "ntt_vs_baseline",
+        "value", "vs_baseline", "msm_points_per_sec_2^13", "ntt_butterflies_per_sec_2^12",
+        "ntt_vs_baseline",
         "northstar_prove_s", "northstar_verify_s", "northstar_keygen_s", "northstar_workload",
     ):
         assert key in line, key
@@ -236,7 +256,8 @@ def test_bench_prints_the_reference_keys(capsys, monkeypatch):
     assert line["msm_device_frac_2^12"] == 0.125 and line["gpu"] is None
     assert "scaling" not in line, line.get("scaling_error")  # no FAILED marker
     for key in (
-        "msm_t1_s", "msm_t2_s", "msm_scaling_efficiency_2dev", "msm_t1_halfn_s", "msm_collective_overhead_2dev",
+        "msm_t1_s", "msm_t2_s", "msm_scaling_efficiency_2dev", "msm_t1_halfn_s",
+        "msm_collective_overhead_2dev",
         "ntt_t1_s", "ntt_t2_s", "ntt_scaling_efficiency_2dev", "scaling_host_cores", "scaling_note",
     ):
         assert key in line, key

@@ -129,7 +129,9 @@ def test_predicates_select_and_small_ops_match_reference(fields):
     for k in range(5):
         assert _same(pf.mul_small(a, k), rf.mul_small(a_np, k)), k
     rng = random.Random(9)
-    u32 = np.array([0, 1, 0xFFFF, 0x10000, 0xFFFFFFFF] + [rng.randrange(1 << 32) for _ in range(4)], np.uint32)
+    u32 = np.array(
+        [0, 1, 0xFFFF, 0x10000, 0xFFFFFFFF] + [rng.randrange(1 << 32) for _ in range(4)], np.uint32
+    )
     want = rf.from_u32_array(u32)
     assert _same(pf.from_u32_array(torch.from_numpy(u32.view(np.int32))), want)
     assert _same(pf.from_u32_array(torch.from_numpy(u32.astype(np.int64))), want)

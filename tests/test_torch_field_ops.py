@@ -25,7 +25,8 @@ def _operands(p: int, seed: int):
     """(a, b) host ints: every ordered pair of edge values, then random."""
     edges = [0, 1, p - 1, p - 2]
     rng = random.Random(seed)
-    pairs = [(x, y) for x in edges for y in edges] + [(rng.randrange(p), rng.randrange(p)) for _ in range(47)]
+    pairs = [(x, y) for x in edges for y in edges]
+    pairs += [(rng.randrange(p), rng.randrange(p)) for _ in range(47)]
     return [x for x, _ in pairs], [y for _, y in pairs]
 
 
@@ -84,7 +85,9 @@ def test_broadcast_element_matches_reference(field, op, side):
 def test_wrappers_reject_other_broadcasts():
     spec = port_params.BN254_FR
     a = torch.zeros((16, 8), dtype=torch.int32)
-    for bad in (torch.zeros((16, 4), dtype=torch.int32), torch.zeros((16, 2, 8), dtype=torch.int32)):
+    for bad in (
+        torch.zeros((16, 4), dtype=torch.int32), torch.zeros((16, 2, 8), dtype=torch.int32)
+    ):
         with pytest.raises(ValueError):
             cuda_ops.mod_add(spec, a, bad)
         with pytest.raises(ValueError):

@@ -3,7 +3,8 @@ with the card.
 
 A subprocess blocks ``jax`` (``sys.modules["jax"] = None``) and imports every
 module of the port, the flagship circuit and chip_smoke.py.  JAX must never
-load, the reference package ``halo2_tpu`` must never be imported, and every
+load, the reference package ``halo2_tpu`` and its ``__graft_entry__`` must
+never be imported, and every
 ``halo2_tpu_torch`` module's file and every ``__path__`` entry of its
 packages must lie under ``halo2_tpu_torch/``: the port keeps its own copies
 of the reference's host modules.
@@ -77,6 +78,7 @@ SLICE_MODULES = [
     "halo2_tpu_torch.parallel.scan",
     "halo2_tpu_torch.parallel.pipeline",
     "halo2_tpu_torch.parallel.jobs",
+    "halo2_tpu_torch.graft_entry",
     "chip_smoke",
 ]
 
@@ -89,11 +91,17 @@ walk = pkgutil.walk_packages(halo2_tpu_torch.__path__, "halo2_tpu_torch.")
 names += [m.name for m in walk if "._engine_" not in m.name]  # not the native engine's library
 for name in names:
     importlib.import_module(name)
-loaded = [k for k, v in sys.modules.items() if v is not None and (k == "jax" or k.startswith("jax."))]
-ref = [k for k in sys.modules if k == "halo2_tpu" or k.startswith("halo2_tpu.")]
+loaded = [
+    k for k, v in sys.modules.items() if v is not None and (k == "jax" or k.startswith("jax."))
+]
+ref = [
+    k for k in sys.modules if k in ("halo2_tpu", "__graft_entry__") or k.startswith("halo2_tpu.")
+]
 port = {k: m for k, m in list(sys.modules.items()) if k.startswith("halo2_tpu_torch")}
 files = {k: os.path.abspath(m.__file__) for k, m in port.items() if getattr(m, "__file__", None)}
-paths = {k: [os.path.abspath(p) for p in m.__path__] for k, m in port.items() if hasattr(m, "__path__")}
+paths = {
+    k: [os.path.abspath(p) for p in m.__path__] for k, m in port.items() if hasattr(m, "__path__")
+}
 print(json.dumps({"jax": loaded, "reference_package": ref, "files": files, "paths": paths}))
 """
 
@@ -110,7 +118,12 @@ def test_slice_imports_without_jax():
     assert len(out["files"]) > 80
     outside = {k: f for k, f in out["files"].items() if not f.startswith(PORT_DIR + os.sep)}
     assert outside == {}
-    outside = {k: p for k, ps in out["paths"].items() for p in ps if not (p + os.sep).startswith(PORT_DIR + os.sep)}
+    outside = {
+        k: p
+        for k, ps in out["paths"].items()
+        for p in ps
+        if not (p + os.sep).startswith(PORT_DIR + os.sep)
+    }
     assert outside == {}
     for name in (
         "halo2_tpu_torch.north_star",
@@ -124,6 +137,7 @@ def test_slice_imports_without_jax():
         "halo2_tpu_torch.parallel.ntt",
         "halo2_tpu_torch.parallel.launch",
         "halo2_tpu_torch.scaling",
+        "halo2_tpu_torch.graft_entry",
     ):
         assert out["files"][name].startswith(PORT_DIR + os.sep)
 

@@ -131,7 +131,10 @@ def test_batched_stage_plain_versions_equal_per_column(spec, n):
     with the one (16, n - 1) twiddle table shared."""
     df = port_field(spec)
     rng = random.Random(n)
-    cols = [df.encode([0, 1, spec.p - 1] + [rng.randrange(spec.p) for _ in range(n - 3)]) for _ in range(3)]
+    cols = [
+        df.encode([0, 1, spec.p - 1] + [rng.randrange(spec.p) for _ in range(n - 3)])
+        for _ in range(3)
+    ]
     batch = torch.stack(cols)
     for inverse in (False, True):
         tw = twiddle_table(spec, n, inverse, torch.device("cpu"))
@@ -149,7 +152,8 @@ def test_batched_stage_plain_versions_equal_per_column(spec, n):
 
 
 def test_arith_switch_is_by_modulus_size():
-    assert [cuda_ntt._arith(s) for s in (BN254_FR, BN254_FQ, PASTA_FP, PASTA_FQ)] == ["cc", "cc", "wide", "wide"]
+    arith = [cuda_ntt._arith(s) for s in (BN254_FR, BN254_FQ, PASTA_FP, PASTA_FQ)]
+    assert arith == ["cc", "cc", "wide", "wide"]
 
 
 def test_mont_mul_into_fills_one_column_of_a_batch():

@@ -79,7 +79,8 @@ def _inputs():
         z[r + 1] = z[r] * nums[r] % P * pow(dens[r], -1, P) % P
     return {
         "x": x, "points": pts, "scalars": scalars, "px": px, "py": py,
-        "sc": dfr.encode_np(scalars, to_mont=False), "num": dfr.encode_np(nums), "den": dfr.encode_np(dens),
+        "sc": dfr.encode_np(scalars, to_mont=False),
+        "num": dfr.encode_np(nums), "den": dfr.encode_np(dens),
         "nums": nums, "dens": dens, "msm_host": ref_ec.g1_to_ints(acc), "z_host": z,
     }
 
@@ -97,7 +98,9 @@ def case(tmp_path_factory):
     ref_pk = ref_kzg.keygen(ref_params, ref_circuit, k, ref_field.Fr)
     pk_path = str(tmp_path_factory.mktemp("pk") / "pk_hash_v1_k4.pkl")
     ref_pk.save(pk_path)
-    proof = ref_kzg.create_proof(ref_params, ref_pk, ref_circuit, [list(ref_public)], rng=random.Random(11))
+    proof = ref_kzg.create_proof(
+        ref_params, ref_pk, ref_circuit, [list(ref_public)], rng=random.Random(11)
+    )
     job_list = [
         ("ntt", {"x": inp["x"]}),
         ("ntt", {"x": inp["x"], "inverse": True}),
@@ -110,7 +113,8 @@ def case(tmp_path_factory):
     ]
     pool = ThreadPoolExecutor(max_workers=len(GROUPS))
     futures = {
-        g: pool.submit(spawn, jobs.run, w, "gloo", "cpu", job_list, dp=dp) for g, (w, dp) in GROUPS.items()
+        g: pool.submit(spawn, jobs.run, w, "gloo", "cpu", job_list, dp=dp)
+        for g, (w, dp) in GROUPS.items()
     }
     yield {"inp": inp, "proof": proof, "futures": futures, "k": k}
     pool.shutdown(wait=True)
@@ -140,7 +144,9 @@ def ref_ntt(case):
 
     xj = jnp.asarray(case["inp"]["x"])
     mesh = ref_par.make_mesh(8)
-    return {inv: np.array(ref_par.sharded_ntt(mesh, REF_FR, xj, inverse=inv)) for inv in (False, True)}
+    return {
+        inv: np.array(ref_par.sharded_ntt(mesh, REF_FR, xj, inverse=inv)) for inv in (False, True)
+    }
 
 
 @pytest.mark.parametrize("group", list(GROUPS))
@@ -177,7 +183,8 @@ def test_msm_raw_batch_matches_each_msm(case):
     sc2 = torch.flip(sc, dims=[1]).contiguous()
     both = ecd._msm_raw(px, py, torch.stack([sc, sc2]))
     for i, s in enumerate((sc, sc2)):
-        assert ecd.jac_host_affine({k: v[:, i] for k, v in both.items()}) == ecd.msm_points(px, py, s)
+        got = ecd.jac_host_affine({k: v[:, i] for k, v in both.items()})
+        assert got == ecd.msm_points(px, py, s)
 
 
 @pytest.fixture(scope="module")
@@ -234,7 +241,10 @@ def test_sharded_prove_step(case, group):
     adv = encode_columns(dfr, assignment.finalize())["advice"]
     coeffs = _ntt_raw(BN254_FR, 1 << k, True)(adv)
     params = ParamsKZG.setup_cached(k)
-    px, py = (torch.from_numpy(np.ascontiguousarray(a[:, :16]).view(np.int32)) for a in (params.g1_x, params.g1_y))
+    px, py = (
+        torch.from_numpy(np.ascontiguousarray(a[:, :16]).view(np.int32))
+        for a in (params.g1_x, params.g1_y)
+    )
     commits = [ecd.msm_points(px, py, dfr.from_mont_arr(c)[:, :16]) for c in coeffs.unbind(0)]
     num = [(int(v) + 1) % P for v in dfr.decode(adv[0])]
     den = [(int(v) + 1) % P for v in dfr.decode(adv[1 % adv.shape[0]])]
@@ -256,7 +266,9 @@ def _ref_planted_columns(k):
     from halo2_tpu.plonkish.evaluator import encode_columns
 
     circuit, public = _hash_v1(REF)
-    cs, _cfg, assignment = run_synthesis(circuit, k, [list(public)], witness=True, field=ref_field.Fr)
+    cs, _cfg, assignment = run_synthesis(
+        circuit, k, [list(public)], witness=True, field=ref_field.Fr
+    )
     dfr = ref_device_field(REF_FR)
     columns = encode_columns(dfr, assignment.finalize())
     for kind, ci, row, value in PLANTED:
@@ -304,7 +316,12 @@ def test_vm_eval_rows_match_slices_of_the_full_run(rows):
     exprs = [q(0, 0) * q(1, 1) + q(0, -1) * Constant(7), q(1, 3) - q(0, 2) * q(1, -3), q(1, -1)]
     table = cuda_vm.compile_program(Program(exprs, rot_scale=rot_scale), FR)
     gen = torch.Generator().manual_seed(5)
-    cols = [get_device_field(FR).encode([int(v) for v in torch.randint(0, 1 << 62, (n,), generator=gen)]) for _ in range(2)]
+    cols = [
+        get_device_field(FR).encode(
+            [int(v) for v in torch.randint(0, 1 << 62, (n,), generator=gen)]
+        )
+        for _ in range(2)
+    ]
     queries = [cols[ci] for _kind, ci, _rot in table.queries]
     consts = table.consts_on("cpu")
     full = cuda_vm.vm_eval_plain(table, queries, consts, n)
@@ -335,7 +352,9 @@ def test_create_proof_mesh_without_process_group_raises():
         ShardedEngine(None, None, mesh=object())
     circuit, public = _hash_v1(PORT)
     with pytest.raises(ValueError, match="engine='native'"):
-        create_proof(ParamsKZG.setup_cached(4), None, circuit, [public], mesh=object(), engine="native")
+        create_proof(
+            ParamsKZG.setup_cached(4), None, circuit, [public], mesh=object(), engine="native"
+        )
 
 
 def test_spawn_raises_when_a_rank_raises():

@@ -59,7 +59,9 @@ REF, PORT = _side("halo2_tpu"), _side("halo2_tpu_torch")
 
 
 def _cs(s, circuit, k, F):
-    cs, _cfg, _asn = s.assignment.run_synthesis(circuit.without_witnesses(), k, [], witness=False, field=F)
+    cs, _cfg, _asn = s.assignment.run_synthesis(
+        circuit.without_witnesses(), k, [], witness=False, field=F
+    )
     return cs
 
 
@@ -84,7 +86,9 @@ def _poseidon_cs(s):
     spec = s.poseidon.MySpec(5, 4)
     message = [Fp.from_u64(99)] * 4
     digest = s.poseidon.poseidon_hash(Fp, spec, message)
-    circuit = s.poseidon_circuit.PoseidonCircuit(Fp, spec, 4, [Value.known(x) for x in message], Value.known(digest))
+    circuit = s.poseidon_circuit.PoseidonCircuit(
+        Fp, spec, 4, [Value.known(x) for x in message], Value.known(digest)
+    )
     return _cs(s, circuit, 7, Fp)
 
 
@@ -117,7 +121,9 @@ def _lookups(cs):
 
 # name -> (side -> (exprs, rot_scale), field name, stride-0 aux columns)
 CASES = {
-    "flagship_quotient": (lambda s: ([_flagship(s).combined_quotient()], ROT_SCALE), "BN254_FR", True),
+    "flagship_quotient": (
+        lambda s: ([_flagship(s).combined_quotient()], ROT_SCALE), "BN254_FR", True
+    ),
     "poseidon_gates": (lambda s: (_gates(_poseidon_cs(s)), 1), "PASTA_FP", False),
     "less_than_lookups": (lambda s: (_lookups(_less_than_cs(s)), 1), "PASTA_FP", False),
     **{
@@ -206,7 +212,8 @@ def test_flagship_program_shape(programs):
     assert (len(prog.queries), len(prog.consts), len(prog.instrs)) == (127, 76, 771)
     aux = {ci for kind, ci, _rot in prog.queries if kind == "aux"}
     layout = PORT.keygen.AuxLayout
-    assert {layout.BETA, layout.GAMMA, layout.Y} <= aux  # theta only compresses multi-column lookups
+    # theta only compresses multi-column lookups
+    assert {layout.BETA, layout.GAMMA, layout.Y} <= aux
     table = cuda_vm.compile_program(prog, port_params.BN254_FR)
     assert 2042 * ROT_SCALE % WIDTH in table.shifts(WIDTH)
 
@@ -274,7 +281,8 @@ def test_vm_eval_takes_the_plain_version_on_cpu(programs):
     consts = table.consts_on("cpu")
     before = cuda_vm.LAUNCHES["vm_eval"]
     assert torch.equal(
-        cuda_vm.vm_eval(table, queries, consts, WIDTH), cuda_vm.vm_eval_plain(table, queries, consts, WIDTH)
+        cuda_vm.vm_eval(table, queries, consts, WIDTH),
+        cuda_vm.vm_eval_plain(table, queries, consts, WIDTH),
     )
     assert cuda_vm.LAUNCHES["vm_eval"] == before
 
