@@ -43,7 +43,14 @@ passes or raises:
    above 48 KB a block; 32-row blocks) and one scheduled on a single
    stream, each with its streams, phases, registers, rows and shared
    memory a block; the times of the new kernels as for the others, the
-   VM's at the flagship;
+   VM's at the flagship; the two ladder kernels: jac_horner (the sharded
+   MSM's Horner combine in one launch) at every window size and lane count
+   of HORNER_CASES, with infinite windows, a leading run of them, P == Q
+   and P == -Q lanes, and mont_pow (a power's whole square-and-multiply ladder
+   in one launch) for BN254 Fr, BN254 Fq and Pasta Fp at POW_SIZES
+   elements with the exponents p - 2, 0, 1, 2 and one of 300 bits; each
+   one's device time per launch beside its throughput bound and its chain
+   of dependent products;
 3. the device MSM: msm_points at 2^16 (the k = 16 SRS, random.Random(42)
    scalars) and 2^20 (that SRS and random.Random(9) scalars tiled 16 times)
    equals the native host MSM on the same arrays; the time of each (median
@@ -96,7 +103,11 @@ passes or raises:
    sharded_msm at 2^16 (phase 3's inputs) equals the native MSM, and
    grand_product_z at 2^11 equals the host recurrence; the warm proves'
    times at W = 1 and W = 2 beside the single-device ones (native and
-   device commits) and their phases; the transport of every collective.
+   device commits) and their phases; the transport of every collective;
+   the launches a rank by kernel at W = 1 and W = 2, beside a W = 1
+   prove's before jac_horner and mont_pow (W1_LAUNCHES_BEFORE); one warm
+   W = 1 prove under torch.profiler: its launches by kernel and by width,
+   and the device's busy share.
 10. the graft entries (halo2_tpu_torch.graft_entry): entry() (the
    flagship at depth 5, k = 10, every gate constraint over its 2^10 rows
    in one vm_eval) gives no violation on the card, and with one planted
@@ -118,12 +129,15 @@ not launched: mont_mul and the NTT kernels in the proves and the keygens,
 vm_eval in every prove, jac_madd, jac_add and mod_sub (the MSM's signed
 digits negate their points) in the device-commit prove and the
 device-commit keygen, jac_madd and jac_add in the MSM and in every hybrid
-MSM whose device share is above 0, none in a NativeEngine prove, mont_sqr, mont_mul and jac_add in the setup, vm_eval in every
+MSM whose device share is above 0, none in a NativeEngine prove, mont_sqr,
+mont_mul, mont_pow and jac_add in the setup, vm_eval in every
 MockProver run, mont_mul, mont_sqr and mod_add in the sponge, and in
 phase 9 (each rank's counts set to 0 before each of its jobs and read
-after) mont_mul, mont_sqr, mod_add, mod_sub, jac_madd, jac_add and vm_eval
-in every sharded prove on every rank, both NTT kernels in the 2^20 sharded
-NTTs, and jac_madd, jac_add and mont_sqr in the sharded MSM; in phase 10
+after) every kernel of SHARDED_KERNELS (mont_mul, mod_add, mod_sub,
+jac_madd, jac_add, jac_horner, mont_pow, vm_eval) in every sharded prove on
+every rank, both NTT kernels in the 2^20 sharded NTTs, jac_madd, jac_add
+and jac_horner in the sharded MSM, and mont_pow in the sharded grand
+product; in phase 10
 vm_eval in entry() and every kernel of SHARDED_KERNELS in each dryrun
 check on every rank.  The line
 before the last is a JSON object with one entry per kernel (its launches
@@ -135,6 +149,8 @@ outside the repository, the script fails before printing either.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import os
 import random
@@ -163,6 +179,22 @@ FLAGSHIP_C = 83
 NTT_CASES = tuple((c, n) for c in (1, 3, FLAGSHIP_C) for n in (1 << 11, 1 << 15)) + ((1, 1 << 9), (1, 1 << 20))
 NTT_TIMED = tuple((1, n) for n in TIMED_SIZES) + ((FLAGSHIP_C, 1 << 15),)
 REPORT_SIZE = 1 << 15  # the flagship's extended domain: the ms in the JSON line
+# jac_horner: (c, lane counts) of each Horner the main paths run, each
+# checked and timed at -(-254 // c) windows of c bits: the sharded
+# flagship's (2^11 points a rank: c = 8; one MSM, a commit batch's columns,
+# a block's 32 lanes and one past it, two blocks), phase 9's sharded_msm
+# 2^16 at W = 2 (2^15 points a rank: c = 12, one MSM) and phase 10's
+# dryrun checks (at most 2^8 points: c = 4; their commit batches' columns);
+# the JSON line's ms at c = 8, 20 lanes (the flagship's widest batch)
+HORNER_CASES = ((8, (1, 5, 20, 32, 33, 64)), (12, (1,)), (4, (1, 2, 4, 5, 8, 20)))
+HORNER_REPORT_C, HORNER_REPORT_B = 8, 20
+# mont_pow: the sharded grand product's block of denominators (2^10 a rank
+# at W = 2, 2^11 at W = 1) and the setup's inverse at k = 16 (2^16); the
+# JSON line's ms at 2^11
+POW_SIZES = (1, 1 << 10, 1 << 11, 1 << 16)
+POW_REPORT_M = 1 << 11
+# the shape at which each kernel's ms in the JSON line is taken
+REPORT_AT = {"jac_horner": HORNER_REPORT_B, "mont_pow": POW_REPORT_M}
 
 
 def _ms_per_call(fn, calls: int, runs: int = 5) -> float:
@@ -299,7 +331,8 @@ def phase_build():
 
 
 def _sass_counts(library) -> dict:
-    """Static instruction counts of each curve kernel in the built library's
+    """Static instruction counts of each curve kernel and of the power
+    kernel (for each arithmetic) in the built library's
     SASS (``cuobjdump -sass``): (instructions, IMAD.WIDE, other IMADs but
     IMAD.MOV); empty when the toolkit has no cuobjdump."""
     from halo2_tpu_torch import _build
@@ -314,7 +347,10 @@ def _sass_counts(library) -> dict:
         line = line.strip()
         if line.startswith("Function :"):
             fn = line.split(":", 1)[1].strip()
-            name = next((k for k in ("jac_madd_wide", "jac_madd_narrow", "jac_add_wide", "jac_add_narrow") if k in fn), None)
+            kernels = ("jac_madd_wide", "jac_madd_narrow", "jac_add_wide", "jac_add_narrow", "jac_horner", "mont_pow")
+            name = next((k for k in kernels if k in fn), None)
+            if name == "mont_pow":
+                name += " cc" if "CcArith" in fn else " wide"
             if name:
                 counts[name] = [0, 0, 0]
         elif name and line.startswith("/*") and "*/" in line:
@@ -331,11 +367,12 @@ def _sass_counts(library) -> dict:
     return {k: tuple(v) for k, v in counts.items()}
 
 
-def _time_kernel(name, symbol, m, kernel, plain, times, bound_ms, plain_calls=3):
+def _time_kernel(name, symbol, m, kernel, plain, times, bound_ms, plain_calls=3, plain_runs=3):
     """Time per call of kernel and plain version at m lanes, and the
-    kernel's device time per launch; record and print them."""
+    kernel's device time per launch; record and print them.  Returns the
+    device time."""
     t_k = _ms_per_call(kernel, 50)
-    t_p = _ms_per_call(plain, plain_calls, runs=3)
+    t_p = _ms_per_call(plain, plain_calls, runs=plain_runs)
     t_d = _kernel_device_ms(kernel, symbol, bound_ms)
     times[(name, m)] = (t_k, t_p)
     print(
@@ -343,6 +380,7 @@ def _time_kernel(name, symbol, m, kernel, plain, times, bound_ms, plain_calls=3)
         f"device, {bound_ms / t_d:.0%} of the bound {bound_ms:.6f}), plain {t_p:.4f} ms per call",
         flush=True,
     )
+    return t_d
 
 
 def phase_kernels(device):
@@ -401,6 +439,8 @@ def phase_kernels(device):
 
     vm_bound = _check_vm(device, gen, err, times)
 
+    ladder_bounds = _check_ladders(device, gen, err, times)
+
     for n in TIMED_SIZES:
         bounds = _bounds(classes, n)
         print(
@@ -408,7 +448,7 @@ def phase_kernels(device):
             + ", ".join(f"{k} {v[0]:.6f} {v[1]}" for k, v in bounds.items()),
             flush=True,
         )
-    return err, times, {**_bounds(classes, REPORT_SIZE), "vm_eval": vm_bound}
+    return err, times, {**_bounds(classes, REPORT_SIZE), "vm_eval": vm_bound, **ladder_bounds}
 
 
 def _check_field_ops(device, gen, err, times):
@@ -788,6 +828,177 @@ def _check_jac_kernels(device, err, times):
     return classes
 
 
+def _horner_windows(device, c: int, windows: int, batch: int):
+    """(3, 16, batch, windows) window sums on the card, from the k = 16
+    SRS's points doubled (z != 1): window 3 of every lane at infinity; lane
+    0's second window 2^c times its top one (the accumulator equals it:
+    P == Q), lane 1's its negative (P == -Q), lane 2's top three windows at
+    infinity (a leading run)."""
+    import numpy as np
+    import torch
+
+    from halo2_tpu_torch.ec import device as ecd
+    from halo2_tpu_torch.kzg.params import ParamsKZG
+
+    srs = ParamsKZG.load(SRS16)
+    n = batch * windows
+    x, y = (torch.from_numpy(np.ascontiguousarray(a[:, :n]).view(np.int32)).to(device) for a in (srs.g1_x, srs.g1_y))
+    pts = ecd.jac_double(ecd.jac_from_affine(x, y))
+    w = torch.stack([pts[k] for k in ("x", "y", "z")]).reshape(3, 16, batch, windows).contiguous()
+    top = {k: w[i, :, :, -1].contiguous() for i, k in enumerate(("x", "y", "z"))}
+    for _ in range(c):
+        top = ecd.jac_double(top)
+    inf = torch.stack(list(ecd.jac_infinity((), device=device).values()))
+    w[:, :, :, 3] = inf[:, :, None]
+    w[:, :, 0, -2] = torch.stack([top[k][:, 0] for k in ("x", "y", "z")])
+    if batch > 1:
+        w[:, :, 1, -2] = torch.stack([top["x"][:, 1], ecd.df().neg(top["y"])[:, 1], top["z"][:, 1]])
+    if batch > 2:
+        w[:, :, 2, -3:] = inf[:, :, None]
+    return w
+
+
+def _horner_work(w, c: int) -> tuple:
+    """(bytes, IMADs, chain) of one jac_horner call over the window sums w
+    at c bits, counting what this data needs (the Horner replayed on the
+    host): each window sum read once and each lane's point written once; c
+    doublings (dbl-2009-l: 5 squares, 2 products) a window only while the
+    lane's accumulator is finite; for a finite window sum on a finite
+    accumulator the complete add's 12 products and 4 squares, or, where the
+    two are equal, the 6 products and 2 squares that find it and one
+    doubling, or, where they are opposite, those 6 and 2 alone (the sum is
+    infinity); nothing where either is infinity.  The chain is the longest
+    lane's dependent products: 3 a doubling, 5 an add, 2 to find P == +-Q."""
+    from halo2_tpu_torch.ec import host as ec
+    from halo2_tpu_torch.ec.device import df
+    from halo2_tpu_torch.field.params import BN254_FQ
+
+    q = BN254_FQ.p
+    batch, windows = w.shape[2], w.shape[3]
+    x, y, z = (df().decode(w[i].reshape(16, -1).cpu()) for i in range(3))
+    dbl, add, find = 2 * IMAD_MUL + 5 * IMAD_SQR, 12 * IMAD_MUL + 4 * IMAD_SQR, 6 * IMAD_MUL + 2 * IMAD_SQR
+    imads = chain = 0
+    for b in range(batch):
+        acc, depth = None, 0
+        for i in reversed(range(windows)):
+            if acc is not None:
+                for _ in range(c):
+                    acc = ec.ec_double(acc)
+                imads += c * dbl
+                depth += 3 * c
+            j = b * windows + i
+            zi = pow(int(z[j]), -1, q) if int(z[j]) % q else None
+            if zi is None:
+                continue
+            pt = ec.g1_from_ints(int(x[j]) * zi * zi % q, int(y[j]) * zi * zi * zi % q)
+            if acc is None:
+                acc = pt
+            elif acc == pt:
+                imads += find + dbl
+                depth += 2 + 3
+                acc = ec.ec_double(acc)
+            elif acc[0] == pt[0]:
+                imads += find
+                depth += 2
+                acc = None
+            else:
+                imads += add
+                depth += 5
+                acc = ec.ec_add(acc, pt)
+        chain = max(chain, depth)
+    return 3 * ELEM * batch * (windows + 1), imads, chain
+
+
+def _pow_work(m: int, e: int) -> tuple:
+    """(bytes, IMADs) of one mont_pow over m elements: each read once and
+    written once; e.bit_length() - 1 squares and popcount(e) - 1 products an
+    element."""
+    return 2 * ELEM * m, ((e.bit_length() - 1) * IMAD_SQR + (bin(e).count("1") - 1) * IMAD_MUL) * m
+
+
+def _check_ladders(device, gen, err, times) -> dict:
+    """jac_horner and mont_pow against their plain versions, limb for limb:
+    the Horner at every window size and lane count of HORNER_CASES (the
+    exception windows of _horner_windows); the power for BN254 Fr, BN254
+    Fq and Pasta Fp at POW_SIZES elements (0, 1, p - 1 and p - 2 first)
+    with the exponents p - 2, 0, 1, 2 and a 300-bit one.  Each kernel's
+    device time per launch at every timed shape beside its throughput bound
+    and its chain of dependent products; kernel and plain version per call
+    at the report shapes.  Returns the bounds at the report shapes."""
+    import torch
+
+    from halo2_tpu_torch.ec import cuda_jac
+    from halo2_tpu_torch.field import cuda_mul
+    from halo2_tpu_torch.field.device import get_device_field
+    from halo2_tpu_torch.field.params import BN254_FQ, BN254_FR, PASTA_FP
+
+    bounds = {}
+    for c, batches in HORNER_CASES:
+        windows = -(-254 // c)
+        # the lanes are independent, so one plain run (~8 s on the card) over
+        # the widest stack gives every narrower one's expected lanes
+        w_all = _horner_windows(device, c, windows, max(batches))
+        want = cuda_jac.horner_plain(w_all, c)
+        for batch in batches:
+            w = w_all[:, :, :batch].contiguous()
+            with _FlagReads() as flags:
+                got = cuda_jac.jac_horner_cuda(w, c)
+            if flags.reads:
+                raise AssertionError(f"jac_horner c={c} B={batch}: {flags.reads} P == Q flag reads")
+            for k in ("x", "y", "z"):
+                diff = _max_abs_err(f"jac_horner c={c} B={batch} {k}", got[k], want[k][:, :batch].contiguous())
+                err["jac_horner"] = max(err["jac_horner"], diff)
+            nbytes, imads, chain = _horner_work(w, c)
+            bound = _bound(nbytes, imads)
+            kernel = lambda: cuda_jac.jac_horner_cuda(w, c)  # noqa: E731
+            if (c, batch) == (HORNER_REPORT_C, HORNER_REPORT_B):
+                bounds["jac_horner"] = bound
+                t_d = _time_kernel(
+                    "jac_horner", "jac_horner_kernel", batch, kernel, lambda: cuda_jac.horner_plain(w, c),
+                    times, bound[0], plain_calls=1, plain_runs=1,
+                )
+            else:
+                t_d = _kernel_device_ms(kernel, "jac_horner_kernel", bound[0])
+            print(
+                f"[kernels] jac_horner B={batch}, {windows} windows, c={c}: equal to plain, no flag reads; "
+                f"{t_d:.4f} ms on the device; throughput bound {bound[0]:.6f} ms ({bound[1]}, "
+                f"{bound[0] / t_d:.2%} of it); chain {chain} dependent products on the longest lane, "
+                f"{t_d * 1e3 / chain:.3f} us each",
+                flush=True,
+            )
+    rnd = random.Random(300).randrange(1 << 299, 1 << 300)
+    for spec in (BN254_FR, BN254_FQ, PASTA_FP):
+        p = spec.p
+        edges = get_device_field(spec).encode([0, 1, p - 1, p - 2], device=device)
+        for m in POW_SIZES:
+            a = _random_field(spec, (m,), gen, device)
+            a[:, : min(4, m)] = edges[:, : min(4, m)]
+            for e in (p - 2, 0, 1, 2, rnd):
+                got = cuda_mul.mont_pow(spec, a, e)
+                e_err = _max_abs_err(f"mont_pow {spec.name} m={m} e={e:#x}"[:80], got, cuda_mul.mont_pow_plain(spec, a, e))
+                err["mont_pow"] = max(err["mont_pow"], e_err)
+            if spec is BN254_FR and m > 1:
+                bound = _bound(*_pow_work(m, p - 2))
+                kernel = lambda: cuda_mul.mont_pow(spec, a, p - 2)  # noqa: E731
+                if m == POW_REPORT_M:
+                    bounds["mont_pow"] = bound
+                    t_d = _time_kernel(
+                        "mont_pow", "mont_pow_kernel", m, kernel, lambda: cuda_mul.mont_pow_plain(spec, a, p - 2),
+                        times, bound[0], plain_calls=1,
+                    )
+                else:
+                    t_d = _kernel_device_ms(kernel, "mont_pow_kernel", bound[0])
+                steps = (p - 2).bit_length() - 1 + bin(p - 2).count("1") - 1
+                print(
+                    f"[kernels] mont_pow bn254_fr m={m}, e = p - 2: {t_d:.4f} ms on the device; throughput "
+                    f"bound {bound[0]:.6f} ms ({bound[1]}, {bound[0] / t_d:.2%} of it); chain {steps} dependent "
+                    f"products an element, {t_d * 1e3 / steps:.3f} us each",
+                    flush=True,
+                )
+        print(f"[kernels] mont_pow {spec.name}: equal to plain at m={list(POW_SIZES)}, five exponents", flush=True)
+    return bounds
+
+
 def _lane_classes(p, q, qx, qy, valid) -> dict:
     """The lanes of the group-law operands by the work their formulas need:
     finite sums (madd: valid, P finite; add: both finite) and P == Q lanes,
@@ -1095,39 +1306,64 @@ def _prove(params, pk, circuit, public, want, device, commit, reps):
     return proof, launches
 
 
-def profile_prove(device, params=None, pk=None, warm: int = 1) -> None:
-    """One native-commit flagship prove under torch.profiler, after ``warm``
-    proves: its device launches, split into this package's kernels (by
-    kernel) and PyTorch's own ops (by op), copies, the device's busy time
-    (the launches' intervals summed) against the wall, and the phase times.
-    It uses only the port's entry points, so it also profiles an older
-    checkout of the port: run it from that checkout's root with this file
-    loaded by path, as scripts/torch_compare.sh does."""
-    import collections
+# the position of the lane (or element) count among the arguments of each
+# kernel's C entry point, for profile_prove's launches by width
+WIDTH_ARG = {"mont_mul": 3, "mont_sqr": 2, "mont_pow": 2, "mod_add": 3, "mod_sub": 3, "jac_madd": 9,
+             "jac_add": 9, "jac_horner": 2}
 
+
+def profile_prove(device, params=None, pk=None, warm: int = 1, mesh=None) -> None:
+    """One flagship prove under torch.profiler (native commits; with
+    ``mesh``, the sharded prove over it), after ``warm`` proves: its device
+    launches, split into this package's kernels (by kernel, and by the
+    lanes or elements of each launch) and PyTorch's own ops (by op), copies,
+    the device's busy time (the launches' intervals summed) against the
+    wall, and the phase times.  It uses only the port's entry points, so it
+    also profiles an older checkout of the port: run it from that checkout's
+    root with this file loaded by path, as scripts/torch_compare.sh does
+    (native commits; profile_sharded_prove the same way)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from halo2_tpu_torch import _build
     from halo2_tpu_torch.field import Fr
     from halo2_tpu_torch.kzg import ParamsKZG, ProvingKey, create_proof
     from halo2_tpu_torch.kzg.prover import PHASE_TIMINGS
 
+    if mesh is None:
+        label = "native-commit prove"
+    else:
+        import torch.distributed as dist
+
+        label = f"sharded W={dist.get_world_size()} ({dist.get_backend()}) prove"
     circuit, public = _flagship_circuit()
     if params is None:
         params = ParamsKZG.setup_cached(11)
         pk = ProvingKey.load(PK_CACHE, circuit, 11, Fr)
     with open(FIXTURE, "rb") as f:
         want = f.read()
-    prove = lambda: create_proof(params, pk, circuit, [list(public)], rng=random.Random(7))  # noqa: E731
+    prove = lambda: create_proof(params, pk, circuit, [list(public)], rng=random.Random(7), mesh=mesh)  # noqa: E731
     for _ in range(warm):
         prove()
     torch.cuda.synchronize(device)
     PHASE_TIMINGS.clear()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        proof = prove()
-        torch.cuda.synchronize(device)
-        wall = (time.perf_counter() - t0) * 1e3
+    widths = collections.defaultdict(collections.Counter)
+    launch = _build.launch
+
+    def counted(kernel, dev, *args):
+        if kernel in WIDTH_ARG:
+            widths[kernel][args[WIDTH_ARG[kernel]]] += 1
+        return launch(kernel, dev, *args)
+
+    _build.launch = counted
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            proof = prove()
+            torch.cuda.synchronize(device)
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        _build.launch = launch
     if proof != want:
         raise AssertionError(f"the profiled prove differs from {FIXTURE}")
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1144,7 +1380,7 @@ def profile_prove(device, params=None, pk=None, warm: int = 1) -> None:
     busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
     n_ours = sum(ours.values())
     print(
-        f"[profile] native-commit prove after {warm} warm-up: {wall:.1f} ms wall under the profiler; "
+        f"[profile] {label} after {warm} warm-up: {wall:.1f} ms wall under the profiler; "
         f"{len(kernels)} kernel launches ({n_ours} of this package's kernels, {len(kernels) - n_ours} "
         f"PyTorch ops) and {len(copies)} copies/sets; device busy {busy:.2f} ms ({busy / wall:.2%} of "
         f"the wall); phases (s): " + ", ".join(f"{k}={v:.3f}" for k, v in PHASE_TIMINGS.items()),
@@ -1153,6 +1389,14 @@ def profile_prove(device, params=None, pk=None, warm: int = 1) -> None:
     print(
         "[profile]   kernels (launches, device ms): "
         + "; ".join(f"{k} {n} {us[k] / 1e3:.3f}" for k, n in ours.most_common()),
+        flush=True,
+    )
+    print(
+        "[profile]   kernels by width (lanes or elements a launch: launches; the 6 most common): "
+        + "; ".join(
+            f"{k} " + ", ".join(f"{m}: {n}" for m, n in c.most_common(6))
+            for k, c in sorted(widths.items(), key=lambda kv: -sum(kv[1].values()))
+        ),
         flush=True,
     )
     print(
@@ -1309,7 +1553,7 @@ def phase_setup(device):
             raise AssertionError(f"setup(16) on the card: {name} differs from {SRS16}")
     if [c.c for c in got.s_g2] != [c.c for c in want.s_g2]:
         raise AssertionError(f"setup(16) on the card: s_g2 differs from {SRS16}")
-    _require("setup", counts, ("mont_sqr", "mont_mul", "jac_add"))
+    _require("setup", counts, ("mont_sqr", "mont_mul", "mont_pow", "jac_add"))
     print(f"[setup] k=16 on the card: {dt:.3f} s, equal to {os.path.relpath(SRS16, ROOT)}; launches {counts}", flush=True)
     return [counts]
 
@@ -1560,7 +1804,13 @@ def phase_poseidon(device, batch: int = 1 << 20):
     return [counts]
 
 
-SHARDED_KERNELS = ("mont_mul", "mont_sqr", "mod_add", "mod_sub", "jac_madd", "jac_add", "vm_eval")
+SHARDED_KERNELS = ("mont_mul", "mod_add", "mod_sub", "jac_madd", "jac_add", "jac_horner", "mont_pow", "vm_eval")
+# the launches of one W = 1 sharded flagship prove before jac_horner and
+# mont_pow ran its Horner combines and field powers (the port at commit
+# b0938bf, on an NVIDIA H100 80GB HBM3 at 700 W: PERF.md's kernel table);
+# phase 9 prints them beside this run's
+W1_LAUNCHES_BEFORE = {"mont_mul": 6746, "mont_sqr": 13276, "mod_add": 19079, "mod_sub": 11423, "jac_madd": 536,
+                      "jac_add": 6420, "vm_eval": 1}
 
 
 def _check_vm_rows(device, gen) -> None:
@@ -1587,44 +1837,61 @@ def _check_vm_rows(device, gen) -> None:
     print(f"[sharded] vm_eval row ranges of the flagship quotient ({block}-row blocks): equal to plain and to the full launch", flush=True)
 
 
-def _sharded_w1(device, params, pk, circuit, public, want, reps: int):
-    """One rank on NCCL in this process: the flagship through
-    create_proof(mesh=make_mesh(1)) (the collectives over groups of one
-    rank, through parallel.comm) equals the fixture, verifies, and a
-    tampered root fails.  Returns the first prove's launches, the warm
-    proves' times and the transports."""
+@contextlib.contextmanager
+def _one_rank_mesh():
+    """make_mesh(1) over a one-rank NCCL group in this process."""
     import tempfile
 
     import torch.distributed as dist
 
-    from halo2_tpu_torch.field import Fr
-    from halo2_tpu_torch.kzg import create_proof, verify_proof
-    from halo2_tpu_torch.kzg.prover import PHASE_TIMINGS
-    from halo2_tpu_torch.parallel import comm, make_mesh
+    from halo2_tpu_torch.parallel import make_mesh
 
     with tempfile.TemporaryDirectory(prefix="h2t_nccl_") as tmp:
         dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "rendezvous"), rank=0, world_size=1)
         try:
-            mesh = make_mesh(1)
-            times, counts = [], None
-            for rep in range(reps + 1):
-                reset_launches()
-                PHASE_TIMINGS.clear()
-                _sync(device)
-                t0 = time.perf_counter()
-                proof = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7), mesh=mesh)
-                _sync(device)
-                dt = time.perf_counter() - t0
-                if proof != want:
-                    raise AssertionError(f"sharded prove W=1 (nccl), rep {rep}: differs from {FIXTURE}")
-                if rep == 0:
-                    counts = read_launches()
-                else:
-                    times.append(dt)
-            transports = dict(comm.TRANSPORTS)
-            phases = dict(PHASE_TIMINGS)
+            yield make_mesh(1)
         finally:
             dist.destroy_process_group()
+
+
+def profile_sharded_prove(device) -> None:
+    """profile_prove of the flagship's sharded prove at W = 1 (NCCL, this
+    process).  Like profile_prove, it also profiles an older checkout."""
+    with _one_rank_mesh() as mesh:
+        profile_prove(device, mesh=mesh)
+
+
+def _sharded_w1(device, params, pk, circuit, public, want, reps: int):
+    """One rank on NCCL in this process: the flagship through
+    create_proof(mesh=make_mesh(1)) (the collectives over groups of one
+    rank, through parallel.comm) equals the fixture, verifies, and a
+    tampered root fails; then one warm prove under torch.profiler.
+    Returns the first prove's launches, the warm proves' times, the
+    transports and the phases."""
+    from halo2_tpu_torch.field import Fr
+    from halo2_tpu_torch.kzg import create_proof, verify_proof
+    from halo2_tpu_torch.kzg.prover import PHASE_TIMINGS
+    from halo2_tpu_torch.parallel import comm
+
+    times, counts = [], None
+    with _one_rank_mesh() as mesh:
+        for rep in range(reps + 1):
+            reset_launches()
+            PHASE_TIMINGS.clear()
+            _sync(device)
+            t0 = time.perf_counter()
+            proof = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7), mesh=mesh)
+            _sync(device)
+            dt = time.perf_counter() - t0
+            if proof != want:
+                raise AssertionError(f"sharded prove W=1 (nccl), rep {rep}: differs from {FIXTURE}")
+            if rep == 0:
+                counts = read_launches()
+            else:
+                times.append(dt)
+        transports = dict(comm.TRANSPORTS)
+        phases = dict(PHASE_TIMINGS)
+        profile_prove(device, params, pk, mesh=mesh)
     _require("sharded prove W=1 (nccl)", counts, SHARDED_KERNELS)
     if not verify_proof(params.verifier_params(), pk.vk, proof, [list(public)]):
         raise AssertionError("sharded prove W=1: the verifier rejected the proof")
@@ -1696,6 +1963,20 @@ def phase_sharded(device, reps: int = 3):
     med = {k: statistics.median(v) for k, v in (("single, native commits", single["native"]),
                                                 ("single, device commits", single["device"]), ("W=1 nccl", w1_times))}
     w2 = [statistics.median(r[0]["out"]["times"][1:]) for r in ranks]
+    names = [name for name, _, _ in KERNELS if name in w1_counts or name in W1_LAUNCHES_BEFORE]
+    # a W = 2 rank's flagship job runs reps + 1 proves: its launches a prove
+    w2_counts = [{k: r[0]["launches"].get(k, 0) / (reps + 1) for k in names} for r in ranks]
+    print(
+        "[sharded] launches a flagship prove by kernel, W=1 before jac_horner and mont_pow (W1_LAUNCHES_BEFORE) "
+        "-> W=1 (nccl) / W=2 (gloo) rank 0, rank 1 (the mean of a rank's proves): "
+        + "; ".join(
+            f"{k} {W1_LAUNCHES_BEFORE.get(k, 0)} -> {w1_counts.get(k, 0)} / {w2_counts[0][k]:g}, {w2_counts[1][k]:g}"
+            for k in names
+        )
+        + f"; totals {sum(W1_LAUNCHES_BEFORE.values())} -> {sum(w1_counts.values())} / "
+        f"{sum(w2_counts[0].values()):g}, {sum(w2_counts[1].values()):g}",
+        flush=True,
+    )
     print(
         f"[sharded] warm flagship proves, medians of {reps} (s): "
         + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
@@ -1784,9 +2065,10 @@ def _sharded_group(device, world: int, backend: str, dp, reps: int, want: bytes)
         msm, gp = res[6], res[7]
         if msm["out"]["affine"] != msm_want:
             raise AssertionError(f"sharded_msm 2^16, rank {rank}: {msm['out']['affine']} != native {msm_want}")
-        _require(f"sharded_msm 2^16, rank {rank}", msm["launches"], ("jac_madd", "jac_add", "mont_sqr"))
+        _require(f"sharded_msm 2^16, rank {rank}", msm["launches"], ("jac_madd", "jac_add", "jac_horner"))
         if [int(v) for v in dfr.decode(torch.from_numpy(gp["out"]))] != z_host:
             raise AssertionError(f"grand_product_z 2^11, rank {rank}: differs from the host recurrence")
+        _require(f"grand_product_z 2^11, rank {rank}", gp["launches"], ("mont_pow", "mont_mul"))
         ntt_s = ", ".join(f"{j['seconds']:.3f}" for j in res[2:6])
         print(f"[sharded] {label} rank {rank}, last warm prove's phases (s): {_phases(flag['out']['phases'])}", flush=True)
         print(
@@ -1893,6 +2175,9 @@ KERNELS = (
     ("vm_eval", "halo2_tpu_torch/csrc/vm.cu", "halo2_tpu/plonkish/evaluator.py:121"),
     ("mod_add", "halo2_tpu_torch/csrc/field_ops.cu", "halo2_tpu/field/device.py:145"),
     ("mod_sub", "halo2_tpu_torch/csrc/field_ops.cu", "halo2_tpu/field/device.py:150"),
+    # the reference's fori_loop Horner and lax.scan power as one launch each
+    ("jac_horner", "halo2_tpu_torch/csrc/jac.cu", "halo2_tpu/ec/device.py:597"),
+    ("mont_pow", "halo2_tpu_torch/csrc/mont_mul.cu", "halo2_tpu/field/device.py:239"),
 )
 
 
@@ -1931,13 +2216,13 @@ def main() -> int:
                 "replaces": replaces,
                 "launches": launches[name],
                 "max_abs_err": err[name],
-                "ms": times[(name, REPORT_SIZE)][0],
-                "plain_ms": times[(name, REPORT_SIZE)][1],
+                "ms": times[(name, REPORT_AT.get(name, REPORT_SIZE))][0],
+                "plain_ms": times[(name, REPORT_AT.get(name, REPORT_SIZE))][1],
                 "bound_ms": bounds[name][0],
                 "bound_by": bounds[name][1],
                 # no single PyTorch call computes a 256-bit Montgomery
-                # product or modular add, a prime-field NTT, a curve add or
-                # an expression program over field columns
+                # product, power or modular add, a prime-field NTT, a curve
+                # add or Horner, or an expression program over field columns
                 "library_ms": None,
             }
             for name, source, replaces in KERNELS

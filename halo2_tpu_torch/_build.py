@@ -109,10 +109,12 @@ def lib() -> ctypes.CDLL:
             argtypes = {
                 "mont_mul": [vp, vp, vp, i32, i32, vp, vp],
                 "mont_sqr": [vp, vp, i32, vp, vp],
+                "mont_pow": [vp, vp, i32, vp, i32, vp, i32, vp],
                 "ntt_small_stages": [vp, vp, i32, i32, vp, vp, i32, vp],
                 "ntt_large_stage": [vp, vp, i32, i32, i32, i32, vp, vp, i32, vp],
                 "jac_madd": [vp] * 9 + [i32, vp, i32, vp],
                 "jac_add": [vp] * 9 + [i32, vp, i32, vp],
+                "jac_horner": [vp, vp, i32, i32, i32, vp, vp],
                 "mod_add": [vp, vp, vp, i32, i32, vp, i32, vp],
                 "mod_sub": [vp, vp, vp, i32, i32, i32, vp, i32, vp],
                 "vm_eval": [vp, vp, vp, vp, i32, i32, vp, i32, i32, i32, vp, i32, i32, i32, vp, i32, vp],

@@ -1,5 +1,6 @@
 // The two arithmetics the kernels are templates on, both giving the canonical
-// values of the plain versions (ntt.cu, vm.cu, field_ops.cu):
+// values of the plain versions (ntt.cu, vm.cu, field_ops.cu, and mont_mul.cu's
+// mont_pow):
 //
 // - CcArith: field_cc.cuh's PTX carry chains (two IMAD.WIDE chains per row
 //   of the product), whose bounds hold only for p < 2^254: BN254's Fr and Fq;
@@ -19,6 +20,10 @@ struct CcArith {
                                              const Modulus& M, uint32_t r[WORDS]) {
     cc::mul(a, b, M, r);
   }
+  static __device__ __forceinline__ void sqr(const uint32_t a[WORDS], const Modulus& M,
+                                             uint32_t r[WORDS]) {
+    cc::sqr(a, M, r);
+  }
   static __device__ __forceinline__ void add(const uint32_t a[WORDS], const uint32_t b[WORDS],
                                              const Modulus& M, uint32_t r[WORDS]) {
     cc::add(a, b, M, r);
@@ -33,6 +38,10 @@ struct WideArith {
   static __device__ __forceinline__ void mul(const uint32_t a[WORDS], const uint32_t b[WORDS],
                                              const Modulus& M, uint32_t r[WORDS]) {
     mont_mul(a, b, M, r);
+  }
+  static __device__ __forceinline__ void sqr(const uint32_t a[WORDS], const Modulus& M,
+                                             uint32_t r[WORDS]) {
+    mont_sqr(a, M, r);
   }
   static __device__ __forceinline__ void add(const uint32_t a[WORDS], const uint32_t b[WORDS],
                                              const Modulus& M, uint32_t r[WORDS]) {

@@ -34,6 +34,22 @@ inline Modulus modulus_from_host(const uint32_t* words) {
   return m;
 }
 
+// The modulus and its Montgomery one (R mod p), passed by value to the
+// kernels that start from one (the curve kernels' infinity, a power's
+// empty product).
+struct ModulusOne {
+  Modulus M;
+  uint32_t one[WORDS];
+};
+
+// Host side: the 17-word array the Python wrapper passes (p words, n0, one).
+inline ModulusOne modulus_one_from_host(const uint32_t* words) {
+  ModulusOne c;
+  c.M = modulus_from_host(words);
+  for (int k = 0; k < WORDS; ++k) c.one[k] = words[WORDS + 1 + k];
+  return c;
+}
+
 __device__ __forceinline__ void load_elem(const uint32_t* __restrict__ base, size_t ld,
                                           size_t idx, uint32_t w[WORDS]) {
 #pragma unroll

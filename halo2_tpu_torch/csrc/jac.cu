@@ -1,9 +1,11 @@
 // BN254 G1 group law in Jacobian coordinates: the mixed add of a Jacobian
 // point and an affine point (jac_madd) and the complete Jacobian add
 // (jac_add), each in two variants: one thread per lane (wide) and four warps
-// per 32 lanes (narrow).
+// per 32 lanes (narrow); and the Horner combine of the sharded MSM's window
+// sums in one launch (jac_horner, on the narrow machinery: its own note is
+// at jac_horner_kernel below).
 //
-// Replace halo2_tpu/ec/pallas_jac.py:_madd_kernel and :_add_kernel.  They
+// The two adds replace halo2_tpu/ec/pallas_jac.py:_madd_kernel and :_add_kernel.  They
 // compute the reference's canonical formulas, halo2_tpu/ec/device.py:
 // _jac_madd_jnp (madd-2007-bl) and :_jac_add_jnp (add-2007-bl), WITH their
 // P == Q branch: a finite lane whose two points are equal takes the doubling
@@ -52,20 +54,6 @@ constexpr int WIDE_MIN_BLOCKS = 4;
 constexpr int NARROW_WARPS = 4;   // narrow: warps per block, one a product
 constexpr int NARROW_LANES = 32;  // narrow: lanes per block
 constexpr int NARROW_THREADS = NARROW_WARPS * NARROW_LANES;
-
-// The modulus of Fq and its Montgomery one (R mod p), passed by value.
-struct CurveConsts {
-  Modulus M;
-  uint32_t one[WORDS];
-};
-
-// Host side: the 17-word array the Python wrapper passes (p words, n0, one).
-CurveConsts consts_from_host(const uint32_t* words) {
-  CurveConsts c;
-  c.M = modulus_from_host(words);
-  for (int k = 0; k < WORDS; ++k) c.one[k] = words[WORDS + 1 + k];
-  return c;
-}
 
 // Copy lane idx of a (16, m) coordinate to the output unchanged.
 __device__ __forceinline__ void copy_elem(const uint32_t* __restrict__ src,
@@ -138,7 +126,7 @@ jac_madd_wide_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict
                      const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
                      const uint32_t* __restrict__ qy, const int* __restrict__ valid,
                      uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-                     uint32_t* __restrict__ oz, int m, CurveConsts C) {
+                     uint32_t* __restrict__ oz, int m, ModulusOne C) {
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<size_t>(m)) return;
   const Modulus& M = C.M;
@@ -197,7 +185,7 @@ jac_add_wide_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict_
                     const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
                     const uint32_t* __restrict__ qy, const uint32_t* __restrict__ qz,
                     uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-                    uint32_t* __restrict__ oz, int m, CurveConsts C) {
+                    uint32_t* __restrict__ oz, int m, ModulusOne C) {
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<size_t>(m)) return;
   const Modulus& M = C.M;
@@ -288,29 +276,47 @@ struct Slots {
   }
 };
 
-// The doubling's slots, after each kernel's own (base).
+// Where the narrow formulas read a point's coordinates (k = 0, 1, 2: x, y,
+// z): (16, ld) limb arrays in device memory at element i, or three
+// consecutive shared slots from base (the Horner's accumulator and window).
+struct GlobalPoint {
+  const uint32_t* c[3];
+  size_t ld, i;
+  __device__ __forceinline__ void load(int k, uint32_t v[WORDS]) const { load_elem(c[k], ld, i, v); }
+};
+
+struct SlotPoint {
+  Slots S;
+  int base;
+  __device__ __forceinline__ void load(int k, uint32_t v[WORDS]) const { S.get(base + k, v); }
+};
+
+// The doubling's scratch slots, after each kernel's own (base).
 enum DblSlot { D_A, D_B, D_C, D_T, D_F, D_X, D_Y, D_Z, D_SLOTS };
 
-// dbl-2009-l of P over the block's four warps, into slots D_X, D_Y, D_Z:
-// 3 levels of products (x^2, y^2, y z | b^2, (x + b)^2, (3a)^2 | e (dd - x3)).
-__device__ __forceinline__ void dbl_narrow(const Slots& S, int base, int w, const uint32_t* px,
-                                           const uint32_t* py, const uint32_t* pz, size_t ld,
-                                           size_t i, const Modulus& M) {
+// dbl-2009-l of P over the block's four warps, into slots out, out + 1 and
+// out + 2 (x, y, z): 3 levels of products (x^2, y^2, y z | b^2, (x + b)^2,
+// (3a)^2 | e (dd - x3)).  out must not be P's own slots: z3 is written in
+// the first level, and P's x is read again in the second (the Horner
+// alternates two sets of slots).
+template <class P>
+__device__ __forceinline__ void dbl_narrow(const Slots& S, int base, int out, int w, const P& pt,
+                                           const Modulus& M) {
   uint32_t t[WORDS], u[WORDS], v[WORDS];
   if (w == 0) {
-    load_elem(px, ld, i, u);
+    pt.load(0, u);
     cc::sqr(u, M, t);
     S.put(base + D_A, t);
   } else if (w == 1) {
-    load_elem(py, ld, i, u);
+    pt.load(1, u);
     cc::sqr(u, M, t);
     S.put(base + D_B, t);
   } else if (w == 2) {
-    load_elem(py, ld, i, u);
-    load_elem(pz, ld, i, v);
+    pt.load(1, u);
+    pt.load(2, v);
     cc::mul(u, v, M, t);
     cc::dbl(t, M, t);
-    S.put(base + D_Z, t);  // z3 = 2 y z
+    S.put(out + 2, t);  // z3 = 2 y z
   }
   __syncthreads();
   if (w == 0) {
@@ -319,7 +325,7 @@ __device__ __forceinline__ void dbl_narrow(const Slots& S, int base, int w, cons
     S.put(base + D_C, t);  // c = b^2
   } else if (w == 1) {
     S.get(base + D_B, u);
-    load_elem(px, ld, i, v);
+    pt.load(0, v);
     cc::add(v, u, M, t);
     cc::sqr(t, M, t);
     S.put(base + D_T, t);  // (x + b)^2
@@ -342,7 +348,7 @@ __device__ __forceinline__ void dbl_narrow(const Slots& S, int base, int w, cons
     S.get(base + D_F, t);
     cc::dbl(dd, M, u);
     cc::sub(t, u, M, t);  // x3 = f - 2 dd
-    S.put(base + D_X, t);
+    S.put(out, t);
     cc::dbl(a, M, v);
     cc::add(v, a, M, v);  // e = 3a
     cc::sub(dd, t, M, t);
@@ -351,7 +357,7 @@ __device__ __forceinline__ void dbl_narrow(const Slots& S, int base, int w, cons
     cc::dbl(c, M, c);
     cc::dbl(c, M, c);
     cc::sub(t, c, M, t);  // y3 = e (dd - x3) - 8c
-    S.put(base + D_Y, t);
+    S.put(out + 1, t);
   }
   __syncthreads();
 }
@@ -364,7 +370,7 @@ jac_madd_narrow_kernel(const uint32_t* __restrict__ px, const uint32_t* __restri
                        const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
                        const uint32_t* __restrict__ qy, const int* __restrict__ valid,
                        uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-                       uint32_t* __restrict__ oz, int m, CurveConsts C) {
+                       uint32_t* __restrict__ oz, int m, ModulusOne C) {
   __shared__ uint32_t sh[M_SLOTS + D_SLOTS][WORDS][NARROW_LANES];
   const int lane = threadIdx.x % NARROW_LANES, w = threadIdx.x / NARROW_LANES;
   const size_t idx = static_cast<size_t>(blockIdx.x) * NARROW_LANES + lane;
@@ -457,7 +463,9 @@ jac_madd_narrow_kernel(const uint32_t* __restrict__ px, const uint32_t* __restri
   }
   const bool p_inf = is_zero(z1);
   const bool same = is_valid && !p_inf && is_zero(h) && is_zero(rr);
-  if (__syncthreads_or(same)) dbl_narrow(S, M_SLOTS, w, px, py, pz, m, i, M);
+  if (__syncthreads_or(same)) {
+    dbl_narrow(S, M_SLOTS, M_SLOTS + D_X, w, GlobalPoint{{px, py, pz}, static_cast<size_t>(m), i}, M);
+  }
   if (!active || w >= 3) return;
   const uint32_t* p_in[3] = {px, py, pz};
   uint32_t* out[3] = {ox, oy, oz};
@@ -488,26 +496,29 @@ jac_madd_narrow_kernel(const uint32_t* __restrict__ px, const uint32_t* __restri
 enum AddSlot { A_Z1Z1, A_Z2Z2, A_Y1Z2, A_Y2Z1, A_U1, A_U2, A_S1, A_S2, A_HH, A_RR2, A_J, A_V,
                A_X3, A_T, A_W, A_Z3, A_SLOTS };
 
-__global__ void __launch_bounds__(NARROW_THREADS)
-jac_add_narrow_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
-                      const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
-                      const uint32_t* __restrict__ qy, const uint32_t* __restrict__ qz,
-                      uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-                      uint32_t* __restrict__ oz, int m, CurveConsts C) {
-  __shared__ uint32_t sh[A_SLOTS + D_SLOTS][WORDS][NARROW_LANES];
-  const int lane = threadIdx.x % NARROW_LANES, w = threadIdx.x / NARROW_LANES;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * NARROW_LANES + lane;
-  const bool active = idx < static_cast<size_t>(m);
-  const size_t i = active ? idx : static_cast<size_t>(m) - 1;  // where to read
-  const Slots S{sh, lane};
+// p + q over the block's four warps (add-2007-bl, with the exception cases
+// of _jac_add_jnp), using slots 0 .. A_SLOTS + D_SLOTS - 1: five levels of
+// products, then the doubling's three where some lane of the block has
+// P == Q (active lanes only).  Warp w < 3 gets coordinate w of this lane's
+// sum in r; warp 3 gets nothing.
+template <class P, class Q>
+__device__ __forceinline__ void add_narrow(const Slots& S, int w, const P& p, const Q& q,
+                                           bool active, const ModulusOne& C, uint32_t r[WORDS]) {
   const Modulus& M = C.M;
-  // every global read up front, so their latencies overlap once: z1 and z2
-  // for all, and x1, x2, y1, y2 for warps 0-3
+  // every read up front, so their latencies overlap once: z1 and z2 for
+  // all, and x1, x2, y1, y2 for warps 0-3
   uint32_t z1[WORDS], z2[WORDS], e[WORDS], t[WORDS], u[WORDS];
-  load_elem(pz, m, i, z1);
-  load_elem(qz, m, i, z2);
-  const uint32_t* own[4] = {px, qx, py, qy};
-  load_elem(own[w], m, i, e);
+  p.load(2, z1);
+  q.load(2, z2);
+  if (w == 0) {
+    p.load(0, e);
+  } else if (w == 1) {
+    q.load(0, e);
+  } else if (w == 2) {
+    p.load(1, e);
+  } else {
+    q.load(1, e);
+  }
   if (w == 0) {
     cc::sqr(z1, M, t);
     S.put(A_Z1Z1, t);
@@ -542,13 +553,13 @@ jac_add_narrow_kernel(const uint32_t* __restrict__ px, const uint32_t* __restric
     S.put(A_S2, t);  // s2 = y2 z1 z1z1
   }
   __syncthreads();
-  uint32_t h[WORDS], r[WORDS];
+  uint32_t h[WORDS], rd[WORDS];
   S.get(A_U2, t);
   S.get(A_U1, u);
   cc::sub(t, u, M, h);
   S.get(A_S2, t);
   S.get(A_S1, u);
-  cc::sub(t, u, M, r);
+  cc::sub(t, u, M, rd);
   uint32_t zz[WORDS];
   if (w == 0) {
     cc::sqr(h, M, t);
@@ -556,7 +567,7 @@ jac_add_narrow_kernel(const uint32_t* __restrict__ px, const uint32_t* __restric
   } else if (w == 1) {
     cc::mul(z1, z2, M, zz);  // kept in this warp's registers for z3
   } else if (w == 2) {
-    cc::dbl(r, M, u);
+    cc::dbl(rd, M, u);
     cc::sqr(u, M, t);
     S.put(A_RR2, t);  // rr^2
   }
@@ -590,7 +601,7 @@ jac_add_narrow_kernel(const uint32_t* __restrict__ px, const uint32_t* __restric
     cc::sub(t, u, M, t);  // x3 = rr^2 - j - 2v
     S.put(A_X3, t);
     cc::sub(v, t, M, t);
-    cc::dbl(r, M, rr);
+    cc::dbl(rd, M, rr);
     cc::mul(rr, t, M, t);
     S.put(A_T, t);  // rr (v - x3)
   } else if (w == 2) {
@@ -600,36 +611,133 @@ jac_add_narrow_kernel(const uint32_t* __restrict__ px, const uint32_t* __restric
     S.put(A_W, t);  // s1 j
   }
   const bool q_inf = is_zero(z2), p_inf = is_zero(z1);
-  const bool h_zero = is_zero(h), r_zero = is_zero(r);
+  const bool h_zero = is_zero(h), r_zero = is_zero(rd);
   const bool same = active && !q_inf && !p_inf && h_zero && r_zero;
-  if (__syncthreads_or(same)) dbl_narrow(S, A_SLOTS, w, px, py, pz, m, i, M);
-  if (!active || w >= 3) return;
-  uint32_t* out[3] = {ox, oy, oz};
-  if (q_inf || p_inf) {  // q at infinity (checked last in the reference): p; else q
-    const uint32_t* src[2][3] = {{qx, qy, qz}, {px, py, pz}};
-    copy_elem(src[q_inf][w], out[w], m, idx);
-    return;
-  }
-  if (h_zero && r_zero) {  // P == Q
-    S.get(A_SLOTS + D_X + w, t);
+  if (__syncthreads_or(same)) dbl_narrow(S, A_SLOTS, A_SLOTS + D_X, w, p, M);
+  if (w >= 3) return;
+  if (q_inf) {  // q at infinity (checked last in the reference): p
+    p.load(w, r);
+  } else if (p_inf) {  // p at infinity: q
+    q.load(w, r);
+  } else if (h_zero && r_zero) {  // P == Q
+    S.get(A_SLOTS + D_X + w, r);
   } else if (h_zero) {  // P == -Q: infinity (0, 1, 0)
-    if (w == 1) {
-      store_elem(oy, m, idx, C.one);
-    } else {
-      store_zero(out[w], m, idx);
-    }
-    return;
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) r[k] = w == 1 ? C.one[k] : 0;
   } else if (w == 0) {
-    S.get(A_X3, t);
+    S.get(A_X3, r);
   } else if (w == 1) {
     S.get(A_T, t);
     S.get(A_W, u);
     cc::dbl(u, M, u);
-    cc::sub(t, u, M, t);  // y3 = rr (v - x3) - 2 s1 j
+    cc::sub(t, u, M, r);  // y3 = rr (v - x3) - 2 s1 j
   } else {
-    S.get(A_Z3, t);
+    S.get(A_Z3, r);
   }
-  store_elem(out[w], m, idx, t);
+}
+
+__global__ void __launch_bounds__(NARROW_THREADS)
+jac_add_narrow_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                      const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
+                      const uint32_t* __restrict__ qy, const uint32_t* __restrict__ qz,
+                      uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                      uint32_t* __restrict__ oz, int m, ModulusOne C) {
+  __shared__ uint32_t sh[A_SLOTS + D_SLOTS][WORDS][NARROW_LANES];
+  const int lane = threadIdx.x % NARROW_LANES, w = threadIdx.x / NARROW_LANES;
+  const size_t idx = static_cast<size_t>(blockIdx.x) * NARROW_LANES + lane;
+  const bool active = idx < static_cast<size_t>(m);
+  const size_t i = active ? idx : static_cast<size_t>(m) - 1;  // where to read
+  const size_t ld = static_cast<size_t>(m);
+  uint32_t r[WORDS];
+  add_narrow(Slots{sh, lane}, w, GlobalPoint{{px, py, pz}, ld, i}, GlobalPoint{{qx, qy, qz}, ld, i},
+             active, C, r);
+  uint32_t* out[3] = {ox, oy, oz};
+  if (active && w < 3) store_elem(out[w], ld, idx, r);
+}
+
+// ---------------------------------------------------------------- Horner
+// jac_horner: sum_i 2^(c i) w_i of a lane's window sums w_0 .. w_{W-1}, from
+// the top window down: c doublings, then the complete add, where
+// ec/device.py:_horner_device ran 21 field-op launches a doubling and one
+// jac_add launch a window.
+//
+// Replaces halo2_tpu/ec/device.py:597-607, the reference's jax.lax.fori_loop
+// Horner inside _msm_raw (the sharded MSM's combine), which XLA compiles
+// into one device loop.  Same formulas as jac_double (dbl-2009-l) and
+// jac_add (add-2007-bl with its exceptions, P == Q doubled), every value
+// canonical, so the output equals the plain loop (ec/cuda_jac.py:
+// horner_plain) limb for limb, infinities' y included.
+//
+// Design: the narrow machinery above, looped inside one block of four warps
+// per 32 lanes.  The accumulator lives in shared slots for the whole ladder
+// (two sets, alternated by the doublings), and each window sum is read once
+// from device memory, into three slots, by warps 0-2 right after the add
+// that precedes it.  A lane's chain is 3 products a doubling and 5 an add
+// (7 and 16 in one thread).  Every thread goes through every barrier of
+// the loop: lanes past m read no window (their slots hold 0, infinity, so
+// their sums stay where they are) and store nothing.
+//
+// What bounds it: at the sharded MSM's widths (m = 1 to ~40 lanes, one or
+// two blocks on 132 SMs) the chain of dependent products: at most W (3c +
+// 5) a lane, 32 (3 * 8 + 5) = 928 at c = 8, W = 32, when every window is
+// finite and none meets P == +-Q.  A lane needs no doubling before its
+// first finite window or after a sum that lands on infinity, and a P == Q
+// window needs the 6 products and 2 squares that find it (2 deep) and a
+// doubling, not the add as well.  The throughput bound, IMADs at 132 SMs x
+// 64 x 1.98 GHz (216 a square, 272 a product: c (5 * 216 + 2 * 272) a
+// needed doubling window, 4 * 216 + 12 * 272 a needed add) and the window
+// sums' bytes at 3.35 TB/s, is below a microsecond there.  chip_smoke.py
+// counts both from the data it checks (_horner_work) and prints them
+// beside the device time (PERF.md).
+enum HornerSlot { H_ACC0 = A_SLOTS + D_SLOTS, H_ACC1 = H_ACC0 + 3, H_W = H_ACC1 + 3, H_SLOTS = H_W + 3 };
+
+// Warp w < 3: coordinate w of window i of this lane into slot H_W + w (0 on
+// lanes past m).  The window sums are (3, 16, m, W): limb j of coordinate
+// k of lane b's window i at ((k * 16 + j) * m + b) * W + i.
+__device__ __forceinline__ void load_window(const Slots& S, const uint32_t* __restrict__ wsum, int w,
+                                            bool active, size_t m, int windows, size_t b, int i) {
+  uint32_t v[WORDS] = {};
+  const size_t ld = m * windows;
+  if (active) load_elem(wsum + static_cast<size_t>(w) * 16 * ld, ld, b * windows + i, v);
+  S.put(H_W + w, v);
+}
+
+__global__ void __launch_bounds__(NARROW_THREADS)
+jac_horner_kernel(const uint32_t* __restrict__ wsum, uint32_t* __restrict__ out, int m, int windows,
+                  int c, ModulusOne C) {
+  __shared__ uint32_t sh[H_SLOTS][WORDS][NARROW_LANES];
+  const int lane = threadIdx.x % NARROW_LANES, w = threadIdx.x / NARROW_LANES;
+  const size_t b = static_cast<size_t>(blockIdx.x) * NARROW_LANES + lane;
+  const bool active = b < static_cast<size_t>(m);
+  const Slots S{sh, lane};
+  uint32_t t[WORDS];
+  if (w < 3) {  // the accumulator starts at infinity (0, 1, 0)
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) t[k] = w == 1 ? C.one[k] : 0;
+    S.put(H_ACC0 + w, t);
+    if (windows > 0) load_window(S, wsum, w, active, m, windows, b, windows - 1);
+  }
+  __syncthreads();
+  int acc = H_ACC0;
+  for (int i = windows - 1; i >= 0; --i) {
+    for (int d = 0; d < c; ++d) {
+      const int next = acc == H_ACC0 ? H_ACC1 : H_ACC0;
+      dbl_narrow(S, A_SLOTS, next, w, SlotPoint{S, acc}, C.M);
+      acc = next;
+    }
+    const int next = acc == H_ACC0 ? H_ACC1 : H_ACC0;
+    add_narrow(S, w, SlotPoint{S, acc}, SlotPoint{S, H_W}, active, C, t);
+    if (w < 3) {  // each warp reads and writes only coordinate w here
+      S.put(next + w, t);
+      if (i > 0) load_window(S, wsum, w, active, m, windows, b, i - 1);
+    }
+    acc = next;
+    __syncthreads();
+  }
+  if (active && w < 3) {
+    S.get(acc + w, t);
+    store_elem(out + static_cast<size_t>(w) * 16 * m, m, b, t);
+  }
 }
 
 }  // namespace
@@ -638,7 +746,7 @@ jac_add_narrow_kernel(const uint32_t* __restrict__ px, const uint32_t* __restric
 extern "C" int h2t_jac_madd(const void* px, const void* py, const void* pz, const void* qx,
                             const void* qy, const void* valid, void* ox, void* oy, void* oz,
                             int m, const void* consts, int variant, void* stream) {
-  const CurveConsts C = consts_from_host(static_cast<const uint32_t*>(consts));
+  const ModulusOne C = modulus_one_from_host(static_cast<const uint32_t*>(consts));
   const auto s = static_cast<cudaStream_t>(stream);
   auto k = variant ? jac_madd_narrow_kernel : jac_madd_wide_kernel;
   const int lanes = variant ? NARROW_LANES : WIDE_THREADS;
@@ -654,7 +762,7 @@ extern "C" int h2t_jac_madd(const void* px, const void* py, const void* pz, cons
 extern "C" int h2t_jac_add(const void* px, const void* py, const void* pz, const void* qx,
                            const void* qy, const void* qz, void* ox, void* oy, void* oz, int m,
                            const void* consts, int variant, void* stream) {
-  const CurveConsts C = consts_from_host(static_cast<const uint32_t*>(consts));
+  const ModulusOne C = modulus_one_from_host(static_cast<const uint32_t*>(consts));
   const auto s = static_cast<cudaStream_t>(stream);
   auto k = variant ? jac_add_narrow_kernel : jac_add_wide_kernel;
   const int lanes = variant ? NARROW_LANES : WIDE_THREADS;
@@ -664,5 +772,17 @@ extern "C" int h2t_jac_add(const void* px, const void* py, const void* pz, const
       static_cast<const uint32_t*>(pz), static_cast<const uint32_t*>(qx),
       static_cast<const uint32_t*>(qy), static_cast<const uint32_t*>(qz),
       static_cast<uint32_t*>(ox), static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz), m, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The Horner combine of m lanes' W window sums, (3, 16, m, W) -> (3, 16, m);
+// c doublings a window.
+extern "C" int h2t_jac_horner(const void* wsum, void* out, int m, int windows, int c,
+                              const void* consts, void* stream) {
+  if (m <= 0 || windows < 0 || c < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const ModulusOne C = modulus_one_from_host(static_cast<const uint32_t*>(consts));
+  jac_horner_kernel<<<(m + NARROW_LANES - 1) / NARROW_LANES, NARROW_THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(wsum), static_cast<uint32_t*>(out), m, windows, c, C);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,32 +9,34 @@ Jacobian add).  They compute the reference's canonical formulas
 doubling, so their output equals the plain versions here limb for limb and
 the wrappers read nothing back from the card.  A point is a dict ``{x, y,
 z}`` of ``(16, *batch)`` int32 Montgomery limb tensors over BN254 Fq; z == 0
-marks infinity.
+marks infinity.  A third kernel, ``jac_horner``, runs the sharded MSM's
+Horner combine of window sums (the reference's ``fori_loop`` of doublings
+and complete adds, ``halo2_tpu/ec/device.py:597-607``) in one launch.
 
-Each kernel has two variants: ``wide`` (one thread per lane) and ``narrow``
-(four warps per 32 lanes splitting each formula's independent products);
-:func:`variant` picks one from the lane count.  The plain versions flag the
-P == Q lanes and double them in :func:`_double_fixup`, behind one device ->
-host read of ``same.any()`` (the reference's ``lax.cond``).
-:func:`jac_madd_cuda` / :func:`jac_add_cuda` run the plain versions for CPU
-tensors and launch the kernels for CUDA tensors; there is no fallback
-between the two.  ``LAUNCHES`` counts kernel launches.
+Each add kernel has two variants: ``wide`` (one thread per lane) and
+``narrow`` (four warps per 32 lanes splitting each formula's independent
+products); :func:`variant` picks one from the lane count.  The plain
+versions flag the P == Q lanes and double them in :func:`_double_fixup`,
+behind one device -> host read of ``same.any()`` (the reference's
+``lax.cond``).  :func:`jac_madd_cuda` / :func:`jac_add_cuda` /
+:func:`jac_horner_cuda` run the plain versions for CPU tensors and launch
+the kernels for CUDA tensors; there is no fallback between the two.
+``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import functools
 
-import numpy as np
 import torch
 
-from ..field.cuda_mul import check_limbs, modulus_words, mont_mul_plain, mont_sqr_plain
+from ..field.cuda_mul import check_limbs, modulus_one_words, mont_mul_plain, mont_pow_plain, mont_sqr_plain
 from ..field.cuda_ops import mod_add_plain, mod_neg_plain, mod_sub_plain
 from ..field.device import DeviceField
-from ..field.params import BN254_FQ, NUM_LIMBS, to_limbs
+from ..field.params import BN254_FQ, NUM_LIMBS
 
 L = NUM_LIMBS
-LAUNCHES = {"jac_madd": 0, "jac_add": 0}
+LAUNCHES = {"jac_madd": 0, "jac_add": 0, "jac_horner": 0}
 
 
 class _PlainField(DeviceField):
@@ -56,6 +58,9 @@ class _PlainField(DeviceField):
 
     def neg(self, a):
         return mod_neg_plain(self.spec, a)
+
+    def _pow_bits(self, a, e):
+        return mont_pow_plain(self.spec, a, e)
 
 
 @functools.lru_cache(maxsize=None)
@@ -154,6 +159,23 @@ def jac_add_plain(p, q):
     return _double_fixup(out, same, p, plain_field())
 
 
+def horner_plain(w, c: int):
+    """Stacked ``(3, 16, *B, W)`` window sums -> sum_i 2^(c i) w_i as a jac
+    point ``(16, *B)`` in plain torch ops on w's device: from the top window
+    down, c doublings (``jac_double``, dbl-2009-l) and one complete add
+    (:func:`jac_add_plain`), the reference's ``fori_loop`` Horner
+    (``halo2_tpu/ec/device.py:597-607``)."""
+    from .device import jac, jac_double, jac_infinity
+
+    d = plain_field()
+    acc = jac_infinity(tuple(w.shape[2:-1]), device=w.device)
+    for i in reversed(range(w.shape[-1])):
+        for _ in range(c):
+            acc = jac_double(acc, d)
+        acc = jac_add_plain(acc, jac(w[0, ..., i], w[1, ..., i], w[2, ..., i]))
+    return acc
+
+
 # ------------------------------------------------------------------ wrappers
 # Up to this many lanes the narrow variant is the faster (measured on one
 # H100, PERF.md): the wide one then fills few of the 132 SMs, and its time is
@@ -165,14 +187,6 @@ VARIANTS = {"wide": 0, "narrow": 1}
 def variant(m: int) -> str:
     """The kernel variant for a call over ``m`` lanes."""
     return "narrow" if m <= NARROW_MAX_LANES else "wide"
-
-
-@functools.lru_cache(maxsize=None)
-def _curve_consts() -> np.ndarray:
-    """(17,) uint32 kernel argument: Fq's p words and n0, then R mod p."""
-    one = to_limbs(BN254_FQ.r)
-    words = [one[2 * k] | (one[2 * k + 1] << 16) for k in range(8)]
-    return np.concatenate([modulus_words(BN254_FQ), np.array(words, np.uint32)])
 
 
 def _check_points(op: str, batch, points: dict) -> None:
@@ -194,7 +208,7 @@ def _launch(kernel: str, ins, which):
         _build.launch(
             kernel, x.device, *(t.data_ptr() for t in ins),
             out["x"].data_ptr(), out["y"].data_ptr(), out["z"].data_ptr(),
-            m, _curve_consts().ctypes.data, VARIANTS[which or variant(m)],
+            m, modulus_one_words(BN254_FQ).ctypes.data, VARIANTS[which or variant(m)],
         )
         LAUNCHES[kernel] += 1
     return out
@@ -245,3 +259,34 @@ def _jac_add(p, q, which=None):
         raise ValueError(f"jac_add: unsupported device {q['x'].device}")
     ins = [p["x"], p["y"], p["z"], q["x"], q["y"], q["z"]]
     return _launch("jac_add", ins, which)
+
+
+def jac_horner_cuda(w, c: int):
+    """sum_i 2^(c i) w_i of stacked ``(3, 16, *B, W)`` window sums (x, y, z;
+    contiguous int32 Montgomery limbs over Fq) as a jac point ``(16, *B)``:
+    the ``jac_horner`` kernel on a CUDA tensor (the whole ladder in one
+    launch), :func:`horner_plain` on a CPU one."""
+    if w.dtype != torch.int32:
+        raise TypeError(f"jac_horner: w must be int32, got {w.dtype}")
+    if w.dim() < 3 or w.shape[0] != 3 or w.shape[1] != L:
+        raise ValueError(f"jac_horner: w must be (3, 16, *B, W), got {tuple(w.shape)}")
+    if not w.is_contiguous():
+        raise ValueError("jac_horner: w must be contiguous")
+    if c < 0:
+        raise ValueError(f"jac_horner: c must be >= 0, got {c}")
+    if w.device.type == "cpu":
+        return horner_plain(w, c)
+    if w.device.type != "cuda":
+        raise ValueError(f"jac_horner: unsupported device {w.device}")
+    from .. import _build
+
+    batch = tuple(w.shape[2:-1])
+    out = torch.empty((3, L) + batch, dtype=torch.int32, device=w.device)
+    m = out[0].numel() // L
+    if m:
+        _build.launch(
+            "jac_horner", w.device, w.data_ptr(), out.data_ptr(), m, w.shape[-1], c,
+            modulus_one_words(BN254_FQ).ctypes.data,
+        )
+        LAUNCHES["jac_horner"] += 1
+    return {"x": out[0], "y": out[1], "z": out[2]}

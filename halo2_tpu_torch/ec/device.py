@@ -5,8 +5,8 @@ Points are dicts ``{x, y, z}`` of ``(16, *B)`` int32 Montgomery limb tensors
 over BN254 Fq; z == 0 marks infinity.  ``jac_add``/``jac_madd`` go to the
 CUDA kernels of :mod:`.cuda_jac` for CUDA tensors (their plain versions for
 CPU tensors); doubling, the inverse and the selects are :class:`DeviceField`
-ops, whose squares and multiplies are the CUDA kernels of
-:mod:`..field.cuda_mul`.
+ops, whose squares, multiplies and powers (the inverse, one ``mont_pow``
+launch) are the CUDA kernels of :mod:`..field.cuda_mul`.
 
 The MSM keeps the reference's schedule: window digits from canonical
 limbs, signed digits, a per-window sort by (digit, sign, index), q rounds of
@@ -22,9 +22,10 @@ carried over verbatim: the reference's file imports JAX, so this package
 cannot load it.  ``msm_hybrid`` runs a leading slice of the points on the
 device Pippenger while the native host Pippenger takes the rest, in a
 worker thread.  :func:`_msm_raw` keeps the whole MSM on the device (the
-Horner combine too), for the sharded prover, whose ranks exchange the
-result.  The reference's ``pvary_tree`` only marks loop carries as
-device-varying for ``shard_map``'s type check and has no counterpart here.
+Horner combine too, one ``jac_horner`` launch), for the sharded prover,
+whose ranks exchange the result.  The reference's ``pvary_tree`` only
+marks loop carries as device-varying for ``shard_map``'s type check and
+has no counterpart here.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ import torch
 from .. import native
 from ..field.device import DeviceField, get_device_field
 from ..field.params import BN254_FQ, NUM_LIMBS as L
-from .cuda_jac import jac_add_cuda, jac_madd_cuda
+from .cuda_jac import jac_add_cuda, jac_horner_cuda, jac_madd_cuda
 
 
 def df() -> DeviceField:
@@ -355,14 +356,9 @@ def _msm_wsums_raw(px, py, scalars_canonical):
 def _horner_device(w, c: int):
     """Stacked ``(3, 16, *B, W)`` window sums -> sum_i 2^(c i) w_i as a jac
     point ``(16, *B)`` on their device: from the top window down, c
-    ``jac_double``s and one ``jac_add`` (the reference's ``fori_loop``
-    Horner, at width 1 for one MSM, B for a batch)."""
-    acc = jac_infinity(tuple(w.shape[2:-1]), device=w.device)
-    for i in reversed(range(w.shape[-1])):
-        for _ in range(c):
-            acc = jac_double(acc)
-        acc = jac_add(acc, jac(w[0, ..., i], w[1, ..., i], w[2, ..., i]))
-    return acc
+    doublings and one complete add (the reference's ``fori_loop`` Horner, at
+    width 1 for one MSM, B for a batch), in one ``jac_horner`` launch."""
+    return jac_horner_cuda(w.contiguous(), c)
 
 
 def _msm_raw(px, py, scalars_canonical):

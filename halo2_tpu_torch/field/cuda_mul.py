@@ -1,15 +1,18 @@
-"""Batched Montgomery multiply and square: the CUDA kernels, their plain
-PyTorch versions, and the wrappers that pick one by the tensors' device.
+"""Batched Montgomery multiply, square and power: the CUDA kernels, their
+plain PyTorch versions, and the wrappers that pick one by the tensors'
+device.
 
 The kernels (``csrc/mont_mul.cu``) replace
-``halo2_tpu/field/pallas_mul.py:_mont_mul_kernel`` and ``_mont_sqr_kernel``.
+``halo2_tpu/field/pallas_mul.py:_mont_mul_kernel`` and ``_mont_sqr_kernel``,
+and (``mont_pow``, a whole square-and-multiply ladder in one launch) the
+reference's ``lax.scan`` power, ``halo2_tpu/field/device.py:239-253``.
 Field arrays are ``(16, *batch)`` int32 tensors of 16-bit limbs, Montgomery
 form, canonical (< p): the reference's ``uint32`` numbers held in int32.
 
-:func:`mont_mul` (:func:`mont_sqr`) runs :func:`mont_mul_plain`
-(:func:`mont_sqr_plain`) for a CPU tensor and launches the kernel for a CUDA
-tensor; there is no fallback between the two.  ``LAUNCHES`` counts kernel
-launches by name.
+:func:`mont_mul` (:func:`mont_sqr`, :func:`mont_pow`) runs
+:func:`mont_mul_plain` (:func:`mont_sqr_plain`, :func:`mont_pow_plain`) for
+a CPU tensor and launches the kernel for a CUDA tensor; there is no
+fallback between the two.  ``LAUNCHES`` counts kernel launches by name.
 """
 
 from __future__ import annotations
@@ -19,10 +22,18 @@ import functools
 import numpy as np
 import torch
 
-from .params import LIMB_BITS, LIMB_MASK, NUM_LIMBS, FieldSpec
+from .params import LIMB_BITS, LIMB_MASK, NUM_LIMBS, FieldSpec, to_limbs
 
 L = NUM_LIMBS
-LAUNCHES = {"mont_mul": 0, "mont_sqr": 0}
+LAUNCHES = {"mont_mul": 0, "mont_sqr": 0, "mont_pow": 0}
+# the kernels' arithmetic, as the C entry points number it
+ARITH = {"cc": 0, "wide": 1}
+
+
+def arith(spec: FieldSpec) -> str:
+    """``"cc"`` (``csrc/field_cc.cuh``'s carry chains, whose bounds hold for
+    p < 2^254) or ``"wide"`` (``csrc/field.cuh``'s 64-bit accumulators)."""
+    return "cc" if spec.p.bit_length() <= 254 else "wide"
 
 
 @functools.lru_cache(maxsize=None)
@@ -32,6 +43,15 @@ def modulus_words(spec: FieldSpec) -> np.ndarray:
     words = [(spec.p >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
     words.append((-pow(spec.p, -1, 1 << 32)) % (1 << 32))
     return np.array(words, np.uint32)
+
+
+@functools.lru_cache(maxsize=None)
+def modulus_one_words(spec: FieldSpec) -> np.ndarray:
+    """(17,) uint32 kernel argument: :func:`modulus_words`, then the
+    Montgomery one R mod p as 8 little-endian words."""
+    one = to_limbs(spec.r)
+    words = [one[2 * k] | (one[2 * k + 1] << LIMB_BITS) for k in range(8)]
+    return np.concatenate([modulus_words(spec), np.array(words, np.uint32)])
 
 
 # ------------------------------------------------------------- plain version
@@ -139,6 +159,23 @@ def mont_sqr_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return _redc_plain(spec, _product_columns(a.reshape(L, -1).to(torch.int64), None)).reshape(shape)
 
 
+def mont_pow_plain(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e for a host-known exponent e >= 0 in int64 torch ops: square and
+    multiply over e's bits, LSB first, the multiply skipped where a bit is 0
+    (the reference multiplies by one there, which gives the same limbs: a
+    Montgomery product with R mod p is the identity); a^0 = one, 0^e = 0."""
+    acc, base = None, a
+    for i in range(e.bit_length()):
+        if (e >> i) & 1:
+            acc = base if acc is None else mont_mul_plain(spec, acc, base)
+        if i + 1 < e.bit_length():
+            base = mont_sqr_plain(spec, base)
+    if acc is None:
+        one = torch.tensor(to_limbs(spec.r), dtype=torch.int32, device=a.device)
+        return one.reshape((L,) + (1,) * (a.dim() - 1)).expand(a.shape).contiguous()
+    return acc.clone() if acc is a else acc
+
+
 # --------------------------------------------------------------------- wrapper
 def check_limbs(op: str, **tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous int32 ``(16, ...)`` limb
@@ -213,4 +250,38 @@ def mont_sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
         return out
     _build.launch("mont_sqr", a.device, a.data_ptr(), out.data_ptr(), m, modulus_words(spec).ctypes.data)
     LAUNCHES["mont_sqr"] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _exponent_words(e: int, device: torch.device) -> torch.Tensor:
+    """e as 32-bit words, least significant first (at least one), in an
+    int32 tensor on ``device``: made once per exponent and device, so a
+    :func:`mont_pow` call copies nothing from host to device."""
+    words = [(e >> (32 * k)) & 0xFFFFFFFF for k in range(max(1, -(-e.bit_length() // 32)))]
+    return torch.from_numpy(np.array(words, np.uint32).view(np.int32)).to(device)
+
+
+def mont_pow(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e elementwise over ``(16, *batch)`` a, for a host-known exponent
+    e >= 0 of any length (inv: e = p - 2).  CPU tensors: plain version;
+    CUDA tensors: the ``mont_pow`` kernel, the whole ladder in one launch."""
+    check_limbs("mont_pow", a=a)
+    if e < 0:
+        raise ValueError(f"mont_pow: the exponent must be >= 0, got {e}")
+    if a.device.type == "cpu":
+        return mont_pow_plain(spec, a, e)
+    if a.device.type != "cuda":
+        raise ValueError(f"mont_pow: unsupported device {a.device}")
+    from .. import _build
+
+    out = torch.empty_like(a)
+    m = a.numel() // L
+    if m == 0:
+        return out
+    _build.launch(
+        "mont_pow", a.device, a.data_ptr(), out.data_ptr(), m, _exponent_words(e, a.device).data_ptr(),
+        e.bit_length(), modulus_one_words(spec).ctypes.data, ARITH[arith(spec)],
+    )
+    LAUNCHES["mont_pow"] += 1
     return out

@@ -21,19 +21,11 @@ import functools
 
 import torch
 
-from .cuda_mul import _plain_consts, carry, check_limbs, modulus_words
+from .cuda_mul import ARITH, _plain_consts, arith, carry, check_limbs, modulus_words
 from .params import NUM_LIMBS, FieldSpec
 
 L = NUM_LIMBS
 LAUNCHES = {"mod_add": 0, "mod_sub": 0}
-# the kernels' arithmetic, as the C entry points number it
-ARITH = {"cc": 0, "wide": 1}
-
-
-def arith(spec: FieldSpec) -> str:
-    """``"cc"`` (``csrc/field_cc.cuh``'s carry chains, whose bounds hold for
-    p < 2^254) or ``"wide"`` (``csrc/field.cuh``'s 64-bit accumulators)."""
-    return "cc" if spec.p.bit_length() <= 254 else "wide"
 
 
 # ------------------------------------------------------------- plain versions

@@ -9,10 +9,10 @@ A *field array* keeps the reference's layout: ``(16, *batch)`` little-endian
 ``mul`` and ``square`` go to :func:`.cuda_mul.mont_mul` and
 :func:`.cuda_mul.mont_sqr`, ``add``/``sub``/``neg``/``double`` to
 :func:`.cuda_ops.mod_add`, :func:`.cuda_ops.mod_sub` and
-:func:`.cuda_ops.mod_neg`: the CUDA kernels for a CUDA tensor, their plain
-versions (int64 torch ops) for a CPU tensor.  ``pow_fixed``/``inv`` are a
-Python loop over the exponent's bits, which the host knows (the reference's
-``lax.scan``).
+:func:`.cuda_ops.mod_neg`, ``pow_fixed``/``inv`` to
+:func:`.cuda_mul.mont_pow` (the reference's ``lax.scan`` over the
+exponent's bits, which the host knows, as one launch): the CUDA kernels for
+a CUDA tensor, their plain versions (int64 torch ops) for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import functools
 import numpy as np
 import torch
 
-from .cuda_mul import mont_mul, mont_sqr
+from .cuda_mul import mont_mul, mont_pow, mont_sqr
 from .cuda_ops import mod_add, mod_neg, mod_sub
 from .params import FieldSpec, LIMB_BITS, LIMB_MASK, NUM_LIMBS, to_limbs
 
@@ -42,7 +42,6 @@ class DeviceField:
         self._one_mont_np = _col(to_limbs(spec.r))
         self._r2_np = _col(to_limbs(spec.r2))
         self._one_raw_np = _col(to_limbs(1))
-        self._inv_exp_bits = [(spec.p - 2) >> i & 1 for i in range(spec.num_bits)]
 
     @functools.lru_cache(maxsize=None)
     def _const(self, name: str, device: torch.device, ndim: int):
@@ -118,24 +117,16 @@ class DeviceField:
         """a^e for a host-known exponent."""
         if e == 0:
             return self.one_mont(a.shape[1:], device=a.device)
-        return self._pow_bits(a, [(e >> i) & 1 for i in range(e.bit_length())])
+        return self._pow_bits(a, e)
 
-    def _pow_bits(self, a, bits):
-        """Square-and-multiply over host bits, LSB first.  The reference
-        multiplies by one where a bit is 0; skipping that multiply gives the
-        same limbs (a Montgomery product with R mod p is the identity)."""
-        acc = None
-        base = a
-        for i, bit in enumerate(bits):
-            if bit:
-                acc = base if acc is None else self.mul(acc, base)
-            if i + 1 < len(bits):
-                base = self.square(base)
-        return self.one_mont(a.shape[1:], device=a.device) if acc is None else acc
+    def _pow_bits(self, a, e: int):
+        """Square-and-multiply over the bits of e, LSB first: the
+        ``mont_pow`` kernel (one launch) or its plain version."""
+        return mont_pow(self.spec, a.contiguous(), e)
 
     def inv(self, a):
         """Batched inverse via Fermat: a^(p-2).  inv(0) = 0."""
-        return self._pow_bits(a, self._inv_exp_bits)
+        return self._pow_bits(a, self.p - 2)
 
     # ------------------------------------------------------------ predicates
     def is_zero(self, a):

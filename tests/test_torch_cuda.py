@@ -177,6 +177,76 @@ def test_jac_kernels_match_plain(device, m, flag_reads):
     assert cuda_jac.LAUNCHES["jac_add"] == before["jac_add"] + len(cuda_jac.VARIANTS)
 
 
+def _window_stack(batch, windows, c, device):
+    """(3, 16, batch, windows) window sums on the card: SRS points doubled
+    (z != 1); window 3 of every lane at infinity; lane 0's second window
+    2^c times its top one (the accumulator equals it: P == Q), lane 1's its
+    negative, lane 2's top three windows at infinity (a leading run)."""
+    _, _, x, y = _srs(batch * windows, device)
+    pts = ecd.jac_double(ecd.jac_from_affine(x, y))
+    w = torch.stack([pts[k] for k in ("x", "y", "z")]).reshape(3, 16, batch, windows).contiguous()
+    top = {k: w[i, :, :, -1].contiguous() for i, k in enumerate(("x", "y", "z"))}
+    for _ in range(c):
+        top = ecd.jac_double(top)
+    inf = torch.stack([v for v in ecd.jac_infinity((), device=device).values()])
+    w[:, :, :, 3] = inf[:, :, None]
+    w[:, :, 0, -2] = torch.stack([top[k][:, 0] for k in ("x", "y", "z")])
+    if batch > 1:
+        w[:, :, 1, -2] = torch.stack([top["x"][:, 1], ecd.df().neg(top["y"])[:, 1], top["z"][:, 1]])
+    if batch > 2:
+        w[:, :, 2, -3:] = inf[:, :, None]
+    return w
+
+
+@pytest.mark.parametrize("batch", [1, 5, 32, 33, 64])
+def test_jac_horner_kernel_matches_plain(device, batch, flag_reads):
+    """The flagship's Horner (32 windows, c = 8) in one launch equals the
+    plain loop limb for limb, reading no P == Q flag back."""
+    w = _window_stack(batch, 32, 8, device)
+    before = cuda_jac.LAUNCHES["jac_horner"]
+    got = cuda_jac.jac_horner_cuda(w, 8)
+    torch.cuda.synchronize(device)
+    assert cuda_jac.LAUNCHES["jac_horner"] == before + 1
+    assert flag_reads == []
+    want = cuda_jac.horner_plain(w, 8)
+    for k in ("x", "y", "z"):
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(ecd._horner_device(w, 8)["y"], want["y"])
+    assert cuda_jac.LAUNCHES["jac_horner"] == before + 2
+
+
+@pytest.mark.parametrize("spec", [BN254_FR, BN254_FQ, PASTA_FP], ids=lambda s: s.name)
+@pytest.mark.parametrize("m", [1, 1 << 10, 1 << 16])
+def test_mont_pow_kernel_matches_plain(device, spec, m):
+    """The whole ladder in one launch a call, for p - 2 (the inverse), 0, 1,
+    2 and a 300-bit exponent, on values that include 0, 1 and p - 1."""
+    a = _encoded(spec, m, 5, device)
+    exps = (spec.p - 2, 0, 1, 2, random.Random(300).randrange(1 << 299, 1 << 300))
+    before = cuda_mul.LAUNCHES["mont_pow"]
+    for e in exps:
+        got = cuda_mul.mont_pow(spec, a, e)
+        torch.cuda.synchronize(device)
+        assert torch.equal(got, cuda_mul.mont_pow_plain(spec, a, e)), e
+    inv = get_device_field(spec).inv(a)
+    torch.cuda.synchronize(device)
+    assert cuda_mul.LAUNCHES["mont_pow"] == before + len(exps) + 1
+    assert torch.equal(inv, cuda_mul.mont_pow_plain(spec, a, spec.p - 2))
+
+
+def test_ladder_wrappers_raise_on_bad_inputs(device):
+    spec = BN254_FR
+    a = _encoded(spec, 64, 6, device)
+    with pytest.raises(TypeError):
+        cuda_mul.mont_pow(spec, a.to(torch.int64), 5)
+    with pytest.raises(ValueError):
+        cuda_mul.mont_pow(spec, a[:, ::2], 5)
+    w = _window_stack(3, 6, 4, device)
+    with pytest.raises(TypeError):
+        cuda_jac.jac_horner_cuda(w.to(torch.int64), 4)
+    with pytest.raises(ValueError):
+        cuda_jac.jac_horner_cuda(w[..., ::2], 4)
+
+
 def test_msm_points_matches_native(device, flag_reads):
     n = 1 << 12
     rng = random.Random(12)
