@@ -193,6 +193,11 @@ HORNER_REPORT_C, HORNER_REPORT_B = 8, 20
 # JSON line's ms at 2^11
 POW_SIZES = (1, 1 << 10, 1 << 11, 1 << 16)
 POW_REPORT_M = 1 << 11
+# the elements a stage of the sharded flagship's local stage ladders gives
+# mont_mul: half of 83 columns of 2^15 at W = 1, a quarter a rank at W = 2
+SHARDED_LADDER = (FLAGSHIP_C << 14, FLAGSHIP_C << 13)
+# the chained-product microbenchmark's products in one thread
+CHAIN_ITERS = 4096
 # the shape at which each kernel's ms in the JSON line is taken
 REPORT_AT = {"jac_horner": HORNER_REPORT_B, "mont_pow": POW_REPORT_M}
 
@@ -331,8 +336,9 @@ def phase_build():
 
 
 def _sass_counts(library) -> dict:
-    """Static instruction counts of each curve kernel and of the power
-    kernel (for each arithmetic) in the built library's
+    """Static instruction counts of each curve kernel, of the power
+    kernel (for each arithmetic) and of the chained-product
+    microbenchmark in the built library's
     SASS (``cuobjdump -sass``): (instructions, IMAD.WIDE, other IMADs but
     IMAD.MOV); empty when the toolkit has no cuobjdump."""
     from halo2_tpu_torch import _build
@@ -347,7 +353,8 @@ def _sass_counts(library) -> dict:
         line = line.strip()
         if line.startswith("Function :"):
             fn = line.split(":", 1)[1].strip()
-            kernels = ("jac_madd_wide", "jac_madd_narrow", "jac_add_wide", "jac_add_narrow", "jac_horner", "mont_pow")
+            kernels = ("jac_madd_wide", "jac_madd_narrow", "jac_add_wide", "jac_add_narrow", "jac_horner", "mont_pow",
+                       "mul_chain")
             name = next((k for k in kernels if k in fn), None)
             if name == "mont_pow":
                 name += " cc" if "CcArith" in fn else " wide"
@@ -431,6 +438,8 @@ def phase_kernels(device):
                 )
         print(f"[kernels] mont_mul, mont_sqr {spec.name}: equal to plain at m={list(MUL_SIZES)}", flush=True)
 
+    _check_mul_columns(device, gen, err)
+
     _check_field_ops(device, gen, err, times)
 
     classes = _check_jac_kernels(device, err, times)
@@ -449,6 +458,122 @@ def phase_kernels(device):
             flush=True,
         )
     return err, times, {**_bounds(classes, REPORT_SIZE), "vm_eval": vm_bound, **ladder_bounds}
+
+
+def _mul_columns_work(n: int, cols: int, b_elems: int) -> tuple:
+    """(bytes, IMADs) of one mont_mul_columns launch: ``cols`` columns of n
+    elements read and written once, b's ``b_elems`` elements read once."""
+    return 2 * ELEM * n * cols + ELEM * b_elems, IMAD_MUL * n * cols
+
+
+def _elems(m: int) -> str:
+    """m as ``C x 2^k`` (FLAGSHIP_C columns), for labels."""
+    return f"{FLAGSHIP_C} x 2^{(m // FLAGSHIP_C).bit_length() - 1}" if m % FLAGSHIP_C == 0 else str(m)
+
+
+def _check_mul_columns(device, gen, err) -> None:
+    """mont_mul_columns against its plain version, limb for limb, at the
+    shapes the main paths give it, for BN254 Fr, BN254 Fq and Pasta Fp:
+    the flagship's 83 x 2^15 coset scale (one (16, 2^15) b for every
+    column), a lone 2^11 column times one element (an iNTT's n^-1), the
+    stage ladders' twiddles as a period P of the sub-2^9 transforms of a
+    2^11 and a 2^15 column (n / 2 elements a stage, P = 1 .. 128), the
+    sharded flagship's ladder stages (SHARDED_LADDER: 83 columns of 2^15,
+    83 x 2^14 elements a stage at W = 1 and 83 x 2^13 a rank at W = 2, four
+    elements a thread, P = 1 .. 128), full-width b on a batch, strided
+    columns (a slice of a batch) and a ragged n (below and past
+    MUL_VEC_MIN_ELEMS: one element a thread); for BN254 Fr the device
+    time per launch of the coset scale, the lone column and the period-64
+    stage of a 2^15 column and of the sharded W = 1 ladder beside their
+    bound."""
+    from halo2_tpu_torch.field.cuda_mul import mont_mul_columns, mont_mul_columns_plain
+    from halo2_tpu_torch.field.params import BN254_FQ, BN254_FR, PASTA_FP
+
+    def check(name, spec, a, b):
+        got = mont_mul_columns(spec, a, b)
+        err["mont_mul"] = max(err["mont_mul"], _max_abs_err(name, got, mont_mul_columns_plain(spec, a, b)))
+
+    for spec in (BN254_FR, BN254_FQ, PASTA_FP):
+        coset = _random_field(spec, (1 << 15,), gen, device)
+        batch = _random_field(spec, (FLAGSHIP_C, 1 << 15), gen, device).movedim(1, 0).contiguous()
+        lone = _random_field(spec, (1 << 11,), gen, device)
+        n_inv = _random_field(spec, (1,), gen, device)
+        cases = [(f"{FLAGSHIP_C} x 2^15, shared b", batch, coset), ("1 x 2^11, one element", lone, n_inv)]
+        for n, top in ((1 << 11, 32), (1 << 15, 128)):
+            a = _random_field(spec, (n // 2,), gen, device)
+            for lp in range(top.bit_length()):
+                cases.append((f"2^{n.bit_length() - 1} ladder stage, period {1 << lp}", a, _random_field(spec, (1 << lp,), gen, device)))
+        for elems in SHARDED_LADDER:
+            a = _random_field(spec, (elems,), gen, device)
+            for lp in range(8):
+                cases.append((f"sharded ladder stage {_elems(elems)}, period {1 << lp}", a, _random_field(spec, (1 << lp,), gen, device)))
+        small = _random_field(spec, (5, 1 << 11), gen, device).movedim(1, 0).contiguous()
+        ragged = _random_field(spec, (3, 1001), gen, device).movedim(1, 0).contiguous()
+        wide_ragged = _random_field(spec, (131, 1001), gen, device).movedim(1, 0).contiguous()  # >= 2^17 elements
+        for tag, x in (("5 x 2^11", small), ("3 x 1001", ragged), ("131 x 1001", wide_ragged)):
+            full = _random_field(spec, (x.shape[0], x.shape[-1]), gen, device).movedim(1, 0).contiguous()
+            cases += [(f"{tag}, full-width b", x, full), (f"{tag}, strided columns", x[::2], full[::2]),
+                      (f"{tag}, one element", x, n_inv)]
+        for label, a, b in cases:
+            check(f"mont_mul_columns {spec.name} {label}", spec, a, b)
+        print(f"[kernels] mont_mul_columns {spec.name}: equal to plain in {len(cases)} cases", flush=True)
+        if spec is not BN254_FR:
+            continue
+        timed = ("2^15 ladder stage, period 64", f"sharded ladder stage {_elems(SHARDED_LADDER[0])}, period 64")
+        for label, a, b in cases[:2] + [c for c in cases if c[0] in timed]:
+            cols, n = (1, a.shape[-1]) if a.dim() == 2 else (a.shape[0], a.shape[-1])
+            bound = _bound(*_mul_columns_work(n, cols, b.shape[-1] if b.dim() == 2 else n * cols))
+            t_d = _kernel_device_ms(lambda: mont_mul_columns(spec, a, b), "mont_mul_kernel", bound[0])
+            print(
+                f"[kernels] mont_mul_columns bn254_fr {label}: {t_d:.4f} ms on the device in one launch, "
+                f"bound {bound[0]:.6f} ms ({bound[1]}, {bound[0] / t_d:.0%} of it)",
+                flush=True,
+            )
+
+
+def _check_mul_chain(device) -> None:
+    """The chained-product microbenchmark: one thread's CHAIN_ITERS
+    Montgomery products x <- x * b with cc::mul, the carry chains of the
+    curve kernels, jac_horner and mont_pow (mul_chain), equal to Python
+    ints, and the time a product: CUDA events around one launch of
+    CHAIN_ITERS products less one of none (the launch's own cost), medians
+    of 5, over CHAIN_ITERS.  (The profiler's interval of this 2 ms
+    one-thread launch read half of that in some profiles, and none in
+    others.)"""
+    import torch
+
+    from halo2_tpu_torch.field import cuda_mul
+    from halo2_tpu_torch.field.device import get_device_field
+    from halo2_tpu_torch.field.params import BN254_FQ, BN254_FR, PASTA_FP
+
+    def launch_ms(spec, a, b, iters):
+        times = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            cuda_mul.mul_chain(spec, a, b, iters)
+            end.record()
+            torch.cuda.synchronize(device)
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    for spec in (BN254_FQ, BN254_FR, PASTA_FP):
+        p = spec.p
+        df = get_device_field(spec)
+        av, bv = random.Random(1).randrange(p), random.Random(2).randrange(p)
+        a, b = df.encode([av], to_mont=False, device=device), df.encode([bv], to_mont=False, device=device)
+        want, rinv = av, pow(1 << 256, -1, p)
+        for _ in range(CHAIN_ITERS):
+            want = want * bv * rinv % p
+        got = cuda_mul.mul_chain(spec, a, b, CHAIN_ITERS)
+        if df.decode(got.cpu(), from_mont=False) != [want]:
+            raise AssertionError(f"mul_chain {spec.name}: differs from Python ints")
+        us = (launch_ms(spec, a, b, CHAIN_ITERS) - launch_ms(spec, a, b, 0)) * 1e3 / CHAIN_ITERS
+        print(
+            f"[kernels] chained product {spec.name}, one thread, {CHAIN_ITERS} products: "
+            f"cc {us:.4f} us a product (equal to Python ints)",
+            flush=True,
+        )
 
 
 def _check_field_ops(device, gen, err, times):
@@ -933,6 +1058,7 @@ def _check_ladders(device, gen, err, times) -> dict:
     from halo2_tpu_torch.field.params import BN254_FQ, BN254_FR, PASTA_FP
 
     bounds = {}
+    _check_mul_chain(device)
     for c, batches in HORNER_CASES:
         windows = -(-254 // c)
         # the lanes are independent, so one plain run (~8 s on the card) over
@@ -1308,8 +1434,14 @@ def _prove(params, pk, circuit, public, want, device, commit, reps):
 
 # the position of the lane (or element) count among the arguments of each
 # kernel's C entry point, for profile_prove's launches by width
-WIDTH_ARG = {"mont_mul": 3, "mont_sqr": 2, "mont_pow": 2, "mod_add": 3, "mod_sub": 3, "jac_madd": 9,
+WIDTH_ARG = {"mont_mul": 6, "mont_sqr": 2, "mont_pow": 2, "mod_add": 3, "mod_sub": 3, "jac_madd": 9,
              "jac_add": 9, "jac_horner": 2}
+# mont_mul's columns a launch, the argument after its elements a column
+MUL_COLS_ARG = 7
+# mont_mul launches of one warm flagship prove before mont_mul took a batch
+# of columns in one launch (the port at commit 222e703 on an NVIDIA H100 80GB HBM3 at
+# 700 W, PERF.md): native commits, and the W = 1 sharded prove
+MONT_MUL_BEFORE = {"native": 141, "sharded": 1138}
 
 
 def profile_prove(device, params=None, pk=None, warm: int = 1, mesh=None) -> None:
@@ -1351,8 +1483,11 @@ def profile_prove(device, params=None, pk=None, warm: int = 1, mesh=None) -> Non
     launch = _build.launch
 
     def counted(kernel, dev, *args):
-        if kernel in WIDTH_ARG:
-            widths[kernel][args[WIDTH_ARG[kernel]]] += 1
+        if kernel == "mont_mul" and len(args) <= MUL_COLS_ARG:  # an older checkout: one column a launch
+            widths[kernel][f"1 x {args[3]}"] += 1
+        elif kernel in WIDTH_ARG:
+            width = args[WIDTH_ARG[kernel]]
+            widths[kernel][f"{args[MUL_COLS_ARG]} x {width}" if kernel == "mont_mul" else width] += 1
         return launch(kernel, dev, *args)
 
     _build.launch = counted
@@ -1391,8 +1526,11 @@ def profile_prove(device, params=None, pk=None, warm: int = 1, mesh=None) -> Non
         + "; ".join(f"{k} {n} {us[k] / 1e3:.3f}" for k, n in ours.most_common()),
         flush=True,
     )
+    before = MONT_MUL_BEFORE["native" if mesh is None else "sharded"]
+    print(f"[profile]   mont_mul launches: {ours['mont_mul']} (before one launch a column batch: {before})", flush=True)
     print(
-        "[profile]   kernels by width (lanes or elements a launch: launches; the 6 most common): "
+        "[profile]   kernels by width (lanes or elements a launch, mont_mul columns x elements: launches; "
+        "the 6 most common): "
         + "; ".join(
             f"{k} " + ", ".join(f"{m}: {n}" for m, n in c.most_common(6))
             for k, c in sorted(widths.items(), key=lambda kv: -sum(kv[1].values()))
@@ -1852,6 +1990,91 @@ def _one_rank_mesh():
             yield make_mesh(1)
         finally:
             dist.destroy_process_group()
+
+
+def compare_kernels(device) -> None:
+    """The kernel times a comparison with an older checkout of the port
+    reads (scripts/torch_compare.sh, mode kernels), through calls both
+    trees have: mont_mul's device time per launch on a lone BN254 Fr column
+    at 2^11, 2^15 and 2^20 (b full width and one element), and at 2^11 and
+    2^15 the time a call (CUDA events around 200 back-to-back calls, host
+    dispatch included) of mont_mul and of DeviceField.mul; a stage of the
+    sharded W = 1 ladder (a strided view of 83 x 2^14 elements times a
+    (16, 1, 64) period through DeviceField.mul, as the ladder calls it), per
+    call and on the device summed over the call's launches of every kernel
+    (copies included); the flagship's
+    83 x 2^15 coset scale through poly.domain._mul_columns, per call (CUDA
+    events) and its device time summed over the call's launches; jac_horner
+    at every (c, lanes) of HORNER_CASES; jac_madd and jac_add, both
+    variants, at every JAC_SIZES width (_check_jac_kernels).  Run it from
+    the checkout's root with this file loaded by path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from halo2_tpu_torch.ec import cuda_jac
+    from halo2_tpu_torch.field.cuda_mul import mont_mul
+    from halo2_tpu_torch.field.device import get_device_field
+    from halo2_tpu_torch.field.params import BN254_FR
+    from halo2_tpu_torch.poly.domain import _mul_columns
+
+    spec = BN254_FR
+    df = get_device_field(spec)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    for n in TIMED_SIZES:
+        a, b = _random_field(spec, (n,), gen, device), _random_field(spec, (n,), gen, device)
+        one = _random_field(spec, (1,), gen, device)
+        for tag, bb in (("full", b), ("one element", one)):
+            t = _kernel_device_ms(lambda: mont_mul(spec, a, bb), "mont_mul_kernel", _bound(*_field_work(n)["mont_mul"])[0] / 2)
+            line = f"[compare] mont_mul bn254_fr n={n}, b {tag}: {t:.4f} ms on the device"
+            if n < TIMED_SIZES[-1]:
+                line += (
+                    f", {_ms_per_call(lambda: mont_mul(spec, a, bb), 200):.4f} ms a call of mont_mul, "
+                    f"{_ms_per_call(lambda: df.mul(a, bb), 200):.4f} ms a call of DeviceField.mul"
+                )
+            print(line, flush=True)
+
+    def launches_ms(fn, reps=5):
+        """(ms on the device a call, summed over every kernel it launched,
+        launches a call)."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize(device)
+        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        return sum(e.time_range.elapsed_us() for e in ev) / (reps * 1e3), len(ev) / reps
+
+    # the odd halves of 64-element pairs of blocks: a strided view, as the ladder passes it
+    half = _random_field(spec, (2 * SHARDED_LADDER[0],), gen, device).reshape(16, -1, 2, 64)[:, :, 1, :]
+    tw = _random_field(spec, (64,), gen, device).reshape(16, 1, 64)
+    dev_ms, n_launch = launches_ms(lambda: df.mul(half, tw))
+    print(
+        f"[compare] sharded ladder stage {_elems(SHARDED_LADDER[0])}, period 64 (DeviceField.mul): "
+        f"{_ms_per_call(lambda: df.mul(half, tw), 10):.4f} ms a call, {dev_ms:.4f} ms on the device "
+        f"in {n_launch:.0f} launches",
+        flush=True,
+    )
+    x = _random_field(spec, (FLAGSHIP_C, 1 << 15), gen, device).movedim(1, 0).contiguous()
+    coset = _random_field(spec, (1 << 15,), gen, device)
+    per_call = _ms_per_call(lambda: _mul_columns(spec, x, coset), 10)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            _mul_columns(spec, x, coset)
+        torch.cuda.synchronize(device)
+    launches = [e for e in prof.events() if "mont_mul_kernel" in e.name and e.device_type == torch.autograd.DeviceType.CUDA]
+    print(
+        f"[compare] {FLAGSHIP_C} x 2^15 coset scale (_mul_columns): {per_call:.4f} ms a call, "
+        f"{sum(e.time_range.elapsed_us() for e in launches) / 5e3:.4f} ms on the device in {len(launches) / 5:.0f} launches",
+        flush=True,
+    )
+    for c, batches in HORNER_CASES:
+        w_all = _horner_windows(device, c, -(-254 // c), max(batches))
+        for batch in batches:
+            w = w_all[:, :, :batch].contiguous()
+            nbytes, imads, chain = _horner_work(w, c)
+            t = _kernel_device_ms(lambda: cuda_jac.jac_horner_cuda(w, c), "jac_horner_kernel", _bound(nbytes, imads)[0])
+            print(f"[compare] jac_horner c={c} B={batch}: {t:.4f} ms on the device, {t * 1e3 / chain:.3f} us a chained product", flush=True)
+    _check_jac_kernels(device, {"jac_madd": 0.0, "jac_add": 0.0}, {})
 
 
 def profile_sharded_prove(device) -> None:

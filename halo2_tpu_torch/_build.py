@@ -105,11 +105,12 @@ def lib() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is None:
             handle = ctypes.CDLL(str(build()))
-            vp, i32 = ctypes.c_void_p, ctypes.c_int
+            vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             argtypes = {
-                "mont_mul": [vp, vp, vp, i32, i32, vp, vp],
+                "mont_mul": [vp, i64, vp, i64, i32, vp, i32, i32, i32, i32, i32, vp, vp],
                 "mont_sqr": [vp, vp, i32, vp, vp],
                 "mont_pow": [vp, vp, i32, vp, i32, vp, i32, vp],
+                "mul_chain": [vp, vp, vp, i32, vp, vp],
                 "ntt_small_stages": [vp, vp, i32, i32, vp, vp, i32, vp],
                 "ntt_large_stage": [vp, vp, i32, i32, i32, i32, vp, vp, i32, vp],
                 "jac_madd": [vp] * 9 + [i32, vp, i32, vp],

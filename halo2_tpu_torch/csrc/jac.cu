@@ -2,8 +2,8 @@
 // point and an affine point (jac_madd) and the complete Jacobian add
 // (jac_add), each in two variants: one thread per lane (wide) and four warps
 // per 32 lanes (narrow); and the Horner combine of the sharded MSM's window
-// sums in one launch (jac_horner, on the narrow machinery: its own note is
-// at jac_horner_kernel below).
+// sums in one launch (jac_horner, four threads of a warp a lane, its point
+// in registers: its own note is at jac_horner_kernel below).
 //
 // The two adds replace halo2_tpu/ec/pallas_jac.py:_madd_kernel and :_add_kernel.  They
 // compute the reference's canonical formulas, halo2_tpu/ec/device.py:
@@ -277,18 +277,11 @@ struct Slots {
 };
 
 // Where the narrow formulas read a point's coordinates (k = 0, 1, 2: x, y,
-// z): (16, ld) limb arrays in device memory at element i, or three
-// consecutive shared slots from base (the Horner's accumulator and window).
+// z): (16, ld) limb arrays in device memory at element i.
 struct GlobalPoint {
   const uint32_t* c[3];
   size_t ld, i;
   __device__ __forceinline__ void load(int k, uint32_t v[WORDS]) const { load_elem(c[k], ld, i, v); }
-};
-
-struct SlotPoint {
-  Slots S;
-  int base;
-  __device__ __forceinline__ void load(int k, uint32_t v[WORDS]) const { S.get(base + k, v); }
 };
 
 // The doubling's scratch slots, after each kernel's own (base).
@@ -297,8 +290,7 @@ enum DblSlot { D_A, D_B, D_C, D_T, D_F, D_X, D_Y, D_Z, D_SLOTS };
 // dbl-2009-l of P over the block's four warps, into slots out, out + 1 and
 // out + 2 (x, y, z): 3 levels of products (x^2, y^2, y z | b^2, (x + b)^2,
 // (3a)^2 | e (dd - x3)).  out must not be P's own slots: z3 is written in
-// the first level, and P's x is read again in the second (the Horner
-// alternates two sets of slots).
+// the first level, and P's x is read again in the second.
 template <class P>
 __device__ __forceinline__ void dbl_narrow(const Slots& S, int base, int out, int w, const P& pt,
                                            const Modulus& M) {
@@ -657,86 +649,213 @@ jac_add_narrow_kernel(const uint32_t* __restrict__ px, const uint32_t* __restric
 
 // ---------------------------------------------------------------- Horner
 // jac_horner: sum_i 2^(c i) w_i of a lane's window sums w_0 .. w_{W-1}, from
-// the top window down: c doublings, then the complete add, where
-// ec/device.py:_horner_device ran 21 field-op launches a doubling and one
-// jac_add launch a window.
+// the top window down: c doublings, then the complete add.
 //
 // Replaces halo2_tpu/ec/device.py:597-607, the reference's jax.lax.fori_loop
 // Horner inside _msm_raw (the sharded MSM's combine), which XLA compiles
 // into one device loop.  Same formulas as jac_double (dbl-2009-l) and
 // jac_add (add-2007-bl with its exceptions, P == Q doubled), every value
 // canonical, so the output equals the plain loop (ec/cuda_jac.py:
-// horner_plain) limb for limb, infinities' y included.
+// horner_plain) limb for limb, infinities' y included (every lane runs
+// every doubling, as the plain loop does).
 //
-// Design: the narrow machinery above, looped inside one block of four warps
-// per 32 lanes.  The accumulator lives in shared slots for the whole ladder
-// (two sets, alternated by the doublings), and each window sum is read once
-// from device memory, into three slots, by warps 0-2 right after the add
-// that precedes it.  A lane's chain is 3 products a doubling and 5 an add
-// (7 and 16 in one thread).  Every thread goes through every barrier of
-// the loop: lanes past m read no window (their slots hold 0, infinity, so
-// their sums stay where they are) and store nothing.
-//
-// What bounds it: at the sharded MSM's widths (m = 1 to ~40 lanes, one or
-// two blocks on 132 SMs) the chain of dependent products: at most W (3c +
-// 5) a lane, 32 (3 * 8 + 5) = 928 at c = 8, W = 32, when every window is
-// finite and none meets P == +-Q.  A lane needs no doubling before its
-// first finite window or after a sum that lands on infinity, and a P == Q
-// window needs the 6 products and 2 squares that find it (2 deep) and a
-// doubling, not the add as well.  The throughput bound, IMADs at 132 SMs x
-// 64 x 1.98 GHz (216 a square, 272 a product: c (5 * 216 + 2 * 272) a
-// needed doubling window, 4 * 216 + 12 * 272 a needed add) and the window
-// sums' bytes at 3.35 TB/s, is below a microsecond there.  chip_smoke.py
-// counts both from the data it checks (_horner_work) and prints them
-// beside the device time (PERF.md).
-enum HornerSlot { H_ACC0 = A_SLOTS + D_SLOTS, H_ACC1 = H_ACC0 + 3, H_W = H_ACC1 + 3, H_SLOTS = H_W + 3 };
+// What bounds it: at the sharded MSM's widths (1 to ~64 lanes, a warp or
+// a few on 132 SMs) the chain of dependent products, at most W (3c + 5) a
+// lane (928 at c = 8, W = 32); the throughput bound (IMADs and the window
+// sums' bytes, chip_smoke.py: _horner_work) is below a microsecond.  So
+// the design cuts what one chained product costs:
+// - a group of HORNER_GROUP = 4 threads of one warp a lane.  At each level
+//   of a formula every thread of the group runs the same product on the
+//   operands its rank in the group picks (selects, not branches, so the
+//   warp never diverges), and the group trades the results by
+//   __shfl_sync: a doubling's chain is 3 products, an add's 5, as on four
+//   warps, with no __syncthreads and no shared memory;
+// - the accumulator and the window in registers for the whole ladder (each
+//   thread holds the lane's point; the window is loaded at the top of its
+//   doublings, so the load overlaps them), no local-memory frame;
+// - the product is cc::mul.  A radix-2^26 product whose carries never
+//   chain measured slower in one thread (PERF.md): a chained product in
+//   one warp costs about its instruction count (320 SASS instructions, 120
+//   IMAD.WIDE, here; 608 and 200 there), not the carry chain's latency.
+// A block is one warp (8 lanes), so B lanes take ceil(B / 8) SMs.  The
+// P == Q doubling inside the add runs when some lane of the warp needs it
+// (__any_sync), every thread of the warp through the same shuffles.
+constexpr int HORNER_GROUP = 4;
+constexpr int HORNER_THREADS = 32;
+constexpr int HORNER_LANES = HORNER_THREADS / HORNER_GROUP;
 
-// Warp w < 3: coordinate w of window i of this lane into slot H_W + w (0 on
-// lanes past m).  The window sums are (3, 16, m, W): limb j of coordinate
-// k of lane b's window i at ((k * 16 + j) * m + b) * W + i.
-__device__ __forceinline__ void load_window(const Slots& S, const uint32_t* __restrict__ wsum, int w,
-                                            bool active, size_t m, int windows, size_t b, int i) {
-  uint32_t v[WORDS] = {};
-  const size_t ld = m * windows;
-  if (active) load_elem(wsum + static_cast<size_t>(w) * 16 * ld, ld, b * windows + i, v);
-  S.put(H_W + w, v);
+// r = v of the group's thread src, in every thread of the group.
+__device__ __forceinline__ void from(const uint32_t v[WORDS], int src, uint32_t r[WORDS]) {
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) r[k] = __shfl_sync(0xFFFFFFFFu, v[k], src, HORNER_GROUP);
 }
 
-__global__ void __launch_bounds__(NARROW_THREADS)
-jac_horner_kernel(const uint32_t* __restrict__ wsum, uint32_t* __restrict__ out, int m, int windows,
-                  int c, ModulusOne C) {
-  __shared__ uint32_t sh[H_SLOTS][WORDS][NARROW_LANES];
-  const int lane = threadIdx.x % NARROW_LANES, w = threadIdx.x / NARROW_LANES;
-  const size_t b = static_cast<size_t>(blockIdx.x) * NARROW_LANES + lane;
-  const bool active = b < static_cast<size_t>(m);
-  const Slots S{sh, lane};
-  uint32_t t[WORDS];
-  if (w < 3) {  // the accumulator starts at infinity (0, 1, 0)
+// r = v_g for this thread's rank g in its group.
+__device__ __forceinline__ void pick(int g, const uint32_t v0[WORDS], const uint32_t v1[WORDS],
+                                     const uint32_t v2[WORDS], const uint32_t v3[WORDS], uint32_t r[WORDS]) {
 #pragma unroll
-    for (int k = 0; k < WORDS; ++k) t[k] = w == 1 ? C.one[k] : 0;
-    S.put(H_ACC0 + w, t);
-    if (windows > 0) load_window(S, wsum, w, active, m, windows, b, windows - 1);
+  for (int k = 0; k < WORDS; ++k) r[k] = g == 0 ? v0[k] : g == 1 ? v1[k] : g == 2 ? v2[k] : v3[k];
+}
+
+// (x, y, z) = 2 (x, y, z), dbl-2009-l, over the group (g: this thread's
+// rank): x^2 | y^2 | y z, then b^2 | (x + b)^2 | (3a)^2, then e (dd - x3).
+__device__ __forceinline__ void dbl_group(int g, uint32_t x[WORDS], uint32_t y[WORDS], uint32_t z[WORDS],
+                                          const ModulusOne& K) {
+  const Modulus& M = K.M;
+  uint32_t u[WORDS], v[WORDS], pr[WORDS], a[WORDS], b[WORDS], yz[WORDS];
+  pick(g, x, y, y, x, u);
+  pick(g, x, y, z, x, v);
+  cc::mul(u, v, M, pr);
+  from(pr, 0, a);
+  from(pr, 1, b);
+  from(pr, 2, yz);
+  uint32_t e[WORDS], c[WORDS], f[WORDS], dd[WORDS];
+  cc::add(x, b, M, v);  // x + b
+  cc::dbl(a, M, e);
+  cc::add(e, a, M, e);  // e = 3a
+  pick(g, b, v, e, b, u);
+  cc::mul(u, u, M, pr);
+  from(pr, 0, c);  // c = b^2
+  from(pr, 1, v);  // (x + b)^2
+  from(pr, 2, f);  // f = e^2
+  cc::sub(v, a, M, v);
+  cc::sub(v, c, M, v);
+  cc::dbl(v, M, dd);  // dd = 2((x + b)^2 - a - c)
+  cc::dbl(dd, M, u);
+  cc::sub(f, u, M, x);  // x3 = f - 2 dd
+  cc::sub(dd, x, M, u);
+  cc::mul(e, u, M, pr);
+  cc::dbl(c, M, c);
+  cc::dbl(c, M, c);
+  cc::dbl(c, M, c);
+  cc::sub(pr, c, M, y);  // y3 = e (dd - x3) - 8c
+  cc::dbl(yz, M, z);     // z3 = 2 y z
+}
+
+// (x1, y1, z1) = (x1, y1, z1) + (x2, y2, z2) over the group, complete:
+// add-2007-bl in five levels of products (z1^2 | z2^2 | y1 z2 | y2 z1, u1 |
+// u2 | s1 | s2, h^2 | z1 z2 | rr^2, j | z3 | v, rr (v - x3) | s1 j) with
+// the exceptions of _jac_add_jnp: q at infinity gives p, p at infinity q,
+// P == Q the doubling of p, P == -Q (0, 1, 0).
+__device__ __forceinline__ void add_group(int g, uint32_t x1[WORDS], uint32_t y1[WORDS], uint32_t z1[WORDS],
+                                          const uint32_t x2[WORDS], const uint32_t y2[WORDS],
+                                          const uint32_t z2[WORDS], const ModulusOne& K) {
+  const Modulus& M = K.M;
+  uint32_t u[WORDS], v[WORDS], pr[WORDS];
+  uint32_t z1z1[WORDS], z2z2[WORDS], y1z2[WORDS], y2z1[WORDS];
+  pick(g, z1, z2, y1, y2, u);
+  pick(g, z1, z2, z2, z1, v);
+  cc::mul(u, v, M, pr);
+  from(pr, 0, z1z1);
+  from(pr, 1, z2z2);
+  from(pr, 2, y1z2);
+  from(pr, 3, y2z1);
+  uint32_t u1[WORDS], s1[WORDS], h[WORDS], rd[WORDS];
+  pick(g, x1, x2, y1z2, y2z1, u);
+  pick(g, z2z2, z1z1, z2z2, z1z1, v);
+  cc::mul(u, v, M, pr);
+  from(pr, 0, u1);
+  from(pr, 1, h);   // u2
+  from(pr, 2, s1);
+  from(pr, 3, rd);  // s2
+  cc::sub(h, u1, M, h);    // h = u2 - u1
+  cc::sub(rd, s1, M, rd);  // r = s2 - s1
+  uint32_t rr[WORDS], hh[WORDS], zz[WORDS], rr2[WORDS];
+  cc::dbl(rd, M, rr);
+  pick(g, h, z1, rr, h, u);
+  pick(g, h, z2, rr, h, v);
+  cc::mul(u, v, M, pr);
+  from(pr, 0, hh);
+  from(pr, 1, zz);   // z1 z2
+  from(pr, 2, rr2);  // rr^2
+  uint32_t i4[WORDS], j[WORDS], z3[WORDS], vv[WORDS];
+  cc::dbl(hh, M, i4);
+  cc::dbl(i4, M, i4);
+  cc::dbl(zz, M, zz);
+  pick(g, h, zz, u1, h, u);
+  pick(g, i4, h, i4, i4, v);
+  cc::mul(u, v, M, pr);
+  from(pr, 0, j);    // j = h i
+  from(pr, 1, z3);   // z3 = 2 z1 z2 h
+  from(pr, 2, vv);   // v = u1 i
+  uint32_t x3[WORDS], y3[WORDS];
+  cc::sub(rr2, j, M, x3);
+  cc::dbl(vv, M, u);
+  cc::sub(x3, u, M, x3);  // x3 = rr^2 - j - 2v
+  cc::sub(vv, x3, M, v);
+  pick(g, rr, s1, rr, rr, u);
+  pick(g, v, j, v, v, v);
+  cc::mul(u, v, M, pr);
+  from(pr, 0, y3);  // rr (v - x3)
+  from(pr, 1, u);   // s1 j
+  cc::dbl(u, M, u);
+  cc::sub(y3, u, M, y3);  // y3 = rr (v - x3) - 2 s1 j
+  const bool q_inf = is_zero(z2), p_inf = is_zero(z1);
+  const bool h_zero = is_zero(h), r_zero = is_zero(rd);
+  const bool same = !q_inf && !p_inf && h_zero && r_zero;
+  uint32_t dx[WORDS], dy[WORDS], dz[WORDS];
+  if (__any_sync(0xFFFFFFFFu, same)) {  // uniform over the warp: the shuffles need every thread
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) {
+      dx[k] = x1[k];
+      dy[k] = y1[k];
+      dz[k] = z1[k];
+    }
+    dbl_group(g, dx, dy, dz, K);
   }
-  __syncthreads();
-  int acc = H_ACC0;
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {
+    if (q_inf) continue;  // p
+    if (p_inf) {  // q
+      x1[k] = x2[k];
+      y1[k] = y2[k];
+      z1[k] = z2[k];
+    } else if (h_zero && r_zero) {  // P == Q
+      x1[k] = dx[k];
+      y1[k] = dy[k];
+      z1[k] = dz[k];
+    } else if (h_zero) {  // P == -Q: infinity (0, 1, 0)
+      x1[k] = 0;
+      y1[k] = K.one[k];
+      z1[k] = 0;
+    } else {
+      x1[k] = x3[k];
+      y1[k] = y3[k];
+      z1[k] = z3[k];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(HORNER_THREADS)
+jac_horner_kernel(const uint32_t* __restrict__ wsum, uint32_t* __restrict__ out, int m, int windows,
+                  int c, ModulusOne K) {
+  const int g = threadIdx.x % HORNER_GROUP;
+  const size_t b = static_cast<size_t>(blockIdx.x) * HORNER_LANES + threadIdx.x / HORNER_GROUP;
+  const bool active = b < static_cast<size_t>(m);
+  // the window sums are (3, 16, m, W): limb j of coordinate k of lane b's
+  // window i at ((k * 16 + j) * m + b) * W + i
+  const size_t ld = static_cast<size_t>(m) * windows;
+  uint32_t x[WORDS], y[WORDS], z[WORDS];  // the accumulator, from infinity (0, 1, 0)
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {
+    x[k] = 0;
+    y[k] = K.one[k];
+    z[k] = 0;
+  }
   for (int i = windows - 1; i >= 0; --i) {
-    for (int d = 0; d < c; ++d) {
-      const int next = acc == H_ACC0 ? H_ACC1 : H_ACC0;
-      dbl_narrow(S, A_SLOTS, next, w, SlotPoint{S, acc}, C.M);
-      acc = next;
+    uint32_t wx[WORDS] = {}, wy[WORDS] = {}, wz[WORDS] = {};  // lanes past m: infinity
+    if (active) {
+      load_elem(wsum, ld, b * windows + i, wx);
+      load_elem(wsum + 16 * ld, ld, b * windows + i, wy);
+      load_elem(wsum + 32 * ld, ld, b * windows + i, wz);
     }
-    const int next = acc == H_ACC0 ? H_ACC1 : H_ACC0;
-    add_narrow(S, w, SlotPoint{S, acc}, SlotPoint{S, H_W}, active, C, t);
-    if (w < 3) {  // each warp reads and writes only coordinate w here
-      S.put(next + w, t);
-      if (i > 0) load_window(S, wsum, w, active, m, windows, b, i - 1);
-    }
-    acc = next;
-    __syncthreads();
+    for (int d = 0; d < c; ++d) dbl_group(g, x, y, z, K);
+    add_group(g, x, y, z, wx, wy, wz, K);
   }
-  if (active && w < 3) {
-    S.get(acc + w, t);
-    store_elem(out + static_cast<size_t>(w) * 16 * m, m, b, t);
+  if (active && g < 3) {
+    uint32_t r[WORDS];
+    pick(g, x, y, z, z, r);
+    store_elem(out + static_cast<size_t>(g) * 16 * m, m, b, r);
   }
 }
 
@@ -781,7 +900,7 @@ extern "C" int h2t_jac_horner(const void* wsum, void* out, int m, int windows, i
                               const void* consts, void* stream) {
   if (m <= 0 || windows < 0 || c < 0) return static_cast<int>(cudaErrorInvalidValue);
   const ModulusOne C = modulus_one_from_host(static_cast<const uint32_t*>(consts));
-  jac_horner_kernel<<<(m + NARROW_LANES - 1) / NARROW_LANES, NARROW_THREADS, 0,
+  jac_horner_kernel<<<(m + HORNER_LANES - 1) / HORNER_LANES, HORNER_THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(wsum), static_cast<uint32_t*>(out), m, windows, c, C);
   return static_cast<int>(cudaGetLastError());

@@ -6,11 +6,14 @@ The kernels (``csrc/mont_mul.cu``) replace
 ``halo2_tpu/field/pallas_mul.py:_mont_mul_kernel`` and ``_mont_sqr_kernel``,
 and (``mont_pow``, a whole square-and-multiply ladder in one launch) the
 reference's ``lax.scan`` power, ``halo2_tpu/field/device.py:239-253``.
+:func:`mont_mul_columns` multiplies a ``(C, 16, n)`` batch of columns by a
+full-width, shared or periodic b in one launch, as the reference's
+``mont_mul`` takes any batch shape in one call.
 Field arrays are ``(16, *batch)`` int32 tensors of 16-bit limbs, Montgomery
 form, canonical (< p): the reference's ``uint32`` numbers held in int32.
 
-:func:`mont_mul` (:func:`mont_sqr`, :func:`mont_pow`) runs
-:func:`mont_mul_plain` (:func:`mont_sqr_plain`, :func:`mont_pow_plain`) for
+:func:`mont_mul_columns` (:func:`mont_sqr`, :func:`mont_pow`) runs
+:func:`mont_mul_columns_plain` (:func:`mont_sqr_plain`, :func:`mont_pow_plain`) for
 a CPU tensor and launches the kernel for a CUDA tensor; there is no
 fallback between the two.  ``LAUNCHES`` counts kernel launches by name.
 """
@@ -203,32 +206,91 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
 
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product of ``(16, *batch)`` a and b (b full width, or one
-    broadcast element).  CPU tensors: plain version; CUDA tensors: kernel."""
+    broadcast element): :func:`mont_mul_columns` over the flat ``(16, m)``
+    form.  CPU tensors: plain version; CUDA tensors: one kernel launch."""
     _check(a, b)
+    flat, b = a.reshape(L, -1), b.reshape(L, -1)
     if a.device.type == "cpu":
-        return mont_mul_plain(spec, a, b)
-    return _mont_mul_into(spec, a, b, torch.empty_like(a))
+        return mont_mul_columns_plain(spec, flat, b).reshape(a.shape)
+    return _launch(spec, flat, b, torch.empty_like(a)).reshape(a.shape)
 
 
-def _mont_mul_into(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """:func:`mont_mul` written to ``out`` (contiguous, a's shape, dtype and
-    device), for callers that fill one column of a batch; CPU tensors: the
-    plain version copied in."""
-    _check(a, b)
-    if out.shape != a.shape or out.dtype != a.dtype or out.device != a.device or not out.is_contiguous():
-        raise ValueError(f"mont_mul: out must be a contiguous int32 {tuple(a.shape)} on {a.device}")
+def _columns(a: torch.Tensor) -> tuple[int, int]:
+    """(C, n) of a ``(16, n)`` or ``(C, 16, n)`` column batch."""
+    return (1 if a.dim() == 2 else a.shape[0]), a.shape[-1]
+
+
+def _check_columns(a: torch.Tensor, b: torch.Tensor) -> None:
+    """Raise unless a is a ``(16, n)`` or ``(C, 16, n)`` int32 batch whose
+    columns are each contiguous, and b is a's shape (each column
+    contiguous) or a contiguous ``(16, P)`` with P dividing n."""
+    for name, x in (("a", a), ("b", b)):
+        if x.dtype != torch.int32:
+            raise TypeError(f"mont_mul: {name} must be int32, got {x.dtype}")
+    if a.dim() not in (2, 3) or a.shape[-2] != L:
+        raise ValueError(f"mont_mul: a must be (16, n) or (C, 16, n), got {tuple(a.shape)}")
+    n = a.shape[-1]
+    if a.stride()[-2:] != (n, 1) and a.numel():
+        raise ValueError("mont_mul: each column of a must be contiguous")
+    if b.shape == a.shape:
+        if b.stride()[-2:] != (n, 1) and b.numel():
+            raise ValueError("mont_mul: each column of b must be contiguous")
+    elif b.dim() != 2 or b.shape[0] != L or b.shape[1] == 0 or n % b.shape[1] or not b.is_contiguous():
+        raise ValueError(
+            f"mont_mul: b must match a {tuple(a.shape)} or be a contiguous (16, P) with P dividing {n}, "
+            f"got {tuple(b.shape)}"
+        )
+    if a.device != b.device:
+        raise ValueError(f"mont_mul: a on {a.device}, b on {b.device}")
+
+
+def mont_mul_columns_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`mont_mul_columns` in int64 torch ops: b tiled to full width,
+    then :func:`mont_mul_plain` over every column at once."""
+    cols, n = _columns(a)
+    b_cols = cols if b.shape == a.shape else 1
+    if b.shape != a.shape:
+        b = b.repeat(1, n // b.shape[1])  # (16, n): element j meets b[:, j mod P]
+    a3 = a.reshape(cols, L, n).permute(1, 0, 2)
+    b3 = b.reshape(b_cols, L, n).permute(1, 0, 2)
+    return mont_mul_plain(spec, a3, b3).permute(1, 0, 2).reshape(a.shape).contiguous()
+
+
+def mont_mul_columns(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product of every column of a ``(16, n)`` or ``(C, 16, n)``
+    batch a (each column contiguous, any column stride) with b: full width
+    (a's shape), or a contiguous ``(16, P)``, P dividing n, that every column
+    shares, element j meeting ``b[:, j mod P]`` (P = n: one (16, n) for all
+    columns; P = 1: one element; P = m: a stage ladder's twiddles).  Returns
+    a contiguous tensor of a's shape.  CPU tensors: the plain version; CUDA
+    tensors: one kernel launch for all C columns."""
+    _check_columns(a, b)
     if a.device.type == "cpu":
-        return out.copy_(mont_mul_plain(spec, a, b))
+        return mont_mul_columns_plain(spec, a, b)
+    return _launch(spec, a, b, torch.empty(a.shape, dtype=a.dtype, device=a.device))
+
+
+def _launch(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """One ``mont_mul`` launch of a checked column batch (a and b as
+    :func:`mont_mul_columns` takes them) into a contiguous ``out`` of a's
+    shape."""
     if a.device.type != "cuda":
         raise ValueError(f"mont_mul: unsupported device {a.device}")
     from .. import _build
 
-    m = a.numel() // L
-    if m == 0:
+    cols, n = _columns(a)
+    if n == 0 or cols == 0:
         return out
+    a_cs = a.stride(0) if a.dim() == 3 else L * n
+    full = b.shape == a.shape
+    b_cs = (b.stride(0) if b.dim() == 3 else L * n) if full else 0
+    period = n if full else b.shape[1]
+    # four elements a thread (16-byte loads) need n % 4 == 0 and aligned columns
+    vec = n % 4 == 0 and a.data_ptr() % 16 == 0 and a_cs % 4 == 0 and out.data_ptr() % 16 == 0
+    bvec = vec and period % 4 == 0 and b.data_ptr() % 16 == 0 and b_cs % 4 == 0
     _build.launch(
-        "mont_mul", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), m,
-        int(b.numel() == L), modulus_words(spec).ctypes.data,
+        "mont_mul", a.device, a.data_ptr(), a_cs, b.data_ptr(), b_cs, period, out.data_ptr(), n, cols,
+        int(vec), int(bvec), ARITH[arith(spec)], modulus_words(spec).ctypes.data,
     )
     LAUNCHES["mont_mul"] += 1
     return out
@@ -284,4 +346,37 @@ def mont_pow(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
         e.bit_length(), modulus_one_words(spec).ctypes.data, ARITH[arith(spec)],
     )
     LAUNCHES["mont_pow"] += 1
+    return out
+
+
+# ------------------------------------------------- chained-product latency
+def mul_chain_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
+    """x <- x * b, ``iters`` times from x = a, in :func:`mont_mul_plain`."""
+    x = a
+    for _ in range(iters):
+        x = mont_mul_plain(spec, x, b)
+    return x.clone() if x is a else x
+
+
+def mul_chain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
+    """A measurement of one chained product's latency: ``iters`` Montgomery
+    products x <- x * b from x = a (one ``(16, 1)`` element each) in one
+    thread of the ``mul_chain`` kernel, with the curve kernels' and the
+    ladders' product (``csrc/field_cc.cuh``'s carry chains); its device time
+    over ``iters`` is one product's chain.  CPU tensors:
+    :func:`mul_chain_plain`.  On no prove path, so ``LAUNCHES`` does not
+    count it."""
+    check_limbs("mul_chain", a=a, b=b)
+    if a.shape != (L, 1) or b.shape != (L, 1):
+        raise ValueError(f"mul_chain: a and b must be (16, 1), got {tuple(a.shape)}, {tuple(b.shape)}")
+    if iters < 0:
+        raise ValueError(f"mul_chain: iters must be >= 0, got {iters}")
+    if a.device.type == "cpu":
+        return mul_chain_plain(spec, a, b, iters)
+    if a.device.type != "cuda":
+        raise ValueError(f"mul_chain: unsupported device {a.device}")
+    from .. import _build
+
+    out = torch.empty_like(a)
+    _build.launch("mul_chain", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), iters, modulus_words(spec).ctypes.data)
     return out

@@ -6,7 +6,8 @@ A *field array* keeps the reference's layout: ``(16, *batch)`` little-endian
 2^16, so the numbers are the reference's ``uint32`` ones, and torch's
 ``uint32`` lacks the CPU ops the plain arithmetic needs.
 
-``mul`` and ``square`` go to :func:`.cuda_mul.mont_mul` and
+``mul`` and ``square`` go to :func:`.cuda_mul.mont_mul` (a periodic
+broadcast to :func:`.cuda_mul.mont_mul_columns`) and
 :func:`.cuda_mul.mont_sqr`, ``add``/``sub``/``neg``/``double`` to
 :func:`.cuda_ops.mod_add`, :func:`.cuda_ops.mod_sub` and
 :func:`.cuda_ops.mod_neg`, ``pow_fixed``/``inv`` to
@@ -18,15 +19,28 @@ a CUDA tensor, their plain versions (int64 torch ops) for a CPU tensor.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
-from .cuda_mul import mont_mul, mont_pow, mont_sqr
+from .cuda_mul import mont_mul, mont_mul_columns, mont_pow, mont_sqr
 from .cuda_ops import mod_add, mod_neg, mod_sub
 from .params import FieldSpec, LIMB_BITS, LIMB_MASK, NUM_LIMBS, to_limbs
 
 L = NUM_LIMBS
+
+
+def _period(shape: tuple, full: tuple):
+    """P when a ``shape`` operand broadcasts against ``full`` as a
+    ``(16, P)`` period of the flat form (its batch axes, leading 1s
+    dropped, are full's last ones; P their product), else None."""
+    tail = list(shape[1:])
+    while tail and tail[0] == 1:
+        tail.pop(0)
+    if tuple(tail) != tuple(full[len(full) - len(tail):]):
+        return None
+    return math.prod(tail)
 
 
 def _col(limbs_list) -> np.ndarray:
@@ -96,9 +110,32 @@ class DeviceField:
 
     def mul(self, a, b):
         """Montgomery product a * b * R^-1 mod p, broadcasting as the
-        reference's ``_bcast``.  A one-element operand stays a broadcast
-        column for the kernel; any other broadcast is materialized."""
-        return mont_mul(self.spec, *self._operands(a, b, swap=True))
+        reference's ``_bcast``, in one launch over the flat ``(16, m)``
+        form.  Equal shapes and a one-element operand go straight to
+        :func:`.cuda_mul.mont_mul`.  An operand that broadcasts only along
+        leading batch axes, ``(16, 1, ..., 1, *tail)`` against a full
+        ``(16, ..., *tail)`` (a stage ladder's ``(16, 1, ..., m)``
+        twiddles), stays a ``(16, prod(tail))`` period for the kernel; any
+        other broadcast is materialized."""
+        if a.shape != b.shape:
+            if a.numel() == L and a.dim() <= b.dim():
+                a, b = b, a
+            if b.numel() != L or b.dim() > a.dim():
+                return self._mul_broadcast(a, b)
+        return mont_mul(self.spec, a.contiguous(), b.contiguous())
+
+    def _mul_broadcast(self, a, b):
+        full = (L,) + tuple(torch.broadcast_shapes(a.shape[1:], b.shape[1:]))
+        if math.prod(full) == 0:
+            return torch.empty(full, dtype=torch.int32, device=a.device)
+        if tuple(a.shape) != full:
+            a, b = b, a
+        period = _period(tuple(b.shape), full) if tuple(a.shape) == full else None
+        if period is None:
+            a, b = a.expand(full), b.expand(full)
+            period = math.prod(full[1:])
+        flat = a.contiguous().reshape(L, -1)
+        return mont_mul_columns(self.spec, flat, b.contiguous().reshape(L, period)).reshape(full)
 
     def square(self, a):
         return mont_sqr(self.spec, a.contiguous())

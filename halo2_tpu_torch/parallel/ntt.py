@@ -83,7 +83,7 @@ def sharded_ntt(mesh, spec: FieldSpec, x: torch.Tensor, inverse: bool = False, a
     t = _ntt_unscaled(spec, m.permute(0, 3, 1, 2).reshape(cols * b, 16, n1).contiguous(), inverse)
     # 2. twiddles, limbs leading: (cols, 16, b [jj], n1 [k1])
     t = t.reshape(cols, b, 16, n1).permute(0, 2, 1, 3).contiguous()
-    t = _mul_columns(spec, t, _twiddle_block(spec, n, inverse, shards, s, x.device))
+    t = _mul_columns(spec, t.reshape(cols, 16, b * n1), _twiddle_block(spec, n, inverse, shards, s, x.device))
     # 3. block q of the rows k1 goes to rank q; block q received holds q's columns
     send = t.reshape(cols, 16, b, shards, r).permute(3, 0, 1, 2, 4)
     recv = comm.all_to_all(mesh, axis, send.contiguous())  # (shards [src], cols, 16, b, r)

@@ -7,7 +7,8 @@ of a (C, 16, n) batch at once.  For n >= TILE (512) the stages run through
 the CUDA kernels of :mod:`.cuda_ntt` (their plain versions on the CPU); a
 smaller n runs the stage ladder of ``mul``/``add``/``sub``, as the reference
 splits at the same size.  Tensors that the transforms need (bit-reversal
-index, twiddle table, n^-1, coset powers) are cached per device.
+index, twiddle table, the ladder's stage twiddles, n^-1, coset powers) are
+cached per device.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import functools
 import numpy as np
 import torch
 
-from ..field.cuda_mul import _mont_mul_into
+from ..field.cuda_mul import mont_mul_columns
 from ..field.device import get_device_field
 from ..field.params import FieldSpec
 from .cuda_ntt import TILE, ntt_stages
@@ -60,6 +61,14 @@ def twiddle_table(spec: FieldSpec, n: int, inverse: bool, device: torch.device) 
 
 
 @functools.lru_cache(maxsize=None)
+def _stage_twiddle_tensors(spec: FieldSpec, n: int, inverse: bool, device: torch.device) -> tuple:
+    """:func:`_stage_twiddles` as (16, m) int32 tensors on ``device``, made
+    once per (spec, n, direction, device), so a stage ladder copies nothing
+    from the host."""
+    return tuple(torch.from_numpy(tw.view(np.int32)).to(device) for tw in _stage_twiddles(spec, n, inverse))
+
+
+@functools.lru_cache(maxsize=None)
 def _rev_index(n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_bit_reverse_perm(n).astype(np.int64)).to(device)
 
@@ -70,15 +79,11 @@ def _n_inv(spec: FieldSpec, n: int, device: torch.device) -> torch.Tensor:
 
 
 def _mul_columns(spec: FieldSpec, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x * b for a (16, n) x, or for each column of a (C, 16, n) x (one
-    Montgomery launch a column, into one batch tensor); b is (16, n) or one
-    (16, 1) element."""
-    if x.dim() == 2:
-        return get_device_field(spec).mul(x, b)
-    out = torch.empty_like(x)
-    for c in range(x.shape[0]):
-        _mont_mul_into(spec, x[c], b, out[c])
-    return out
+    """x * b for each column of a (*lead, 16, n) x, all columns in one
+    Montgomery launch; b is one (16, n) for every column, or a (16, P)
+    period (P = 1: one element)."""
+    cols = x.reshape(-1, 16, x.shape[-1])
+    return mont_mul_columns(spec, cols, b.reshape(16, -1)).reshape(x.shape)
 
 
 def _ntt_unscaled(spec: FieldSpec, x: torch.Tensor, inverse: bool) -> torch.Tensor:
@@ -96,11 +101,10 @@ def _ntt_unscaled(spec: FieldSpec, x: torch.Tensor, inverse: bool) -> torch.Tens
     lead = x.shape[:-2]
     x = x.movedim(-2, 0)  # limbs first, as the field ops take them
     m = 1
-    for tw in _stage_twiddles(spec, n, inverse):
+    for tw in _stage_twiddle_tensors(spec, n, inverse, device):
         v = x.reshape(16, *lead, n // (2 * m), 2, m)
         a = v[..., 0, :]
-        tw_t = torch.from_numpy(tw.view(np.int32)).to(device)
-        b = df.mul(v[..., 1, :], tw_t.reshape(16, *(1,) * (len(lead) + 1), m))
+        b = df.mul(v[..., 1, :], tw.reshape(16, *(1,) * (len(lead) + 1), m))  # tw: a period of m
         x = torch.stack([df.add(a, b), df.sub(a, b)], dim=-2).reshape(16, *lead, n)
         m *= 2
     return x.movedim(0, -2).contiguous()

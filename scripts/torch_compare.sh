@@ -8,11 +8,22 @@
 # the end-to-end numbers are printed.  Last, warm native-commit proves
 # (chip_smoke.time_proves, five a process) from each tree in turns: old,
 # new, new, old, old, new.  With "proves" as the third argument only those
-# run.  From the repository root:
+# run; with "kernels", chip_smoke.compare_kernels (kernel device times
+# through calls both trees have) in turns old / new / new / old, then one
+# profiled warm native-commit and one W = 1 sharded prove from each tree
+# (profile_prove, profile_sharded_prove), then the proves.  From the
+# repository root:
 #
 #   git archive <commit> | tar -x -C .chip_scratch/parent   # a gitignored dir
-#   bash scripts/torch_compare.sh .chip_scratch/parent [log dir] [proves]
+#   bash scripts/torch_compare.sh .chip_scratch/parent [log dir] [proves|kernels]
 set -u
+RUNS="parent1 change1 change2 parent2"
+MODE=${3:-}
+case $MODE in
+  '') ;;
+  proves|kernels) RUNS="" ;;
+  *) echo "unknown mode $MODE (proves or kernels)" >&2; exit 2 ;;
+esac
 ROOT=$(cd "$(dirname "$0")/.." && pwd)
 OLD=$(cd "$1" && pwd)
 OUT=${2:-$ROOT/.chip_scratch/compare}
@@ -20,8 +31,6 @@ mkdir -p "$OUT"
 OUT=$(cd "$OUT" && pwd)
 cd "$ROOT"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
-RUNS="parent1 change1 change2 parent2"
-[ "${3:-}" = proves ] && RUNS=""
 for run in $RUNS; do
   t0=$(date +%s)
   case $run in
@@ -35,13 +44,26 @@ PROF="import importlib.util
 s = importlib.util.spec_from_file_location('chip_smoke_new', '$ROOT/chip_smoke.py')
 m = importlib.util.module_from_spec(s); s.loader.exec_module(m)
 m.profile_prove(m.phase_device())"
-if [ -n "$RUNS" ]; then
+PROVES=${PROF/profile_prove/time_proves}
+if [ "$MODE" = kernels ]; then
+  KERN=${PROF/profile_prove/compare_kernels}
+  for run in parent1 change1 change2 parent2; do
+    case $run in
+      parent*) (cd "$OLD" && timeout 600 python3 -c "$KERN" > "$OUT/kernels_$run.log" 2>&1); rc=$? ;;
+      change*) timeout 600 python3 -c "$KERN" > "$OUT/kernels_$run.log" 2>&1; rc=$? ;;
+    esac
+    echo "kernels $run rc=$rc"
+    grep -E "^\[compare\]|jac_(madd|add) m=1048576 (wide|narrow)" "$OUT/kernels_$run.log" | cut -c1-300
+  done
+  PROF="$PROF
+m.profile_sharded_prove(m.phase_device())"
+fi
+if [ -n "$RUNS" ] || [ "$MODE" = kernels ]; then
   (cd "$OLD" && timeout 300 python3 -c "$PROF" > "$OUT/profile_parent.log" 2>&1; echo "profile parent rc=$?")
   grep profile "$OUT/profile_parent.log" | cut -c1-1500
   timeout 300 python3 -c "$PROF" > "$OUT/profile_change.log" 2>&1; echo "profile change rc=$?"
   grep profile "$OUT/profile_change.log" | cut -c1-1500
 fi
-PROVES=${PROF/profile_prove/time_proves}
 i=0
 for run in parent change change parent parent change; do
   i=$((i + 1))

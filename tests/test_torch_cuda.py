@@ -215,6 +215,88 @@ def test_jac_horner_kernel_matches_plain(device, batch, flag_reads):
     assert cuda_jac.LAUNCHES["jac_horner"] == before + 2
 
 
+@pytest.mark.parametrize(
+    "c, windows, batch", [(8, 32, 20), (12, 22, 1), (4, 64, 1), (4, 64, 8), (4, 64, 20)]
+)
+def test_jac_horner_kernel_matches_plain_at_every_path_shape(device, c, windows, batch):
+    """The Horner at the shapes of the sharded MSM 2^16 at W = 2 (c = 12)
+    and the dryrun checks (c = 4, 64 windows) and the flagship's widest
+    commit batch, equal to the plain loop limb for limb."""
+    w = _window_stack(batch, windows, c, device)
+    got = cuda_jac.jac_horner_cuda(w, c)
+    torch.cuda.synchronize(device)
+    want = cuda_jac.horner_plain(w, c)
+    for k in ("x", "y", "z"):
+        assert torch.equal(got[k], want[k]), k
+
+
+def _columns(spec, cols, n, seed, device):
+    return torch.stack([_encoded(spec, n, seed + i, device) for i in range(cols)])
+
+
+@pytest.mark.parametrize("spec", [BN254_FR, BN254_FQ, PASTA_FP], ids=lambda s: s.name)
+@pytest.mark.parametrize(
+    "case",
+    ["83x2^15 shared", "1x2^11 one", "ladder P=1", "ladder P=2", "ladder P=32", "ladder P=128",
+     "sharded ladder 83x2^14", "sharded ladder 83x2^13", "3x2^11 full", "strided", "ragged",
+     "ragged 131x1001"],
+)
+def test_mont_mul_columns_kernel_matches_plain(device, spec, case):
+    """The batched product in one launch at the main paths' shapes: the
+    flagship's coset scale, an iNTT's n^-1, the stage ladders of a 2^15
+    column (2^14 elements, twiddles of period P), the sharded flagship's
+    ladder stages (83 columns of 2^15 a transform, 83 x 2^14 elements a
+    stage at W = 1 and 83 x 2^13 a rank at W = 2, four elements a thread,
+    every P = 1 .. 128), a full-width batch, strided columns, and a ragged
+    n, small and past the four-element threshold (one element a thread)."""
+    if case.startswith("sharded ladder"):
+        a = _encoded(spec, 83 << int(case[-2:]), 10, device)
+        for lp in range(8):
+            b = _encoded(spec, 1 << lp, 9 + lp, device)
+            before = cuda_mul.LAUNCHES["mont_mul"]
+            got = cuda_mul.mont_mul_columns(spec, a, b)
+            torch.cuda.synchronize(device)
+            assert cuda_mul.LAUNCHES["mont_mul"] == before + 1
+            assert torch.equal(got, cuda_mul.mont_mul_columns_plain(spec, a, b)), 1 << lp
+        return
+    if case == "83x2^15 shared":
+        a, b = _columns(spec, 83, 1 << 15, 10, device), _encoded(spec, 1 << 15, 9, device)
+    elif case == "1x2^11 one":
+        a, b = _encoded(spec, 1 << 11, 10, device), _encoded(spec, 1, 9, device)
+    elif case.startswith("ladder"):
+        period = int(case[len("ladder P="):])
+        a, b = _encoded(spec, 1 << 14, 10, device), _encoded(spec, period, 9, device)
+    elif case == "3x2^11 full":
+        a, b = _columns(spec, 3, 1 << 11, 10, device), _columns(spec, 3, 1 << 11, 20, device)
+    elif case == "strided":
+        a = _columns(spec, 5, 1 << 11, 10, device)[::2]
+        b = _columns(spec, 5, 1 << 11, 20, device)[::2]
+    elif case == "ragged":
+        a, b = _columns(spec, 3, 1001, 10, device), _encoded(spec, 1001, 9, device)
+    else:
+        a, b = _columns(spec, 131, 1001, 10, device), _encoded(spec, 1001, 9, device)
+    before = cuda_mul.LAUNCHES["mont_mul"]
+    got = cuda_mul.mont_mul_columns(spec, a, b)
+    torch.cuda.synchronize(device)
+    assert cuda_mul.LAUNCHES["mont_mul"] == before + 1
+    assert torch.equal(got, cuda_mul.mont_mul_columns_plain(spec, a, b))
+
+
+@pytest.mark.parametrize("spec", [BN254_FR, BN254_FQ, PASTA_FP], ids=lambda s: s.name)
+def test_mul_chain_products_match_python_ints(device, spec):
+    """The kernels' Montgomery product (carry chains) chained 1000 times in
+    one thread equals Python ints."""
+    df = get_device_field(spec)
+    av, bv = random.Random(1).randrange(spec.p), random.Random(2).randrange(spec.p)
+    a = df.encode([av], to_mont=False, device=device)
+    b = df.encode([bv], to_mont=False, device=device)
+    want, rinv = av, pow(1 << 256, -1, spec.p)
+    for _ in range(1000):
+        want = want * bv * rinv % spec.p
+    got = cuda_mul.mul_chain(spec, a, b, 1000)
+    assert df.decode(got.cpu(), from_mont=False) == [want]
+
+
 @pytest.mark.parametrize("spec", [BN254_FR, BN254_FQ, PASTA_FP], ids=lambda s: s.name)
 @pytest.mark.parametrize("m", [1, 1 << 10, 1 << 16])
 def test_mont_pow_kernel_matches_plain(device, spec, m):

@@ -156,25 +156,6 @@ def test_arith_switch_is_by_modulus_size():
     assert arith == ["cc", "cc", "wide", "wide"]
 
 
-def test_mont_mul_into_fills_one_column_of_a_batch():
-    """The batched transforms' per-column product writes into its slot of
-    the batch and nowhere else, and refuses an out it cannot fill."""
-    from halo2_tpu_torch.field.cuda_mul import _mont_mul_into, mont_mul
-
-    df = port_field(BN254_FR)
-    rng = random.Random(3)
-    batch = torch.stack([df.encode([rng.randrange(P) for _ in range(8)]) for _ in range(3)])
-    b = df.encode([rng.randrange(P)])
-    out = torch.zeros_like(batch)
-    assert _mont_mul_into(BN254_FR, batch[1], b, out[1]) is not None
-    assert torch.equal(out[1], mont_mul(BN254_FR, batch[1], b))
-    assert not out[0].any() and not out[2].any()
-    with pytest.raises(ValueError):
-        _mont_mul_into(BN254_FR, batch[1], b, out[1][:, :4])
-    with pytest.raises(ValueError):
-        _mont_mul_into(BN254_FR, batch[1], b, out.transpose(1, 2)[1])
-
-
 @pytest.mark.parametrize("k", [5, 9])
 def test_coeff_to_extended_many_matches_reference_domain(k):
     """TorchEngine's one batched pad + coset scale + NTT over three columns
