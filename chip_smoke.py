@@ -23,7 +23,10 @@ passes or raises:
    {1, 3, 83} at n in {2^11, 2^15}, C = 1 at 2^9 and 2^20; 83 is the
    flagship's coset batch), the large stages one a launch and as the passes
    of large_stage_plan(n) (several stages a launch), and the batched
-   iNTT(NTT(x)) == x; each NTT kernel's device time per launch (each pass
+   iNTT(NTT(x)) == x; ntt_small_stages below 512 points (the whole
+   transform, natural order in) at n = 1 .. 256 for C = 1 and 3 and at the
+   local transforms the sharded prover gives it (SMALL_NTT_SHAPES), with the
+   device time of the W = 1 ones; each NTT kernel's device time per launch (each pass
    of the plan) and per column with its share of the C-scaled bound at
    2^11, 2^15 and 2^20 (C = 1) and the 2^15 batch of 83 (there and at 2^20
    also per call with CUDA events, the plan against one launch a large
@@ -50,7 +53,10 @@ passes or raises:
    in one launch) for BN254 Fr, BN254 Fq and Pasta Fp at POW_SIZES
    elements with the exponents p - 2, 0, 1, 2 and one of 300 bits; each
    one's device time per launch beside its throughput bound and its chain
-   of dependent products;
+   of dependent products; mont_inv (the inverse as a fixed-count safegcd
+   in one launch) at the same sizes and fields against its plain version
+   and the mont_pow kernel's a^(p - 2), zero included, timed beside
+   mont_pow in this call with its bound and its chain of divsteps;
 3. the device MSM: msm_points at 2^16 (the k = 16 SRS, random.Random(42)
    scalars) and 2^20 (that SRS and random.Random(9) scalars tiled 16 times)
    equals the native host MSM on the same arrays; the time of each (median
@@ -130,13 +136,14 @@ vm_eval in every prove, jac_madd, jac_add and mod_sub (the MSM's signed
 digits negate their points) in the device-commit prove and the
 device-commit keygen, jac_madd and jac_add in the MSM and in every hybrid
 MSM whose device share is above 0, none in a NativeEngine prove, mont_sqr,
-mont_mul, mont_pow and jac_add in the setup, vm_eval in every
+mont_mul, mont_inv and jac_add in the setup, vm_eval in every
 MockProver run, mont_mul, mont_sqr and mod_add in the sponge, and in
 phase 9 (each rank's counts set to 0 before each of its jobs and read
-after) every kernel of SHARDED_KERNELS (mont_mul, mod_add, mod_sub,
-jac_madd, jac_add, jac_horner, mont_pow, vm_eval) in every sharded prove on
-every rank, both NTT kernels in the 2^20 sharded NTTs, jac_madd, jac_add
-and jac_horner in the sharded MSM, and mont_pow in the sharded grand
+after) every kernel of SHARDED_KERNELS (mont_mul, mod_sub, jac_madd,
+jac_add, jac_horner, mont_inv, ntt_small_stages, vm_eval) in every sharded
+prove on every rank, ntt_small_stages and mont_mul (and ntt_large_stage at
+2^20) and no mod_add or mod_sub in every sharded NTT, jac_madd, jac_add
+and jac_horner in the sharded MSM, and mont_inv in the sharded grand
 product; in phase 10
 vm_eval in entry() and every kernel of SHARDED_KERNELS in each dryrun
 check on every rank.  The line
@@ -193,13 +200,24 @@ HORNER_REPORT_C, HORNER_REPORT_B = 8, 20
 # JSON line's ms at 2^11
 POW_SIZES = (1, 1 << 10, 1 << 11, 1 << 16)
 POW_REPORT_M = 1 << 11
-# the elements a stage of the sharded flagship's local stage ladders gives
-# mont_mul: half of 83 columns of 2^15 at W = 1, a quarter a rank at W = 2
+# the elements a stage of the sharded flagship's local stage ladders gave
+# mont_mul (half of 83 columns of 2^15 at W = 1, a quarter a rank at W = 2)
+# before its local transforms were one ntt_small_stages launch each: kept as
+# mont_mul's periodic-b cases at four elements a thread
 SHARDED_LADDER = (FLAGSHIP_C << 14, FLAGSHIP_C << 13)
+# ntt_small_stages below 512 points: (columns, n) of the local transforms
+# the sharded prover gives it (parallel/ntt.py's four-step split): 2^11 as
+# 32 x 64 then 64 x 32 points, 2^15 over the 83-column coset batch as 83 x
+# 128 x 256 then 83 x 256 x 128 (W = 1), then their W = 2 halves, and the
+# dryrun's k = 9 as 16 x 32 then 32 x 16 and its halves; the first four
+# are timed
+SMALL_NTT_SHAPES = ((32, 64), (64, 32), (FLAGSHIP_C * 128, 256), (FLAGSHIP_C * 256, 128),
+                    (16, 64), (32, 32), (FLAGSHIP_C * 64, 256), (FLAGSHIP_C * 128, 128),
+                    (16, 32), (32, 16), (8, 32), (16, 16))
 # the chained-product microbenchmark's products in one thread
 CHAIN_ITERS = 4096
 # the shape at which each kernel's ms in the JSON line is taken
-REPORT_AT = {"jac_horner": HORNER_REPORT_B, "mont_pow": POW_REPORT_M}
+REPORT_AT = {"jac_horner": HORNER_REPORT_B, "mont_pow": POW_REPORT_M, "mont_inv": POW_REPORT_M}
 
 
 def _ms_per_call(fn, calls: int, runs: int = 5) -> float:
@@ -336,8 +354,8 @@ def phase_build():
 
 
 def _sass_counts(library) -> dict:
-    """Static instruction counts of each curve kernel, of the power
-    kernel (for each arithmetic) and of the chained-product
+    """Static instruction counts of each curve kernel, of the power and
+    inverse kernels (for each arithmetic) and of the chained-product
     microbenchmark in the built library's
     SASS (``cuobjdump -sass``): (instructions, IMAD.WIDE, other IMADs but
     IMAD.MOV); empty when the toolkit has no cuobjdump."""
@@ -354,9 +372,9 @@ def _sass_counts(library) -> dict:
         if line.startswith("Function :"):
             fn = line.split(":", 1)[1].strip()
             kernels = ("jac_madd_wide", "jac_madd_narrow", "jac_add_wide", "jac_add_narrow", "jac_horner", "mont_pow",
-                       "mul_chain")
+                       "mont_inv", "mul_chain")
             name = next((k for k in kernels if k in fn), None)
-            if name == "mont_pow":
+            if name in ("mont_pow", "mont_inv"):
                 name += " cc" if "CcArith" in fn else " wide"
             if name:
                 counts[name] = [0, 0, 0]
@@ -445,6 +463,8 @@ def phase_kernels(device):
     classes = _check_jac_kernels(device, err, times)
 
     _check_ntt_kernels(device, gen, err, times)
+
+    _check_small_ntt(device, gen, err, times)
 
     vm_bound = _check_vm(device, gen, err, times)
 
@@ -863,6 +883,60 @@ def _check_ntt_kernels(device, gen, err, times):
         )
 
 
+def _check_small_ntt(device, gen, err, times) -> None:
+    """ntt_small_stages below 512 points (the whole transform a launch,
+    natural order in) against its plain version, limb for limb: n = 1 ..
+    256 on batches of C = 1 and 3 columns for BN254 Fr and Pasta Fp, and
+    every SMALL_NTT_SHAPES batch (BN254 Fr), forward and inverse; then the
+    device time per launch of the W = 1 sharded shapes beside their bound,
+    and the time a call of the two local transforms of a W = 1 sharded 2^15
+    NTT (CUDA events) against their plain versions."""
+    from halo2_tpu_torch.field.params import BN254_FR, PASTA_FP
+    from halo2_tpu_torch.poly import cuda_ntt
+    from halo2_tpu_torch.poly.domain import twiddle_table
+
+    def check(spec, cols, n):
+        x = _random_field(spec, (cols, n), gen, device).movedim(1, 0).contiguous()
+        for inverse in (False, True):
+            tw = twiddle_table(spec, n, inverse, device)
+            got = cuda_ntt.ntt_small_stages(spec, x, tw)
+            e = _max_abs_err(f"ntt_small_stages {spec.name} C={cols} n={n} inv={inverse}", got,
+                             cuda_ntt.ntt_small_stages_plain(spec, x, tw))
+            err["ntt_small_stages"] = max(err["ntt_small_stages"], e)
+        return x
+
+    for spec in (BN254_FR, PASTA_FP):
+        for n in (1 << k for k in range(9)):
+            for cols in (1, 3):
+                check(spec, cols, n)
+    shaped = {shape: check(BN254_FR, *shape) for shape in SMALL_NTT_SHAPES}
+    print(
+        f"[kernels] ntt_small_stages below 512 points: equal to plain for n = 1 .. 256 at C = 1, 3 (bn254_fr, "
+        f"pasta_fp) and at the sharded shapes (C, n) {list(SMALL_NTT_SHAPES)}, forward and inverse",
+        flush=True,
+    )
+    spec = BN254_FR
+    for cols, n in SMALL_NTT_SHAPES[:4]:
+        x = shaped[(cols, n)]
+        tw = twiddle_table(spec, n, False, device)
+        bound = _ntt_bounds(n, cols)["ntt_small_stages"]
+        t_d = _kernel_device_ms(lambda: cuda_ntt.ntt_small_stages(spec, x, tw), "ntt_small_stages_kernel", bound[0])
+        times[("ntt_small_stages", spec.name, cols, n)] = t_d
+        print(
+            f"[kernels] ntt_small_stages bn254_fr C={cols} n={n}: {t_d:.4f} ms a launch on the device, bound "
+            f"{bound[0]:.6f} ms ({bound[1]}, {bound[0] / t_d:.0%} of it)",
+            flush=True,
+        )
+    pair = [(shaped[s], twiddle_table(spec, s[1], False, device)) for s in SMALL_NTT_SHAPES[2:4]]
+    t_k = _ms_per_call(lambda: [cuda_ntt.ntt_small_stages(spec, x, tw) for x, tw in pair], 20)
+    t_p = _ms_per_call(lambda: [cuda_ntt.ntt_small_stages_plain(spec, x, tw) for x, tw in pair], 1, runs=3)
+    print(
+        f"[kernels] ntt_small_stages, the W = 1 sharded 2^15 NTT's two local transforms (C, n) "
+        f"{list(SMALL_NTT_SHAPES[2:4])}: kernel {t_k:.4f} ms a call (CUDA events), plain {t_p:.4f} ms",
+        flush=True,
+    )
+
+
 def _curve_lanes(device, m, exceptions=True):
     """BN254 G1 operands for the group-law kernels at m lanes: p Jacobian
     with z != 1, q affine (mixed add) and Jacobian with z != 1 (full add),
@@ -1103,26 +1177,97 @@ def _check_ladders(device, gen, err, times) -> dict:
                 got = cuda_mul.mont_pow(spec, a, e)
                 e_err = _max_abs_err(f"mont_pow {spec.name} m={m} e={e:#x}"[:80], got, cuda_mul.mont_pow_plain(spec, a, e))
                 err["mont_pow"] = max(err["mont_pow"], e_err)
+            inv = cuda_mul.mont_inv(spec, a)
+            err["mont_inv"] = max(err["mont_inv"], _max_abs_err(f"mont_inv {spec.name} m={m}", inv, cuda_mul.mont_inv_plain(spec, a)))
+            _max_abs_err(f"mont_inv {spec.name} m={m} against the mont_pow kernel's a^(p - 2)", inv, cuda_mul.mont_pow(spec, a, p - 2))
             if spec is BN254_FR and m > 1:
-                bound = _bound(*_pow_work(m, p - 2))
-                kernel = lambda: cuda_mul.mont_pow(spec, a, p - 2)  # noqa: E731
-                if m == POW_REPORT_M:
-                    bounds["mont_pow"] = bound
-                    t_d = _time_kernel(
-                        "mont_pow", "mont_pow_kernel", m, kernel, lambda: cuda_mul.mont_pow_plain(spec, a, p - 2),
-                        times, bound[0], plain_calls=1,
-                    )
-                else:
-                    t_d = _kernel_device_ms(kernel, "mont_pow_kernel", bound[0])
-                steps = (p - 2).bit_length() - 1 + bin(p - 2).count("1") - 1
-                print(
-                    f"[kernels] mont_pow bn254_fr m={m}, e = p - 2: {t_d:.4f} ms on the device; throughput "
-                    f"bound {bound[0]:.6f} ms ({bound[1]}, {bound[0] / t_d:.2%} of it); chain {steps} dependent "
-                    f"products an element, {t_d * 1e3 / steps:.3f} us each",
-                    flush=True,
-                )
-        print(f"[kernels] mont_pow {spec.name}: equal to plain at m={list(POW_SIZES)}, five exponents", flush=True)
+                _time_inverses(spec, a, m, times, bounds)
+        print(
+            f"[kernels] mont_pow {spec.name}: equal to plain at m={list(POW_SIZES)}, five exponents; mont_inv "
+            f"equal to plain and to mont_pow(a, p - 2) (0, 1, p - 1, p - 2 first)",
+            flush=True,
+        )
     return bounds
+
+
+def _time_inverses(spec, a, m: int, times, bounds) -> None:
+    """mont_pow(a, p - 2) and mont_inv(a), BN254 Fr, m elements: each one's
+    device time per launch in this call beside its throughput bound and its
+    chain; at POW_REPORT_M also each kernel's and plain version's time a
+    call (the JSON line's) and the most divsteps a lane of a needs."""
+    from halo2_tpu_torch.field import cuda_mul
+
+    p = spec.p
+    pow_bound = _bound(*_pow_work(m, p - 2))
+    inv_bound, inv_chain = _inv_bound(m), _inv_work(m)[2]
+    power = lambda: cuda_mul.mont_pow(spec, a, p - 2)  # noqa: E731
+    inverse = lambda: cuda_mul.mont_inv(spec, a)  # noqa: E731
+    if m == POW_REPORT_M:
+        bounds["mont_pow"], bounds["mont_inv"] = pow_bound, inv_bound
+        t_pow = _time_kernel("mont_pow", "mont_pow_kernel", m, power,
+                             lambda: cuda_mul.mont_pow_plain(spec, a, p - 2), times, pow_bound[0], plain_calls=1)
+        t_inv = _time_kernel("mont_inv", "mont_inv_kernel", m, inverse,
+                             lambda: cuda_mul.mont_inv_plain(spec, a), times, inv_bound[0], plain_calls=1)
+    else:
+        t_pow = _kernel_device_ms(power, "mont_pow_kernel", pow_bound[0])
+        t_inv = _kernel_device_ms(inverse, "mont_inv_kernel", inv_bound[0])
+    steps = (p - 2).bit_length() - 1 + bin(p - 2).count("1") - 1
+    print(
+        f"[kernels] mont_pow bn254_fr m={m}, e = p - 2: {t_pow:.4f} ms on the device; throughput "
+        f"bound {pow_bound[0]:.6f} ms ({pow_bound[1]}, {pow_bound[0] / t_pow:.2%} of it); chain {steps} dependent "
+        f"products an element, {t_pow * 1e3 / steps:.3f} us each",
+        flush=True,
+    )
+    needed = f"; the most divsteps a lane of this data needs: {_divsteps_needed(a, spec)}" if m == POW_REPORT_M else ""
+    print(
+        f"[kernels] mont_inv bn254_fr m={m}: {t_inv:.4f} ms on the device ({t_pow / t_inv:.1f}x faster than "
+        f"mont_pow's {t_pow:.4f} in this call); throughput bound {inv_bound[0]:.6f} ms ({inv_bound[1]}, "
+        f"{inv_bound[0] / t_inv:.2%} of it); chain {inv_chain} dependent divsteps on every lane (and "
+        f"{cuda_mul.INV_BATCHES} matrix applications, one product), {t_inv * 1e3 / inv_chain:.4f} us a divstep{needed}",
+        flush=True,
+    )
+
+
+def _inv_work(m: int) -> tuple:
+    """(bytes, issue slots, chain) of one mont_inv over m elements: each
+    element read once and written once; the least instruction issue slots
+    of its fixed-count safegcd (INV_*_SLOTS); the chain is the divsteps
+    every lane runs, one after another (the count does not depend on the
+    data)."""
+    from halo2_tpu_torch.field import cuda_mul
+
+    steps = cuda_mul.INV_BATCHES * cuda_mul.INV_STEPS
+    slots = steps * INV_DIVSTEP_SLOTS + cuda_mul.INV_BATCHES * INV_BATCH_SLOTS + INV_TAIL_SLOTS + IMAD_MUL
+    return 2 * ELEM * m, slots * m, steps
+
+
+def _inv_bound(m: int) -> tuple:
+    """Least time (ms) of one mont_inv over m elements and what bounds it:
+    its bytes at BYTES_PER_S against its issue slots at 2 x IMAD_PER_S."""
+    nbytes, slots, _ = _inv_work(m)
+    t_bytes, t_ops = nbytes / BYTES_PER_S * 1e3, slots / (2 * IMAD_PER_S) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _divsteps_needed(a, spec) -> int:
+    """The most divsteps any element of the Montgomery array a needs before
+    g reaches 0, in the kernel's half-delta divstep (zeta = -1 at the
+    start), replayed on the host over exact integers: the margin of the
+    fixed count on this data."""
+    from halo2_tpu_torch.field.device import get_device_field
+
+    df = get_device_field(spec)
+    worst = 0
+    for x in df.decode(a.cpu(), from_mont=False).reshape(-1):
+        zeta, f, g, steps = -1, spec.p, int(x), 0
+        while g:
+            if zeta < 0 and g & 1:
+                zeta, f, g = -zeta - 2, g, (g - f) >> 1
+            else:
+                zeta, g = zeta - 1, (g + f) >> 1 if g & 1 else g >> 1
+            steps += 1
+        worst = max(worst, steps)
+    return worst
 
 
 def _lane_classes(p, q, qx, qy, valid) -> dict:
@@ -1147,6 +1292,16 @@ def _lane_classes(p, q, qx, qy, valid) -> dict:
 # IMAD lanes x 1.98 GHz, half its published 67 TFLOP/s float32 rate) and its
 # published memory rate.
 IMAD_MUL, IMAD_SQR = 272, 216
+# The least instruction issue slots of one mont_inv element (csrc/inv.cu),
+# counted low so that the bound is one: 18 a divstep (its two conditions,
+# the conditional adds to g, f, q, r, u, v, the three shifts and zeta's
+# update, with the conditional negations fused into them); 285 a batch's
+# update_de and update_fg (91 products accumulated in 64 bits, IMAD.WIDE at
+# two slots each, and the 30-bit masks and 64-bit shifts of 17 limb steps);
+# 100 for the limb conversions and the normalization; the closing product's
+# IMAD_MUL.  Any 32-bit integer instruction may issue at 4 x 32 lanes a SM a
+# clock (the ALU and the FMA pipe each take half), twice IMAD_PER_S.
+INV_DIVSTEP_SLOTS, INV_BATCH_SLOTS, INV_TAIL_SLOTS = 18, 285, 100
 IMAD_PER_S = 132 * 64 * 1.98e9
 BYTES_PER_S = 3.35e12
 ELEM = 64  # bytes of one (16,) int32 field element
@@ -1214,17 +1369,18 @@ def _ntt_work(n: int, cols: int, m0: int, stages: int) -> tuple:
 
 def _ntt_bounds(n: int, cols: int) -> dict:
     """The bound of each NTT kernel's work in one transform of ``cols``
-    columns of n elements: one small-stages launch (the 511 twiddles of m =
-    1 .. 256 read once), and the large stages as the launches of
+    columns of n elements: one small-stages launch (the min(n, 512) - 1
+    twiddles of its stages read once), and the large stages as the launches of
     large_stage_plan(n), their bounds summed (bounded by what bounds the
     larger part of the sum)."""
     from halo2_tpu_torch.poly import cuda_ntt
 
-    small = sum(_stage_products(n, 1 << lm) for lm in range(1, 9))  # m = 2 .. 256; m = 1 has none
+    tile = min(n, cuda_ntt.TILE)  # below 512 points the whole transform
+    small = sum(_stage_products(n, 1 << lm) for lm in range(1, tile.bit_length() - 1))  # m = 2 .. tile / 2
     passes = [_bound(*_ntt_work(n, cols, m0, r)) for m0, r in cuda_ntt.large_stage_plan(n)]
     by_ops = sum(t for t, by in passes if by == "operations")
     return {
-        "ntt_small_stages": _bound(2 * ELEM * n * cols + ELEM * 511, IMAD_MUL * small * cols),
+        "ntt_small_stages": _bound(2 * ELEM * n * cols + ELEM * (tile - 1), IMAD_MUL * small * cols),
         "ntt_large_stage": (
             sum(t for t, _ in passes), "operations" if 2 * by_ops > sum(t for t, _ in passes) else "bytes"
         ),
@@ -1434,10 +1590,11 @@ def _prove(params, pk, circuit, public, want, device, commit, reps):
 
 # the position of the lane (or element) count among the arguments of each
 # kernel's C entry point, for profile_prove's launches by width
-WIDTH_ARG = {"mont_mul": 6, "mont_sqr": 2, "mont_pow": 2, "mod_add": 3, "mod_sub": 3, "jac_madd": 9,
-             "jac_add": 9, "jac_horner": 2}
-# mont_mul's columns a launch, the argument after its elements a column
-MUL_COLS_ARG = 7
+WIDTH_ARG = {"mont_mul": 6, "mont_sqr": 2, "mont_pow": 2, "mont_inv": 2, "mod_add": 3, "mod_sub": 3,
+             "jac_madd": 9, "jac_add": 9, "jac_horner": 2, "ntt_small_stages": 2}
+# the columns a launch of mont_mul and ntt_small_stages: the argument after
+# their elements a column
+COLS_ARG = {"mont_mul": 7, "ntt_small_stages": 3}
 # mont_mul launches of one warm flagship prove before mont_mul took a batch
 # of columns in one launch (the port at commit 222e703 on an NVIDIA H100 80GB HBM3 at
 # 700 W, PERF.md): native commits, and the W = 1 sharded prove
@@ -1483,11 +1640,11 @@ def profile_prove(device, params=None, pk=None, warm: int = 1, mesh=None) -> Non
     launch = _build.launch
 
     def counted(kernel, dev, *args):
-        if kernel == "mont_mul" and len(args) <= MUL_COLS_ARG:  # an older checkout: one column a launch
+        if kernel == "mont_mul" and len(args) <= COLS_ARG[kernel]:  # an older checkout: one column a launch
             widths[kernel][f"1 x {args[3]}"] += 1
         elif kernel in WIDTH_ARG:
             width = args[WIDTH_ARG[kernel]]
-            widths[kernel][f"{args[MUL_COLS_ARG]} x {width}" if kernel == "mont_mul" else width] += 1
+            widths[kernel][f"{args[COLS_ARG[kernel]]} x {width}" if kernel in COLS_ARG else width] += 1
         return launch(kernel, dev, *args)
 
     _build.launch = counted
@@ -1529,7 +1686,8 @@ def profile_prove(device, params=None, pk=None, warm: int = 1, mesh=None) -> Non
     before = MONT_MUL_BEFORE["native" if mesh is None else "sharded"]
     print(f"[profile]   mont_mul launches: {ours['mont_mul']} (before one launch a column batch: {before})", flush=True)
     print(
-        "[profile]   kernels by width (lanes or elements a launch, mont_mul columns x elements: launches; "
+        "[profile]   kernels by width (lanes or elements a launch, mont_mul and ntt_small_stages columns x "
+        "elements: launches; "
         "the 6 most common): "
         + "; ".join(
             f"{k} " + ", ".join(f"{m}: {n}" for m, n in c.most_common(6))
@@ -1691,7 +1849,7 @@ def phase_setup(device):
             raise AssertionError(f"setup(16) on the card: {name} differs from {SRS16}")
     if [c.c for c in got.s_g2] != [c.c for c in want.s_g2]:
         raise AssertionError(f"setup(16) on the card: s_g2 differs from {SRS16}")
-    _require("setup", counts, ("mont_sqr", "mont_mul", "mont_pow", "jac_add"))
+    _require("setup", counts, ("mont_sqr", "mont_mul", "mont_inv", "jac_add"))
     print(f"[setup] k=16 on the card: {dt:.3f} s, equal to {os.path.relpath(SRS16, ROOT)}; launches {counts}", flush=True)
     return [counts]
 
@@ -1942,7 +2100,11 @@ def phase_poseidon(device, batch: int = 1 << 20):
     return [counts]
 
 
-SHARDED_KERNELS = ("mont_mul", "mod_add", "mod_sub", "jac_madd", "jac_add", "jac_horner", "mont_pow", "vm_eval")
+# the kernels every sharded prove and every dryrun check launches: its
+# local transforms below 512 points (ntt_small_stages), twiddles and
+# products (mont_mul), the MSM's signed digits (mod_sub), group ops and
+# Horner, the grand product's inverses (mont_inv) and the quotient (vm_eval)
+SHARDED_KERNELS = ("mont_mul", "mod_sub", "jac_madd", "jac_add", "jac_horner", "mont_inv", "ntt_small_stages", "vm_eval")
 # the launches of one W = 1 sharded flagship prove before jac_horner and
 # mont_pow ran its Horner combines and field powers (the port at commit
 # b0938bf, on an NVIDIA H100 80GB HBM3 at 700 W: PERF.md's kernel table);
@@ -1998,11 +2160,14 @@ def compare_kernels(device) -> None:
     trees have: mont_mul's device time per launch on a lone BN254 Fr column
     at 2^11, 2^15 and 2^20 (b full width and one element), and at 2^11 and
     2^15 the time a call (CUDA events around 200 back-to-back calls, host
-    dispatch included) of mont_mul and of DeviceField.mul; a stage of the
-    sharded W = 1 ladder (a strided view of 83 x 2^14 elements times a
-    (16, 1, 64) period through DeviceField.mul, as the ladder calls it), per
-    call and on the device summed over the call's launches of every kernel
-    (copies included); the flagship's
+    dispatch included) of mont_mul and of DeviceField.mul; both NTT
+    kernels' device time per launch (each pass of the large stages) at the
+    NTT_TIMED batches; the local
+    transforms of the sharded W = 1 NTTs (poly.domain._ntt_unscaled at the
+    first four SMALL_NTT_SHAPES: the stage ladder before the small-size
+    ntt_small_stages, one launch after) and DeviceField.inv at 2^11 and 2^16
+    elements (mont_pow before mont_inv), each per call and on the device
+    summed over the call's launches of every kernel (copies included); the flagship's
     83 x 2^15 coset scale through poly.domain._mul_columns, per call (CUDA
     events) and its device time summed over the call's launches; jac_horner
     at every (c, lanes) of HORNER_CASES; jac_madd and jac_add, both
@@ -2015,7 +2180,8 @@ def compare_kernels(device) -> None:
     from halo2_tpu_torch.field.cuda_mul import mont_mul
     from halo2_tpu_torch.field.device import get_device_field
     from halo2_tpu_torch.field.params import BN254_FR
-    from halo2_tpu_torch.poly.domain import _mul_columns
+    from halo2_tpu_torch.poly import cuda_ntt
+    from halo2_tpu_torch.poly.domain import _mul_columns, _ntt_unscaled, twiddle_table
 
     spec = BN254_FR
     df = get_device_field(spec)
@@ -2044,16 +2210,38 @@ def compare_kernels(device) -> None:
         ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         return sum(e.time_range.elapsed_us() for e in ev) / (reps * 1e3), len(ev) / reps
 
-    # the odd halves of 64-element pairs of blocks: a strided view, as the ladder passes it
-    half = _random_field(spec, (2 * SHARDED_LADDER[0],), gen, device).reshape(16, -1, 2, 64)[:, :, 1, :]
-    tw = _random_field(spec, (64,), gen, device).reshape(16, 1, 64)
-    dev_ms, n_launch = launches_ms(lambda: df.mul(half, tw))
-    print(
-        f"[compare] sharded ladder stage {_elems(SHARDED_LADDER[0])}, period 64 (DeviceField.mul): "
-        f"{_ms_per_call(lambda: df.mul(half, tw), 10):.4f} ms a call, {dev_ms:.4f} ms on the device "
-        f"in {n_launch:.0f} launches",
-        flush=True,
-    )
+    for cols, n in NTT_TIMED:  # the NTT kernels at n >= 512, where this PR changed nothing
+        x = _random_field(spec, (cols, n), gen, device).movedim(1, 0).contiguous()
+        tw = twiddle_table(spec, n, False, device)
+        small = _kernel_device_ms(lambda: cuda_ntt.ntt_small_stages(spec, x, tw), "ntt_small_stages_kernel",
+                                  _ntt_bounds(n, cols)["ntt_small_stages"][0])
+        large = [
+            _kernel_device_ms(lambda: cuda_ntt.ntt_large_stage(spec, x, tw, m0, r), "ntt_large_stage_kernel",
+                              _bound(*_ntt_work(n, cols, m0, r))[0])
+            for m0, r in cuda_ntt.large_stage_plan(n)
+        ]
+        print(
+            f"[compare] ntt bn254_fr C={cols} n={n}: ntt_small_stages {small:.4f} ms on the device, ntt_large_stage "
+            f"passes {cuda_ntt.large_stage_plan(n)} {' + '.join(f'{t:.4f}' for t in large)} ms",
+            flush=True,
+        )
+    for cols, n in SMALL_NTT_SHAPES[:4]:
+        x = _random_field(spec, (cols, n), gen, device).movedim(1, 0).contiguous()
+        call = lambda: _ntt_unscaled(spec, x, False)  # noqa: E731
+        dev_ms, n_launch = launches_ms(call)
+        print(
+            f"[compare] sharded local transforms C={cols} n={n} (_ntt_unscaled): {_ms_per_call(call, 10):.4f} ms "
+            f"a call, {dev_ms:.4f} ms on the device in {n_launch:.0f} launches",
+            flush=True,
+        )
+    for m in (1 << 11, 1 << 16):
+        a = _random_field(spec, (m,), gen, device)
+        dev_ms, n_launch = launches_ms(lambda: df.inv(a))
+        print(
+            f"[compare] DeviceField.inv m={m}: {_ms_per_call(lambda: df.inv(a), 20):.4f} ms a call, {dev_ms:.4f} ms "
+            f"on the device in {n_launch:.0f} launches",
+            flush=True,
+        )
     x = _random_field(spec, (FLAGSHIP_C, 1 << 15), gen, device).movedim(1, 0).contiguous()
     coset = _random_field(spec, (1 << 15,), gen, device)
     per_call = _ms_per_call(lambda: _mul_columns(spec, x, coset), 10)
@@ -2282,16 +2470,18 @@ def _sharded_group(device, world: int, backend: str, dp, reps: int, want: bytes)
             raise AssertionError(f"sharded prove {label}, rank {rank}: less_than_v2 k=9 differs from single-device")
         _require(f"less_than_v2 {label}, rank {rank}", lt["launches"], SHARDED_KERNELS)
         for job, (n, inverse) in zip(res[2:6], ((1 << 15, False), (1 << 15, True), (1 << 20, False), (1 << 20, True))):
-            _max_abs_err(f"sharded_ntt 2^{n.bit_length() - 1} inverse={inverse}, rank {rank}", torch.from_numpy(job["out"]), torch.from_numpy(wants[(n, inverse)]))
-            if n == 1 << 20:
-                _require(f"sharded_ntt 2^20, rank {rank}", job["launches"], ("ntt_small_stages", "ntt_large_stage", "mont_mul"))
+            label_n = f"sharded_ntt 2^{n.bit_length() - 1} inverse={inverse}, rank {rank}"
+            _max_abs_err(label_n, torch.from_numpy(job["out"]), torch.from_numpy(wants[(n, inverse)]))
+            _require(label_n, job["launches"], ("ntt_small_stages", "mont_mul") + (("ntt_large_stage",) if n == 1 << 20 else ()))
+            if job["launches"]["mod_add"] or job["launches"]["mod_sub"]:
+                raise AssertionError(f"{label_n}: launched mod_add or mod_sub ({job['launches']})")
         msm, gp = res[6], res[7]
         if msm["out"]["affine"] != msm_want:
             raise AssertionError(f"sharded_msm 2^16, rank {rank}: {msm['out']['affine']} != native {msm_want}")
         _require(f"sharded_msm 2^16, rank {rank}", msm["launches"], ("jac_madd", "jac_add", "jac_horner"))
         if [int(v) for v in dfr.decode(torch.from_numpy(gp["out"]))] != z_host:
             raise AssertionError(f"grand_product_z 2^11, rank {rank}: differs from the host recurrence")
-        _require(f"grand_product_z 2^11, rank {rank}", gp["launches"], ("mont_pow", "mont_mul"))
+        _require(f"grand_product_z 2^11, rank {rank}", gp["launches"], ("mont_inv", "mont_mul"))
         ntt_s = ", ".join(f"{j['seconds']:.3f}" for j in res[2:6])
         print(f"[sharded] {label} rank {rank}, last warm prove's phases (s): {_phases(flag['out']['phases'])}", flush=True)
         print(
@@ -2401,6 +2591,8 @@ KERNELS = (
     # the reference's fori_loop Horner and lax.scan power as one launch each
     ("jac_horner", "halo2_tpu_torch/csrc/jac.cu", "halo2_tpu/ec/device.py:597"),
     ("mont_pow", "halo2_tpu_torch/csrc/mont_mul.cu", "halo2_tpu/field/device.py:239"),
+    # the reference's Fermat inverse (a lax.scan power) as a safegcd in one launch
+    ("mont_inv", "halo2_tpu_torch/csrc/inv.cu", "halo2_tpu/field/device.py:251"),
 )
 
 

@@ -36,6 +36,25 @@
 // butterflies per thread per stage.  The last stage (m = 256) pairs elements
 // k and k + 256 and writes them straight to device memory.
 //
+// Below TILE (n = 2 .. 256 points: the sharded NTT's local transforms, whose
+// four-step split gives 2^11 as 64 x 32 points and 2^15 as 256 x 128, where
+// the reference runs its jnp stage ladder, halo2_tpu/poly/domain.py:78-91,
+// compiled by XLA into one program), ntt_small_stages runs the whole
+// transform: a block of 128 threads holds
+// TILE / n whole columns, a TILE-element run of the batch (the last block
+// fewer), in the same 16 KB of shared memory, and runs all log2(n) stages
+// there (a template on log2 n), two butterflies per thread per stage.  It
+// reads the columns in natural order, coalesced, and stores element i of a
+// column to slot rev(i), so the caller gathers nothing; the result is
+// stored coalesced from shared memory.  The twiddles are the n-point
+// table's, whose stage m equals the TILE-point table's stage m.  What bounds
+// it is what bounds the tile kernel (log2(n) - 1 multiplying stages per
+// pass over memory): the integer units at 8 stages (n = 256), towards memory
+// below.  One NVIDIA H100 80GB HBM3 at 700 W (PERF.md) ran 83 x 128
+// transforms of 256 points in 0.25 ms (53 % of the bound) and 83 x 256 of
+// 128 in 0.22 ms (51 %); 32 of 64 points (4 blocks) take 0.010 ms, the
+// stages' chain of twiddle loads and products.
+//
 // ntt_large_stage: r = 1 .. 6 consecutive large stages m0, 2 m0, ..,
 // m0 2^(r-1) in one pass over memory (cuda_ntt.large_stage_plan balances a
 // transform's log2(n) - 9 large stages over ceil((log2(n) - 9) / 6) passes:
@@ -184,6 +203,82 @@ ntt_small_stages_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ o
   }
 }
 
+// i with its LOGN low bits reversed (i < 2^LOGN)
+template <int LOGN>
+__device__ __forceinline__ int bit_reverse(int i) {
+  if constexpr (LOGN == 0) {
+    return 0;
+  } else {
+    return static_cast<int>(__brev(static_cast<unsigned>(i)) >> (32 - LOGN));
+  }
+}
+
+// The whole transform of n = 2^LOGN < TILE points on each of ``cols``
+// columns, natural order in and out (the bit-reversal in the load).
+template <class A, int LOGN>
+__global__ void __launch_bounds__(SMALL_THREADS)
+ntt_small_stages_kernel_columns(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, int cols,
+                                const uint32_t* __restrict__ tw, Modulus M) {
+  constexpr int N = 1 << LOGN;
+  constexpr int TW_LD = N - 1;
+  __shared__ __align__(16) uint32_t s[WORDS][TILE];
+  const size_t run = static_cast<size_t>(blockIdx.x) * TILE;  // a multiple of N: whole columns
+  const size_t total = static_cast<size_t>(cols) * N;
+  const int t = threadIdx.x;
+
+  // element e of the run is element i = e mod N of column (run + e) / N, at
+  // word (run + e - i) * 16 + limb * N + i of the batch
+#pragma unroll
+  for (int h = 0; h < EPT; ++h) {
+    const int e = t + h * SMALL_THREADS;
+    if (run + e >= total) break;
+    const int i = e & (N - 1);
+    uint32_t w[WORDS];
+    load_elem(x + (run + e - i) * LIMBS, N, i, w);
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) s[k][e - i + bit_reverse<LOGN>(i)] = w[k];
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int lm = 0; lm < LOGN; ++lm) {
+    const int m = 1 << lm;
+#pragma unroll
+    for (int h = 0; h < EPT / 2; ++h) {
+      const int kb = t + h * SMALL_THREADS;
+      const int j = kb & (m - 1);
+      const int i0 = 2 * (kb - j) + j;
+      if (run + i0 < total) {  // a column of the batch (i0 and i0 + m share it)
+        uint32_t a[WORDS], b[WORDS];
+#pragma unroll
+        for (int k = 0; k < WORDS; ++k) {
+          a[k] = s[k][i0];
+          b[k] = s[k][i0 + m];
+        }
+        if (j > 0) twiddle<A>(b, tw, TW_LD, (m - 1) + j, M);  // w^0 = 1 leaves a canonical b as it is
+        butterfly<A>(a, b, M);
+#pragma unroll
+        for (int k = 0; k < WORDS; ++k) {
+          s[k][i0] = a[k];
+          s[k][i0 + m] = b[k];
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int h = 0; h < EPT; ++h) {
+    const int e = t + h * SMALL_THREADS;
+    if (run + e >= total) break;
+    const int i = e & (N - 1);
+    uint32_t w[WORDS];
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) w[k] = s[k][e];
+    store_elem(out + (run + e - i) * LIMBS, N, i, w);
+  }
+}
+
 // The shared-memory slot of tile element e: bit 4 flipped where bit 5 is
 // set.  A stage's butterfly b = 16 q + t pairs the elements 16 h0 + t and
 // 16 (h0 + 2^s) + t; a warp holds q and q + 1 (q even), whose first elements
@@ -249,12 +344,40 @@ ntt_large_stage_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ ou
   }
 }
 
-template <class A>
-void launch_small(const void* x, void* out, int n, int cols, const void* tw, const Modulus& M,
-                  cudaStream_t stream) {
-  ntt_small_stages_kernel<A><<<dim3(n / TILE, cols), SMALL_THREADS, 0, stream>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), n,
+template <class A, int LOGN>
+void launch_columns(const void* x, void* out, int cols, const void* tw, const Modulus& M,
+                    cudaStream_t stream) {
+  const long long blocks = (static_cast<long long>(cols) * (1 << LOGN) + TILE - 1) / TILE;
+  ntt_small_stages_kernel_columns<A, LOGN><<<static_cast<unsigned>(blocks), SMALL_THREADS, 0, stream>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), cols,
       static_cast<const uint32_t*>(tw), M);
+}
+
+// n >= TILE: the tile kernel over a bit-reversed input; n < TILE: the whole
+// transform of each column (natural order in and out), one instance of
+// ntt_small_stages_kernel_columns per log2 n.
+template <class A>
+cudaError_t launch_small(const void* x, void* out, int n, int cols, const void* tw, const Modulus& M,
+                         cudaStream_t stream) {
+  if (n >= TILE) {
+    ntt_small_stages_kernel<A><<<dim3(n / TILE, cols), SMALL_THREADS, 0, stream>>>(
+        static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), n,
+        static_cast<const uint32_t*>(tw), M);
+    return cudaSuccess;
+  }
+  switch (n) {
+    case 1: launch_columns<A, 0>(x, out, cols, tw, M, stream); break;
+    case 2: launch_columns<A, 1>(x, out, cols, tw, M, stream); break;
+    case 4: launch_columns<A, 2>(x, out, cols, tw, M, stream); break;
+    case 8: launch_columns<A, 3>(x, out, cols, tw, M, stream); break;
+    case 16: launch_columns<A, 4>(x, out, cols, tw, M, stream); break;
+    case 32: launch_columns<A, 5>(x, out, cols, tw, M, stream); break;
+    case 64: launch_columns<A, 6>(x, out, cols, tw, M, stream); break;
+    case 128: launch_columns<A, 7>(x, out, cols, tw, M, stream); break;
+    case 256: launch_columns<A, 8>(x, out, cols, tw, M, stream); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
 }
 
 template <class A>
@@ -270,20 +393,22 @@ void launch_large(const void* x, void* out, int n, int cols, int m0, int stages,
 
 }  // namespace
 
-// Every stage with half-size m = 1 .. 256 on each of ``cols`` columns; n a
-// multiple of 512, x and out 16-byte aligned.  arith: 0 = CcArith (p < 2^254),
+// Every stage with half-size m = 1 .. min(n, TILE) / 2 on each of ``cols``
+// columns: for n a multiple of 512 over a bit-reversed input (x and out
+// 16-byte aligned), for n = 1 .. 256 (a power of two) over a natural-order
+// one, which is then the whole transform.  arith: 0 = CcArith (p < 2^254),
 // 1 = WideArith.
 extern "C" int h2t_ntt_small_stages(const void* x, void* out, int n, int cols, const void* tw,
                                     const void* modulus, int arith, void* stream) {
   const Modulus M = modulus_from_host(static_cast<const uint32_t*>(modulus));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t rc = cudaErrorInvalidValue;
   if (arith == 0) {
-    launch_small<CcArith>(x, out, n, cols, tw, M, s);
+    rc = launch_small<CcArith>(x, out, n, cols, tw, M, s);
   } else if (arith == 1) {
-    launch_small<WideArith>(x, out, n, cols, tw, M, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    rc = launch_small<WideArith>(x, out, n, cols, tw, M, s);
   }
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
 }
 

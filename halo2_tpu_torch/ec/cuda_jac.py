@@ -30,7 +30,14 @@ import functools
 
 import torch
 
-from ..field.cuda_mul import check_limbs, modulus_one_words, mont_mul_plain, mont_pow_plain, mont_sqr_plain
+from ..field.cuda_mul import (
+    check_limbs,
+    modulus_one_words,
+    mont_inv_plain,
+    mont_mul_plain,
+    mont_pow_plain,
+    mont_sqr_plain,
+)
 from ..field.cuda_ops import mod_add_plain, mod_neg_plain, mod_sub_plain
 from ..field.device import DeviceField
 from ..field.params import BN254_FQ, NUM_LIMBS
@@ -61,6 +68,9 @@ class _PlainField(DeviceField):
 
     def _pow_bits(self, a, e):
         return mont_pow_plain(self.spec, a, e)
+
+    def inv(self, a):
+        return mont_inv_plain(self.spec, a)
 
 
 @functools.lru_cache(maxsize=None)

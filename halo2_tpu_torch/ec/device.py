@@ -5,8 +5,8 @@ Points are dicts ``{x, y, z}`` of ``(16, *B)`` int32 Montgomery limb tensors
 over BN254 Fq; z == 0 marks infinity.  ``jac_add``/``jac_madd`` go to the
 CUDA kernels of :mod:`.cuda_jac` for CUDA tensors (their plain versions for
 CPU tensors); doubling, the inverse and the selects are :class:`DeviceField`
-ops, whose squares, multiplies and powers (the inverse, one ``mont_pow``
-launch) are the CUDA kernels of :mod:`..field.cuda_mul`.
+ops, whose squares, multiplies and inverses (one ``mont_inv`` launch) are
+the CUDA kernels of :mod:`..field.cuda_mul`.
 
 The MSM keeps the reference's schedule: window digits from canonical
 limbs, signed digits, a per-window sort by (digit, sign, index), q rounds of

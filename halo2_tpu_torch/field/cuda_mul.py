@@ -1,19 +1,22 @@
-"""Batched Montgomery multiply, square and power: the CUDA kernels, their
-plain PyTorch versions, and the wrappers that pick one by the tensors'
-device.
+"""Batched Montgomery multiply, square, power and inverse: the CUDA kernels,
+their plain PyTorch versions, and the wrappers that pick one by the
+tensors' device.
 
 The kernels (``csrc/mont_mul.cu``) replace
 ``halo2_tpu/field/pallas_mul.py:_mont_mul_kernel`` and ``_mont_sqr_kernel``,
 and (``mont_pow``, a whole square-and-multiply ladder in one launch) the
-reference's ``lax.scan`` power, ``halo2_tpu/field/device.py:239-253``.
+reference's ``lax.scan`` power, ``halo2_tpu/field/device.py:239-253``;
+``mont_inv`` (``csrc/inv.cu``, a fixed-count safegcd in one launch)
+replaces its Fermat ``inv`` (``:251``).
 :func:`mont_mul_columns` multiplies a ``(C, 16, n)`` batch of columns by a
 full-width, shared or periodic b in one launch, as the reference's
 ``mont_mul`` takes any batch shape in one call.
 Field arrays are ``(16, *batch)`` int32 tensors of 16-bit limbs, Montgomery
 form, canonical (< p): the reference's ``uint32`` numbers held in int32.
 
-:func:`mont_mul_columns` (:func:`mont_sqr`, :func:`mont_pow`) runs
-:func:`mont_mul_columns_plain` (:func:`mont_sqr_plain`, :func:`mont_pow_plain`) for
+:func:`mont_mul_columns` (:func:`mont_sqr`, :func:`mont_pow`, :func:`mont_inv`) runs
+:func:`mont_mul_columns_plain` (:func:`mont_sqr_plain`, :func:`mont_pow_plain`,
+:func:`mont_inv_plain`) for
 a CPU tensor and launches the kernel for a CUDA tensor; there is no
 fallback between the two.  ``LAUNCHES`` counts kernel launches by name.
 """
@@ -28,7 +31,7 @@ import torch
 from .params import LIMB_BITS, LIMB_MASK, NUM_LIMBS, FieldSpec, to_limbs
 
 L = NUM_LIMBS
-LAUNCHES = {"mont_mul": 0, "mont_sqr": 0, "mont_pow": 0}
+LAUNCHES = {"mont_mul": 0, "mont_sqr": 0, "mont_pow": 0, "mont_inv": 0}
 # the kernels' arithmetic, as the C entry points number it
 ARITH = {"cc": 0, "wide": 1}
 
@@ -346,6 +349,160 @@ def mont_pow(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
         e.bit_length(), modulus_one_words(spec).ctypes.data, ARITH[arith(spec)],
     )
     LAUNCHES["mont_pow"] += 1
+    return out
+
+
+# ------------------------------------------------------------------ inverse
+# the safegcd's shape (csrc/inv.cu): 9 signed 30-bit limbs a value, 20
+# batches of 30 divsteps (600: libsecp256k1's modinv32 count; 590 suffice
+# for every input below 2^256)
+INV_LIMBS, INV_BATCHES, INV_STEPS = 9, 20, 30
+_M30, _M32 = (1 << 30) - 1, (1 << 32) - 1
+
+
+@functools.lru_cache(maxsize=None)
+def inv_consts(spec: FieldSpec) -> tuple:
+    """(p in 30-bit limbs, p^-1 mod 2^30, R^3 mod p): the inverse's
+    constants (R = 2^256)."""
+    p = spec.p
+    return tuple((p >> (30 * i)) & _M30 for i in range(INV_LIMBS)), pow(p, -1, 1 << 30), pow(1 << 256, 3, p)
+
+
+@functools.lru_cache(maxsize=None)
+def inv_words(spec: FieldSpec) -> np.ndarray:
+    """(27,) uint32 kernel argument of ``mont_inv``: :func:`modulus_words`,
+    R^3 mod p as 8 little-endian words, p in 30-bit limbs, p^-1 mod 2^30."""
+    p30, p_inv30, r3 = inv_consts(spec)
+    r3_words = [(r3 >> (32 * k)) & _M32 for k in range(8)]
+    return np.concatenate([modulus_words(spec), np.array([*r3_words, *p30, p_inv30], np.uint32)])
+
+
+def _divsteps_30(zeta, f, g):
+    """30 divsteps over the low limbs f (odd) and g of every element, as
+    csrc/inv.cu's divsteps_30 takes them (f and g mod 2^32; u, v, q, r exact,
+    within [-2^30, 2^30]); returns zeta and the matrix (u, v, q, r)."""
+    u, r = torch.ones_like(f), torch.ones_like(f)
+    v, q = torch.zeros_like(f), torch.zeros_like(f)
+    for _ in range(INV_STEPS):
+        c1 = zeta >> 63  # -1 where zeta < 0
+        c2 = -(g & 1)  # -1 where g is odd
+        x, y, z = ((f ^ c1) - c1) & _M32, (u ^ c1) - c1, (v ^ c1) - c1
+        g = (g + (x & c2)) & _M32
+        q = q + (y & c2)
+        r = r + (z & c2)
+        c3 = c1 & c2
+        zeta = (zeta ^ c3) - 1
+        f = (f + (g & c3)) & _M32
+        u = u + (q & c3)
+        v = v + (r & c3)
+        g = g >> 1
+        u = u * 2
+        v = v * 2
+    return zeta, (u, v, q, r)
+
+
+def _update_de(d, e, t, p30, p_inv30):
+    """(d, e) <- t (d, e) / 2^30 mod p over ``(9, m)`` int64 limbs (inv.cu's
+    update_de)."""
+    u, v, q, r = t
+    sd, se = d[-1] >> 63, e[-1] >> 63
+    md = (u & sd) + (v & se)
+    me = (q & sd) + (r & se)
+    cd = u * d[0] + v * e[0]
+    ce = q * d[0] + r * e[0]
+    md = md - ((p_inv30 * (cd & _M30) + md) & _M30)
+    me = me - ((p_inv30 * (ce & _M30) + me) & _M30)
+    cd = (cd + p30[0] * md) >> 30
+    ce = (ce + p30[0] * me) >> 30
+    nd, ne = [], []
+    for i in range(1, INV_LIMBS):
+        cd = cd + u * d[i] + v * e[i] + p30[i] * md
+        ce = ce + q * d[i] + r * e[i] + p30[i] * me
+        nd.append(cd & _M30)
+        ne.append(ce & _M30)
+        cd, ce = cd >> 30, ce >> 30
+    return torch.stack(nd + [cd]), torch.stack(ne + [ce])
+
+
+def _update_fg(f, g, t):
+    """(f, g) <- t (f, g) / 2^30, exact (inv.cu's update_fg)."""
+    u, v, q, r = t
+    cf = (u * f[0] + v * g[0]) >> 30
+    cg = (q * f[0] + r * g[0]) >> 30
+    nf, ng = [], []
+    for i in range(1, INV_LIMBS):
+        cf = cf + u * f[i] + v * g[i]
+        cg = cg + q * f[i] + r * g[i]
+        nf.append(cf & _M30)
+        ng.append(cg & _M30)
+        cf, cg = cf >> 30, cg >> 30
+    return torch.stack(nf + [cf]), torch.stack(ng + [cg])
+
+
+def _propagate(d: torch.Tensor) -> torch.Tensor:
+    rows = list(d)
+    for i in range(INV_LIMBS - 1):
+        rows[i + 1] = rows[i + 1] + (rows[i] >> 30)
+        rows[i] = rows[i] & _M30
+    return torch.stack(rows)
+
+
+def _normalize(d, sign, p30_col):
+    """d in (-2p, p) -> d mod p in [0, p), negated first where sign < 0."""
+    d = d + (p30_col & (d[-1] >> 63))
+    neg = sign >> 63
+    d = _propagate((d ^ neg) - neg)
+    return _propagate(d + (p30_col & (d[-1] >> 63)))
+
+
+def mont_inv_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """a^-1 for Montgomery ``(16, *batch)`` a, inv(0) = 0, in int64 torch
+    ops: the ``mont_inv`` kernel's safegcd step for step (the same 30-bit
+    limbs, INV_BATCHES batches of INV_STEPS divsteps), then the Montgomery
+    product by R^3 mod p that turns x^-1 = (a R)^-1 into a^-1 R."""
+    p30, p_inv30, r3 = inv_consts(spec)
+    shape = a.shape
+    x = a.reshape(L, -1).to(torch.int64)
+    words = torch.cat([x[0::2] | (x[1::2] << LIMB_BITS), torch.zeros_like(x[:1])])  # (9, m), the last 0
+    # limb i: bits 30 i .. 30 i + 29, from words 30 i // 32 and the next (< 2^60 of it)
+    g = torch.stack([((words[30 * i // 32] | ((words[30 * i // 32 + 1] & 0xFFFFFFF) << 32)) >> (30 * i % 32)) & _M30
+                     for i in range(INV_LIMBS)])
+    p30_col = torch.tensor(p30, dtype=torch.int64, device=a.device).reshape(INV_LIMBS, 1)
+    f = p30_col.expand(g.shape)
+    d = torch.zeros_like(g)
+    e = torch.zeros_like(g)
+    e[0] = 1
+    zeta = torch.full_like(g[0], -1)
+    for _ in range(INV_BATCHES):
+        zeta, t = _divsteps_30(zeta, f[0], g[0])
+        d, e = _update_de(d, e, t, p30, p_inv30)
+        f, g = _update_fg(f, g, t)
+    d = torch.cat([_normalize(d, f[-1], p30_col), torch.zeros_like(d[:1])])  # [0, p), a zero limb above
+    # 16-bit limb j: bits 16 j .. 16 j + 15, from limbs 16 j // 30 and the next
+    limbs = torch.stack([((d[16 * j // 30] | (d[16 * j // 30 + 1] << 30)) >> (16 * j % 30)) & LIMB_MASK
+                         for j in range(L)])
+    r3_col = torch.tensor(to_limbs(r3), dtype=torch.int32, device=a.device).reshape(L, 1)
+    return mont_mul_plain(spec, limbs.to(torch.int32), r3_col).reshape(shape)
+
+
+def mont_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """a^-1 elementwise over Montgomery ``(16, *batch)`` a, inv(0) = 0 (the
+    reference's ``DeviceField.inv``).  CPU tensors: :func:`mont_inv_plain`;
+    CUDA tensors: the ``mont_inv`` kernel (a fixed-count safegcd, one
+    launch)."""
+    check_limbs("mont_inv", a=a)
+    if a.device.type == "cpu":
+        return mont_inv_plain(spec, a)
+    if a.device.type != "cuda":
+        raise ValueError(f"mont_inv: unsupported device {a.device}")
+    from .. import _build
+
+    out = torch.empty_like(a)
+    m = a.numel() // L
+    if m == 0:
+        return out
+    _build.launch("mont_inv", a.device, a.data_ptr(), out.data_ptr(), m, inv_words(spec).ctypes.data, ARITH[arith(spec)])
+    LAUNCHES["mont_inv"] += 1
     return out
 
 

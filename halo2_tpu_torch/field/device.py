@@ -10,10 +10,12 @@ A *field array* keeps the reference's layout: ``(16, *batch)`` little-endian
 broadcast to :func:`.cuda_mul.mont_mul_columns`) and
 :func:`.cuda_mul.mont_sqr`, ``add``/``sub``/``neg``/``double`` to
 :func:`.cuda_ops.mod_add`, :func:`.cuda_ops.mod_sub` and
-:func:`.cuda_ops.mod_neg`, ``pow_fixed``/``inv`` to
-:func:`.cuda_mul.mont_pow` (the reference's ``lax.scan`` over the
-exponent's bits, which the host knows, as one launch): the CUDA kernels for
-a CUDA tensor, their plain versions (int64 torch ops) for a CPU tensor.
+:func:`.cuda_ops.mod_neg`, ``pow_fixed`` to :func:`.cuda_mul.mont_pow`
+(the reference's ``lax.scan`` over the exponent's bits, which the host
+knows, as one launch), ``inv`` to :func:`.cuda_mul.mont_inv` (a
+fixed-count safegcd in one launch, where the reference scans a^(p - 2)):
+the CUDA kernels for a CUDA tensor, their plain versions (int64 torch ops)
+for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import math
 import numpy as np
 import torch
 
-from .cuda_mul import mont_mul, mont_mul_columns, mont_pow, mont_sqr
+from .cuda_mul import mont_inv, mont_mul, mont_mul_columns, mont_pow, mont_sqr
 from .cuda_ops import mod_add, mod_neg, mod_sub
 from .params import FieldSpec, LIMB_BITS, LIMB_MASK, NUM_LIMBS, to_limbs
 
@@ -162,8 +164,10 @@ class DeviceField:
         return mont_pow(self.spec, a.contiguous(), e)
 
     def inv(self, a):
-        """Batched inverse via Fermat: a^(p-2).  inv(0) = 0."""
-        return self._pow_bits(a, self.p - 2)
+        """Batched inverse, inv(0) = 0: the limbs of the reference's Fermat
+        a^(p-2) (an inverse is unique), by the ``mont_inv`` kernel's safegcd
+        (one launch) or its plain version."""
+        return mont_inv(self.spec, a.contiguous())
 
     # ------------------------------------------------------------ predicates
     def is_zero(self, a):

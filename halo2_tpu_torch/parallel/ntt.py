@@ -16,9 +16,10 @@ The reference returns the rows sharded and transposes the global array; in
 SPMD every rank ends with the whole result, so an ``all_gather`` of the
 row blocks follows, and the inverse's n^-1 multiply is applied once, at
 the end.  The local transforms are :func:`..poly.domain._ntt_unscaled` over
-a ``(B, 16, n_i)`` batch of columns: the NTT kernels for n_i >= 512, the
-``mont_mul``/``mod_add``/``mod_sub`` stage ladder below, with the twiddles
-of the sub-size and no per-transform n_i^-1.  Any leading batch dims of
+a ``(B, 16, n_i)`` batch of columns, with the twiddles of the sub-size and
+no per-transform n_i^-1: below 512 points (2^11 splits into 64 x 32, 2^15
+into 256 x 128) one ``ntt_small_stages`` launch each, the NTT kernels'
+passes above.  Any leading batch dims of
 the input ride along (the prover's coset batch: one exchange for all its
 columns).
 """

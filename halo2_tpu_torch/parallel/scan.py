@@ -64,7 +64,7 @@ def sharded_prefix_product(mesh, spec, x: torch.Tensor, axis: str = "sp") -> tor
 def grand_product_z(mesh, spec, num: torch.Tensor, den: torch.Tensor, axis: str = "sp") -> torch.Tensor:
     """z[r] = prod_{i < r} num[i] / den[i], z[0] = 1, for replicated
     ``(16, n)`` Montgomery num and den; each rank inverts only its block of
-    den (Fermat, :meth:`DeviceField.inv`: ``mont_sqr`` and ``mont_mul``)."""
+    den (:meth:`DeviceField.inv`: one ``mont_inv`` launch)."""
     df = get_device_field(spec)
     rows = _block(mesh, axis, num.shape[-1])
     ratio = df.mul(num[:, rows].contiguous(), df.inv(den[:, rows].contiguous()))

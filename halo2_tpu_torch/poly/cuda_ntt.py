@@ -6,10 +6,16 @@ The kernels (``csrc/ntt.cu``) replace
 half-size m <= TILE / 2, fused per TILE-element tile) and
 ``_large_stage_kernel`` (one stage with m >= TILE; here up to
 :data:`MAX_FUSED` consecutive large stages in one pass, as
-:func:`large_stage_plan` groups them).  Input is the
-bit-reversed int32 field array, n a power of two >= TILE: one column
-``(16, n)``, or a batch of C columns ``(C, 16, n)``, contiguous, column c the
-``(16, n)`` block at offset ``c * 16 * n``.  One launch covers the batch.
+:func:`large_stage_plan` groups them).  Input is an int32 field array: one
+column ``(16, n)``, or a batch of C columns ``(C, 16, n)``, contiguous,
+column c the ``(16, n)`` block at offset ``c * 16 * n``.  One launch covers
+the batch.  For n >= TILE it is bit-reversed (the caller gathers it).
+Below TILE (n = 1 .. 256: the sharded NTT's local transforms)
+``ntt_small_stages`` is the whole transform in one launch: the kernel
+holds whole columns a block, reads them in natural order through the
+bit-reversal itself and runs all log2(n) stages, where the reference runs
+its ``jnp`` stage ladder (``halo2_tpu/poly/domain.py:78-91``), compiled by
+XLA into one program.
 
 Twiddles come as one ``(16, n - 1)`` table shared by every column: the m
 twiddles of the stage with half-size m start at column m - 1 (see
@@ -26,6 +32,9 @@ from the modulus.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..field.cuda_mul import modulus_words, mont_mul_plain
@@ -37,6 +46,18 @@ L = 16
 TILE = 512
 MAX_FUSED = 6  # large stages a launch: 16 x 2^6 elements, 32 KB of shared memory a block
 LAUNCHES = {"ntt_small_stages": 0, "ntt_large_stage": 0}
+
+
+@functools.lru_cache(maxsize=None)
+def rev_index(n: int, device: torch.device) -> torch.Tensor:
+    """The bit-reversal permutation of 0 .. n - 1 (n a power of two) as an
+    int64 index tensor on ``device``, made once per (n, device)."""
+    bits = n.bit_length() - 1
+    idx = np.arange(n)
+    rev = np.zeros(n, np.int64)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return torch.from_numpy(rev).to(device)
 
 
 # ------------------------------------------------------------- plain versions
@@ -55,8 +76,13 @@ def _stage_plain(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, m: int) -> 
 
 
 def ntt_small_stages_plain(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
+    """The stages m = 1 .. min(n, TILE) / 2; below TILE after the
+    bit-reversal gather of the natural-order input, as the kernel reads it."""
+    n = x.shape[-1]
+    if n < TILE:
+        x = x.index_select(-1, rev_index(n, x.device))
     m = 1
-    while m <= TILE // 2:
+    while m < min(n, TILE):
         x = _stage_plain(spec, x, tw, m)
         m *= 2
     return x
@@ -88,16 +114,16 @@ def large_stage_plan(n: int) -> list[tuple[int, int]]:
 
 
 # -------------------------------------------------------------------- wrappers
-def _check(x: torch.Tensor, tw: torch.Tensor, kernel: str) -> tuple:
-    """Raise unless x is a contiguous int32 (16, n) or (C, 16, n) and tw the
-    (16, n - 1) table beside it; returns (n, C)."""
+def _check(x: torch.Tensor, tw: torch.Tensor, kernel: str, min_n: int) -> tuple:
+    """Raise unless x is a contiguous int32 (16, n) or (C, 16, n), n a power
+    of two >= min_n, and tw the (16, n - 1) table beside it; returns (n, C)."""
     if x.dtype != torch.int32 or tw.dtype != torch.int32:
         raise TypeError(f"{kernel}: x and tw must be int32, got {x.dtype}, {tw.dtype}")
     if x.dim() not in (2, 3) or x.shape[-2] != L:
         raise ValueError(f"{kernel}: x must be (16, n) or (C, 16, n), got {tuple(x.shape)}")
     n = x.shape[-1]
-    if n < TILE or n & (n - 1):
-        raise ValueError(f"{kernel}: n must be a power of two >= {TILE}, got {n}")
+    if n < min_n or n & (n - 1):
+        raise ValueError(f"{kernel}: n must be a power of two >= {min_n}, got {n}")
     if tuple(tw.shape) != (L, n - 1):
         raise ValueError(f"{kernel}: tw must be (16, {n - 1}), got {tuple(tw.shape)}")
     if not (x.is_contiguous() and tw.is_contiguous()):
@@ -107,7 +133,7 @@ def _check(x: torch.Tensor, tw: torch.Tensor, kernel: str) -> tuple:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{kernel}: unsupported device {x.device}")
     cols = x.shape[0] if x.dim() == 3 else 1
-    if cols > 65535:  # the kernels' grid y
+    if cols > 65535 and n >= TILE:  # the kernels' grid y
         raise ValueError(f"{kernel}: at most 65535 columns, got {cols}")
     return n, cols
 
@@ -128,8 +154,11 @@ def _launch(kernel: str, spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, *ar
 
 
 def ntt_small_stages(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
-    """Every stage with half-size m = 1 .. TILE / 2, on each column."""
-    n, cols = _check(x, tw, "ntt_small_stages")
+    """Every stage with half-size m = 1 .. min(n, TILE) / 2, on each column:
+    for n >= TILE over a bit-reversed x; below TILE over a natural-order x
+    (the kernel reads it through the bit-reversal), which makes it the whole
+    transform."""
+    n, cols = _check(x, tw, "ntt_small_stages", 1)
     if x.device.type == "cpu":
         return ntt_small_stages_plain(spec, x, tw)
     return _launch("ntt_small_stages", spec, x, tw, n, cols)
@@ -139,7 +168,7 @@ def ntt_large_stage(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, m: int, 
     """The ``stages`` consecutive stages with half-sizes m, 2m, ..,
     m 2^(stages - 1) (m >= TILE a power of two, 1 <= stages <=
     MAX_FUSED, m 2^stages <= n), on each column, in one launch."""
-    n, cols = _check(x, tw, "ntt_large_stage")
+    n, cols = _check(x, tw, "ntt_large_stage", TILE)
     if m < TILE or m & (m - 1) or not 1 <= stages <= MAX_FUSED or m << stages > n:
         raise ValueError(f"ntt_large_stage: bad half-size m={m} or stages={stages} for n={n}")
     if x.device.type == "cpu":
@@ -148,9 +177,10 @@ def ntt_large_stage(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, m: int, 
 
 
 def ntt_stages(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
-    """The whole butterfly ladder over a bit-reversed (16, n) or (C, 16, n)
-    input, n >= TILE: the fused small stages, then one launch per pass of
-    :func:`large_stage_plan`, each over every column."""
+    """The whole butterfly ladder over a (16, n) or (C, 16, n) input, bit-
+    reversed for n >= TILE, in natural order below: the fused small stages,
+    then one launch per pass of :func:`large_stage_plan` (none below TILE),
+    each over every column."""
     x = ntt_small_stages(spec, x, tw)
     for m, stages in large_stage_plan(x.shape[-1]):
         x = ntt_large_stage(spec, x, tw, m, stages)

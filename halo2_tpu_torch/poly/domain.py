@@ -3,11 +3,12 @@ halo2_tpu/poly/domain.py).
 
 The NTT is the reference's iterative Cooley-Tukey: one bit-reversal gather,
 then log2(n) butterfly stages, over one (16, n) column or over every column
-of a (C, 16, n) batch at once.  For n >= TILE (512) the stages run through
-the CUDA kernels of :mod:`.cuda_ntt` (their plain versions on the CPU); a
-smaller n runs the stage ladder of ``mul``/``add``/``sub``, as the reference
-splits at the same size.  Tensors that the transforms need (bit-reversal
-index, twiddle table, the ladder's stage twiddles, n^-1, coset powers) are
+of a (C, 16, n) batch at once, through the CUDA kernels of :mod:`.cuda_ntt`
+(their plain versions on the CPU).  For n >= TILE (512) the gather is an
+``index_select`` before the kernels; below it one ``ntt_small_stages``
+launch is the whole transform, the gather included, where the reference
+runs a stage ladder of ``mul``/``add``/``sub``.  Tensors that the
+transforms need (bit-reversal index, twiddle table, n^-1, coset powers) are
 cached per device.
 """
 
@@ -21,16 +22,7 @@ import torch
 from ..field.cuda_mul import mont_mul_columns
 from ..field.device import get_device_field
 from ..field.params import FieldSpec
-from .cuda_ntt import TILE, ntt_stages
-
-
-def _bit_reverse_perm(n: int) -> np.ndarray:
-    bits = n.bit_length() - 1
-    idx = np.arange(n)
-    rev = np.zeros(n, np.int32)
-    for b in range(bits):
-        rev |= ((idx >> b) & 1) << (bits - 1 - b)
-    return rev
+from .cuda_ntt import TILE, ntt_stages, rev_index
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,23 +46,10 @@ def _stage_twiddles(spec: FieldSpec, n: int, inverse: bool):
 
 @functools.lru_cache(maxsize=None)
 def twiddle_table(spec: FieldSpec, n: int, inverse: bool, device: torch.device) -> torch.Tensor:
-    """All stages' twiddles as one (16, n - 1) int32 tensor; the stage with
-    half-size m starts at column m - 1."""
-    table = np.concatenate(_stage_twiddles(spec, n, inverse), axis=1)
+    """All stages' twiddles as one (16, n - 1) int32 tensor (empty for n =
+    1); the stage with half-size m starts at column m - 1."""
+    table = np.concatenate([np.zeros((16, 0), np.uint32), *_stage_twiddles(spec, n, inverse)], axis=1)
     return torch.from_numpy(table.view(np.int32)).to(device)
-
-
-@functools.lru_cache(maxsize=None)
-def _stage_twiddle_tensors(spec: FieldSpec, n: int, inverse: bool, device: torch.device) -> tuple:
-    """:func:`_stage_twiddles` as (16, m) int32 tensors on ``device``, made
-    once per (spec, n, direction, device), so a stage ladder copies nothing
-    from the host."""
-    return tuple(torch.from_numpy(tw.view(np.int32)).to(device) for tw in _stage_twiddles(spec, n, inverse))
-
-
-@functools.lru_cache(maxsize=None)
-def _rev_index(n: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_bit_reverse_perm(n).astype(np.int64)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,25 +68,12 @@ def _mul_columns(spec: FieldSpec, x: torch.Tensor, b: torch.Tensor) -> torch.Ten
 def _ntt_unscaled(spec: FieldSpec, x: torch.Tensor, inverse: bool) -> torch.Tensor:
     """The transform of each column of a (16, n) or (C, 16, n) Montgomery
     tensor over omega (omega^-1 when ``inverse``) without the inverse's n^-1
-    scaling (natural order in and out): the bit-reversal gather, then the
-    NTT kernels for n >= TILE, the stage ladder of ``mul``/``add``/``sub``
-    below."""
-    df = get_device_field(spec)
+    scaling (natural order in and out): the NTT kernels over every column,
+    after the bit-reversal gather for n >= TILE (below it the one
+    ``ntt_small_stages`` launch reads through the bit-reversal itself)."""
     n = x.shape[-1]
-    device = x.device
-    x = x.index_select(-1, _rev_index(n, device))
-    if n >= TILE:
-        return ntt_stages(spec, x, twiddle_table(spec, n, inverse, device))
-    lead = x.shape[:-2]
-    x = x.movedim(-2, 0)  # limbs first, as the field ops take them
-    m = 1
-    for tw in _stage_twiddle_tensors(spec, n, inverse, device):
-        v = x.reshape(16, *lead, n // (2 * m), 2, m)
-        a = v[..., 0, :]
-        b = df.mul(v[..., 1, :], tw.reshape(16, *(1,) * (len(lead) + 1), m))  # tw: a period of m
-        x = torch.stack([df.add(a, b), df.sub(a, b)], dim=-2).reshape(16, *lead, n)
-        m *= 2
-    return x.movedim(0, -2).contiguous()
+    x = x.index_select(-1, rev_index(n, x.device)) if n >= TILE else x.contiguous()
+    return ntt_stages(spec, x, twiddle_table(spec, n, inverse, x.device))
 
 
 def _ntt_raw(spec: FieldSpec, n: int, inverse: bool):

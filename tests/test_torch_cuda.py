@@ -309,10 +309,99 @@ def test_mont_pow_kernel_matches_plain(device, spec, m):
         got = cuda_mul.mont_pow(spec, a, e)
         torch.cuda.synchronize(device)
         assert torch.equal(got, cuda_mul.mont_pow_plain(spec, a, e)), e
-    inv = get_device_field(spec).inv(a)
+    inv = get_device_field(spec).pow_fixed(a, spec.p - 2)  # pow_fixed is the one DeviceField caller
     torch.cuda.synchronize(device)
     assert cuda_mul.LAUNCHES["mont_pow"] == before + len(exps) + 1
     assert torch.equal(inv, cuda_mul.mont_pow_plain(spec, a, spec.p - 2))
+
+
+@pytest.mark.parametrize("spec", [BN254_FR, BN254_FQ, PASTA_FP], ids=lambda s: s.name)
+@pytest.mark.parametrize("m", [1, 1 << 10, 1 << 11, 1 << 16])
+def test_mont_inv_kernel_matches_plain(device, spec, m):
+    """The safegcd inverse in one launch (DeviceField.inv's, which launches
+    no mont_pow) against its plain version and the mont_pow kernel's
+    a^(p - 2), on values that include 0, 1, p - 1 and p - 2."""
+    a = _encoded(spec, m, 7, device)
+    before = dict(cuda_mul.LAUNCHES)
+    got = get_device_field(spec).inv(a)
+    torch.cuda.synchronize(device)
+    assert cuda_mul.LAUNCHES["mont_inv"] == before["mont_inv"] + 1
+    assert cuda_mul.LAUNCHES["mont_pow"] == before["mont_pow"]
+    assert torch.equal(got, cuda_mul.mont_inv_plain(spec, a))
+    assert torch.equal(got, cuda_mul.mont_pow(spec, a, spec.p - 2))
+    assert int(got[:, 0].abs().sum()) == 0  # inv(0) = 0
+
+
+@pytest.mark.parametrize("spec", [BN254_FR, PASTA_FP], ids=lambda s: s.name)
+@pytest.mark.parametrize("n", [1 << k for k in range(9)])
+@pytest.mark.parametrize("cols", [1, 3])
+def test_small_ntt_kernel_matches_plain(device, spec, n, cols):
+    """Below 512 points one ntt_small_stages launch is the whole transform
+    (natural order in, the bit-reversal in the kernel's load), forward and
+    inverse, against its plain version."""
+    enc = [_encoded(spec, n, 50 + c, device) for c in range(cols)]
+    x = torch.stack(enc) if cols > 1 else enc[0]
+    for inverse in (False, True):
+        tw = twiddle_table(spec, n, inverse, device)
+        before = cuda_ntt.LAUNCHES["ntt_small_stages"]
+        got = cuda_ntt.ntt_small_stages(spec, x, tw)
+        torch.cuda.synchronize(device)
+        assert cuda_ntt.LAUNCHES["ntt_small_stages"] == before + 1
+        assert torch.equal(got, cuda_ntt.ntt_small_stages_plain(spec, x, tw))
+
+
+@pytest.mark.parametrize(
+    "cols, n",
+    [(32, 64), (64, 32), (16, 64), (32, 32), (83 * 128, 256), (83 * 256, 128), (83 * 64, 256),
+     (83 * 128, 128), (32, 16)],
+)
+def test_small_ntt_kernel_at_the_sharded_shapes(device, cols, n):
+    """The local transforms the sharded prover gives the kernel: 2^11 as 32
+    x 64 then 64 x 32 points, 2^15 over 83 columns as 83 x 128 x 256 then 83
+    x 256 x 128 (W = 1), their W = 2 halves, and the dryrun's k = 9."""
+    spec = BN254_FR
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cols + n)
+    x = torch.randint(0, 1 << 16, (cols, 16, n), generator=gen, device=device, dtype=torch.int32)
+    top = spec.p >> 240
+    x[:, 15] = torch.randint(0, top, (cols, n), generator=gen, device=device, dtype=torch.int32)
+    tw = twiddle_table(spec, n, False, device)
+    got = cuda_ntt.ntt_small_stages(spec, x, tw)
+    torch.cuda.synchronize(device)
+    assert torch.equal(got, cuda_ntt.ntt_small_stages_plain(spec, x, tw))
+
+
+def test_ntt_below_512_launches_no_field_op(device):
+    """_ntt_raw below 512 points and sharded_ntt at 2^11 (one rank, gloo
+    through host memory) launch one ntt_small_stages a local transform and
+    no mod_add or mod_sub."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from halo2_tpu_torch.parallel import make_mesh
+    from halo2_tpu_torch.parallel.ntt import sharded_ntt
+
+    spec = BN254_FR
+    x = torch.stack([_encoded(spec, 1 << 11, 60 + c, device) for c in range(3)])
+    before = {**cuda_ntt.LAUNCHES, **cuda_ops.LAUNCHES}
+    y = _ntt_raw(spec, 64, False)(x[:, :, :64].contiguous())
+    torch.cuda.synchronize(device)
+    assert cuda_ntt.LAUNCHES["ntt_small_stages"] == before["ntt_small_stages"] + 1
+    assert torch.equal(y.cpu(), _ntt_raw(spec, 64, False)(x[:, :, :64].cpu().contiguous()))
+    with tempfile.TemporaryDirectory(prefix="h2t_gloo_") as tmp:
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        dist.init_process_group("gloo", init_method=init, rank=0, world_size=1)
+        try:
+            got = sharded_ntt(make_mesh(1), spec, x)
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.synchronize(device)
+    assert cuda_ntt.LAUNCHES["ntt_small_stages"] == before["ntt_small_stages"] + 3
+    assert cuda_ntt.LAUNCHES["ntt_large_stage"] == before["ntt_large_stage"]
+    for op in ("mod_add", "mod_sub"):
+        assert cuda_ops.LAUNCHES[op] == before[op]
+    assert torch.equal(got, _ntt_raw(spec, 1 << 11, False)(x))
 
 
 def test_ladder_wrappers_raise_on_bad_inputs(device):
@@ -322,6 +411,10 @@ def test_ladder_wrappers_raise_on_bad_inputs(device):
         cuda_mul.mont_pow(spec, a.to(torch.int64), 5)
     with pytest.raises(ValueError):
         cuda_mul.mont_pow(spec, a[:, ::2], 5)
+    with pytest.raises(TypeError):
+        cuda_mul.mont_inv(spec, a.to(torch.int64))
+    with pytest.raises(ValueError):
+        cuda_mul.mont_inv(spec, a[:, ::2])
     w = _window_stack(3, 6, 4, device)
     with pytest.raises(TypeError):
         cuda_jac.jac_horner_cuda(w.to(torch.int64), 4)

@@ -218,14 +218,17 @@ def test_coset_transforms_of_a_batch_match_reference_columns(k):
 
 
 def test_stage_twiddles_are_cached_on_the_device():
-    """The ladder's per-stage twiddles are made once per (spec, n,
-    direction, device) and hold _stage_twiddles' limbs."""
+    """The twiddle table of a transform below 512 points (one small-stages
+    launch reads it) is made once per (spec, n, direction, device) and holds
+    _stage_twiddles' limbs, stage m from column m - 1."""
     cpu = torch.device("cpu")
-    first = port_domain_mod._stage_twiddle_tensors(BN254_FR, 64, True, cpu)
-    assert port_domain_mod._stage_twiddle_tensors(BN254_FR, 64, True, cpu) is first
-    for t, tw in zip(first, _stage_twiddles(BN254_FR, 64, True)):
-        assert np.array_equal(t.numpy().view(np.uint32), tw)
-    assert [t.shape[1] for t in first] == [1, 2, 4, 8, 16, 32]
+    first = port_domain_mod.twiddle_table(BN254_FR, 64, True, cpu)
+    assert port_domain_mod.twiddle_table(BN254_FR, 64, True, cpu) is first
+    stages = _stage_twiddles(BN254_FR, 64, True)
+    assert [tw.shape[1] for tw in stages] == [1, 2, 4, 8, 16, 32]
+    for tw in stages:
+        m = tw.shape[1]
+        assert np.array_equal(first[:, m - 1 : 2 * m - 1].numpy().view(np.uint32), tw)
 
 
 @pytest.fixture(scope="module")

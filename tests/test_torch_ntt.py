@@ -1,8 +1,10 @@
 """halo2_tpu_torch NTT and evaluation domain against the reference, exactly.
 
-Both sides of the n = 512 split are covered: below it the port runs the
-stage ladder of field ops, from 512 up the NTT stage kernels' plain versions
-(the kernels are held against those on the card by chip_smoke.py).
+Both sides of the n = 512 split are covered: below it one small-stages
+call is the whole transform (tests/test_torch_small_ntt.py covers n = 2 ..
+256), from 512 up the bit-reversal gather and the NTT stage kernels; on the
+CPU the kernels' plain versions run (the kernels are held against those on
+the card by chip_smoke.py).
 
 The reference NTT is reached two ways: its jitted ``_ntt_fn`` at n = 2^4
 and 2^9 (BN254 Fr) and 2^10 .. 2^14 (Pasta Fp, whose NTT the native engine
@@ -114,8 +116,15 @@ def test_ntt_wrappers_check_their_inputs():
     x = torch.zeros((16, 1024), dtype=torch.int32)
     tw = torch.zeros((16, 1023), dtype=torch.int32)
     cuda_ntt.ntt_large_stage(spec, x, tw, 512)
+    # below 512 points the whole transform
+    cuda_ntt.ntt_small_stages(spec, x[:, :256].contiguous(), tw[:, :255].contiguous())
     with pytest.raises(ValueError):
-        cuda_ntt.ntt_small_stages(spec, x[:, :256], tw[:, :255])
+        cuda_ntt.ntt_small_stages(spec, x[:, :256], tw[:, :255])  # not contiguous
+    with pytest.raises(ValueError):
+        # not a power of two
+        cuda_ntt.ntt_small_stages(spec, x[:, :96].contiguous(), tw[:, :95].contiguous())
+    with pytest.raises(ValueError):
+        cuda_ntt.ntt_large_stage(spec, x[:, :256].contiguous(), tw[:, :255].contiguous(), 128)
     with pytest.raises(ValueError):
         cuda_ntt.ntt_small_stages(spec, x, tw[:, :100])
     with pytest.raises(ValueError):
