@@ -56,7 +56,15 @@ passes or raises:
    of dependent products; mont_inv (the inverse as a fixed-count safegcd
    in one launch) at the same sizes and fields against its plain version
    and the mont_pow kernel's a^(p - 2), zero included, timed beside
-   mont_pow in this call with its bound and its chain of divsteps;
+   mont_pow in this call with its bound and its chain of divsteps; the
+   device MSM's window-sum kernels, msm_chunk_acc (a batch's intra-chunk
+   rounds in one launch) and jac_suffix_scan (the cross-chunk suffix scan
+   in Kogge-Stone steps), on the batches of MSM_CASES (the flagship's
+   commit batches of 1, 4, 8, 16 and 20 columns at 2^11, a W = 2 rank's
+   2^10, the dryrun's 2^9, the 2^16 MSM and a 2^18-point slice),
+   with exception lanes (a (0, 0) point, a y = 0 point, P == Q and P == -Q
+   in a chunk) and the scan at SCAN_RAGGED chunk counts, each one's device
+   time a call beside its bound and its chain of dependent group ops;
 3. the device MSM: msm_points at 2^16 (the k = 16 SRS, random.Random(42)
    scalars) and 2^20 (that SRS and random.Random(9) scalars tiled 16 times)
    equals the native host MSM on the same arrays; the time of each (median
@@ -111,7 +119,9 @@ passes or raises:
    times at W = 1 and W = 2 beside the single-device ones (native and
    device commits) and their phases; the transport of every collective;
    the launches a rank by kernel at W = 1 and W = 2, beside a W = 1
-   prove's before jac_horner and mont_pow (W1_LAUNCHES_BEFORE); one warm
+   prove's before jac_horner and mont_pow (W1_LAUNCHES_BEFORE); the
+   commitments of each device MSM batch in one single-device
+   device-commit prove and one W = 1 prove; one warm
    W = 1 prove under torch.profiler: its launches by kernel and by width,
    and the device's busy share.
 10. the graft entries (halo2_tpu_torch.graft_entry): entry() (the
@@ -132,19 +142,21 @@ phases 3-6 must read no P == Q flag back.  Every path of phases 3-10 runs
 once with the launch counts set to 0
 just before and read just after, and fails if a kernel it must launch was
 not launched: mont_mul and the NTT kernels in the proves and the keygens,
-vm_eval in every prove, jac_madd, jac_add and mod_sub (the MSM's signed
-digits negate their points) in the device-commit prove and the
-device-commit keygen, jac_madd and jac_add in the MSM and in every hybrid
+vm_eval in every prove, the MSM's kernels (MSM_KERNELS: msm_chunk_acc,
+jac_suffix_scan, jac_add) and jac_horner in the device-commit prove and
+the device-commit keygen, the MSM's kernels in the MSM and in every hybrid
 MSM whose device share is above 0, none in a NativeEngine prove, mont_sqr,
 mont_mul, mont_inv and jac_add in the setup, vm_eval in every
 MockProver run, mont_mul, mont_sqr and mod_add in the sponge, and in
 phase 9 (each rank's counts set to 0 before each of its jobs and read
-after) every kernel of SHARDED_KERNELS (mont_mul, mod_sub, jac_madd,
-jac_add, jac_horner, mont_inv, ntt_small_stages, vm_eval) in every sharded
-prove on every rank, ntt_small_stages and mont_mul (and ntt_large_stage at
-2^20) and no mod_add or mod_sub in every sharded NTT, jac_madd, jac_add
-and jac_horner in the sharded MSM, and mont_inv in the sharded grand
-product; in phase 10
+after) every kernel of SHARDED_KERNELS (mont_mul, jac_horner, mont_inv,
+ntt_small_stages, vm_eval and the MSM's) in every sharded prove on every
+rank, ntt_small_stages and mont_mul (and ntt_large_stage at 2^20) and no
+mod_add or mod_sub in every sharded NTT, the MSM's kernels and jac_horner
+in the sharded MSM, and mont_inv in the sharded grand product; and no MSM
+path (the MSM, the device-commit and sharded proves, the sharded MSM)
+launches jac_madd or mod_sub (MSM_GONE: the mixed add and the negation
+run inside msm_chunk_acc), nor the device-commit keygen jac_madd; in phase 10
 vm_eval in entry() and every kernel of SHARDED_KERNELS in each dryrun
 check on every rank.  The line
 before the last is a JSON object with one entry per kernel (its launches
@@ -216,8 +228,20 @@ SMALL_NTT_SHAPES = ((32, 64), (64, 32), (FLAGSHIP_C * 128, 256), (FLAGSHIP_C * 2
                     (16, 32), (32, 16), (8, 32), (16, 16))
 # the chained-product microbenchmark's products in one thread
 CHAIN_ITERS = 4096
+# the device MSM's window-sum kernels (msm_chunk_acc, jac_suffix_scan):
+# (points, scalar sets a batch) of the batches the main paths give them: the
+# flagship's commit batches at 2^11 (its prove commits batches of 1, 4, 8, 16
+# and 20 columns), a W = 2 rank's half of them (2^10), the dryrun's k = 9
+# (2^9), the 2^16 MSM and one 2^18-point slice of the 2^20 one (q = 16:
+# 16,384 chunks a window); the JSON line's times at the largest batch
+MSM_CASES = ((1 << 11, (1, 4, 8, 16, 20)), (1 << 10, (1, 4, 20)), (1 << 9, (1, 4)), (1 << 16, (1,)), (1 << 18, (1,)))
+MSM_REPORT = (1 << 11, 20)
+# the scan also at chunk counts no path gives it: one chunk, a tile's 256
+# plus one (two tiles, a ragged one), and three tiles and a bit
+SCAN_RAGGED = (1, 2, 65, 257, 700)
 # the shape at which each kernel's ms in the JSON line is taken
-REPORT_AT = {"jac_horner": HORNER_REPORT_B, "mont_pow": POW_REPORT_M, "mont_inv": POW_REPORT_M}
+REPORT_AT = {"jac_horner": HORNER_REPORT_B, "mont_pow": POW_REPORT_M, "mont_inv": POW_REPORT_M,
+             "msm_chunk_acc": MSM_REPORT, "jac_suffix_scan": MSM_REPORT}
 
 
 def _ms_per_call(fn, calls: int, runs: int = 5) -> float:
@@ -470,6 +494,8 @@ def phase_kernels(device):
 
     ladder_bounds = _check_ladders(device, gen, err, times)
 
+    msm_bounds = _check_msm_kernels(device, gen, err, times)
+
     for n in TIMED_SIZES:
         bounds = _bounds(classes, n)
         print(
@@ -477,7 +503,7 @@ def phase_kernels(device):
             + ", ".join(f"{k} {v[0]:.6f} {v[1]}" for k, v in bounds.items()),
             flush=True,
         )
-    return err, times, {**_bounds(classes, REPORT_SIZE), "vm_eval": vm_bound, **ladder_bounds}
+    return err, times, {**_bounds(classes, REPORT_SIZE), "vm_eval": vm_bound, **ladder_bounds, **msm_bounds}
 
 
 def _mul_columns_work(n: int, cols: int, b_elems: int) -> tuple:
@@ -1027,6 +1053,171 @@ def _check_jac_kernels(device, err, times):
     return classes
 
 
+def _msm_batch(device, gen, n: int, sets: int):
+    """The inputs msm_chunk_acc and jac_suffix_scan get from one batch of
+    ``sets`` random scalar sets over n points of the k = 16 SRS (tiled past
+    2^16), as ec/device.py:_msm_wsums_raw makes them: the points and the
+    rows' sorted entries (point indices and signs), chunked."""
+    import numpy as np
+    import torch
+
+    from halo2_tpu_torch.ec import device as ecd
+    from halo2_tpu_torch.field.params import BN254_FR
+    from halo2_tpu_torch.kzg.params import ParamsKZG
+
+    srs = ParamsKZG.load(SRS16)
+    reps = -(-n // srs.n)
+    px, py = (torch.from_numpy(np.tile(a, (1, reps))[:, :n].copy().view(np.int32)).to(device) for a in (srs.g1_x, srs.g1_y))
+    sc = _random_field(BN254_FR, (sets, n), gen, device).movedim(1, 0)
+    c, q = ecd._msm_c(n), ecd._q_rounds(n)
+    digits, signs = ecd._signed_digits(ecd._digits_from_limbs(sc, c), c)
+    rows = digits.shape[0] * digits.shape[1]
+    chunks = max(1, n // q)
+    _, order, sign = ecd._sorted_entries(digits.reshape(rows, n), signs.reshape(rows, n), n // chunks)
+    return px, py, order, sign
+
+
+def _chunk_acc_work(px, order, sfx_z) -> tuple:
+    """(bytes, IMADs) of one msm_chunk_acc launch: the points, entries and
+    outputs each moved once; a madd's 7 products and 4 squares for every
+    round whose accumulator is finite (from the plain version's running
+    sums: a chunk's first round and a round after a P == -Q sum copy)."""
+    from halo2_tpu_torch.ec import device as ecd
+
+    rows, q, chunks = order.shape
+    finite = int((~ecd.df().is_zero(sfx_z.reshape(16, rows, q, chunks)[:, :, 1:])).sum())
+    nbytes = 2 * ELEM * px.shape[1] + 5 * order.numel() + 3 * ELEM * rows * chunks * (q + 1)
+    return nbytes, finite * (7 * IMAD_MUL + 4 * IMAD_SQR)
+
+
+def _scan_work(rows: int, chunks: int) -> tuple:
+    """(bytes, IMADs) of the exclusive suffix scan of rows x chunks points:
+    each point read and written once; the sequential scan's adds of two
+    finite points, chunks - 2 a row (add-2007-bl: 12 products, 4 squares)."""
+    return 6 * ELEM * rows * chunks, rows * max(0, chunks - 2) * (12 * IMAD_MUL + 4 * IMAD_SQR)
+
+
+def _scan_device_ms(tot) -> tuple:
+    """Device time of one jac_suffix_scan call over ``tot``: each of its
+    launches timed alone (_kernel_device_ms: the median of the recorded
+    launches, so a profile that dropped some events still reads), summed.
+    Returns (ms, launches)."""
+    from halo2_tpu_torch.ec import cuda_jac
+
+    chunks = tot.shape[-1]
+    T = cuda_jac.scan_tile(chunks)
+    tiles = lambda: cuda_jac._scan_tiles_cuda(tot, T, chunks > T)  # noqa: E731
+    ms = _kernel_device_ms(tiles, "jac_suffix_scan_kernel", 0.0)
+    if chunks <= T:
+        return ms, 1
+    excl, sums = tiles()
+    inner, launches = _scan_device_ms(sums)
+    suffix = cuda_jac.jac_suffix_scan_cuda(sums)
+    offsets = _kernel_device_ms(lambda: cuda_jac._scan_offsets_cuda(excl, suffix, T), "jac_suffix_scan_offsets_kernel", 0.0)
+    return ms + inner + offsets, launches + 2
+
+
+def _scan_chain(chunks: int) -> int:
+    """Dependent complete adds on the scan's longest path: each level's
+    log2(tile) Kogge-Stone steps, and one offsets add a level above the
+    first."""
+    from halo2_tpu_torch.ec import cuda_jac
+
+    T = cuda_jac.scan_tile(chunks)
+    steps = T.bit_length() - 1
+    return steps if chunks <= T else steps + 1 + _scan_chain(-(-chunks // T))
+
+
+def _check_msm_kernels(device, gen, err, times) -> dict:
+    """msm_chunk_acc and jac_suffix_scan against their plain versions, limb for limb, at every MSM_CASES batch, with each
+    one's device time a call beside its bound and its chain; exception
+    lanes at the flagship's one-set batch (a (0, 0) point, a y = 0 point, a
+    chunk adding one point twice (P == Q), one adding a point and its
+    negative (P == -Q), one adding a y = 0 point eight times, one starting
+    at the (0, 0) point) and the scan
+    at SCAN_RAGGED chunk counts with P == Q, P == -Q and infinite chunks.
+    Returns the bounds at MSM_REPORT."""
+    import torch
+
+    from halo2_tpu_torch.ec import cuda_jac
+    from halo2_tpu_torch.ec import device as ecd
+
+    bounds = {}
+    for n, batches in MSM_CASES:
+        for sets in batches:
+            px, py, order, sign = _msm_batch(device, gen, n, sets)
+            cases = [("", px, py, order, sign)]
+            if (n, sets) == (1 << 11, 1):
+                ex = [t.clone() for t in (px, py, order, sign)]
+                ex[0][:, 3] = ex[1][:, 3] = 0
+                ex[1][:, 5] = 0
+                # entry pos of chunk c at [row, pos, c]; the rounds run from pos q - 1 down
+                ex[2][0, -2, 0], ex[3][0, -2, 0] = ex[2][0, -1, 0], ex[3][0, -1, 0]
+                ex[2][0, -2, 1], ex[3][0, -2, 1] = ex[2][0, -1, 1], ~ex[3][0, -1, 1]
+                ex[2][1, :, 0], ex[3][1, :, 0] = 5, True
+                ex[2][1, -1, 1] = 3
+                cases.append((" exceptions", *ex))
+            rows, q, chunks = order.shape
+            label = f"n=2^{n.bit_length() - 1} B={sets} ({rows} rows x {chunks} chunks x {q})"
+            for tag, cpx, cpy, corder, csign in reversed(cases):  # the general batch last: its results stay
+                got = cuda_jac.msm_chunk_acc_cuda(cpx, cpy, corder, csign)
+                want = cuda_jac.msm_chunk_acc_plain(cpx, cpy, corder, csign)
+                for what, g, w in zip(("sfx", "tot"), got, want):
+                    err["msm_chunk_acc"] = max(err["msm_chunk_acc"], _max_abs_err(f"msm_chunk_acc {label}{tag} {what}", g, w))
+            nbytes, imads = _chunk_acc_work(px, order, want[0][2])
+            del want
+            bound = _bound(nbytes, imads)
+            kernel = lambda: cuda_jac.msm_chunk_acc_cuda(px, py, order, sign)  # noqa: E731
+            t_d = _kernel_device_ms(kernel, "msm_chunk_acc_kernel", bound[0])
+            if (n, sets) == MSM_REPORT:
+                bounds["msm_chunk_acc"] = bound
+                times[("msm_chunk_acc", MSM_REPORT)] = (
+                    _ms_per_call(kernel, 20), _ms_per_call(lambda: cuda_jac.msm_chunk_acc_plain(px, py, order, sign), 1, runs=3),
+                )
+            print(
+                f"[kernels] msm_chunk_acc {label}: equal to plain; {t_d:.4f} ms on the device, bound {bound[0]:.6f} ms "
+                f"({bound[1]}, {bound[0] / t_d:.1%} of it); chain {q} dependent madds a lane",
+                flush=True,
+            )
+            tot = got[1]
+            sbound = _bound(*_scan_work(rows, chunks))
+            g = cuda_jac.jac_suffix_scan_cuda(tot)
+            e = _max_abs_err(f"jac_suffix_scan {label}", g, cuda_jac.jac_suffix_scan_plain(tot))
+            err["jac_suffix_scan"] = max(err["jac_suffix_scan"], e)
+            t_d, launches = _scan_device_ms(tot)
+            if t_d < sbound[0]:
+                raise AssertionError(f"jac_suffix_scan {label}: {t_d} ms on the device, below its bound")
+            if (n, sets) == MSM_REPORT:
+                bounds["jac_suffix_scan"] = sbound
+                times[("jac_suffix_scan", MSM_REPORT)] = (
+                    _ms_per_call(lambda: cuda_jac.jac_suffix_scan_cuda(tot), 20),
+                    _ms_per_call(lambda: cuda_jac.jac_suffix_scan_plain(tot), 1, runs=3),
+                )
+            chain = _scan_chain(chunks)
+            print(
+                f"[kernels] jac_suffix_scan {label}: equal to plain; {t_d:.4f} ms on the device in "
+                f"{launches} launches, bound {sbound[0]:.6f} ms ({sbound[1]}, {sbound[0] / t_d:.1%} of it); chain "
+                f"{chain} dependent adds, {t_d * 1e3 / chain:.2f} us each",
+                flush=True,
+            )
+    # the scan at ragged chunk counts, exception chunks included
+    px, py, order, sign = _msm_batch(device, gen, 1 << 11, 1)
+    base = cuda_jac.msm_chunk_acc_cuda(px, py, order, sign)[1][:, :, :2].contiguous()  # (3, 16, 2, 256)
+    inf = torch.stack(list(ecd.jac_infinity((), device=device).values()))[:, :, None]
+    neg = ecd.df().neg(base[1, :, 0, 3].contiguous())
+    for chunks in SCAN_RAGGED:
+        s = base.repeat(1, 1, 1, -(-chunks // base.shape[-1]))[..., :chunks].contiguous()
+        if chunks > 4:
+            s[:, :, 0, 1] = s[:, :, 0, 0]  # P == Q
+            s[:, :, 0, 2], s[1, :, 0, 2] = s[:, :, 0, 3], neg  # P == -Q
+            s[:, :, 1, chunks // 2] = inf[:, :, 0]
+            s[:, :, 1, -1] = inf[:, :, 0]
+        e = _max_abs_err(f"jac_suffix_scan C={chunks}", cuda_jac.jac_suffix_scan_cuda(s), cuda_jac.jac_suffix_scan_plain(s))
+        err["jac_suffix_scan"] = max(err["jac_suffix_scan"], e)
+    print(f"[kernels] jac_suffix_scan at C={list(SCAN_RAGGED)}, P == Q, P == -Q and infinite chunks: equal to plain", flush=True)
+    return bounds
+
+
 def _horner_windows(device, c: int, windows: int, batch: int):
     """(3, 16, batch, windows) window sums on the card, from the k = 16
     SRS's points doubled (z != 1): window 3 of every lane at infinity; lane
@@ -1420,6 +1611,19 @@ def _require(path: str, counts: dict, names) -> None:
         raise AssertionError(f"{path}: kernels not launched: {missing}")
 
 
+# the device MSM's kernels: its window-sum rounds and scan, its Abel combine
+# and tree sums (jac_add); the mixed add and the negations' mod_sub are
+# inside msm_chunk_acc, so no MSM path launches jac_madd or mod_sub
+MSM_KERNELS = ("msm_chunk_acc", "jac_suffix_scan", "jac_add")
+MSM_GONE = ("jac_madd", "mod_sub")
+
+
+def _forbid(path: str, counts: dict, names) -> None:
+    launched = {name: counts[name] for name in names if counts[name]}
+    if launched:
+        raise AssertionError(f"{path}: launched {launched}, which it must not")
+
+
 class _FlagReads:
     """Counts the group ops' device -> host reads of their P == Q flags: one
     per call of a plain version's ``_double_fixup``.  The kernels double on
@@ -1485,7 +1689,8 @@ def phase_msm(device):
         if got != want or got == (0, 0):
             raise AssertionError(f"MSM {label}: device {got} != native {want}")
         _no_flag_reads(f"MSM {label}", flags)
-        _require(f"MSM {label}", counts, ("jac_madd", "jac_add"))
+        _require(f"MSM {label}", counts, MSM_KERNELS)
+        _forbid(f"MSM {label}", counts, MSM_GONE)
         runs.append(counts)
         t_dev, t_nat = [], []
         for _ in range(3):
@@ -1537,7 +1742,7 @@ def _check_hybrid(label, device, args, host, want) -> list:
             raise AssertionError(f"hybrid MSM {label} at device share {share}: {got} != native {want}")
         _no_flag_reads(f"hybrid MSM {label}", flags)
         if share > 0:
-            _require(f"hybrid MSM {label} at device share {share}", counts, ("jac_madd", "jac_add"))
+            _require(f"hybrid MSM {label} at device share {share}", counts, MSM_KERNELS)
         runs.append(counts)
         ts = []
         for _ in range(3):
@@ -1591,10 +1796,11 @@ def _prove(params, pk, circuit, public, want, device, commit, reps):
 # the position of the lane (or element) count among the arguments of each
 # kernel's C entry point, for profile_prove's launches by width
 WIDTH_ARG = {"mont_mul": 6, "mont_sqr": 2, "mont_pow": 2, "mont_inv": 2, "mod_add": 3, "mod_sub": 3,
-             "jac_madd": 9, "jac_add": 9, "jac_horner": 2, "ntt_small_stages": 2}
-# the columns a launch of mont_mul and ntt_small_stages: the argument after
-# their elements a column
-COLS_ARG = {"mont_mul": 7, "ntt_small_stages": 3}
+             "jac_madd": 9, "jac_add": 9, "jac_horner": 2, "ntt_small_stages": 2, "msm_chunk_acc": 6,
+             "jac_suffix_scan": 5}
+# the columns a launch of mont_mul and ntt_small_stages, and the rows of the
+# MSM's window-sum kernels (their width: chunks)
+COLS_ARG = {"mont_mul": 7, "ntt_small_stages": 3, "msm_chunk_acc": 5, "jac_suffix_scan": 4}
 # mont_mul launches of one warm flagship prove before mont_mul took a batch
 # of columns in one launch (the port at commit 222e703 on an NVIDIA H100 80GB HBM3 at
 # 700 W, PERF.md): native commits, and the W = 1 sharded prove
@@ -1687,7 +1893,7 @@ def profile_prove(device, params=None, pk=None, warm: int = 1, mesh=None) -> Non
     print(f"[profile]   mont_mul launches: {ours['mont_mul']} (before one launch a column batch: {before})", flush=True)
     print(
         "[profile]   kernels by width (lanes or elements a launch, mont_mul and ntt_small_stages columns x "
-        "elements: launches; "
+        "elements, msm_chunk_acc and jac_suffix_scan rows x chunks: launches; "
         "the 6 most common): "
         + "; ".join(
             f"{k} " + ", ".join(f"{m}: {n}" for m, n in c.most_common(6))
@@ -1758,8 +1964,9 @@ def phase_prove(device):
     _, device_counts = _prove(params, pk, circuit, public, want, device, "device", 1)
     _require(
         "device-commit prove", device_counts,
-        ("mont_mul", "ntt_small_stages", "ntt_large_stage", "jac_madd", "jac_add", "vm_eval", "mod_sub"),
+        ("mont_mul", "ntt_small_stages", "ntt_large_stage", "vm_eval", "jac_horner") + MSM_KERNELS,
     )
+    _forbid("device-commit prove", device_counts, MSM_GONE)
     print(f"[prove] peak device memory {torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB", flush=True)
     profile_prove(device, params, pk)
 
@@ -1914,9 +2121,9 @@ def phase_keygen(device):
     fused_counts = read_launches()
     _no_flag_reads("keygen, device commits", flags)
     _require(
-        "keygen, device commits", fused_counts,
-        ("mont_mul", "ntt_small_stages", "ntt_large_stage", "jac_madd", "jac_add", "mod_sub"),
+        "keygen, device commits", fused_counts, ("mont_mul", "ntt_small_stages", "ntt_large_stage", "jac_horner") + MSM_KERNELS
     )
+    _forbid("keygen, device commits", fused_counts, ("jac_madd",))
     _check_key("keygen, device commits", pk_dev, want)
     print(
         f"[keygen] k={k} on the card: keygen_vk {t_vk:.3f} s, keygen_pk {t_pk:.3f} s (launches "
@@ -2102,9 +2309,9 @@ def phase_poseidon(device, batch: int = 1 << 20):
 
 # the kernels every sharded prove and every dryrun check launches: its
 # local transforms below 512 points (ntt_small_stages), twiddles and
-# products (mont_mul), the MSM's signed digits (mod_sub), group ops and
-# Horner, the grand product's inverses (mont_inv) and the quotient (vm_eval)
-SHARDED_KERNELS = ("mont_mul", "mod_sub", "jac_madd", "jac_add", "jac_horner", "mont_inv", "ntt_small_stages", "vm_eval")
+# products (mont_mul), the MSM's window sums, scan, group ops and Horner,
+# the grand product's inverses (mont_inv) and the quotient (vm_eval)
+SHARDED_KERNELS = ("mont_mul", "jac_horner", "mont_inv", "ntt_small_stages", "vm_eval") + MSM_KERNELS
 # the launches of one W = 1 sharded flagship prove before jac_horner and
 # mont_pow ran its Horner combines and field powers (the port at commit
 # b0938bf, on an NVIDIA H100 80GB HBM3 at 700 W: PERF.md's kernel table);
@@ -2135,6 +2342,26 @@ def _check_vm_rows(device, gen) -> None:
         _max_abs_err(f"vm_eval rows ({row0}, {count})", got, plain)
         _max_abs_err(f"vm_eval rows ({row0}, {count}) against the full launch", got, full[..., row0 : row0 + count])
     print(f"[sharded] vm_eval row ranges of the flagship quotient ({block}-row blocks): equal to plain and to the full launch", flush=True)
+
+
+@contextlib.contextmanager
+def _commit_batches():
+    """The commitments of each device MSM batch launched meanwhile: the
+    lanes of each jac_horner launch (one a batch, a lane a scalar set)."""
+    from halo2_tpu_torch import _build
+
+    launch, sets = _build.launch, []
+
+    def counted(kernel, dev, *args):
+        if kernel == "jac_horner":
+            sets.append(args[2])
+        return launch(kernel, dev, *args)
+
+    _build.launch = counted
+    try:
+        yield sets
+    finally:
+        _build.launch = launch
 
 
 @contextlib.contextmanager
@@ -2171,8 +2398,11 @@ def compare_kernels(device) -> None:
     83 x 2^15 coset scale through poly.domain._mul_columns, per call (CUDA
     events) and its device time summed over the call's launches; jac_horner
     at every (c, lanes) of HORNER_CASES; jac_madd and jac_add, both
-    variants, at every JAC_SIZES width (_check_jac_kernels).  Run it from
-    the checkout's root with this file loaded by path."""
+    variants, at every JAC_SIZES width (_check_jac_kernels); the device MSM
+    with its Horner (ec.device._msm_raw) over 1 and 16 scalar sets at 2^11
+    points and one set at 2^16, per call and on the device over all its
+    launches.  Run it from the checkout's root with this file loaded by
+    path."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2263,6 +2493,22 @@ def compare_kernels(device) -> None:
             t = _kernel_device_ms(lambda: cuda_jac.jac_horner_cuda(w, c), "jac_horner_kernel", _bound(nbytes, imads)[0])
             print(f"[compare] jac_horner c={c} B={batch}: {t:.4f} ms on the device, {t * 1e3 / chain:.3f} us a chained product", flush=True)
     _check_jac_kernels(device, {"jac_madd": 0.0, "jac_add": 0.0}, {})
+    import numpy as np
+
+    from halo2_tpu_torch.ec import device as ecd
+    from halo2_tpu_torch.kzg.params import ParamsKZG
+
+    srs = ParamsKZG.load(SRS16)
+    for n, sets in ((1 << 11, 1), (1 << 11, 16), (1 << 16, 1)):
+        px, py = (torch.from_numpy(np.ascontiguousarray(a[:, :n]).view(np.int32)).to(device) for a in (srs.g1_x, srs.g1_y))
+        sc = _random_field(spec, (sets, n), gen, device).movedim(1, 0).contiguous()
+        call = lambda: ecd._msm_raw(px, py, sc)["x"]  # noqa: E731
+        dev_ms, n_launch = launches_ms(call, reps=3)
+        print(
+            f"[compare] device MSM (_msm_raw) n=2^{n.bit_length() - 1}, {sets} scalar sets: "
+            f"{_ms_per_call(call, 3, runs=3):.3f} ms a call, {dev_ms:.3f} ms on the device in {n_launch:.0f} launches",
+            flush=True,
+        )
 
 
 def profile_sharded_prove(device) -> None:
@@ -2277,8 +2523,8 @@ def _sharded_w1(device, params, pk, circuit, public, want, reps: int):
     create_proof(mesh=make_mesh(1)) (the collectives over groups of one
     rank, through parallel.comm) equals the fixture, verifies, and a
     tampered root fails; then one warm prove under torch.profiler.
-    Returns the first prove's launches, the warm proves' times, the
-    transports and the phases."""
+    Returns the first prove's launches and commitments a batch, the warm
+    proves' times, the transports and the phases."""
     from halo2_tpu_torch.field import Fr
     from halo2_tpu_torch.kzg import create_proof, verify_proof
     from halo2_tpu_torch.kzg.prover import PHASE_TIMINGS
@@ -2291,26 +2537,28 @@ def _sharded_w1(device, params, pk, circuit, public, want, reps: int):
             PHASE_TIMINGS.clear()
             _sync(device)
             t0 = time.perf_counter()
-            proof = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7), mesh=mesh)
+            with _commit_batches() if rep == 0 else contextlib.nullcontext([]) as sets:
+                proof = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7), mesh=mesh)
             _sync(device)
             dt = time.perf_counter() - t0
             if proof != want:
                 raise AssertionError(f"sharded prove W=1 (nccl), rep {rep}: differs from {FIXTURE}")
             if rep == 0:
-                counts = read_launches()
+                counts, batches = read_launches(), sets
             else:
                 times.append(dt)
         transports = dict(comm.TRANSPORTS)
         phases = dict(PHASE_TIMINGS)
         profile_prove(device, params, pk, mesh=mesh)
     _require("sharded prove W=1 (nccl)", counts, SHARDED_KERNELS)
+    _forbid("sharded prove W=1 (nccl)", counts, MSM_GONE)
     if not verify_proof(params.verifier_params(), pk.vk, proof, [list(public)]):
         raise AssertionError("sharded prove W=1: the verifier rejected the proof")
     bad = list(public)
     bad[2] = bad[2] + Fr.from_u64(1)
     if verify_proof(params.verifier_params(), pk.vk, proof, [bad]):
         raise AssertionError("sharded prove W=1: the verifier accepted a tampered root")
-    return counts, times, transports, phases
+    return counts, batches, times, transports, phases
 
 
 def _phases(timings: dict) -> str:
@@ -2344,14 +2592,16 @@ def phase_sharded(device, reps: int = 3):
     pk = ProvingKey.load(PK_CACHE, circuit, 11, Fr)
     with open(FIXTURE, "rb") as f:
         want = f.read()
-    single, single_phases = {}, {}
+    single, single_phases, single_batches = {}, {}, []
     for commit in ("native", "device"):
         ts = []
         for rep in range(reps + 1):
             PHASE_TIMINGS.clear()
             _sync(device)
             t0 = time.perf_counter()
-            proof = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7), commit=commit)
+            with _commit_batches() if rep == 0 else contextlib.nullcontext([]) as sets:
+                proof = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7), commit=commit)
+            single_batches += sets
             _sync(device)
             if proof != want:
                 raise AssertionError(f"single-device prove ({commit} commits) differs from {FIXTURE}")
@@ -2359,10 +2609,18 @@ def phase_sharded(device, reps: int = 3):
                 ts.append(time.perf_counter() - t0)
         single[commit] = ts
         single_phases[commit] = dict(PHASE_TIMINGS)
-    w1_counts, w1_times, w1_transports, w1_phases = _sharded_w1(device, params, pk, circuit, public, want, reps)
+    w1_counts, w1_batches, w1_times, w1_transports, w1_phases = _sharded_w1(
+        device, params, pk, circuit, public, want, reps
+    )
     print(
         f"[sharded] W=1 (nccl): the flagship equals the fixture, verifies, tampered root rejected; launches "
         f"{w1_counts}; transports {w1_transports}",
+        flush=True,
+    )
+    print(
+        f"[sharded] commitments a device MSM batch (the lanes of each jac_horner), one prove: single device, "
+        f"device commits {single_batches} ({sum(single_batches)} in {len(single_batches)} batches); W=1 "
+        f"{w1_batches} ({sum(w1_batches)} in {len(w1_batches)})",
         flush=True,
     )
     for label, timings in (("single, native commits", single_phases["native"]),
@@ -2466,6 +2724,7 @@ def _sharded_group(device, world: int, backend: str, dp, reps: int, want: bytes)
         if flag["out"]["proof"] != want or not flag["out"]["same"] or not flag["out"]["verified"]:
             raise AssertionError(f"sharded prove {label}, rank {rank}: the flagship differs from {FIXTURE} or fails to verify")
         _require(f"sharded prove {label}, rank {rank}", flag["launches"], SHARDED_KERNELS)
+        _forbid(f"sharded prove {label}, rank {rank}", flag["launches"], MSM_GONE)
         if lt["out"]["proof"] != lt_want or not lt["out"]["verified"]:
             raise AssertionError(f"sharded prove {label}, rank {rank}: less_than_v2 k=9 differs from single-device")
         _require(f"less_than_v2 {label}, rank {rank}", lt["launches"], SHARDED_KERNELS)
@@ -2478,7 +2737,8 @@ def _sharded_group(device, world: int, backend: str, dp, reps: int, want: bytes)
         msm, gp = res[6], res[7]
         if msm["out"]["affine"] != msm_want:
             raise AssertionError(f"sharded_msm 2^16, rank {rank}: {msm['out']['affine']} != native {msm_want}")
-        _require(f"sharded_msm 2^16, rank {rank}", msm["launches"], ("jac_madd", "jac_add", "jac_horner"))
+        _require(f"sharded_msm 2^16, rank {rank}", msm["launches"], MSM_KERNELS + ("jac_horner",))
+        _forbid(f"sharded_msm 2^16, rank {rank}", msm["launches"], MSM_GONE)
         if [int(v) for v in dfr.decode(torch.from_numpy(gp["out"]))] != z_host:
             raise AssertionError(f"grand_product_z 2^11, rank {rank}: differs from the host recurrence")
         _require(f"grand_product_z 2^11, rank {rank}", gp["launches"], ("mont_inv", "mont_mul"))
@@ -2593,6 +2853,9 @@ KERNELS = (
     ("mont_pow", "halo2_tpu_torch/csrc/mont_mul.cu", "halo2_tpu/field/device.py:239"),
     # the reference's Fermat inverse (a lax.scan power) as a safegcd in one launch
     ("mont_inv", "halo2_tpu_torch/csrc/inv.cu", "halo2_tpu/field/device.py:251"),
+    # the MSM's window-sum loops: the intra-chunk fori_loop and the suffix scan
+    ("msm_chunk_acc", "halo2_tpu_torch/csrc/msm.cu", "halo2_tpu/ec/device.py:465"),
+    ("jac_suffix_scan", "halo2_tpu_torch/csrc/msm.cu", "halo2_tpu/ec/device.py:359"),
 )
 
 

@@ -32,14 +32,15 @@
 //   after another.  CGBN's layout, 8 threads per lane with one word each and
 //   the carries passed by shuffles and votes, measured about 2x slower at
 //   these widths: every step of its products waits on a shuffle.)
-// - wide calls, above that (the MSM's bucket rounds): one thread per lane,
-//   every intermediate in registers, the field ops as PTX carry chains that
-//   ptxas fuses into IMAD.WIDE.U32.X (field_cc.cuh), and a register budget
-//   set by __launch_bounds__.
+// - wide calls, above that (the MSM's Abel combine and tree sums at a
+//   batch's width): one thread per lane, every intermediate in registers,
+//   the field ops as PTX carry chains that ptxas fuses into IMAD.WIDE.U32.X
+//   (field_cc.cuh), and a register budget set by __launch_bounds__.  Their
+//   formulas live in jac.cuh, which msm.cu's kernels share.
 // The wrapper picks the variant from m.  Registers, spills and times per
 // width (nvcc -Xptxas -v, CUDA 12.9, sm_90a; one H100): PERF.md.
 
-#include "field_cc.cuh"
+#include "jac.cuh"
 
 using namespace h2t;
 
@@ -62,65 +63,11 @@ __device__ __forceinline__ void copy_elem(const uint32_t* __restrict__ src,
   for (int j = 0; j < 2 * WORDS; ++j) dst[j * ld + idx] = src[j * ld + idx];
 }
 
-__device__ __forceinline__ void store_zero(uint32_t* __restrict__ dst, size_t ld, size_t idx) {
-#pragma unroll
-  for (int j = 0; j < 2 * WORDS; ++j) dst[j * ld + idx] = 0;
-}
-
 // ---------------------------------------------------------------- wide
-// One thread per lane.
+// One thread per lane, on the formulas of jac.cuh, reading each coordinate
+// when the formula needs it and storing each as soon as it is final.
 
-// dbl-2009-l of (x, y, z), as ec/device.py:jac_double computes it.
-__device__ __forceinline__ void dbl_wide(const uint32_t x[WORDS], const uint32_t y[WORDS],
-                                         const uint32_t z[WORDS], const Modulus& M, uint32_t* ox,
-                                         uint32_t* oy, uint32_t* oz, size_t ld, size_t idx) {
-  uint32_t a[WORDS], b[WORDS], c[WORDS], t[WORDS], dd[WORDS], e[WORDS];
-  cc::sqr(x, M, a);
-  cc::sqr(y, M, b);
-  cc::sqr(b, M, c);
-  cc::add(x, b, M, t);
-  cc::sqr(t, M, t);
-  cc::sub(t, a, M, t);
-  cc::sub(t, c, M, t);
-  cc::dbl(t, M, dd);  // dd = 2((x + b)^2 - a - c)
-  cc::dbl(a, M, e);
-  cc::add(e, a, M, e);  // e = 3a
-  cc::sqr(e, M, t);  // f = e^2
-  cc::dbl(dd, M, b);
-  cc::sub(t, b, M, t);  // x3 = f - 2 dd
-  store_elem(ox, ld, idx, t);
-  cc::sub(dd, t, M, t);
-  cc::mul(e, t, M, t);
-  cc::dbl(c, M, c);
-  cc::dbl(c, M, c);
-  cc::dbl(c, M, c);
-  cc::sub(t, c, M, t);  // y3 = e (dd - x3) - 8c
-  store_elem(oy, ld, idx, t);
-  cc::mul(y, z, M, t);
-  cc::dbl(t, M, t);  // z3 = 2 y z
-  store_elem(oz, ld, idx, t);
-}
-
-// x3 = rr^2 - j - 2v and y3 = rr (v - x3) - 2 w j, the tail both adds share
-// (w is y1 for the mixed add, s1 for the full add).
-__device__ __forceinline__ void add_tail(const uint32_t rr[WORDS], const uint32_t j[WORDS],
-                                         const uint32_t v[WORDS], const uint32_t w[WORDS],
-                                         const Modulus& M, uint32_t x3[WORDS],
-                                         uint32_t y3[WORDS]) {
-  uint32_t t[WORDS], u[WORDS];
-  cc::sqr(rr, M, t);
-  cc::sub(t, j, M, t);
-  cc::dbl(v, M, u);
-  cc::sub(t, u, M, x3);
-  cc::sub(v, x3, M, t);
-  cc::mul(rr, t, M, t);
-  cc::mul(w, j, M, u);
-  cc::dbl(u, M, u);
-  cc::sub(t, u, M, y3);
-}
-
-// out = p + (qx, qy) where valid, else p.  madd-2007-bl: 7 multiplies and 4
-// squares; P == Q doubles.
+// out = p + (qx, qy) where valid, else p.
 __global__ void __launch_bounds__(WIDE_THREADS, WIDE_MIN_BLOCKS)
 jac_madd_wide_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
                      const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
@@ -129,57 +76,20 @@ jac_madd_wide_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict
                      uint32_t* __restrict__ oz, int m, ModulusOne C) {
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<size_t>(m)) return;
-  const Modulus& M = C.M;
   if (!valid[idx]) {  // masked lane: p unchanged
     copy_elem(px, ox, m, idx);
     copy_elem(py, oy, m, idx);
     copy_elem(pz, oz, m, idx);
     return;
   }
-  uint32_t z1[WORDS];
-  load_elem(pz, m, idx, z1);
-  if (is_zero(z1)) {  // p at infinity: the result is (qx, qy, 1)
-    copy_elem(qx, ox, m, idx);
-    copy_elem(qy, oy, m, idx);
-    store_elem(oz, m, idx, C.one);
-    return;
-  }
-  uint32_t z1z1[WORDS], h[WORDS], hh[WORDS], i4[WORDS], j[WORDS], rr[WORDS], v[WORDS];
-  uint32_t t[WORDS], u[WORDS], x1[WORDS], y1[WORDS];
-  cc::sqr(z1, M, z1z1);
-  load_elem(qx, m, idx, t);
-  cc::mul(t, z1z1, M, u);  // u2
-  load_elem(px, m, idx, x1);
-  cc::sub(u, x1, M, h);
-  cc::mul(z1, z1z1, M, t);
-  load_elem(qy, m, idx, u);
-  cc::mul(u, t, M, u);  // s2
-  load_elem(py, m, idx, y1);
-  cc::sub(u, y1, M, t);
-  cc::dbl(t, M, rr);
-  if (is_zero(h) && is_zero(rr)) {  // P == Q
-    dbl_wide(x1, y1, z1, M, ox, oy, oz, m, idx);
-    return;
-  }
-  cc::sqr(h, M, hh);
-  cc::dbl(hh, M, i4);
-  cc::dbl(i4, M, i4);
-  cc::mul(h, i4, M, j);
-  cc::mul(x1, i4, M, v);
-  uint32_t x3[WORDS], y3[WORDS];
-  add_tail(rr, j, v, y1, M, x3, y3);
-  store_elem(ox, m, idx, x3);
-  store_elem(oy, m, idx, y3);
-  cc::add(z1, h, M, t);  // z3 = (z1 + h)^2 - z1z1 - hh
-  cc::sqr(t, M, t);
-  cc::sub(t, z1z1, M, t);
-  cc::sub(t, hh, M, u);
-  store_elem(oz, m, idx, u);
+  uint32_t x2[WORDS], y2[WORDS];
+  load_elem(qx, m, idx, x2);
+  load_elem(qy, m, idx, y2);
+  jac_madd_into(GlobalPoint{{px, py, pz}, static_cast<size_t>(m), idx}, x2, y2, C,
+                GlobalOut{{ox, oy, oz}, static_cast<size_t>(m), idx});
 }
 
-// out = p + q, complete: p or q at infinity returns the other, P == -Q gives
-// infinity (0, 1, 0), P == Q doubles.  add-2007-bl: 12 multiplies and 4
-// squares.
+// out = p + q, complete.
 __global__ void __launch_bounds__(WIDE_THREADS, WIDE_MIN_BLOCKS)
 jac_add_wide_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
                     const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
@@ -188,66 +98,9 @@ jac_add_wide_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict_
                     uint32_t* __restrict__ oz, int m, ModulusOne C) {
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<size_t>(m)) return;
-  const Modulus& M = C.M;
-  uint32_t z1[WORDS], z2[WORDS];
-  load_elem(pz, m, idx, z1);
-  load_elem(qz, m, idx, z2);
-  if (is_zero(z2)) {  // q at infinity (checked last in the reference): p
-    copy_elem(px, ox, m, idx);
-    copy_elem(py, oy, m, idx);
-    copy_elem(pz, oz, m, idx);
-    return;
-  }
-  if (is_zero(z1)) {  // p at infinity: q
-    copy_elem(qx, ox, m, idx);
-    copy_elem(qy, oy, m, idx);
-    copy_elem(qz, oz, m, idx);
-    return;
-  }
-  uint32_t z1z1[WORDS], z2z2[WORDS], s1[WORDS], t[WORDS], u[WORDS];
-  cc::sqr(z1, M, z1z1);
-  cc::sqr(z2, M, z2z2);
-  load_elem(py, m, idx, t);
-  cc::mul(t, z2, M, t);
-  cc::mul(t, z2z2, M, s1);  // s1 = y1 z2 z2z2
-  load_elem(qy, m, idx, t);
-  cc::mul(t, z1, M, t);
-  cc::mul(t, z1z1, M, u);  // s2 = y2 z1 z1z1
-  uint32_t r[WORDS];
-  cc::sub(u, s1, M, r);
-  uint32_t u1[WORDS], h[WORDS];
-  load_elem(px, m, idx, t);
-  cc::mul(t, z2z2, M, u1);
-  load_elem(qx, m, idx, t);
-  cc::mul(t, z1z1, M, u);  // u2
-  cc::sub(u, u1, M, h);
-  if (is_zero(h)) {
-    if (is_zero(r)) {  // P == Q
-      load_elem(px, m, idx, t);
-      load_elem(py, m, idx, u);
-      dbl_wide(t, u, z1, M, ox, oy, oz, m, idx);
-    } else {  // P == -Q: infinity
-      store_zero(ox, m, idx);
-      store_elem(oy, m, idx, C.one);
-      store_zero(oz, m, idx);
-    }
-    return;
-  }
-  uint32_t i4[WORDS], j[WORDS], v[WORDS], rr[WORDS];
-  cc::mul(z1, z2, M, t);  // z3 = 2 z1 z2 h
-  cc::dbl(t, M, t);
-  cc::mul(t, h, M, t);
-  store_elem(oz, m, idx, t);
-  cc::sqr(h, M, t);  // hh
-  cc::dbl(t, M, i4);
-  cc::dbl(i4, M, i4);
-  cc::mul(h, i4, M, j);
-  cc::dbl(r, M, rr);
-  cc::mul(u1, i4, M, v);
-  uint32_t x3[WORDS], y3[WORDS];
-  add_tail(rr, j, v, s1, M, x3, y3);
-  store_elem(ox, m, idx, x3);
-  store_elem(oy, m, idx, y3);
+  const size_t ld = static_cast<size_t>(m);
+  jac_add_into(GlobalPoint{{px, py, pz}, ld, idx}, GlobalPoint{{qx, qy, qz}, ld, idx}, C,
+               GlobalOut{{ox, oy, oz}, ld, idx});
 }
 
 // ---------------------------------------------------------------- narrow
@@ -274,14 +127,6 @@ struct Slots {
 #pragma unroll
     for (int k = 0; k < WORDS; ++k) v[k] = sh[s][k][lane];
   }
-};
-
-// Where the narrow formulas read a point's coordinates (k = 0, 1, 2: x, y,
-// z): (16, ld) limb arrays in device memory at element i.
-struct GlobalPoint {
-  const uint32_t* c[3];
-  size_t ld, i;
-  __device__ __forceinline__ void load(int k, uint32_t v[WORDS]) const { load_elem(c[k], ld, i, v); }
 };
 
 // The doubling's scratch slots, after each kernel's own (base).

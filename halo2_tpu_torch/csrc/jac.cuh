@@ -1,0 +1,228 @@
+// BN254 G1 group law for one thread a lane: dbl-2009-l, the mixed add
+// madd-2007-bl and the complete add add-2007-bl, with the exceptions of the
+// reference's canonical formulas (halo2_tpu/ec/device.py:jac_double,
+// :_jac_madd_jnp and :_jac_add_jnp; P == Q doubles).  Shared by the wide
+// kernels of jac.cu and the MSM kernels of msm.cu.  Every value stays
+// canonical (< p), so each result equals the plain versions
+// (ec/cuda_jac.py) limb for limb.
+//
+// A point is three 8-word elements (k = 0, 1, 2: x, y, z), Montgomery form
+// over BN254 Fq; z == 0 marks infinity.  The formulas read a point through
+// a source (load(k, v)) and write the result through a sink (store(k, v)),
+// so one formula serves a point in device memory, read when the formula
+// needs each coordinate and written as soon as a coordinate is final (the
+// wide kernels: fewer live registers), and a point held in registers (the
+// MSM kernels' accumulators).
+#pragma once
+
+#include "field_cc.cuh"
+
+namespace h2t {
+
+// A point in registers.
+struct Jac {
+  uint32_t c[3][WORDS];
+};
+
+// Source and sink of a point in registers.
+struct RegPoint {
+  const Jac* p;
+  __device__ __forceinline__ void load(int k, uint32_t v[WORDS]) const {
+#pragma unroll
+    for (int j = 0; j < WORDS; ++j) v[j] = p->c[k][j];
+  }
+};
+struct RegOut {
+  Jac* p;
+  __device__ __forceinline__ void store(int k, const uint32_t v[WORDS]) const {
+#pragma unroll
+    for (int j = 0; j < WORDS; ++j) p->c[k][j] = v[j];
+  }
+};
+
+// Source and sink of a point in device memory: (16, ld) limb arrays, one a
+// coordinate, at element i.
+struct GlobalPoint {
+  const uint32_t* c[3];
+  size_t ld, i;
+  __device__ __forceinline__ void load(int k, uint32_t v[WORDS]) const { load_elem(c[k], ld, i, v); }
+};
+struct GlobalOut {
+  uint32_t* c[3];
+  size_t ld, i;
+  __device__ __forceinline__ void store(int k, const uint32_t v[WORDS]) const { store_elem(c[k], ld, i, v); }
+};
+
+template <class O>
+__device__ __forceinline__ void store_infinity(const O& out, const ModulusOne& C) {  // (0, 1, 0)
+  const uint32_t zero[WORDS] = {};
+  out.store(0, zero);
+  out.store(1, C.one);
+  out.store(2, zero);
+}
+
+// 2 (x, y, z), dbl-2009-l as ec/device.py:jac_double computes it.
+template <class O>
+__device__ __forceinline__ void jac_dbl_into(const uint32_t x[WORDS], const uint32_t y[WORDS],
+                                             const uint32_t z[WORDS], const Modulus& M, const O& out) {
+  uint32_t a[WORDS], b[WORDS], c[WORDS], t[WORDS], dd[WORDS], e[WORDS];
+  cc::sqr(x, M, a);
+  cc::sqr(y, M, b);
+  cc::sqr(b, M, c);
+  cc::add(x, b, M, t);
+  cc::sqr(t, M, t);
+  cc::sub(t, a, M, t);
+  cc::sub(t, c, M, t);
+  cc::dbl(t, M, dd);  // dd = 2((x + b)^2 - a - c)
+  cc::dbl(a, M, e);
+  cc::add(e, a, M, e);  // e = 3a
+  cc::sqr(e, M, t);  // f = e^2
+  cc::dbl(dd, M, b);
+  cc::sub(t, b, M, t);  // x3 = f - 2 dd
+  cc::sub(dd, t, M, a);
+  out.store(0, t);
+  cc::mul(e, a, M, t);
+  cc::dbl(c, M, c);
+  cc::dbl(c, M, c);
+  cc::dbl(c, M, c);
+  cc::sub(t, c, M, t);  // y3 = e (dd - x3) - 8c
+  cc::mul(y, z, M, a);
+  out.store(1, t);
+  cc::dbl(a, M, t);  // z3 = 2 y z
+  out.store(2, t);
+}
+
+// x3 = rr^2 - j - 2v and y3 = rr (v - x3) - 2 w j, the tail both adds share
+// (w is y1 for the mixed add, s1 for the full add).
+__device__ __forceinline__ void add_tail(const uint32_t rr[WORDS], const uint32_t j[WORDS],
+                                         const uint32_t v[WORDS], const uint32_t w[WORDS],
+                                         const Modulus& M, uint32_t x3[WORDS],
+                                         uint32_t y3[WORDS]) {
+  uint32_t t[WORDS], u[WORDS];
+  cc::sqr(rr, M, t);
+  cc::sub(t, j, M, t);
+  cc::dbl(v, M, u);
+  cc::sub(t, u, M, x3);
+  cc::sub(v, x3, M, t);
+  cc::mul(rr, t, M, t);
+  cc::mul(w, j, M, u);
+  cc::dbl(u, M, u);
+  cc::sub(t, u, M, y3);
+}
+
+// p + (qx, qy), madd-2007-bl: 7 multiplies and 4 squares.  (qx, qy) is a
+// finite affine point (z = 1); p at infinity gives (qx, qy, 1), P == Q the
+// doubling of p, P == -Q z = 0.
+template <class P, class O>
+__device__ __forceinline__ void jac_madd_into(const P& p, const uint32_t qx[WORDS], const uint32_t qy[WORDS],
+                                              const ModulusOne& C, const O& out) {
+  const Modulus& M = C.M;
+  uint32_t z1[WORDS];
+  p.load(2, z1);
+  if (is_zero(z1)) {  // p at infinity: the result is (qx, qy, 1)
+    out.store(0, qx);
+    out.store(1, qy);
+    out.store(2, C.one);
+    return;
+  }
+  uint32_t z1z1[WORDS], h[WORDS], hh[WORDS], i4[WORDS], j[WORDS], rr[WORDS], v[WORDS];
+  uint32_t t[WORDS], u[WORDS], x1[WORDS], y1[WORDS];
+  cc::sqr(z1, M, z1z1);
+  cc::mul(qx, z1z1, M, u);  // u2
+  p.load(0, x1);
+  cc::sub(u, x1, M, h);
+  cc::mul(z1, z1z1, M, t);
+  cc::mul(qy, t, M, u);  // s2
+  p.load(1, y1);
+  cc::sub(u, y1, M, t);
+  cc::dbl(t, M, rr);
+  if (is_zero(h) && is_zero(rr)) {  // P == Q
+    jac_dbl_into(x1, y1, z1, M, out);
+    return;
+  }
+  cc::sqr(h, M, hh);
+  cc::dbl(hh, M, i4);
+  cc::dbl(i4, M, i4);
+  cc::mul(h, i4, M, j);
+  cc::mul(x1, i4, M, v);
+  uint32_t x3[WORDS], y3[WORDS];
+  add_tail(rr, j, v, y1, M, x3, y3);
+  out.store(0, x3);
+  out.store(1, y3);
+  cc::add(z1, h, M, t);  // z3 = (z1 + h)^2 - z1z1 - hh
+  cc::sqr(t, M, t);
+  cc::sub(t, z1z1, M, t);
+  cc::sub(t, hh, M, u);
+  out.store(2, u);
+}
+
+// p + q, complete: p or q at infinity returns the other (q is checked
+// first, as the reference's last select), P == -Q gives infinity (0, 1, 0),
+// P == Q doubles.  add-2007-bl: 12 multiplies and 4 squares.
+template <class P, class Q, class O>
+__device__ __forceinline__ void jac_add_into(const P& p, const Q& q, const ModulusOne& C, const O& out) {
+  const Modulus& M = C.M;
+  uint32_t z1[WORDS], z2[WORDS], t[WORDS], u[WORDS];
+  p.load(2, z1);
+  q.load(2, z2);
+  if (is_zero(z2)) {  // q at infinity: p
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      p.load(k, t);
+      out.store(k, t);
+    }
+    return;
+  }
+  if (is_zero(z1)) {  // p at infinity: q
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      q.load(k, t);
+      out.store(k, t);
+    }
+    return;
+  }
+  uint32_t z1z1[WORDS], z2z2[WORDS], s1[WORDS];
+  cc::sqr(z1, M, z1z1);
+  cc::sqr(z2, M, z2z2);
+  p.load(1, t);
+  cc::mul(t, z2, M, t);
+  cc::mul(t, z2z2, M, s1);  // s1 = y1 z2 z2z2
+  q.load(1, t);
+  cc::mul(t, z1, M, t);
+  cc::mul(t, z1z1, M, u);  // s2 = y2 z1 z1z1
+  uint32_t r[WORDS];
+  cc::sub(u, s1, M, r);
+  uint32_t u1[WORDS], h[WORDS];
+  p.load(0, t);
+  cc::mul(t, z2z2, M, u1);
+  q.load(0, t);
+  cc::mul(t, z1z1, M, u);  // u2
+  cc::sub(u, u1, M, h);
+  if (is_zero(h)) {
+    if (is_zero(r)) {  // P == Q
+      p.load(0, t);
+      p.load(1, u);
+      jac_dbl_into(t, u, z1, M, out);
+    } else {  // P == -Q: infinity
+      store_infinity(out, C);
+    }
+    return;
+  }
+  uint32_t i4[WORDS], j[WORDS], v[WORDS], rr[WORDS];
+  cc::mul(z1, z2, M, t);  // z3 = 2 z1 z2 h
+  cc::dbl(t, M, t);
+  cc::mul(t, h, M, t);
+  out.store(2, t);
+  cc::sqr(h, M, t);  // hh
+  cc::dbl(t, M, i4);
+  cc::dbl(i4, M, i4);
+  cc::mul(h, i4, M, j);
+  cc::dbl(r, M, rr);
+  cc::mul(u1, i4, M, v);
+  uint32_t x3[WORDS], y3[WORDS];
+  add_tail(rr, j, v, s1, M, x3, y3);
+  out.store(0, x3);
+  out.store(1, y3);
+}
+
+}  // namespace h2t

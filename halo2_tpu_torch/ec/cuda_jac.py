@@ -12,6 +12,13 @@ z}`` of ``(16, *batch)`` int32 Montgomery limb tensors over BN254 Fq; z == 0
 marks infinity.  A third kernel, ``jac_horner``, runs the sharded MSM's
 Horner combine of window sums (the reference's ``fori_loop`` of doublings
 and complete adds, ``halo2_tpu/ec/device.py:597-607``) in one launch.
+Two more run the device MSM's window-sum rounds over a batch of rows
+(``csrc/msm.cu``): ``msm_chunk_acc``, every chunk's rounds of signed mixed
+adds in registers (the reference's ``fori_loop`` at
+``halo2_tpu/ec/device.py:465``), and ``jac_suffix_scan``, the exclusive
+suffix sums of each row's chunk totals in log-depth steps over tiles
+(``_excl_suffix_scan``, ``:359``); their plain versions run the kernels'
+association order.
 
 Each add kernel has two variants: ``wide`` (one thread per lane) and
 ``narrow`` (four warps per 32 lanes splitting each formula's independent
@@ -19,8 +26,9 @@ products); :func:`variant` picks one from the lane count.  The plain
 versions flag the P == Q lanes and double them in :func:`_double_fixup`,
 behind one device -> host read of ``same.any()`` (the reference's
 ``lax.cond``).  :func:`jac_madd_cuda` / :func:`jac_add_cuda` /
-:func:`jac_horner_cuda` run the plain versions for CPU tensors and launch
-the kernels for CUDA tensors; there is no fallback between the two.
+:func:`jac_horner_cuda` / :func:`msm_chunk_acc_cuda` /
+:func:`jac_suffix_scan_cuda` run the plain versions for CPU tensors and
+launch the kernels for CUDA tensors; there is no fallback between the two.
 ``LAUNCHES`` counts kernel launches.
 """
 
@@ -43,7 +51,7 @@ from ..field.device import DeviceField
 from ..field.params import BN254_FQ, NUM_LIMBS
 
 L = NUM_LIMBS
-LAUNCHES = {"jac_madd": 0, "jac_add": 0, "jac_horner": 0}
+LAUNCHES = {"jac_madd": 0, "jac_add": 0, "jac_horner": 0, "msm_chunk_acc": 0, "jac_suffix_scan": 0}
 
 
 class _PlainField(DeviceField):
@@ -186,12 +194,99 @@ def horner_plain(w, c: int):
     return acc
 
 
+def msm_chunk_acc_plain(px, py, order, sign):
+    """The MSM's intra-chunk suffix rounds in plain torch ops: lane (r, c)
+    of ``order``/``sign`` ``(R, q, C)`` (position-major: entry pos of chunk
+    c at ``[r, pos, c]``) starts at infinity and, from entry q - 1 down to
+    0, adds the affine point ``(px, py)[:, order[r, pos, c]]`` (y negated
+    where ``sign[r, pos, c]``) with :func:`jac_madd_plain`.  Returns ``(sfx,
+    tot)``: ``(3, 16, R, q C)`` the running sum after each entry (x, y, z
+    stacked; position-major as the entries) and ``(3, 16, R, C)`` the chunk
+    totals.  The reference's ``fori_loop`` (``halo2_tpu/ec/device.py:465``)."""
+    from .device import jac_infinity
+
+    d = plain_field()
+    rows, q, chunks = order.shape
+    stacked = torch.cat([px, py])  # (32, n): one gather a round
+    valid = torch.ones((rows, chunks), dtype=torch.bool, device=px.device)
+    sfx = torch.empty((3, L, rows, q, chunks), dtype=torch.int32, device=px.device)
+    acc = jac_infinity((rows, chunks), device=px.device)
+    for pos in reversed(range(q)):
+        g = stacked[:, order[:, pos].long()]  # (32, R, C)
+        qy = d.select(sign[:, pos], d.neg(g[16:]), g[16:])  # the signed digit
+        acc = jac_madd_plain(acc, g[:16], qy, valid)
+        for i, k in enumerate(("x", "y", "z")):
+            sfx[i, :, :, pos] = acc[k]
+    return sfx.reshape(3, L, rows, q * chunks), torch.stack([acc["x"], acc["y"], acc["z"]])
+
+
+def scan_tile(chunks: int) -> int:
+    """The chunks one block of the scan takes: the power of two at or above
+    ``chunks`` up to ``SCAN_TILE``."""
+    return min(SCAN_TILE, 1 << max(0, chunks - 1).bit_length())
+
+
+def _scan_tiles_plain(s, T: int, totals: bool):
+    """One tile pass of the suffix scan in plain torch ops: the exclusive
+    suffixes of each tile of T chunks (chunks past C infinity) and, with
+    ``totals``, the tile sums ``(3, 16, R, ceil(C / T))``.  The kernel's
+    Kogge-Stone steps d = 1, 2, .. T / 2: slot i takes x[i] + x[i + d]
+    (x[i] first), every read of a step before its writes."""
+    from .device import jac_infinity
+
+    rows, chunks = s.shape[2:]
+    tiles = -(-chunks // T)
+    inf = torch.stack(list(jac_infinity((), device=s.device).values()))  # (3, 16)
+    x = inf[:, :, None, None].repeat(1, 1, rows, tiles * T)
+    x[..., :chunks] = s
+    x = x.reshape(3, L, rows, tiles, T)
+    d = 1
+    while d < T:
+        p, q = x[..., : T - d], x[..., d:]
+        r = jac_add_plain({"x": p[0], "y": p[1], "z": p[2]}, {"x": q[0], "y": q[1], "z": q[2]})
+        x[..., : T - d] = torch.stack([r["x"], r["y"], r["z"]])
+        d *= 2
+    excl = torch.cat([x[..., 1:], inf[:, :, None, None, None].expand(3, L, rows, tiles, 1)], dim=-1)
+    excl = excl.reshape(3, L, rows, tiles * T)[..., :chunks].contiguous()
+    return excl, (x[..., 0].contiguous() if totals else None)
+
+
+def _scan_offsets_plain(s, suffix, T: int):
+    """out[..., c] = s[..., c] + suffix[..., c // T] in plain torch ops."""
+    g = suffix[..., torch.arange(s.shape[-1], device=s.device) // T]
+    r = jac_add_plain({"x": s[0], "y": s[1], "z": s[2]}, {"x": g[0], "y": g[1], "z": g[2]})
+    return torch.stack([r["x"], r["y"], r["z"]])
+
+
+def _suffix_scan(s, tiles, offsets):
+    """The exclusive suffix scan of ``(3, 16, R, C)`` points through a tile
+    pass ``tiles`` and an offsets pass ``offsets`` (the kernels' launches or
+    their plain versions): up to SCAN_TILE chunks one tile pass; above, a
+    tile pass with totals, the scan of the totals, and the offsets."""
+    chunks = s.shape[-1]
+    T = scan_tile(chunks)
+    if chunks <= T:
+        return tiles(s, T, False)[0]
+    excl, tot = tiles(s, T, True)
+    return offsets(excl, _suffix_scan(tot, tiles, offsets), T)
+
+
+def jac_suffix_scan_plain(s):
+    """The exclusive suffix sums of ``(3, 16, R, C)`` points over their last
+    axis, ``out[..., i] = sum_{j > i} s[..., j]`` (infinity at C - 1), in
+    plain torch ops in the kernel's association order (its tiles, steps and
+    operand order: add-2007-bl is not symmetric in its Jacobian output)."""
+    return _suffix_scan(s, _scan_tiles_plain, _scan_offsets_plain)
+
+
 # ------------------------------------------------------------------ wrappers
 # Up to this many lanes the narrow variant is the faster (measured on one
 # H100, PERF.md): the wide one then fills few of the 132 SMs, and its time is
 # one thread's chain of 16 (add) or 11 (madd) dependent products.
 NARROW_MAX_LANES = 1 << 13
 VARIANTS = {"wide": 0, "narrow": 1}
+# The most chunks a block of the suffix scan takes (csrc/msm.cu).
+SCAN_TILE = 256
 
 
 def variant(m: int) -> str:
@@ -300,3 +395,88 @@ def jac_horner_cuda(w, c: int):
         )
         LAUNCHES["jac_horner"] += 1
     return {"x": out[0], "y": out[1], "z": out[2]}
+
+
+def msm_chunk_acc_cuda(px, py, order, sign):
+    """The MSM's intra-chunk suffix rounds of ``(R, q, C)`` sorted entries
+    (position-major; ``order``: int32 point indices below n, ``sign``:
+    bool) over the affine points ``px``, ``py`` ``(16, n)``: ``(sfx (3, 16,
+    R, q C), tot (3, 16, R, C))``, every running sum (position-major) and
+    the chunk totals.  The ``msm_chunk_acc`` kernel on CUDA tensors (one
+    launch, a thread a lane, the signed negation and the P == Q doubling
+    inside; the points as one ``(n, 32)`` table), :func:`msm_chunk_acc_plain`
+    on CPU ones."""
+    check_limbs("msm_chunk_acc", px=px, py=py)
+    if px.dim() != 2 or py.shape != px.shape:
+        raise ValueError(f"msm_chunk_acc: px, py must be one (16, n) shape, got {tuple(px.shape)}, {tuple(py.shape)}")
+    if order.dtype != torch.int32 or order.dim() != 3 or not order.is_contiguous():
+        raise ValueError(f"msm_chunk_acc: order must be a contiguous int32 (R, q, C), got {order.dtype} {tuple(order.shape)}")
+    if sign.dtype != torch.bool or sign.shape != order.shape or not sign.is_contiguous():
+        raise ValueError(f"msm_chunk_acc: sign must be a contiguous bool {tuple(order.shape)}")
+    if order.device != px.device or sign.device != px.device:
+        raise ValueError(f"msm_chunk_acc: order and sign must be on {px.device}")
+    if px.device.type == "cpu":
+        return msm_chunk_acc_plain(px, py, order, sign)
+    if px.device.type != "cuda":
+        raise ValueError(f"msm_chunk_acc: unsupported device {px.device}")
+    from .. import _build
+
+    rows, q, chunks = order.shape
+    sfx = torch.empty((3, L, rows, q * chunks), dtype=torch.int32, device=px.device)
+    tot = torch.empty((3, L, rows, chunks), dtype=torch.int32, device=px.device)
+    if order.numel():
+        pts = torch.cat([px, py]).t().contiguous()  # (n, 32): a point's limbs together
+        _build.launch(
+            "msm_chunk_acc", px.device, pts.data_ptr(), order.data_ptr(), sign.data_ptr(), sfx.data_ptr(),
+            tot.data_ptr(), rows, chunks, q, modulus_one_words(BN254_FQ).ctypes.data,
+        )
+        LAUNCHES["msm_chunk_acc"] += 1
+    return sfx, tot
+
+
+def jac_suffix_scan_cuda(s):
+    """The exclusive suffix sums of ``(3, 16, R, C)`` points (x, y, z
+    stacked; contiguous int32 Montgomery limbs over Fq) over their last
+    axis: the ``jac_suffix_scan`` kernel on a CUDA tensor (one launch up to
+    ``SCAN_TILE`` chunks, three up to SCAN_TILE^2),
+    :func:`jac_suffix_scan_plain` on a CPU one."""
+    if s.dtype != torch.int32:
+        raise TypeError(f"jac_suffix_scan: s must be int32, got {s.dtype}")
+    if s.dim() != 4 or s.shape[0] != 3 or s.shape[1] != L:
+        raise ValueError(f"jac_suffix_scan: s must be (3, 16, R, C), got {tuple(s.shape)}")
+    if not s.is_contiguous():
+        raise ValueError("jac_suffix_scan: s must be contiguous")
+    if s.device.type == "cpu":
+        return jac_suffix_scan_plain(s)
+    if s.device.type != "cuda":
+        raise ValueError(f"jac_suffix_scan: unsupported device {s.device}")
+    if not s.numel():
+        return torch.empty_like(s)
+    return _suffix_scan(s, _scan_tiles_cuda, _scan_offsets_cuda)
+
+
+def _scan_launch(s, add, out, tot, T: int, mode: int) -> None:
+    from .. import _build
+
+    rows, chunks = s.shape[2:]
+    _build.launch(
+        "jac_suffix_scan", s.device, s.data_ptr(), None if add is None else add.data_ptr(), out.data_ptr(),
+        None if tot is None else tot.data_ptr(), rows, chunks, T, mode, modulus_one_words(BN254_FQ).ctypes.data,
+    )
+    LAUNCHES["jac_suffix_scan"] += 1
+
+
+def _scan_tiles_cuda(s, T: int, totals: bool):
+    """One tile pass of the scan kernel (:func:`_scan_tiles_plain`)."""
+    rows, chunks = s.shape[2:]
+    out = torch.empty_like(s)
+    tot = torch.empty((3, L, rows, -(-chunks // T)), dtype=torch.int32, device=s.device) if totals else None
+    _scan_launch(s, None, out, tot, T, 0)
+    return out, tot
+
+
+def _scan_offsets_cuda(s, suffix, T: int):
+    """The scan kernel's offsets pass (:func:`_scan_offsets_plain`)."""
+    out = torch.empty_like(s)
+    _scan_launch(s, suffix, out, None, T, 1)
+    return out

@@ -14,18 +14,22 @@ mixed adds that build each chunk's running suffix sums, a cross-chunk
 exclusive suffix scan, the Abel-summation window combine, a tree sum per
 window, and a host Horner tail over Python ints.  The schedule's sizes
 (``_msm_c``, ``_q_rounds``) are the reference's; the result does not depend
-on them.  JAX loops become Python loops, and ``dynamic_update_slice`` an
-in-place slice write into a preallocated tensor.
+on them.  The chunk rounds are one ``msm_chunk_acc`` launch and the scan a
+``jac_suffix_scan`` in log-depth steps (``csrc/msm.cu``), where the
+reference compiles ``fori_loop``s; the scan's association order is not the
+reference's sequential one, so window sums are other Jacobian
+representatives of the reference's points.  A batch of scalar sets over
+the same points runs every step once over all its sets' windows.
 
 The host tail (``_hj_dbl``, ``_hj_madd``, ``_hj_add``, ``_host_horner``) is
 carried over verbatim: the reference's file imports JAX, so this package
 cannot load it.  ``msm_hybrid`` runs a leading slice of the points on the
 device Pippenger while the native host Pippenger takes the rest, in a
 worker thread.  :func:`_msm_raw` keeps the whole MSM on the device (the
-Horner combine too, one ``jac_horner`` launch), for the sharded prover,
-whose ranks exchange the result.  The reference's ``pvary_tree`` only
-marks loop carries as device-varying for ``shard_map``'s type check and
-has no counterpart here.
+Horner combine too, one ``jac_horner`` launch a batch), for the sharded
+prover, whose ranks exchange the result, and for device commitments.  The
+reference's ``pvary_tree`` only marks loop carries as device-varying for
+``shard_map``'s type check and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import torch
 from .. import native
 from ..field.device import DeviceField, get_device_field
 from ..field.params import BN254_FQ, NUM_LIMBS as L
-from .cuda_jac import jac_add_cuda, jac_horner_cuda, jac_madd_cuda
+from .cuda_jac import jac_add_cuda, jac_horner_cuda, jac_madd_cuda, jac_suffix_scan_cuda, msm_chunk_acc_cuda
 
 
 def df() -> DeviceField:
@@ -160,150 +164,109 @@ def _msm_c(n: int) -> int:
 
 
 def _digits_from_limbs(scalars_canonical, c: int):
-    """(16, N) canonical 16-bit limbs -> (W, N) int64 c-bit digits (c<=16)."""
+    """(..., 16, N) canonical 16-bit limbs -> (..., W, N) int64 c-bit
+    digits (c <= 16): digit k is bits k c .. k c + c - 1, read from the
+    32 bits of limbs l0 and l0 + 1 (l0 = k c // 16; a 17th limb of 0)."""
     w_n = -(-254 // c)
     s = scalars_canonical.to(torch.int64)
-    outs = []
-    for k in range(w_n):
-        l0, off = divmod(k * c, 16)
-        dig = s[l0] >> off
-        if off + c > 16 and l0 + 1 < 16:
-            dig = dig | (s[l0 + 1] << (16 - off))
-        outs.append(dig & ((1 << c) - 1))
-    return torch.stack(outs)
+    s = torch.cat([s, torch.zeros_like(s[..., :1, :])], dim=-2)
+    bits = torch.arange(w_n, device=s.device) * c
+    l0, off = bits // 16, bits % 16
+    pair = s[..., l0, :] | (s[..., l0 + 1, :] << 16)
+    return (pair >> off[:, None]) & ((1 << c) - 1)
 
 
 def _signed_digits(digits, c: int):
-    """Unsigned c-bit digits -> (magnitudes, signs): d' = d + carry, and
-    d' > 2^(c-1) is emitted as -(2^c - d') with carry 1, so magnitudes stay
-    <= 2^(c-1) and the Abel combine runs over half the positions.  The top
-    window absorbs the final carry (its raw digit is far below 2^(c-1) for
-    every window size _msm_c chooses)."""
-    w_n = digits.shape[0]
+    """Unsigned c-bit digits (..., W, N) -> (magnitudes, signs): d' = d +
+    carry, and d' > 2^(c-1) is emitted as -(2^c - d') with carry 1, so
+    magnitudes stay <= 2^(c-1) and the Abel combine runs over half the
+    positions.  The top window absorbs the final carry (its raw digit is
+    far below 2^(c-1) for every window size _msm_c chooses)."""
+    w_n = digits.shape[-2]
     half, full = 1 << (c - 1), 1 << c
     mags, signs = [], []
-    carry = torch.zeros_like(digits[0])
+    carry = torch.zeros_like(digits[..., 0, :])
     for k in range(w_n - 1):
-        d = digits[k] + carry
+        d = digits[..., k, :] + carry
         neg = d > half
         mags.append(torch.where(neg, full - d, d))
         signs.append(neg.to(digits.dtype))
         carry = neg.to(digits.dtype)
-    mags.append(digits[w_n - 1] + carry)
+    mags.append(digits[..., w_n - 1, :] + carry)
     signs.append(torch.zeros_like(carry))
-    return torch.stack(mags), torch.stack(signs)
-
-
-def _fold_groups(terms, Q: int):
-    """Sum groups of Q adjacent entries on the last axis: (..., M) -> (..., M//Q)."""
-    M = terms["x"].shape[-1]
-    G = M // Q
-    v = {k: a.reshape(a.shape[:-1] + (G, Q)) for k, a in terms.items()}
-    acc = {k: a[..., 0] for k, a in v.items()}
-    for r in range(1, Q):
-        acc = jac_add(acc, {k: a[..., r] for k, a in v.items()})
-    return acc
+    return torch.stack(mags, dim=-2), torch.stack(signs, dim=-2)
 
 
 def _tree_sum(terms):
-    """Sum all entries of the last axis via radix-16 folds."""
+    """Sum all entries of the last axis by radix-16 folds: a fold adds each
+    group of 16 adjacent entries (fewer in the last fold) from its first
+    on, the groups' entries moved to a leading axis once so that every add
+    reads whole tensors."""
     while terms["x"].shape[-1] > 1:
         M = terms["x"].shape[-1]
-        terms = _fold_groups(terms, min(16, M))
+        Q = min(16, M)
+        v = {k: a.reshape(a.shape[:-1] + (M // Q, Q)).movedim(-1, 0).contiguous() for k, a in terms.items()}
+        terms = {k: a[0] for k, a in v.items()}
+        for r in range(1, Q):
+            terms = jac_add(terms, {k: a[r] for k, a in v.items()})
     return {k: v[..., 0] for k, v in terms.items()}
 
 
-def _excl_suffix_scan(pts, Q: int = 64):
-    """Exclusive suffix sums over the last axis (power-of-2 length C):
-    out[..., i] = sum_{j > i} pts[..., j].  Hierarchical: a running suffix
-    within groups of Q, a recursive scan of the group totals, combined with
-    one full-width add."""
-    C = pts["x"].shape[-1]
-    batch = pts["x"].shape[1:]
-    device = pts["x"].device
-    if C == 1:
-        return jac_infinity(batch, device=device)
-    if C <= Q:
-        sfx = {k: torch.zeros((L,) + batch, dtype=torch.int32, device=device) for k in pts}
-        acc = jac_infinity(batch[:-1], device=device)
-        for r in range(C):
-            pos = C - 1 - r
-            for k in sfx:
-                sfx[k][..., pos] = acc[k]
-            acc = jac_add(acc, {k: a[..., pos] for k, a in pts.items()})
-        return sfx
-    G = C // Q
-    v = {k: a.reshape(a.shape[:-1] + (G, Q)) for k, a in pts.items()}
-    sfx = {k: torch.zeros_like(a) for k, a in v.items()}
-    acc = jac_infinity(batch[:-1] + (G,), device=device)
-    for r in range(Q):
-        pos = Q - 1 - r
-        for k in sfx:
-            sfx[k][..., pos] = acc[k]
-        acc = jac_add(acc, {k: a[..., pos] for k, a in v.items()})
-    gsfx = _excl_suffix_scan(acc, Q)  # (16, ..., G)
-    gb = {k: a[..., None].expand(a.shape + (Q,)) for k, a in gsfx.items()}
-    out = jac_add(sfx, gb)
-    return {k: a.reshape(a.shape[:-2] + (C,)) for k, a in out.items()}
+def _sorted_entries(digits, signs, q: int):
+    """One sort of each row's entries by one int64 key (magnitude | sign |
+    index): the sorted magnitudes ``(R, n)``, and the entries' point
+    indices (int32) and signs (bool) in chunks of q sorted entries,
+    position-major: ``(R, q, n / q)``, sorted entry c q + pos of a row at
+    ``[r, pos, c]`` (what ``msm_chunk_acc`` takes)."""
+    rows, n = digits.shape
+    ib = max(1, (n - 1).bit_length())
+    idx = torch.arange(n, dtype=torch.int64, device=digits.device)
+    key = (digits << (ib + 1)) | (signs << ib) | idx
+    skey, _ = torch.sort(key, dim=1)
+    order = (skey & ((1 << ib) - 1)).to(torch.int32).reshape(rows, n // q, q).transpose(1, 2).contiguous()
+    sign = ((skey >> ib) & 1).to(torch.bool).reshape(rows, n // q, q).transpose(1, 2).contiguous()
+    return skey >> (ib + 1), order, sign
 
 
 def _window_sums(px, py, digits, signs, c: int, q_rounds: int = 8):
-    """Window sums sum_e d_e P_e for all windows at once.
+    """Window sums sum_e d_e P_e of every row at once: a row is one window
+    of one scalar set (R = sets x windows), over the same points.
 
     px, py: (16, n) affine Montgomery ((0,0) rows must have digit 0 — their
     garbage contributions only ever pollute suffix positions below pos_1,
-    which the Abel combine never reads).  digits, signs: (W, n) int64.
-    Returns a jac dict (16, W).
+    which the Abel combine never reads).  digits, signs: (R, n) int64.
+    Returns a jac dict (16, R).
     """
-    w_n, n = digits.shape
+    rows, n = digits.shape
     device = px.device
     B_eff = 1 << (c - 1)  # signed digits: magnitudes <= 2^(c-1)
-    C = max(1, n // q_rounds)  # chunks per window
+    C = max(1, n // q_rounds)  # chunks per row
     q = n // C  # accumulation rounds
+    sd, order, sign = _sorted_entries(digits, signs, q)
 
-    # one int64 key per entry, (magnitude | sign | index): one sort per
-    # window row gives the digit order, the signs and the point indices
-    ib = max(1, (n - 1).bit_length())
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    key = (digits << (ib + 1)) | (signs << ib) | idx[None, :]
-    skey, _ = torch.sort(key, dim=1)
-    order = skey & ((1 << ib) - 1)  # (W, n)
-    sign_sorted = ((skey >> ib) & 1).to(torch.bool)
-    sd = skey >> (ib + 1)
-    order_cq = order.reshape(w_n, C, q)
-    sign_cq = sign_sorted.reshape(w_n, C, q)
-    stacked = torch.cat([px, py])  # (32, n): one gather per round
-
-    # ---- intra-chunk suffix accumulation: q rounds, every lane busy
-    valid = torch.ones((w_n, C), dtype=torch.bool, device=device)
-    sfx = {k: torch.zeros((L, w_n, C, q), dtype=torch.int32, device=device) for k in ("x", "y", "z")}
-    acc = jac_infinity((w_n, C), device=device)
-    d = df()
-    for r in range(q):
-        pos = q - 1 - r
-        g = stacked[:, order_cq[:, :, pos]]  # (32, W, C)
-        qy = g[16:]
-        qy = d.select(sign_cq[:, :, pos], d.neg(qy), qy)  # signed-digit negation
-        acc = jac_madd(acc, g[:16], qy, valid)
-        for k in sfx:
-            sfx[k][..., pos] = acc[k]
-    sfx = {k: v.reshape(L, w_n, n) for k, v in sfx.items()}
+    # ---- intra-chunk suffix accumulation: q rounds in one launch, every
+    # lane busy; sfx (3, 16, R, q C) holds each entry's running chunk
+    # suffix, sorted entry c q + pos at pos C + c
+    sfx, totals = msm_chunk_acc_cuda(px.contiguous(), py.contiguous(), order, sign)
 
     # ---- cross-chunk exclusive suffixes CS[ch] = sum of chunks after ch
-    CS = _excl_suffix_scan(acc)  # (16, W, C)
+    cs = jac_suffix_scan_cuda(totals)  # (3, 16, R, C)
 
     # ---- Abel combine: sum_k S(pos_k), k = 1..B_eff (signed magnitudes)
-    ks = torch.arange(1, B_eff + 1, dtype=sd.dtype, device=device).expand(w_n, B_eff)
-    pos = torch.searchsorted(sd, ks.contiguous())  # (W, B_eff)
+    ks = torch.arange(1, B_eff + 1, dtype=sd.dtype, device=device).expand(rows, B_eff)
+    pos = torch.searchsorted(sd, ks.contiguous())  # (R, B_eff)
     ok = pos < n
     posc = pos.clamp(0, n - 1)
-    s_intra = {k: torch.gather(v, 2, posc[None].expand(L, w_n, B_eff)) for k, v in sfx.items()}
-    s_cross = {k: torch.gather(v, 2, (posc // q)[None].expand(L, w_n, B_eff)) for k, v in CS.items()}
+    s_intra = torch.gather(sfx, 3, (posc % q * C + posc // q).expand(3, L, rows, B_eff))
+    s_cross = torch.gather(cs, 3, (posc // q).expand(3, L, rows, B_eff))
     del sfx
-    terms = jac_add(s_intra, s_cross)  # (16, W, B_eff)
-    inf = jac_infinity((w_n, B_eff), device=device)
+    terms = jac_add(
+        {"x": s_intra[0], "y": s_intra[1], "z": s_intra[2]}, {"x": s_cross[0], "y": s_cross[1], "z": s_cross[2]}
+    )  # (16, R, B_eff)
+    inf = jac_infinity((rows, B_eff), device=device)
+    d = df()
     terms = {k: d.select(~ok, inf[k], v) for k, v in terms.items()}
-    return _tree_sum(terms)  # (16, W)
+    return _tree_sum(terms)  # (16, R)
 
 
 def _q_rounds(n: int) -> int:
@@ -313,9 +276,10 @@ def _q_rounds(n: int) -> int:
 
 
 def _chunkable_n(n: int, q: int) -> int:
-    """Smallest m >= n that _window_sums can chunk: m = q*C with C either
-    <= 64 or recursively a multiple of 64 (the _excl_suffix_scan radix), so
-    C*q == m holds at every level.  Padding entries are (0,0) points with
+    """Smallest m >= n that the reference's _window_sums can chunk: m = q*C
+    with C either <= 64 or recursively a multiple of 64 (its
+    _excl_suffix_scan radix; jac_suffix_scan takes any C), kept so that
+    both pad alike.  Padding entries are (0,0) points with
     digit 0 — sorted first and never read by the Abel combine (same invariant
     as real infinity inputs)."""
     if n < q:
@@ -329,11 +293,28 @@ def _chunkable_n(n: int, q: int) -> int:
     return q * round_chunks(-(-n // q))
 
 
+# bytes of the running suffix sums a scalar set's window sums hold at once
+# (3 coordinates x 16 limbs x 4 bytes for each of W x n entries), and the
+# most a batch of scalar sets holds before it is split into sub-batches:
+# one set at the 2^18-point slice (22 windows: 1.1 GB, as _MSM_SLICE), 3,
+# 85 and 682 sets at 2^16, 2^11 and 2^8 points
+_SFX_BYTES = 3 * L * 4
+_MSM_BATCH_BYTES = 1 << 30
+
+
+def _batch_sets(n: int, c: int) -> int:
+    """Scalar sets of one sub-batch at n (padded) points and c-bit windows."""
+    return max(1, _MSM_BATCH_BYTES // (_SFX_BYTES * -(-254 // c) * n))
+
+
 def _msm_wsums_raw(px, py, scalars_canonical):
     """Device Pippenger through window sums: (px, py, scalars) -> stacked
     Jacobian window sums, ONE (3, 16, W) tensor (x/y/z), normalized to affine
     on the host.  The Horner window combine (c*W sequential doublings at
-    width 1) runs on the host over Python ints."""
+    width 1) runs on the host over Python ints.  Scalars may also be a batch
+    ``(B, 16, N)`` of scalar sets over the same points, giving ``(3, 16, B,
+    W)``: every step runs once over all the sets' windows, in sub-batches
+    of ``_batch_sets`` sets."""
     n = px.shape[-1]
     c = _msm_c(n)
     q = _q_rounds(n)
@@ -343,14 +324,22 @@ def _msm_wsums_raw(px, py, scalars_canonical):
         px = torch.nn.functional.pad(px, pad)
         py = torch.nn.functional.pad(py, pad)
         scalars_canonical = torch.nn.functional.pad(scalars_canonical, pad)
-    digits = _digits_from_limbs(scalars_canonical, c)
+    single = scalars_canonical.dim() == 2
+    sets = scalars_canonical[None] if single else scalars_canonical
+    w_n = -(-254 // c)
     # infinity inputs ((0,0) marker) can't ride the mixed add — force
     # digit 0, which the Abel combine never reads
     pt_inf = df().is_zero(px) & df().is_zero(py)
-    digits = torch.where(pt_inf[None], 0, digits)
-    digits, signs = _signed_digits(digits, c)
-    w = _window_sums(px, py, digits, signs, c, q_rounds=q)
-    return torch.stack([w["x"], w["y"], w["z"]])
+    per = _batch_sets(m, c)
+    parts = []
+    for s in range(0, sets.shape[0], per):
+        digits = torch.where(pt_inf, 0, _digits_from_limbs(sets[s : s + per], c))  # (b, W, m)
+        digits, signs = _signed_digits(digits, c)
+        b = digits.shape[0]
+        w = _window_sums(px, py, digits.reshape(b * w_n, m), signs.reshape(b * w_n, m), c, q_rounds=q)
+        parts.append(torch.stack([w["x"], w["y"], w["z"]]).reshape(3, L, b, w_n))
+    w = parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
+    return w[:, :, 0] if single else w
 
 
 def _horner_device(w, c: int):
@@ -367,8 +356,9 @@ def _msm_raw(px, py, scalars_canonical):
     device, which a collective can exchange (the sharded MSM's partial
     sums).  Inputs as for :func:`msm`; scalars may also be a batch
     ``(B, 16, N)`` of scalar sets over the same points, giving ``(16, B)``:
-    one Horner at width B for all of them.  Above ``_MSM_SLICE`` points the
-    slices' sums add on the device."""
+    one window-sum pass (:func:`_msm_wsums_raw`) and one Horner at width B
+    for all of them.  Above ``_MSM_SLICE`` points the slices' sums add on
+    the device."""
     n = px.shape[-1]
     if n > _MSM_SLICE:
         acc = None
@@ -377,11 +367,7 @@ def _msm_raw(px, py, scalars_canonical):
             pt = _msm_raw(px[:, s:e], py[:, s:e], scalars_canonical[..., s:e])
             acc = pt if acc is None else jac_add(acc, pt)
         return acc
-    if scalars_canonical.dim() == 2:
-        w = _msm_wsums_raw(px, py, scalars_canonical)
-    else:
-        w = torch.stack([_msm_wsums_raw(px, py, sc) for sc in scalars_canonical.unbind(0)], dim=2)
-    return _horner_device(w, _msm_c(n))
+    return _horner_device(_msm_wsums_raw(px, py, scalars_canonical), _msm_c(n))
 
 
 # ---------------------------------------------- host Jacobian (Python ints)

@@ -25,6 +25,8 @@ reference's environment variables as arguments.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -34,7 +36,7 @@ from ..ec import host as ec
 from ..field.device import get_device_field
 from ..field.params import BN254_FR
 from ..plonkish.evaluator import _run_program
-from .keygen import _device_srs, commit_coeffs_batch, to_host_limbs
+from .keygen import _commit_by_length, commit_coeffs_batch, to_host_limbs
 
 P = BN254_FR.p
 
@@ -277,19 +279,9 @@ class ShardedEngine(TorchEngine):
         """One sharded MSM for the columns of each length (a batch of scalar
         sets over the same SRS points: one Horner and one exchange per
         round for all of them), decoded to affine on the host."""
-        from ..ec.device import _wsums_host_affine
         from ..parallel.msm import sharded_msm
 
-        g1_x, g1_y = _device_srs(self.params, self.device)
-        out = [None] * len(coeffs_list)
-        for m in dict.fromkeys(c.shape[-1] for c in coeffs_list):
-            idx = [i for i, c in enumerate(coeffs_list) if c.shape[-1] == m]
-            canon = torch.stack([self.dfr.from_mont_arr(coeffs_list[i]) for i in idx])
-            pt = sharded_msm(self.mesh, g1_x[:, :m], g1_y[:, :m], canon)
-            xs, ys = _wsums_host_affine(torch.stack([pt["x"], pt["y"], pt["z"]]))
-            for i, x, y in zip(idx, xs, ys):
-                out[i] = ec.g1_from_ints(x, y)
-        return out
+        return _commit_by_length(self.params, self.device, coeffs_list, functools.partial(sharded_msm, self.mesh))
 
 
 def _grand_product_fallback(num_ints, den_ints, carry: int):

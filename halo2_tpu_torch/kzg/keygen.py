@@ -380,8 +380,8 @@ def commit_coeffs_batch(params, coeffs_list, backend: str = "native") -> list:
     tensors on any device, fetched in one copy, go to the native C++
     Pippenger.  ``backend="device"`` (the reference's
     ``HALO2_TPU_COMMIT_BACKEND=device``): int32 tensors on one device go to
-    the device Pippenger (:func:`..ec.device.msm_points`) there, over the SRS
-    uploaded once per (params, device).
+    the device Pippenger there (:func:`_commit_device`: the columns of each
+    length as one batch), over the SRS uploaded once per (params, device).
 
     Without the native engine, ``"native"`` takes the reference's fallbacks,
     on the inputs' own device: host arrays (numpy, CPU tensors) go to the
@@ -440,20 +440,41 @@ def _device_srs(params, device: torch.device):
     return cache[device]
 
 
-def _commit_device(params, coeffs_list) -> list:
-    from ..ec.device import msm_points
+def _commit_by_length(params, device, coeffs_list, msm) -> list:
+    """Commit Montgomery Fr columns on ``device`` through a batched device
+    MSM: the columns of each length as one batch of scalar sets over the
+    SRS uploaded once per (params, device), ``msm(g1_x, g1_y, canon)`` with
+    ``canon`` ``(B, 16, m)`` returning a jac point ``(16, B)``, the batch's
+    points decoded to affine in one device -> host copy, in the callers'
+    order."""
+    from ..ec.device import _wsums_host_affine
     from ..field.device import get_device_field
 
     dfr = get_device_field(FR)
-    out = []
-    for coeffs in coeffs_list:
-        if not isinstance(coeffs, torch.Tensor):
-            raise TypeError("the device commit backend takes int32 tensors")
-        m = coeffs.shape[-1]
-        g1_x, g1_y = _device_srs(params, coeffs.device)
-        canon = dfr.from_mont_arr(coeffs)
-        out.append(ec.g1_from_ints(*msm_points(g1_x[:, :m], g1_y[:, :m], canon)))
+    g1_x, g1_y = _device_srs(params, device)
+    out = [None] * len(coeffs_list)
+    for m in dict.fromkeys(c.shape[-1] for c in coeffs_list):
+        idx = [i for i, c in enumerate(coeffs_list) if c.shape[-1] == m]
+        batch = torch.stack([coeffs_list[i] for i in idx], dim=1)  # (16, B, m)
+        canon = dfr.from_mont_arr(batch).movedim(1, 0)  # (B, 16, m)
+        pt = msm(g1_x[:, :m], g1_y[:, :m], canon)
+        xs, ys = _wsums_host_affine(torch.stack([pt["x"], pt["y"], pt["z"]]))
+        for i, x, y in zip(idx, xs, ys):
+            out[i] = ec.g1_from_ints(x, y)
     return out
+
+
+def _commit_device(params, coeffs_list) -> list:
+    """The device Pippenger over the SRS for each length's columns at once:
+    one :func:`..ec.device._msm_raw` a length (one window-sum pass, one
+    device Horner at the batch's width)."""
+    from ..ec.device import _msm_raw
+
+    if not all(isinstance(c, torch.Tensor) for c in coeffs_list):
+        raise TypeError("the device commit backend takes int32 tensors")
+    if not coeffs_list:
+        return []
+    return _commit_by_length(params, coeffs_list[0].device, coeffs_list, _msm_raw)
 
 
 def to_host_limbs(arrays) -> np.ndarray:

@@ -435,7 +435,7 @@ def test_msm_points_matches_native(device, flag_reads):
         native.pack_device(px), native.pack_device(py), native.pack_device(sc)
     )
     assert got == want
-    assert cuda_jac.LAUNCHES["jac_madd"] > before["jac_madd"]
+    assert cuda_jac.LAUNCHES["msm_chunk_acc"] > before["msm_chunk_acc"]
     assert cuda_jac.LAUNCHES["jac_add"] > before["jac_add"]
     assert flag_reads == []
 
@@ -660,3 +660,110 @@ def test_every_large_stage_span_matches_plain(device):
             assert torch.equal(got, want), (m0, stages)
             stages += 1
         m0 *= 2
+
+
+def _msm_entries(n, sets, device, seed):
+    """The MSM's sorted, chunked entries of ``sets`` random scalar sets over
+    n SRS points, as ec/device.py:_msm_wsums_raw makes them."""
+    rng = random.Random(seed)
+    _, _, x, y = _srs(n, device)
+    sc = torch.stack([
+        torch.from_numpy(get_device_field(BN254_FR).encode_np(
+            [rng.randrange(BN254_FR.p) for _ in range(n)], to_mont=False).view(np.int32))
+        for _ in range(sets)
+    ]).to(device)
+    c, q = ecd._msm_c(n), ecd._q_rounds(n)
+    digits, signs = ecd._signed_digits(ecd._digits_from_limbs(sc, c), c)
+    rows = sets * digits.shape[1]
+    _, order, sign = ecd._sorted_entries(digits.reshape(rows, n), signs.reshape(rows, n), min(q, n))
+    return x, y, order, sign
+
+
+@pytest.mark.parametrize("n, sets", [(1 << 9, 1), (1 << 11, 1), (1 << 11, 8)])
+def test_msm_chunk_acc_kernel_matches_plain(device, n, sets):
+    """One launch equals the plain rounds limb for limb, with a (0, 0)
+    point, a y = 0 point, P == Q and P == -Q chunks."""
+    x, y, order, sign = _msm_entries(n, sets, device, n + sets)
+    x, y = x.clone(), y.clone()
+    x[:, 3] = y[:, 3] = 0
+    y[:, 5] = 0
+    # entry pos of chunk c at [row, pos, c]; the rounds run from pos q - 1 down
+    order[0, -2, 0], sign[0, -2, 0] = order[0, -1, 0], sign[0, -1, 0]
+    order[0, -2, 1], sign[0, -2, 1] = order[0, -1, 1], ~sign[0, -1, 1]
+    order[1, :, 0], sign[1, :, 0] = 5, True
+    order[1, -1, 1] = 3
+    before = dict(cuda_jac.LAUNCHES)
+    got = cuda_jac.msm_chunk_acc_cuda(x, y, order, sign)
+    torch.cuda.synchronize(device)
+    assert cuda_jac.LAUNCHES["msm_chunk_acc"] == before["msm_chunk_acc"] + 1
+    assert cuda_jac.LAUNCHES["jac_madd"] == before["jac_madd"]
+    want = cuda_jac.msm_chunk_acc_plain(x, y, order, sign)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 64, 65, 256, 257, 4096, 8192])
+def test_jac_suffix_scan_kernel_matches_plain(device, chunks):
+    """The scan equals its plain version limb for limb, in one launch up to
+    256 chunks and three above, with P == Q, P == -Q and infinite
+    chunks."""
+    x, y, order, sign = _msm_entries(1 << 11, 1, device, 7)
+    tot = cuda_jac.msm_chunk_acc_cuda(x, y, order, sign)[1][:, :, :3]
+    s = tot.repeat(1, 1, 1, -(-chunks // tot.shape[-1]))[..., :chunks].contiguous()
+    if chunks > 4:
+        s[:, :, 0, 1] = s[:, :, 0, 0]
+        s[:, :, 0, 2] = s[:, :, 0, 3]
+        s[1, :, 0, 2] = ecd.df().neg(s[1, :, 0, 3].contiguous())
+        inf = torch.stack(list(ecd.jac_infinity((), device=device).values()))
+        s[:, :, 2, chunks // 2] = inf
+    before = cuda_jac.LAUNCHES["jac_suffix_scan"]
+    got = cuda_jac.jac_suffix_scan_cuda(s)
+    torch.cuda.synchronize(device)
+    launches = 1 if chunks <= cuda_jac.SCAN_TILE else 3
+    assert cuda_jac.LAUNCHES["jac_suffix_scan"] == before + launches
+    assert torch.equal(got, cuda_jac.jac_suffix_scan_plain(s))
+
+
+def test_msm_window_kernels_raise_on_bad_inputs(device):
+    x, y, order, sign = _msm_entries(1 << 9, 1, device, 3)
+    with pytest.raises(ValueError):
+        cuda_jac.msm_chunk_acc_cuda(x, y, order.long(), sign)
+    with pytest.raises(ValueError):
+        cuda_jac.msm_chunk_acc_cuda(x, y, order, sign.int())
+    tot = cuda_jac.msm_chunk_acc_cuda(x, y, order, sign)[1]
+    with pytest.raises(TypeError):
+        cuda_jac.jac_suffix_scan_cuda(tot.long())
+    with pytest.raises(ValueError):
+        cuda_jac.jac_suffix_scan_cuda(tot[..., ::2])
+    with pytest.raises(ValueError):
+        cuda_jac.jac_suffix_scan_cuda(tot[:2])
+
+
+def test_batched_device_commits_launch_one_window_pass(device, flag_reads):
+    """Five columns of one length commit in one batch: one msm_chunk_acc,
+    one jac_horner, no jac_madd or mod_sub; the points equal the native
+    MSM's."""
+    from halo2_tpu_torch.kzg.keygen import _commit_device
+    from halo2_tpu_torch.kzg.params import ParamsKZG
+
+    params = ParamsKZG.setup_cached(11)
+    dfr = get_device_field(BN254_FR)
+    rng = random.Random(15)
+    cols = [
+        dfr.encode([rng.randrange(BN254_FR.p) for _ in range(1 << 11)], device=device)
+        for _ in range(5)
+    ]
+    before = {**cuda_jac.LAUNCHES, **cuda_ops.LAUNCHES}
+    got = _commit_device(params, cols)
+    torch.cuda.synchronize(device)
+    after = {**cuda_jac.LAUNCHES, **cuda_ops.LAUNCHES}
+    assert after["msm_chunk_acc"] == before["msm_chunk_acc"] + 1
+    assert after["jac_horner"] == before["jac_horner"] + 1
+    assert after["jac_madd"] == before["jac_madd"] and after["mod_sub"] == before["mod_sub"]
+    assert flag_reads == []
+    px, py = (native.pack_device(np.ascontiguousarray(a)) for a in (params.g1_x, params.g1_y))
+    from halo2_tpu_torch.ec import host
+
+    for col, pt in zip(cols, got):
+        canon = dfr.from_mont_arr(col).cpu().numpy().view(np.uint32)
+        assert host.g1_to_ints(pt) == native.msm_g1_mont(px, py, native.pack_device(canon))
