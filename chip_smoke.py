@@ -59,12 +59,15 @@ passes or raises:
    mont_pow in this call with its bound and its chain of divsteps; the
    device MSM's window-sum kernels, msm_chunk_acc (a batch's intra-chunk
    rounds in one launch) and jac_suffix_scan (the cross-chunk suffix scan
-   in Kogge-Stone steps), on the batches of MSM_CASES (the flagship's
+   in the schedule scan_plan picks, and in each of SCAN_SCHEDULES forced
+   at every level, timed at the flagship's batches), on the batches of
+   MSM_CASES (the flagship's
    commit batches of 1, 4, 8, 16 and 20 columns at 2^11, a W = 2 rank's
    2^10, the dryrun's 2^9, the 2^16 MSM and a 2^18-point slice),
    with exception lanes (a (0, 0) point, a y = 0 point, P == Q and P == -Q
-   in a chunk) and the scan at SCAN_RAGGED chunk counts, each one's device
-   time a call beside its bound and its chain of dependent group ops;
+   in a chunk) and the scan at SCAN_RAGGED chunk counts in every
+   schedule, each one's device time a call beside its bound and its chain
+   of dependent group ops;
 3. the device MSM: msm_points at 2^16 (the k = 16 SRS, random.Random(42)
    scalars) and 2^20 (that SRS and random.Random(9) scalars tiled 16 times)
    equals the native host MSM on the same arrays; the time of each (median
@@ -236,6 +239,9 @@ CHAIN_ITERS = 4096
 # 16,384 chunks a window); the JSON line's times at the largest batch
 MSM_CASES = ((1 << 11, (1, 4, 8, 16, 20)), (1 << 10, (1, 4, 20)), (1 << 9, (1, 4)), (1 << 16, (1,)), (1 << 18, (1,)))
 MSM_REPORT = (1 << 11, 20)
+# the points at which phase 2 times the scan in each of its schedules: the
+# flagship prove's batches (elsewhere, scan_plan's schedule alone)
+SCHEDULES_TIMED_N = 1 << 11
 # the scan also at chunk counts no path gives it: one chunk, a tile's 256
 # plus one (two tiles, a ragged one), and three tiles and a bit
 SCAN_RAGGED = (1, 2, 65, 257, 700)
@@ -396,7 +402,7 @@ def _sass_counts(library) -> dict:
         if line.startswith("Function :"):
             fn = line.split(":", 1)[1].strip()
             kernels = ("jac_madd_wide", "jac_madd_narrow", "jac_add_wide", "jac_add_narrow", "jac_horner", "mont_pow",
-                       "mont_inv", "mul_chain")
+                       "mont_inv", "mul_chain", "jac_suffix_scan_cluster", "jac_suffix_scan_coarse")
             name = next((k for k in kernels if k in fn), None)
             if name in ("mont_pow", "mont_inv"):
                 name += " cc" if "CcArith" in fn else " wide"
@@ -1097,35 +1103,76 @@ def _scan_work(rows: int, chunks: int) -> tuple:
     return 6 * ELEM * rows * chunks, rows * max(0, chunks - 2) * (12 * IMAD_MUL + 4 * IMAD_SQR)
 
 
-def _scan_device_ms(tot) -> tuple:
-    """Device time of one jac_suffix_scan call over ``tot``: each of its
-    launches timed alone (_kernel_device_ms: the median of the recorded
-    launches, so a profile that dropped some events still reads), summed.
-    Returns (ms, launches)."""
+def _scan_symbol(schedule) -> str:
+    """The kernel symbol of a tile pass in ``schedule``."""
+    return f"jac_suffix_scan_{schedule[0]}_kernel"
+
+
+def _scan_device_ms(tot, schedule=None) -> tuple:
+    """Device time of one jac_suffix_scan call over ``tot``, each level in
+    ``schedule`` (None: scan_plan's): each of its launches timed alone
+    (_kernel_device_ms: the median of the recorded launches, so a profile
+    that dropped some events still reads), summed.  Returns (ms,
+    launches)."""
     from halo2_tpu_torch.ec import cuda_jac
 
-    chunks = tot.shape[-1]
-    T = cuda_jac.scan_tile(chunks)
-    tiles = lambda: cuda_jac._scan_tiles_cuda(tot, T, chunks > T)  # noqa: E731
-    ms = _kernel_device_ms(tiles, "jac_suffix_scan_kernel", 0.0)
+    rows, chunks = tot.shape[2:]
+    sched = cuda_jac._plan(schedule)(rows, chunks)
+    T, k = cuda_jac.scan_tile(chunks, sched)
+    tiles = lambda: cuda_jac._scan_tiles_cuda(tot, sched, T, k, chunks > T)  # noqa: E731
+    ms = _kernel_device_ms(tiles, _scan_symbol(sched), 0.0)
     if chunks <= T:
         return ms, 1
     excl, sums = tiles()
-    inner, launches = _scan_device_ms(sums)
-    suffix = cuda_jac.jac_suffix_scan_cuda(sums)
+    inner, launches = _scan_device_ms(sums, schedule)
+    suffix = cuda_jac._jac_suffix_scan(sums, schedule)
     offsets = _kernel_device_ms(lambda: cuda_jac._scan_offsets_cuda(excl, suffix, T), "jac_suffix_scan_offsets_kernel", 0.0)
     return ms + inner + offsets, launches + 2
 
 
-def _scan_chain(chunks: int) -> int:
-    """Dependent complete adds on the scan's longest path: each level's
-    log2(tile) Kogge-Stone steps, and one offsets add a level above the
-    first."""
+def _scan_call_ms(tot, runs: int = 10) -> tuple:
+    """Device time of one jac_suffix_scan_cuda call over ``tot``, all its
+    launches: CUDA events around the call, queued behind a ~1 ms spin
+    kernel (torch.cuda._sleep) so that the events time the card and not
+    the host's launches; the median of ``runs`` calls.  (torch.profiler
+    drops some launches of a window of calls, which a sum over launches
+    cannot tell from a faster call.)  Returns (ms, launches a call).  It
+    uses only the wrapper, so it also times an older checkout."""
+    import torch
+
     from halo2_tpu_torch.ec import cuda_jac
 
-    T = cuda_jac.scan_tile(chunks)
-    steps = T.bit_length() - 1
-    return steps if chunks <= T else steps + 1 + _scan_chain(-(-chunks // T))
+    cuda_jac.jac_suffix_scan_cuda(tot)
+    torch.cuda.synchronize()
+    before = cuda_jac.LAUNCHES["jac_suffix_scan"]
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        cuda_jac.jac_suffix_scan_cuda(tot)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), (cuda_jac.LAUNCHES["jac_suffix_scan"] - before) // runs
+
+
+def _scan_chain(rows: int, chunks: int, schedule=None) -> int:
+    """Dependent complete adds on the scan's longest path, each level in
+    ``schedule`` (None: scan_plan's): a tile's log2(T / k) Kogge-Stone
+    steps, and k - 1 adds before them and after them where a thread holds k
+    chunks; one offsets add a level above the first."""
+    from halo2_tpu_torch.ec import cuda_jac
+
+    sched = cuda_jac._plan(schedule)(rows, chunks)
+    T, k = cuda_jac.scan_tile(chunks, sched)
+    steps = (T // k).bit_length() - 1 + 2 * (k - 1)
+    return steps if chunks <= T else steps + 1 + _scan_chain(rows, -(-chunks // T), schedule)
+
+
+def _scan_name(schedule) -> str:
+    return "cluster" if schedule[0] == "cluster" else f"k={schedule[1]}"
 
 
 def _check_msm_kernels(device, gen, err, times) -> dict:
@@ -1139,6 +1186,7 @@ def _check_msm_kernels(device, gen, err, times) -> dict:
     Returns the bounds at MSM_REPORT."""
     import torch
 
+    from halo2_tpu_torch import _build
     from halo2_tpu_torch.ec import cuda_jac
     from halo2_tpu_torch.ec import device as ecd
 
@@ -1181,9 +1229,15 @@ def _check_msm_kernels(device, gen, err, times) -> dict:
             )
             tot = got[1]
             sbound = _bound(*_scan_work(rows, chunks))
+            for schedule in cuda_jac.SCAN_SCHEDULES:
+                g = cuda_jac._jac_suffix_scan(tot, schedule)
+                e = _max_abs_err(f"jac_suffix_scan {label} {_scan_name(schedule)}", g, cuda_jac._scan_plain(tot, schedule))
+                err["jac_suffix_scan"] = max(err["jac_suffix_scan"], e)
             g = cuda_jac.jac_suffix_scan_cuda(tot)
-            e = _max_abs_err(f"jac_suffix_scan {label}", g, cuda_jac.jac_suffix_scan_plain(tot))
-            err["jac_suffix_scan"] = max(err["jac_suffix_scan"], e)
+            err["jac_suffix_scan"] = max(err["jac_suffix_scan"], _max_abs_err(f"jac_suffix_scan {label}", g, cuda_jac.jac_suffix_scan_plain(tot)))
+            each = {}
+            if n == SCHEDULES_TIMED_N:
+                each = {schedule: _scan_device_ms(tot, schedule)[0] for schedule in cuda_jac.SCAN_SCHEDULES}
             t_d, launches = _scan_device_ms(tot)
             if t_d < sbound[0]:
                 raise AssertionError(f"jac_suffix_scan {label}: {t_d} ms on the device, below its bound")
@@ -1193,11 +1247,22 @@ def _check_msm_kernels(device, gen, err, times) -> dict:
                     _ms_per_call(lambda: cuda_jac.jac_suffix_scan_cuda(tot), 20),
                     _ms_per_call(lambda: cuda_jac.jac_suffix_scan_plain(tot), 1, runs=3),
                 )
-            chain = _scan_chain(chunks)
+            chain = _scan_chain(rows, chunks)
+            plan = cuda_jac.scan_plan(rows, chunks)
+            if plan[0] == "cluster":
+                T, _ = cuda_jac.scan_tile(chunks, plan)
+                cs = max(1, T // cuda_jac.CLUSTER_CHUNKS)
+                print(
+                    f"[kernels] jac_suffix_scan {label}: {rows} clusters of {cs} blocks; the card holds "
+                    f"{_build.lib().h2t_scan_max_clusters(cs)} at once",
+                    flush=True,
+                )
             print(
-                f"[kernels] jac_suffix_scan {label}: equal to plain; {t_d:.4f} ms on the device in "
-                f"{launches} launches, bound {sbound[0]:.6f} ms ({sbound[1]}, {sbound[0] / t_d:.1%} of it); chain "
-                f"{chain} dependent adds, {t_d * 1e3 / chain:.2f} us each",
+                f"[kernels] jac_suffix_scan {label}: every schedule equal to plain; scan_plan's {_scan_name(plan)} "
+                f"{t_d:.4f} ms on the device in {launches} launches, bound {sbound[0]:.6f} ms ({sbound[1]}, "
+                f"{sbound[0] / t_d:.1%} of it); chain {chain} dependent adds, {t_d * 1e3 / chain:.2f} us each"
+                + ("; each schedule at every level: " + ", ".join(f"{_scan_name(k)} {v:.4f}" for k, v in each.items())
+                   + " ms" if each else ""),
                 flush=True,
             )
     # the scan at ragged chunk counts, exception chunks included
@@ -1212,9 +1277,15 @@ def _check_msm_kernels(device, gen, err, times) -> dict:
             s[:, :, 0, 2], s[1, :, 0, 2] = s[:, :, 0, 3], neg  # P == -Q
             s[:, :, 1, chunks // 2] = inf[:, :, 0]
             s[:, :, 1, -1] = inf[:, :, 0]
-        e = _max_abs_err(f"jac_suffix_scan C={chunks}", cuda_jac.jac_suffix_scan_cuda(s), cuda_jac.jac_suffix_scan_plain(s))
-        err["jac_suffix_scan"] = max(err["jac_suffix_scan"], e)
-    print(f"[kernels] jac_suffix_scan at C={list(SCAN_RAGGED)}, P == Q, P == -Q and infinite chunks: equal to plain", flush=True)
+        for schedule in (None,) + cuda_jac.SCAN_SCHEDULES:
+            got = cuda_jac._jac_suffix_scan(s, schedule)
+            e = _max_abs_err(f"jac_suffix_scan C={chunks} {schedule}", got, cuda_jac._scan_plain(s, schedule))
+            err["jac_suffix_scan"] = max(err["jac_suffix_scan"], e)
+    print(
+        f"[kernels] jac_suffix_scan at C={list(SCAN_RAGGED)}, P == Q, P == -Q and infinite chunks, scan_plan's "
+        "schedule and each of SCAN_SCHEDULES at every level: equal to plain",
+        flush=True,
+    )
     return bounds
 
 
@@ -2397,7 +2468,8 @@ def compare_kernels(device) -> None:
     summed over the call's launches of every kernel (copies included); the flagship's
     83 x 2^15 coset scale through poly.domain._mul_columns, per call (CUDA
     events) and its device time summed over the call's launches; jac_horner
-    at every (c, lanes) of HORNER_CASES; jac_madd and jac_add, both
+    at every (c, lanes) of HORNER_CASES; jac_suffix_scan at every MSM_CASES
+    batch (its launches summed a call); jac_madd and jac_add, both
     variants, at every JAC_SIZES width (_check_jac_kernels); the device MSM
     with its Horner (ec.device._msm_raw) over 1 and 16 scalar sets at 2^11
     points and one set at 2^16, per call and on the device over all its
@@ -2492,6 +2564,17 @@ def compare_kernels(device) -> None:
             nbytes, imads, chain = _horner_work(w, c)
             t = _kernel_device_ms(lambda: cuda_jac.jac_horner_cuda(w, c), "jac_horner_kernel", _bound(nbytes, imads)[0])
             print(f"[compare] jac_horner c={c} B={batch}: {t:.4f} ms on the device, {t * 1e3 / chain:.3f} us a chained product", flush=True)
+    for n, batches in MSM_CASES:
+        for sets in batches:
+            px, py, order, sign = _msm_batch(device, gen, n, sets)
+            tot = cuda_jac.msm_chunk_acc_cuda(px, py, order, sign)[1]
+            ms, launches = _scan_call_ms(tot)
+            print(
+                f"[compare] jac_suffix_scan n=2^{n.bit_length() - 1} B={sets} ({tot.shape[2]} rows x {tot.shape[3]} chunks): "
+                f"{ms:.4f} ms on the device a call ({launches} launches; CUDA events behind a spin kernel, median of "
+                "10 calls)",
+                flush=True,
+            )
     _check_jac_kernels(device, {"jac_madd": 0.0, "jac_add": 0.0}, {})
     import numpy as np
 

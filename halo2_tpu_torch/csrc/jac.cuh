@@ -1,8 +1,9 @@
 // BN254 G1 group law for one thread a lane: dbl-2009-l, the mixed add
 // madd-2007-bl and the complete add add-2007-bl, with the exceptions of the
 // reference's canonical formulas (halo2_tpu/ec/device.py:jac_double,
-// :_jac_madd_jnp and :_jac_add_jnp; P == Q doubles).  Shared by the wide
-// kernels of jac.cu and the MSM kernels of msm.cu.  Every value stays
+// :_jac_madd_jnp and :_jac_add_jnp; P == Q doubles); and the doubling and
+// the complete add for a group of four threads a lane (at the end).
+// Shared by jac.cu's kernels and msm.cu's.  Every value stays
 // canonical (< p), so each result equals the plain versions
 // (ec/cuda_jac.py) limb for limb.
 //
@@ -223,6 +224,161 @@ __device__ __forceinline__ void jac_add_into(const P& p, const Q& q, const Modul
   add_tail(rr, j, v, s1, M, x3, y3);
   out.store(0, x3);
   out.store(1, y3);
+}
+
+// ------------------------------------------------- four threads a point
+// The group law on a group of GROUP = 4 threads of one warp, a point held
+// in every thread of its group: at each level of a formula every thread runs
+// the same product on the operands its rank g in the group picks (selects,
+// not branches, so the warp never diverges), and the group trades the
+// results by __shfl_sync.  A doubling's chain is 3 products, an add's 5,
+// against 7 and 16 in one thread; the values are those of jac_dbl_into and
+// jac_add_into, so a kernel on either equals the plain versions limb for
+// limb.  Every thread of a warp must call them together (the shuffles and
+// the P == Q vote span the warp).  jac.cu's jac_horner and msm.cu's
+// cluster scan run on them.
+constexpr int GROUP = 4;
+
+// r = v of the group's thread src, in every thread of the group.
+__device__ __forceinline__ void from(const uint32_t v[WORDS], int src, uint32_t r[WORDS]) {
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) r[k] = __shfl_sync(0xFFFFFFFFu, v[k], src, GROUP);
+}
+
+// r = v_g for this thread's rank g in its group.
+__device__ __forceinline__ void pick(int g, const uint32_t v0[WORDS], const uint32_t v1[WORDS],
+                                     const uint32_t v2[WORDS], const uint32_t v3[WORDS], uint32_t r[WORDS]) {
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) r[k] = g == 0 ? v0[k] : g == 1 ? v1[k] : g == 2 ? v2[k] : v3[k];
+}
+
+// (x, y, z) = 2 (x, y, z), dbl-2009-l, over the group (g: this thread's
+// rank): x^2 | y^2 | y z, then b^2 | (x + b)^2 | (3a)^2, then e (dd - x3).
+__device__ __forceinline__ void dbl_group(int g, uint32_t x[WORDS], uint32_t y[WORDS], uint32_t z[WORDS],
+                                          const ModulusOne& K) {
+  const Modulus& M = K.M;
+  uint32_t u[WORDS], v[WORDS], pr[WORDS], a[WORDS], b[WORDS], yz[WORDS];
+  pick(g, x, y, y, x, u);
+  pick(g, x, y, z, x, v);
+  cc::mul(u, v, M, pr);
+  from(pr, 0, a);
+  from(pr, 1, b);
+  from(pr, 2, yz);
+  uint32_t e[WORDS], c[WORDS], f[WORDS], dd[WORDS];
+  cc::add(x, b, M, v);  // x + b
+  cc::dbl(a, M, e);
+  cc::add(e, a, M, e);  // e = 3a
+  pick(g, b, v, e, b, u);
+  cc::mul(u, u, M, pr);
+  from(pr, 0, c);  // c = b^2
+  from(pr, 1, v);  // (x + b)^2
+  from(pr, 2, f);  // f = e^2
+  cc::sub(v, a, M, v);
+  cc::sub(v, c, M, v);
+  cc::dbl(v, M, dd);  // dd = 2((x + b)^2 - a - c)
+  cc::dbl(dd, M, u);
+  cc::sub(f, u, M, x);  // x3 = f - 2 dd
+  cc::sub(dd, x, M, u);
+  cc::mul(e, u, M, pr);
+  cc::dbl(c, M, c);
+  cc::dbl(c, M, c);
+  cc::dbl(c, M, c);
+  cc::sub(pr, c, M, y);  // y3 = e (dd - x3) - 8c
+  cc::dbl(yz, M, z);     // z3 = 2 y z
+}
+
+// (x1, y1, z1) = (x1, y1, z1) + (x2, y2, z2) over the group, complete:
+// add-2007-bl in five levels of products (z1^2 | z2^2 | y1 z2 | y2 z1, u1 |
+// u2 | s1 | s2, h^2 | z1 z2 | rr^2, j | z3 | v, rr (v - x3) | s1 j) with
+// the exceptions of _jac_add_jnp: q at infinity gives p, p at infinity q,
+// P == Q the doubling of p, P == -Q (0, 1, 0).
+__device__ __forceinline__ void add_group(int g, uint32_t x1[WORDS], uint32_t y1[WORDS], uint32_t z1[WORDS],
+                                          const uint32_t x2[WORDS], const uint32_t y2[WORDS],
+                                          const uint32_t z2[WORDS], const ModulusOne& K) {
+  const Modulus& M = K.M;
+  uint32_t u[WORDS], v[WORDS], pr[WORDS];
+  uint32_t z1z1[WORDS], z2z2[WORDS], y1z2[WORDS], y2z1[WORDS];
+  pick(g, z1, z2, y1, y2, u);
+  pick(g, z1, z2, z2, z1, v);
+  cc::mul(u, v, M, pr);
+  from(pr, 0, z1z1);
+  from(pr, 1, z2z2);
+  from(pr, 2, y1z2);
+  from(pr, 3, y2z1);
+  uint32_t u1[WORDS], s1[WORDS], h[WORDS], rd[WORDS];
+  pick(g, x1, x2, y1z2, y2z1, u);
+  pick(g, z2z2, z1z1, z2z2, z1z1, v);
+  cc::mul(u, v, M, pr);
+  from(pr, 0, u1);
+  from(pr, 1, h);   // u2
+  from(pr, 2, s1);
+  from(pr, 3, rd);  // s2
+  cc::sub(h, u1, M, h);    // h = u2 - u1
+  cc::sub(rd, s1, M, rd);  // r = s2 - s1
+  uint32_t rr[WORDS], hh[WORDS], zz[WORDS], rr2[WORDS];
+  cc::dbl(rd, M, rr);
+  pick(g, h, z1, rr, h, u);
+  pick(g, h, z2, rr, h, v);
+  cc::mul(u, v, M, pr);
+  from(pr, 0, hh);
+  from(pr, 1, zz);   // z1 z2
+  from(pr, 2, rr2);  // rr^2
+  uint32_t i4[WORDS], j[WORDS], z3[WORDS], vv[WORDS];
+  cc::dbl(hh, M, i4);
+  cc::dbl(i4, M, i4);
+  cc::dbl(zz, M, zz);
+  pick(g, h, zz, u1, h, u);
+  pick(g, i4, h, i4, i4, v);
+  cc::mul(u, v, M, pr);
+  from(pr, 0, j);    // j = h i
+  from(pr, 1, z3);   // z3 = 2 z1 z2 h
+  from(pr, 2, vv);   // v = u1 i
+  uint32_t x3[WORDS], y3[WORDS];
+  cc::sub(rr2, j, M, x3);
+  cc::dbl(vv, M, u);
+  cc::sub(x3, u, M, x3);  // x3 = rr^2 - j - 2v
+  cc::sub(vv, x3, M, v);
+  pick(g, rr, s1, rr, rr, u);
+  pick(g, v, j, v, v, v);
+  cc::mul(u, v, M, pr);
+  from(pr, 0, y3);  // rr (v - x3)
+  from(pr, 1, u);   // s1 j
+  cc::dbl(u, M, u);
+  cc::sub(y3, u, M, y3);  // y3 = rr (v - x3) - 2 s1 j
+  const bool q_inf = is_zero(z2), p_inf = is_zero(z1);
+  const bool h_zero = is_zero(h), r_zero = is_zero(rd);
+  const bool same = !q_inf && !p_inf && h_zero && r_zero;
+  uint32_t dx[WORDS], dy[WORDS], dz[WORDS];
+  if (__any_sync(0xFFFFFFFFu, same)) {  // uniform over the warp: the shuffles need every thread
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) {
+      dx[k] = x1[k];
+      dy[k] = y1[k];
+      dz[k] = z1[k];
+    }
+    dbl_group(g, dx, dy, dz, K);
+  }
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {
+    if (q_inf) continue;  // p
+    if (p_inf) {  // q
+      x1[k] = x2[k];
+      y1[k] = y2[k];
+      z1[k] = z2[k];
+    } else if (h_zero && r_zero) {  // P == Q
+      x1[k] = dx[k];
+      y1[k] = dy[k];
+      z1[k] = dz[k];
+    } else if (h_zero) {  // P == -Q: infinity (0, 1, 0)
+      x1[k] = 0;
+      y1[k] = K.one[k];
+      z1[k] = 0;
+    } else {
+      x1[k] = x3[k];
+      y1[k] = y3[k];
+      z1[k] = z3[k];
+    }
+  }
 }
 
 }  // namespace h2t

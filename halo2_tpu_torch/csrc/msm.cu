@@ -20,14 +20,10 @@
 //   out[i] = sum_{j > i} in[j], infinity at C - 1.  Replaces the reference's
 //   _excl_suffix_scan (halo2_tpu/ec/device.py:359: a sequential fori_loop of
 //   complete adds over groups of 64 chunks, recursion on the group totals,
-//   one full-width add), which the port ran as one jac_add launch a round.
-//   A block scans a tile of up to SCAN_TILE chunks in shared memory in
-//   log2(tile) Kogge-Stone steps and writes its tile total; above SCAN_TILE
-//   chunks the caller scans the tile totals the same way and adds each
-//   tile's suffix to its chunks in one offsets launch (mode 1): 1 launch up
-//   to 256 chunks, 3 up to 65,536.  (Brent-Kung's steps, a quarter of the
-//   adds in twice the steps, measured 1.7-1.9x slower at every batch an MSM
-//   gives the scan, PERF.md: the steps' latency bounds it, not their adds.)
+//   one full-width add).  One launch scans tiles of T chunks and writes
+//   their totals; above one tile the caller scans the tile totals the same
+//   way and adds each tile's suffix to its chunks in one offsets launch: 1
+//   launch up to one tile, 3 up to T^2 chunks.
 //
 // The association order differs from the reference's sequential scan, and
 // add-2007-bl is not symmetric in its Jacobian output, so the sums are other
@@ -39,21 +35,53 @@
 // ((k * 16 + j) * ld + e); Montgomery form over BN254 Fq; z == 0 marks
 // infinity.
 //
-// What bounds them: msm_chunk_acc the IMADs of its R C (q - 1) mixed adds
+// What bounds them.  msm_chunk_acc: the IMADs of its R C (q - 1) mixed adds
 // (a lane's chain is q dependent adds; the gathers are random: the entries
-// are sorted by digit); jac_suffix_scan, at the batches a
-// prove gives it, the latency of its steps: each is one complete add (16
-// products) that every active lane of a tile runs at once, log2(tile)
-// steps deep.
+// are sorted by digit).  jac_suffix_scan, measured on the H100 (PERF.md):
+// one thread's complete add is one serial stream of ~2,800 IMAD.WIDE on
+// PTX carry chains (field_cc.cuh), ~8 us, and one warp a scheduler already
+// keeps that scheduler's IMAD pipe busy, so a step's time grows with the
+// warps that share a scheduler (1 -> 8 us an add, ~5 -> ~30 us).  A
+// Kogge-Stone tile of one chunk a thread (the design these two replaced)
+// runs log2(T) adds deep and 1,793 adds a 256-chunk row, against the 254
+// of a sequential scan.  So the scan has two regimes, and one kernel a
+// schedule for each (ec/cuda_jac.py:scan_plan picks one from rows x
+// chunks, by thresholds measured on the card):
+// - few rows (a scalar set at 2^11 is 32 rows of 256 chunks: 32 blocks of
+//   one chunk a thread leave 100 SMs idle, and each step waits out one
+//   add): the length of a step.  A chunk runs on a group of four threads
+//   (jac.cuh: add_group, five product levels instead of 16 serial
+//   products), so a 256-chunk tile needs 1,024 threads: a cluster of up to
+//   CLUSTER_MAX blocks of CLUSTER_CHUNKS chunks, which read each other's
+//   slots through distributed shared memory, one cluster barrier a step.
+//   The blocks are small and capped at 168 registers so that three fit an
+//   SM: a cluster's blocks must share one GPC, and at one block of 64
+//   chunks an SM the card held fewer clusters of four than a set's 32
+//   rows, so one set took two waves.
+// - many rows (2-20 sets; the 2^16 and 2^18 windows' 8,192-16,384 chunks):
+//   the work, since the tiles fill the card.  A thread sums k consecutive
+//   chunks serially, the block runs the steps over the thread sums, and
+//   each thread walks its chunks back from its exclusive suffix: ~2 (k -
+//   1) / k + log2(T / k) / k adds a chunk (1,025 / 705 / 577 a 256-chunk
+//   row at k = 2 / 4 / 8) in a chain of 2 (k - 1) + log2(T / k) adds.
+// (Brent-Kung's steps, a quarter of the adds in twice the steps, measured
+// 1.7-1.9x slower than one-chunk Kogge-Stone at every batch: PERF.md.)
+
+#include <cooperative_groups.h>
 
 #include "jac.cuh"
 
+namespace cg = cooperative_groups;
 using namespace h2t;
 
 namespace {
 
 constexpr int ACC_THREADS = 128;
-constexpr int SCAN_TILE = 256;  // the most chunks (threads) a scan block takes
+constexpr int CLUSTER_CHUNKS = 32;  // the chunks a block of the cluster scan holds
+constexpr int CLUSTER_THREADS = GROUP * CLUSTER_CHUNKS;
+constexpr int CLUSTER_MAX = 8;  // its blocks a cluster: tiles of up to 256 chunks
+constexpr int CLUSTER_BLOCKS_SM = 3;  // blocks an SM: 168 registers a thread
+constexpr int COARSE_MAX_THREADS = 256;  // the most threads a block of the coarsened scan has
 constexpr int OFFSET_THREADS = 128;
 
 // x and y of point i of a (n, 32) table (x's 16 limbs, then y's).
@@ -100,76 +128,187 @@ msm_chunk_acc_kernel(const uint32_t* __restrict__ pts, const int* __restrict__ o
   for (int k = 0; k < 3; ++k) t.store(k, acc.c[k]);
 }
 
-// A tile's points in shared memory: word j of coordinate k of slot s at
-// sh[k][j][s], so a warp's lanes read consecutive banks.
-__device__ __forceinline__ void put(uint32_t (*sh)[WORDS][SCAN_TILE], int s, const Jac& x) {
+// The suffix scan's tiles.  A tile is T chunks of one row (T a power of
+// two; chunks past C are infinity) and yields each chunk's exclusive suffix
+// inside the tile and, when tot is given, the tile's total.  Both schedules
+// end in an inclusive suffix scan of Kogge-Stone steps d = 1, 2, .. over
+// slots: slot i takes x[i] + x[i + d] (x[i] first: add-2007-bl is not
+// symmetric in its Jacobian output), every read of a step before its
+// writes, the slots in two buffers that the steps alternate, one barrier a
+// step.  ec/cuda_jac.py:_scan_tiles_plain runs the same order.
+
+// Slot s of a buffer of n slots: word j of coordinate k at [(k WORDS + j)
+// n + s], so a warp's lanes read neighbouring banks.
+__device__ __forceinline__ void put(uint32_t* buf, int n, int s, const Jac& x) {
 #pragma unroll
   for (int k = 0; k < 3; ++k)
 #pragma unroll
-    for (int j = 0; j < WORDS; ++j) sh[k][j][s] = x.c[k][j];
+    for (int j = 0; j < WORDS; ++j) buf[(k * WORDS + j) * n + s] = x.c[k][j];
 }
 
-__device__ __forceinline__ void get(uint32_t (*sh)[WORDS][SCAN_TILE], int s, Jac& x) {
+__device__ __forceinline__ void get(const uint32_t* buf, int n, int s, Jac& x) {
 #pragma unroll
   for (int k = 0; k < 3; ++k)
 #pragma unroll
-    for (int j = 0; j < WORDS; ++j) x.c[k][j] = sh[k][j][s];
+    for (int j = 0; j < WORDS; ++j) x.c[k][j] = buf[(k * WORDS + j) * n + s];
 }
 
-// One block scans tile g of row r: the exclusive suffix sums of the tile's
-// chunks (chunks past C are infinity) into out, its total into tot[r, g]
-// when tot is given.  blockDim.x == T, a power of two <= SCAN_TILE.  Step
-// d = 1, 2, .. T / 2 of the inclusive suffix scan: every slot i with a
-// partner takes x[i] = x[i] + x[i + d], every read of a step before its
-// writes.
-__global__ void __launch_bounds__(SCAN_TILE)
-jac_suffix_scan_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                       uint32_t* __restrict__ tot, int rows, int chunks, ModulusOne K) {
-  __shared__ uint32_t sh[3][WORDS][SCAN_TILE];
-  const int T = blockDim.x, i = threadIdx.x;
-  const int tiles = (chunks + T - 1) / T;
-  const size_t row = blockIdx.x / tiles;
-  const int g = blockIdx.x % tiles;
-  const int chunk = g * T + i;
-  const size_t ld = static_cast<size_t>(rows) * chunks;
-  const size_t e = row * chunks + chunk;
-  Jac x;
-  if (chunk < chunks) {
+// Chunk c of a row's (3, 16, R, C) points at element e, infinity past C.
+__device__ __forceinline__ void load_chunk(const uint32_t* __restrict__ in, size_t ld, size_t e, bool real,
+                                           const ModulusOne& K, Jac& x) {
+  if (real) {
     const GlobalPoint src{{in, in + 16 * ld, in + 32 * ld}, ld, e};
 #pragma unroll
     for (int k = 0; k < 3; ++k) src.load(k, x.c[k]);
   } else {
     store_infinity(RegOut{&x}, K);
   }
-  put(sh, i, x);
-  __syncthreads();
-  for (int d = 1; d < T; d *= 2) {
-    const bool active = i + d < T;
-    Jac y;
-    if (active) get(sh, i + d, y);
-    __syncthreads();
-    if (active) {
-      jac_add_into(RegPoint{&x}, RegPoint{&y}, K, RegOut{&x});
-      put(sh, i, x);
-    }
-    __syncthreads();
-  }
-  if (chunk < chunks) {
-    Jac o;
-    if (i + 1 < T) {
-      get(sh, i + 1, o);
-    } else {
-      store_infinity(RegOut{&o}, K);
-    }
-    const GlobalOut dst{{out, out + 16 * ld, out + 32 * ld}, ld, e};
+}
+
+// Few rows: a tile of up to CLUSTER_CHUNKS * CLUSTER_MAX chunks on a
+// cluster of cs = T / per blocks (per = min(T, CLUSTER_CHUNKS) slots a
+// block), one chunk a group of four threads, the complete add as add_group's
+// five product levels.  A step whose partner slot lies in another block of
+// the cluster reads it from that block's shared memory (distributed shared
+// memory), and cluster.sync() is the step's barrier.  Groups past per
+// (blocks of T < 8 slots fill one warp) hold nothing and only join the
+// shuffles.
+__global__ void __launch_bounds__(CLUSTER_THREADS, CLUSTER_BLOCKS_SM)
+jac_suffix_scan_cluster_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                               uint32_t* __restrict__ tot, int rows, int chunks, int T, ModulusOne K) {
+  __shared__ uint32_t sh[2][3][WORDS][CLUSTER_CHUNKS];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int per = T / cs;
+  const int g = threadIdx.x % GROUP, li = threadIdx.x / GROUP;
+  const bool held = li < per;
+  const int slot = rank * per + li;
+  const int tiles = (chunks + T - 1) / T;
+  const size_t tile_id = blockIdx.x / cs;
+  const size_t row = tile_id / tiles;
+  const int chunk = static_cast<int>(tile_id % tiles) * T + slot;
+  const size_t ld = static_cast<size_t>(rows) * chunks;
+  const size_t e = row * chunks + chunk;
+  const bool real = held && chunk < chunks;
+  Jac x;
+  load_chunk(in, ld, e, real, K, x);
+  // slot s of buffer b, in whichever block of the cluster holds it
+  auto slot_src = [&](int b, int s) -> const uint32_t* {
+    const uint32_t* base = &sh[b][0][0][0];
+    const int r = s / per;
+    return (r == rank ? base : cluster.map_shared_rank(base, r)) + s % per;
+  };
+  auto put_coord = [&](int b) {  // thread g < 3 of the group writes coordinate g
+    if (held && g < 3) {
+      uint32_t v[WORDS];
+      pick(g, x.c[0], x.c[1], x.c[2], x.c[2], v);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) dst.store(k, o.c[k]);
+      for (int j = 0; j < WORDS; ++j) sh[b][g][j][li] = v[j];
+    }
+  };
+  put_coord(0);
+  cluster.sync();
+  int b = 0;
+  for (int d = 1; d < T; d *= 2) {
+    Jac y;
+    if (held && slot + d < T) {
+      const uint32_t* p = slot_src(b, slot + d);
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int j = 0; j < WORDS; ++j) y.c[k][j] = p[(k * WORDS + j) * CLUSTER_CHUNKS];
+    } else {
+      store_infinity(RegOut{&y}, K);  // q at infinity: add_group keeps x
+    }
+    add_group(g, x.c[0], x.c[1], x.c[2], y.c[0], y.c[1], y.c[2], K);
+    b ^= 1;
+    put_coord(b);
+    cluster.sync();
+  }
+  if (real && g < 3) {  // the exclusive suffix: slot + 1's inclusive one, infinity at the tile's end
+    uint32_t v[WORDS];
+    if (slot + 1 < T) {
+      const uint32_t* p = slot_src(b, slot + 1);
+#pragma unroll
+      for (int j = 0; j < WORDS; ++j) v[j] = p[(g * WORDS + j) * CLUSTER_CHUNKS];
+    } else {
+#pragma unroll
+      for (int j = 0; j < WORDS; ++j) v[j] = g == 1 ? K.one[j] : 0;
+    }
+    store_elem(out + static_cast<size_t>(g) * 16 * ld, ld, e, v);
+  }
+  if (tot != nullptr && slot == 0 && g < 3) {  // slot 0 holds the tile's sum
+    const size_t tld = static_cast<size_t>(rows) * tiles;
+    uint32_t v[WORDS];
+    pick(g, x.c[0], x.c[1], x.c[2], x.c[2], v);
+    store_elem(tot + static_cast<size_t>(g) * 16 * tld, tld, tile_id, v);
+  }
+  cluster.sync();  // no block leaves while another may read its shared memory
+}
+
+// Many rows: a tile of T = t k chunks on a block of t threads, k
+// consecutive chunks a thread, one thread a complete add (jac_add_into).
+// Thread i sums its chunks from the last down, acc = c_j + acc (k - 1
+// adds); the block runs the Kogge-Stone steps over the t sums; then the
+// thread walks its chunks back from its exclusive suffix s (slot i + 1's
+// inclusive one): chunk k - 1 takes s, and chunk j - 1 takes s = c_j + s
+// (k - 1 adds).  k = 1 is plain Kogge-Stone over one chunk a thread, the
+// fastest where a few rows of up to 128 chunks leave the card half idle.
+__global__ void __launch_bounds__(COARSE_MAX_THREADS)
+jac_suffix_scan_coarse_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                              uint32_t* __restrict__ tot, int rows, int chunks, int T, int k, ModulusOne K) {
+  extern __shared__ uint32_t sh[];  // two buffers of t slots
+  const int t = T / k, i = threadIdx.x;
+  const int words = 3 * WORDS * t;
+  const int tiles = (chunks + T - 1) / T;
+  const size_t row = blockIdx.x / tiles;
+  const int tile = blockIdx.x % tiles;
+  const int c0 = tile * T + i * k;  // this thread's first chunk
+  const size_t ld = static_cast<size_t>(rows) * chunks;
+  const size_t e0 = row * chunks + c0;
+  Jac acc, c;
+  load_chunk(in, ld, e0 + k - 1, c0 + k - 1 < chunks, K, acc);
+  for (int j = k - 2; j >= 0; --j) {
+    load_chunk(in, ld, e0 + j, c0 + j < chunks, K, c);
+    jac_add_into(RegPoint{&c}, RegPoint{&acc}, K, RegOut{&acc});
+  }
+  put(sh, t, i, acc);
+  __syncthreads();
+  int b = 0;
+  for (int d = 1; d < t; d *= 2) {
+    if (i + d < t) {
+      Jac y;
+      get(sh + b * words, t, i + d, y);
+      jac_add_into(RegPoint{&acc}, RegPoint{&y}, K, RegOut{&acc});
+    }
+    b ^= 1;
+    put(sh + b * words, t, i, acc);
+    __syncthreads();
   }
   if (tot != nullptr && i == 0) {  // slot 0 holds the tile's sum
     const size_t tld = static_cast<size_t>(rows) * tiles;
-    const GlobalOut dst{{tot, tot + 16 * tld, tot + 32 * tld}, tld, row * tiles + g};
+    const GlobalOut dst{{tot, tot + 16 * tld, tot + 32 * tld}, tld, row * tiles + tile};
 #pragma unroll
-    for (int k = 0; k < 3; ++k) dst.store(k, x.c[k]);
+    for (int q = 0; q < 3; ++q) dst.store(q, acc.c[q]);
+  }
+  Jac s;
+  if (i + 1 < t) {
+    get(sh + b * words, t, i + 1, s);
+  } else {
+    store_infinity(RegOut{&s}, K);
+  }
+  const GlobalOut dst{{out, out + 16 * ld, out + 32 * ld}, ld, 0};
+  for (int j = k - 1;; --j) {
+    if (c0 + j < chunks) {
+      GlobalOut o = dst;
+      o.i = e0 + j;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) o.store(q, s.c[q]);
+    }
+    if (j == 0) break;
+    load_chunk(in, ld, e0 + j, c0 + j < chunks, K, c);
+    jac_add_into(RegPoint{&c}, RegPoint{&s}, K, RegOut{&s});
   }
 }
 
@@ -209,27 +348,70 @@ extern "C" int h2t_msm_chunk_acc(const void* pts, const void* order, const void*
 }
 
 // One launch of the suffix scan over (3, 16, rows, chunks) points in tiles of
-// T chunks (a power of two <= 256).  mode 0: the in-tile exclusive suffixes
-// into out and, when tot is not null, the tile totals (3, 16, rows,
-// ceil(chunks / T)) into tot.  mode 1: out = in plus the tile suffixes given
-// in add, (3, 16, rows, ceil(chunks / T)).
+// T chunks (a power of two).  mode 0: the cluster schedule (k = 1, T <=
+// CLUSTER_CHUNKS * CLUSTER_MAX), mode 2: the coarsened one (k chunks a
+// thread, k a power of two <= T, T / k <= COARSE_MAX_THREADS); both write the
+// in-tile exclusive suffixes into out and, when tot is not null, the tile
+// totals (3, 16, rows, ceil(chunks / T)) into tot.  mode 1: out = in plus
+// the tile suffixes given in add, (3, 16, rows, ceil(chunks / T)).
 extern "C" int h2t_jac_suffix_scan(const void* in, const void* add, void* out, void* tot, int rows,
-                                   int chunks, int T, int mode, const void* consts, void* stream) {
-  if (rows <= 0 || chunks <= 0 || T <= 0 || T > SCAN_TILE || (T & (T - 1)) || mode < 0 || mode > 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+                                   int chunks, int T, int k, int mode, const void* consts, void* stream) {
+  const bool pow2 = T > 0 && !(T & (T - 1)) && k > 0 && !(k & (k - 1)) && k <= T;
+  const bool fits = mode == 1 || (mode == 0 && k == 1 && T <= CLUSTER_CHUNKS * CLUSTER_MAX) ||
+                    (mode == 2 && T / k <= COARSE_MAX_THREADS);
+  if (rows <= 0 || chunks <= 0 || !pow2 || !fits) return static_cast<int>(cudaErrorInvalidValue);
   const ModulusOne C = modulus_one_from_host(static_cast<const uint32_t*>(consts));
   const auto s = static_cast<cudaStream_t>(stream);
+  const auto src = static_cast<const uint32_t*>(in);
+  const auto dst = static_cast<uint32_t*>(out);
+  const auto sums = static_cast<uint32_t*>(tot);
+  const size_t tiles = static_cast<size_t>(rows) * ((chunks + T - 1) / T);
   if (mode == 1) {
     const size_t blocks = (static_cast<size_t>(rows) * chunks + OFFSET_THREADS - 1) / OFFSET_THREADS;
     if (blocks > 0x7FFFFFFFu) return static_cast<int>(cudaErrorInvalidValue);
     jac_suffix_scan_offsets_kernel<<<static_cast<unsigned>(blocks), OFFSET_THREADS, 0, s>>>(
-        static_cast<const uint32_t*>(in), static_cast<const uint32_t*>(add), static_cast<uint32_t*>(out), rows,
-        chunks, T, C);
+        src, static_cast<const uint32_t*>(add), dst, rows, chunks, T, C);
+  } else if (mode == 2) {
+    if (tiles > 0x7FFFFFFFu) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t shared = 2 * 3 * WORDS * sizeof(uint32_t) * (T / k);
+    jac_suffix_scan_coarse_kernel<<<static_cast<unsigned>(tiles), T / k, shared, s>>>(src, dst, sums, rows, chunks, T,
+                                                                                     k, C);
   } else {
-    const size_t blocks = static_cast<size_t>(rows) * ((chunks + T - 1) / T);
-    if (blocks > 0x7FFFFFFFu) return static_cast<int>(cudaErrorInvalidValue);
-    jac_suffix_scan_kernel<<<static_cast<unsigned>(blocks), T, 0, s>>>(
-        static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), static_cast<uint32_t*>(tot), rows, chunks, C);
+    const int per = T < CLUSTER_CHUNKS ? T : CLUSTER_CHUNKS;
+    const int cs = T / per;
+    if (tiles * cs > 0x7FFFFFFFu) return static_cast<int>(cudaErrorInvalidValue);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(tiles * cs));
+    cfg.blockDim = dim3(GROUP * per < 32 ? 32 : GROUP * per);  // whole warps: the group's shuffles span one
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t rc = cudaLaunchKernelEx(&cfg, jac_suffix_scan_cluster_kernel, src, dst, sums, rows, chunks, T, C);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The most clusters of cs blocks (a power of two <= CLUSTER_MAX) of the
+// cluster scan that the card holds at once, or a negative CUDA error.
+extern "C" int h2t_scan_max_clusters(int cs) {
+  if (cs <= 0 || cs > CLUSTER_MAX || (cs & (cs - 1))) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(cs));
+  cfg.blockDim = dim3(CLUSTER_THREADS);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  const cudaError_t rc = cudaOccupancyMaxActiveClusters(&n, jac_suffix_scan_cluster_kernel, &cfg);
+  return rc == cudaSuccess ? n : -static_cast<int>(rc);
 }

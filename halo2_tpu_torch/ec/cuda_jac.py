@@ -16,8 +16,10 @@ Two more run the device MSM's window-sum rounds over a batch of rows
 (``csrc/msm.cu``): ``msm_chunk_acc``, every chunk's rounds of signed mixed
 adds in registers (the reference's ``fori_loop`` at
 ``halo2_tpu/ec/device.py:465``), and ``jac_suffix_scan``, the exclusive
-suffix sums of each row's chunk totals in log-depth steps over tiles
-(``_excl_suffix_scan``, ``:359``); their plain versions run the kernels'
+suffix sums of each row's chunk totals over tiles (``_excl_suffix_scan``,
+``:359``) in one of two schedules that :func:`scan_plan` picks from the
+shape: a chunk a group of four threads on a thread-block cluster for few
+rows, k chunks a thread for many; their plain versions run the kernels'
 association order.
 
 Each add kernel has two variants: ``wide`` (one thread per lane) and
@@ -220,63 +222,109 @@ def msm_chunk_acc_plain(px, py, order, sign):
     return sfx.reshape(3, L, rows, q * chunks), torch.stack([acc["x"], acc["y"], acc["z"]])
 
 
-def scan_tile(chunks: int) -> int:
-    """The chunks one block of the scan takes: the power of two at or above
-    ``chunks`` up to ``SCAN_TILE``."""
-    return min(SCAN_TILE, 1 << max(0, chunks - 1).bit_length())
+def scan_plan(rows: int, chunks: int) -> tuple:
+    """The scan's schedule for one level of ``rows`` x ``chunks`` points,
+    ``("cluster", 1)`` or ``("coarse", k)``: the first of ``SCAN_PLAN``
+    whose most lanes (rows x chunks) the level does not exceed, else
+    ``SCAN_PLAN_ABOVE``.  It does not depend on the device, so the plain
+    version runs the card's association order."""
+    return next((schedule for most, schedule in SCAN_PLAN if rows * chunks <= most), SCAN_PLAN_ABOVE)
 
 
-def _scan_tiles_plain(s, T: int, totals: bool):
+def scan_tile(chunks: int, schedule: tuple) -> tuple:
+    """``(T, k)``: the chunks a tile of ``schedule`` takes (the power of two
+    at or above ``chunks``, up to ``SCAN_TILE`` or, for k chunks a thread,
+    ``COARSE_THREADS`` k where that is more) and the chunks a thread, k
+    clipped to T."""
+    k = schedule[1]
+    T = min(max(SCAN_TILE, COARSE_THREADS * k), 1 << max(0, chunks - 1).bit_length())
+    return T, min(k, T)
+
+
+def _stack_add(p, q):
+    """p + q of two stacked ``(3, 16, ...)`` points by :func:`jac_add_plain`."""
+    r = jac_add_plain({"x": p[0], "y": p[1], "z": p[2]}, {"x": q[0], "y": q[1], "z": q[2]})
+    return torch.stack([r["x"], r["y"], r["z"]])
+
+
+def _scan_tiles_plain(s, schedule: tuple, T: int, k: int, totals: bool):
     """One tile pass of the suffix scan in plain torch ops: the exclusive
     suffixes of each tile of T chunks (chunks past C infinity) and, with
-    ``totals``, the tile sums ``(3, 16, R, ceil(C / T))``.  The kernel's
-    Kogge-Stone steps d = 1, 2, .. T / 2: slot i takes x[i] + x[i + d]
-    (x[i] first), every read of a step before its writes."""
+    ``totals``, the tile sums ``(3, 16, R, ceil(C / T))``, in the kernels'
+    order (``schedule`` enters through k).  Each of the T / k slots sums
+    its k chunks from the last down, acc = c_j + acc; then the Kogge-Stone
+    steps d = 1, 2, .. over the slots, slot i taking x[i] + x[i + d] (x[i]
+    first), every read of a step before its writes; then each slot walks
+    its chunks back from slot i + 1's sum s (infinity for the last slot):
+    chunk k - 1 takes s, chunk j - 1 takes s = c_j + s.  k = 1 is plain
+    Kogge-Stone over the chunks."""
     from .device import jac_infinity
 
     rows, chunks = s.shape[2:]
-    tiles = -(-chunks // T)
+    tiles, t = -(-chunks // T), T // k
     inf = torch.stack(list(jac_infinity((), device=s.device).values()))  # (3, 16)
     x = inf[:, :, None, None].repeat(1, 1, rows, tiles * T)
     x[..., :chunks] = s
-    x = x.reshape(3, L, rows, tiles, T)
+    x = x.reshape(3, L, rows, tiles, t, k)
+    acc = x[..., k - 1].clone()
+    for j in range(k - 2, -1, -1):
+        acc = _stack_add(x[..., j], acc)
     d = 1
-    while d < T:
-        p, q = x[..., : T - d], x[..., d:]
-        r = jac_add_plain({"x": p[0], "y": p[1], "z": p[2]}, {"x": q[0], "y": q[1], "z": q[2]})
-        x[..., : T - d] = torch.stack([r["x"], r["y"], r["z"]])
+    while d < t:
+        acc[..., : t - d] = _stack_add(acc[..., : t - d], acc[..., d:])
         d *= 2
-    excl = torch.cat([x[..., 1:], inf[:, :, None, None, None].expand(3, L, rows, tiles, 1)], dim=-1)
-    excl = excl.reshape(3, L, rows, tiles * T)[..., :chunks].contiguous()
-    return excl, (x[..., 0].contiguous() if totals else None)
+    run = torch.cat([acc[..., 1:], inf[:, :, None, None, None].expand(3, L, rows, tiles, 1)], dim=-1)
+    out = torch.empty_like(x)
+    out[..., k - 1] = run
+    for j in range(k - 1, 0, -1):
+        run = _stack_add(x[..., j], run)
+        out[..., j - 1] = run
+    excl = out.reshape(3, L, rows, tiles * T)[..., :chunks].contiguous()
+    return excl, (acc[..., 0].contiguous() if totals else None)
 
 
 def _scan_offsets_plain(s, suffix, T: int):
     """out[..., c] = s[..., c] + suffix[..., c // T] in plain torch ops."""
-    g = suffix[..., torch.arange(s.shape[-1], device=s.device) // T]
-    r = jac_add_plain({"x": s[0], "y": s[1], "z": s[2]}, {"x": g[0], "y": g[1], "z": g[2]})
-    return torch.stack([r["x"], r["y"], r["z"]])
+    return _stack_add(s, suffix[..., torch.arange(s.shape[-1], device=s.device) // T])
 
 
-def _suffix_scan(s, tiles, offsets):
-    """The exclusive suffix scan of ``(3, 16, R, C)`` points through a tile
-    pass ``tiles`` and an offsets pass ``offsets`` (the kernels' launches or
-    their plain versions): up to SCAN_TILE chunks one tile pass; above, a
-    tile pass with totals, the scan of the totals, and the offsets."""
-    chunks = s.shape[-1]
-    T = scan_tile(chunks)
+def _suffix_scan(s, plan, tiles, offsets):
+    """The exclusive suffix scan of ``(3, 16, R, C)`` points, each level in
+    the schedule ``plan(rows, chunks)`` gives it, through a tile pass
+    ``tiles`` and an offsets pass ``offsets`` (the kernels' launches or
+    their plain versions): up to one tile a tile pass; above, a tile pass
+    with totals, the scan of the totals, and the offsets."""
+    rows, chunks = s.shape[2:]
+    schedule = plan(rows, chunks)
+    T, k = scan_tile(chunks, schedule)
     if chunks <= T:
-        return tiles(s, T, False)[0]
-    excl, tot = tiles(s, T, True)
-    return offsets(excl, _suffix_scan(tot, tiles, offsets), T)
+        return tiles(s, schedule, T, k, False)[0]
+    excl, tot = tiles(s, schedule, T, k, True)
+    return offsets(excl, _suffix_scan(tot, plan, tiles, offsets), T)
+
+
+def _plan(schedule):
+    """:func:`scan_plan`, or ``schedule`` at every level when it is given."""
+    if schedule is None:
+        return scan_plan
+    if schedule not in SCAN_SCHEDULES:
+        raise ValueError(f"jac_suffix_scan: schedule must be one of {SCAN_SCHEDULES}, got {schedule!r}")
+    return lambda rows, chunks: schedule
+
+
+def _scan_plain(s, schedule=None):
+    """:func:`jac_suffix_scan_plain` in ``schedule`` at every level (None:
+    :func:`scan_plan`'s)."""
+    return _suffix_scan(s, _plan(schedule), _scan_tiles_plain, _scan_offsets_plain)
 
 
 def jac_suffix_scan_plain(s):
     """The exclusive suffix sums of ``(3, 16, R, C)`` points over their last
     axis, ``out[..., i] = sum_{j > i} s[..., j]`` (infinity at C - 1), in
-    plain torch ops in the kernel's association order (its tiles, steps and
-    operand order: add-2007-bl is not symmetric in its Jacobian output)."""
-    return _suffix_scan(s, _scan_tiles_plain, _scan_offsets_plain)
+    plain torch ops in the kernel's association order (its schedules,
+    tiles, steps and operand order: add-2007-bl is not symmetric in its
+    Jacobian output)."""
+    return _scan_plain(s)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -285,8 +333,22 @@ def jac_suffix_scan_plain(s):
 # one thread's chain of 16 (add) or 11 (madd) dependent products.
 NARROW_MAX_LANES = 1 << 13
 VARIANTS = {"wide": 0, "narrow": 1}
-# The most chunks a block of the suffix scan takes (csrc/msm.cu).
+# The suffix scan's schedules (csrc/msm.cu): a chunk a group of four
+# threads, CLUSTER_CHUNKS chunks a block, on a cluster of up to eight
+# blocks; or k chunks a thread (k = 1: plain Kogge-Stone).  A tile takes up
+# to SCAN_TILE chunks, or COARSE_THREADS k where that is more.
+SCAN_SCHEDULES = (("cluster", 1), ("coarse", 1), ("coarse", 2), ("coarse", 4), ("coarse", 8))
+CLUSTER_CHUNKS = 32
 SCAN_TILE = 256
+COARSE_THREADS = 128
+# scan_plan's rule, (most lanes, schedule) by a level's lanes (rows x
+# chunks), measured on one H100 (PERF.md): the cluster up to one 2^11
+# scalar set's 32 x 256; k = 1 up to 16,384 (2^10 at four sets: its 7 steps
+# beat k = 2's chain of 8 on a card left half idle); k = 2 up to eight sets
+# at 2^11 (65,536); k = 4 above (faster from 2^10 at 20 sets, 81,920, up to
+# the 2^18 slice's 360,448).  k = 8 was slower than k = 4 at every batch.
+SCAN_PLAN = ((1 << 13, ("cluster", 1)), (1 << 14, ("coarse", 1)), (1 << 16, ("coarse", 2)))
+SCAN_PLAN_ABOVE = ("coarse", 4)
 
 
 def variant(m: int) -> str:
@@ -437,9 +499,17 @@ def msm_chunk_acc_cuda(px, py, order, sign):
 def jac_suffix_scan_cuda(s):
     """The exclusive suffix sums of ``(3, 16, R, C)`` points (x, y, z
     stacked; contiguous int32 Montgomery limbs over Fq) over their last
-    axis: the ``jac_suffix_scan`` kernel on a CUDA tensor (one launch up to
-    ``SCAN_TILE`` chunks, three up to SCAN_TILE^2),
-    :func:`jac_suffix_scan_plain` on a CPU one."""
+    axis: the ``jac_suffix_scan`` kernel on a CUDA tensor (each level in
+    :func:`scan_plan`'s schedule; one launch up to a tile's chunks, three
+    up to a tile's square), :func:`jac_suffix_scan_plain` on a CPU one."""
+    return _jac_suffix_scan(s)
+
+
+def _jac_suffix_scan(s, schedule=None):
+    """:func:`jac_suffix_scan_cuda` in ``schedule`` at every level (None:
+    :func:`scan_plan`'s); the checks that hold every schedule to the plain
+    version force one."""
+    plan = _plan(schedule)
     if s.dtype != torch.int32:
         raise TypeError(f"jac_suffix_scan: s must be int32, got {s.dtype}")
     if s.dim() != 4 or s.shape[0] != 3 or s.shape[1] != L:
@@ -447,36 +517,41 @@ def jac_suffix_scan_cuda(s):
     if not s.is_contiguous():
         raise ValueError("jac_suffix_scan: s must be contiguous")
     if s.device.type == "cpu":
-        return jac_suffix_scan_plain(s)
+        return _suffix_scan(s, plan, _scan_tiles_plain, _scan_offsets_plain)
     if s.device.type != "cuda":
         raise ValueError(f"jac_suffix_scan: unsupported device {s.device}")
     if not s.numel():
         return torch.empty_like(s)
-    return _suffix_scan(s, _scan_tiles_cuda, _scan_offsets_cuda)
+    return _suffix_scan(s, plan, _scan_tiles_cuda, _scan_offsets_cuda)
 
 
-def _scan_launch(s, add, out, tot, T: int, mode: int) -> None:
+# the C entry's modes: a tile pass of either schedule, the offsets pass
+_SCAN_MODES = {"cluster": 0, "offsets": 1, "coarse": 2}
+
+
+def _scan_launch(s, add, out, tot, T: int, k: int, mode: str) -> None:
     from .. import _build
 
     rows, chunks = s.shape[2:]
     _build.launch(
         "jac_suffix_scan", s.device, s.data_ptr(), None if add is None else add.data_ptr(), out.data_ptr(),
-        None if tot is None else tot.data_ptr(), rows, chunks, T, mode, modulus_one_words(BN254_FQ).ctypes.data,
+        None if tot is None else tot.data_ptr(), rows, chunks, T, k, _SCAN_MODES[mode],
+        modulus_one_words(BN254_FQ).ctypes.data,
     )
     LAUNCHES["jac_suffix_scan"] += 1
 
 
-def _scan_tiles_cuda(s, T: int, totals: bool):
+def _scan_tiles_cuda(s, schedule: tuple, T: int, k: int, totals: bool):
     """One tile pass of the scan kernel (:func:`_scan_tiles_plain`)."""
     rows, chunks = s.shape[2:]
     out = torch.empty_like(s)
     tot = torch.empty((3, L, rows, -(-chunks // T)), dtype=torch.int32, device=s.device) if totals else None
-    _scan_launch(s, None, out, tot, T, 0)
+    _scan_launch(s, None, out, tot, T, k, schedule[0])
     return out, tot
 
 
 def _scan_offsets_cuda(s, suffix, T: int):
     """The scan kernel's offsets pass (:func:`_scan_offsets_plain`)."""
     out = torch.empty_like(s)
-    _scan_launch(s, suffix, out, None, T, 1)
+    _scan_launch(s, suffix, out, None, T, 1, "offsets")
     return out

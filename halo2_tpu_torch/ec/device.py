@@ -15,7 +15,7 @@ exclusive suffix scan, the Abel-summation window combine, a tree sum per
 window, and a host Horner tail over Python ints.  The schedule's sizes
 (``_msm_c``, ``_q_rounds``) are the reference's; the result does not depend
 on them.  The chunk rounds are one ``msm_chunk_acc`` launch and the scan a
-``jac_suffix_scan`` in log-depth steps (``csrc/msm.cu``), where the
+``jac_suffix_scan`` in one to three launches (``csrc/msm.cu``), where the
 reference compiles ``fori_loop``s; the scan's association order is not the
 reference's sequential one, so window sums are other Jacobian
 representatives of the reference's points.  A batch of scalar sets over

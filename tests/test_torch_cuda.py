@@ -702,10 +702,12 @@ def test_msm_chunk_acc_kernel_matches_plain(device, n, sets):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("schedule", [None, *cuda_jac.SCAN_SCHEDULES], ids=str)
 @pytest.mark.parametrize("chunks", [1, 2, 64, 65, 256, 257, 4096, 8192])
-def test_jac_suffix_scan_kernel_matches_plain(device, chunks):
-    """The scan equals its plain version limb for limb, in one launch up to
-    256 chunks and three above, with P == Q, P == -Q and infinite
+def test_jac_suffix_scan_kernel_matches_plain(device, chunks, schedule):
+    """The scan equals its plain version limb for limb in scan_plan's
+    schedule (None) and in each schedule forced at every level, in one
+    launch up to a tile and three above, with P == Q, P == -Q and infinite
     chunks."""
     x, y, order, sign = _msm_entries(1 << 11, 1, device, 7)
     tot = cuda_jac.msm_chunk_acc_cuda(x, y, order, sign)[1][:, :, :3]
@@ -717,11 +719,11 @@ def test_jac_suffix_scan_kernel_matches_plain(device, chunks):
         inf = torch.stack(list(ecd.jac_infinity((), device=device).values()))
         s[:, :, 2, chunks // 2] = inf
     before = cuda_jac.LAUNCHES["jac_suffix_scan"]
-    got = cuda_jac.jac_suffix_scan_cuda(s)
+    got = cuda_jac._jac_suffix_scan(s, schedule)
     torch.cuda.synchronize(device)
-    launches = 1 if chunks <= cuda_jac.SCAN_TILE else 3
-    assert cuda_jac.LAUNCHES["jac_suffix_scan"] == before + launches
-    assert torch.equal(got, cuda_jac.jac_suffix_scan_plain(s))
+    T, _ = cuda_jac.scan_tile(chunks, schedule or cuda_jac.scan_plan(s.shape[2], chunks))
+    assert cuda_jac.LAUNCHES["jac_suffix_scan"] == before + (1 if chunks <= T else 3)
+    assert torch.equal(got, cuda_jac._scan_plain(s, schedule))
 
 
 def test_msm_window_kernels_raise_on_bad_inputs(device):
@@ -737,6 +739,8 @@ def test_msm_window_kernels_raise_on_bad_inputs(device):
         cuda_jac.jac_suffix_scan_cuda(tot[..., ::2])
     with pytest.raises(ValueError):
         cuda_jac.jac_suffix_scan_cuda(tot[:2])
+    with pytest.raises(ValueError):
+        cuda_jac._jac_suffix_scan(tot, ("coarse", 3))
 
 
 def test_batched_device_commits_launch_one_window_pass(device, flag_reads):

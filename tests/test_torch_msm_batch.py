@@ -7,9 +7,14 @@ and the plain versions of its two window-sum kernels, against the reference.
   with negated entries, a y = 0 point, (0, 0) padding points, P == Q and
   P == -Q chunks.
 - ``jac_suffix_scan_plain`` (the ``jac_suffix_scan`` kernel's plain
-  version, its Kogge-Stone steps) equals the exclusive suffix sums taken on
-  the host with ``_hj_add``, as affine points, at C = 1, 2, 64, 65, 256,
-  4096 and a ragged 300 chunks, with infinite chunks, P == Q and P == -Q.
+  version, in ``scan_plan``'s schedule and in each schedule forced at every
+  level: Kogge-Stone over one chunk a slot for the cluster, k = 1, 2, 4,
+  8 chunks a thread for the coarsened scan) equals the exclusive suffix sums
+  taken on the host with ``_hj_add``, as affine points, at C = 1, 2, 3,
+  64, 65, 255, 256, 257, 300 and 4096 (C not a multiple of k among them),
+  with P == Q and P == -Q neighbours and infinite chunks at a group's edge;
+  ``scan_plan`` at its thresholds' edges, and no shape up to 65,536 chunks
+  in more than three scan passes.
 - The batched ``_msm_raw`` and ``_commit_device`` over B = 1, 3 and 17
   scalar sets equal ``msm_points`` a set, the native host MSM and the
   reference's ``msm_points`` (JAX on the CPU) at n = 2^4, 2^8 and 2^11
@@ -20,6 +25,7 @@ On the CPU every kernel wrapper runs its plain version.  Inputs come from
 seeded numpy generators.
 """
 
+import functools
 import json
 import os
 import pickle
@@ -132,11 +138,13 @@ def test_msm_chunk_acc_plain_matches_reference_rounds():
 
 
 # ---------------------------------------------------------- jac_suffix_scan
+@functools.lru_cache(maxsize=None)
 def _scan_inputs(rows, chunks, seed):
     """(3, 16, rows, chunks) Jacobian points with random z != 1, and the
     same as host Jacobian tuples (None = infinity): row 0 has P == Q at
-    chunks 0, 1 and P == -Q at 2, 3; the last row infinity at chunk C // 2
-    and at the last chunk."""
+    chunks 0, 1 and P == -Q at 2, 3, and above 16 chunks infinity at 7 and
+    8 (a group's edge for k = 2, 4 and 8) and P == Q at 11, 12; the last
+    row infinity at chunk C // 2 and at the last chunk."""
     n = rows * chunks
     px, py = _srs(max(n, 1))
     rng = np.random.default_rng(seed)
@@ -150,6 +158,10 @@ def _scan_inputs(rows, chunks, seed):
         z2 = z * 5 % Q
         pts[1] = (x * 25 % Q, y * 125 % Q, z2)  # the same point, another z
         pts[3] = (pts[2][0], (-pts[2][1]) % Q, pts[2][2])
+    if chunks > 16:
+        pts[7] = pts[8] = None
+        x, y, z = pts[11]
+        pts[12] = (x * 49 % Q, y * 343 % Q, z * 7 % Q)
         pts[(rows - 1) * chunks + chunks // 2] = None
         pts[rows * chunks - 1] = None
     inf = (0, 1, 0)
@@ -170,16 +182,84 @@ def _host_suffix(row) -> list:
     ]
 
 
-@pytest.mark.parametrize("chunks", [1, 2, 64, 65, 256, 300, 4096])
-def test_jac_suffix_scan_plain_matches_host_suffix(chunks):
+@pytest.mark.parametrize("schedule", [None, *cuda_jac.SCAN_SCHEDULES], ids=str)
+@pytest.mark.parametrize("chunks", [1, 2, 3, 64, 65, 255, 256, 257, 300, 4096])
+def test_jac_suffix_scan_plain_matches_host_suffix(chunks, schedule):
+    """The plain scan in scan_plan's schedule (None) or in one forced at
+    every level equals the host's sequential suffix sums as affine points;
+    the CPU wrapper is the plain version."""
     rows = 2 if chunks <= 256 else 1
     s, host_rows = _scan_inputs(rows, chunks, chunks)
-    got = cuda_jac.jac_suffix_scan_plain(s)
+    got = cuda_jac._scan_plain(s, schedule)
     assert got.shape == s.shape and got.dtype == torch.int32
     assert int(got.max()) < 1 << 16
     want = [pt for row in host_rows for pt in _host_suffix(row)]
     assert _affine(got.numpy()) == want
-    assert torch.equal(cuda_jac.jac_suffix_scan_cuda(s), got)
+    if schedule is None:
+        assert torch.equal(cuda_jac.jac_suffix_scan_cuda(s), got)
+    else:
+        assert torch.equal(cuda_jac._jac_suffix_scan(s, schedule), got)
+
+
+@pytest.mark.parametrize("chunks", [100, 700])
+def test_scan_cluster_order_is_one_chunk_kogge_stone(chunks):
+    """The cluster schedule's order is plain Kogge-Stone over tiles of up to
+    256 chunks, the order of one chunk a thread (k = 1): the same limbs."""
+    s, _ = _scan_inputs(1, chunks, 3)
+    assert cuda_jac.scan_tile(chunks, ("cluster", 1)) == cuda_jac.scan_tile(chunks, ("coarse", 1))
+    assert cuda_jac.scan_tile(chunks, ("cluster", 1)) == ((128, 1) if chunks == 100 else (256, 1))
+    got = cuda_jac._scan_plain(s, ("cluster", 1))
+    assert torch.equal(got, cuda_jac._scan_plain(s, ("coarse", 1)))
+    with pytest.raises(ValueError):
+        cuda_jac._scan_plain(s, ("coarse", 3))
+
+
+def _edges():
+    plan = cuda_jac.SCAN_PLAN
+    above = [schedule for _, schedule in plan[1:]] + [cuda_jac.SCAN_PLAN_ABOVE]
+    return [(most, schedule, nxt) for (most, schedule), nxt in zip(plan, above)]
+
+
+@pytest.mark.parametrize("lanes, at, above", _edges())
+def test_scan_plan_at_its_thresholds(lanes, at, above):
+    """scan_plan picks by rows x chunks: a threshold's own lane count takes
+    the schedule below it, one row more the one above it, whatever the
+    split into rows and chunks."""
+    for chunks in (64, 256):
+        rows = lanes // chunks
+        assert cuda_jac.scan_plan(rows, chunks) == at
+        assert cuda_jac.scan_plan(rows + 1, chunks) == above
+    assert cuda_jac.scan_plan(1, 1) == ("cluster", 1)
+    assert cuda_jac.scan_plan(1 << 20, 1 << 10) == cuda_jac.SCAN_PLAN_ABOVE
+
+
+@pytest.mark.parametrize("schedule", [None, *cuda_jac.SCAN_SCHEDULES], ids=str)
+@pytest.mark.parametrize(
+    "rows, chunks", [(32, 1), (32, 256), (640, 256), (2, 257), (22, 8192), (22, 16384), (1, 65536)]
+)
+def test_scan_passes_per_shape(rows, chunks, schedule):
+    """One tile pass up to 256 chunks in every schedule, and at most three
+    passes (tiles with totals, the totals' scan, the offsets) up to 65,536
+    chunks, as the scan took before its two schedules."""
+    passes = []
+
+    def tiles(s, sched, T, k, totals):
+        assert T & (T - 1) == 0 and 1 <= k <= T and sched in cuda_jac.SCAN_SCHEDULES
+        passes.append(("tiles", sched, T, k))
+        if not totals:
+            return torch.empty_like(s), None
+        tot = torch.empty((3, 16, s.shape[2], -(-s.shape[3] // T)), device="meta")
+        return torch.empty_like(s), tot
+
+    def offsets(s, suffix, T):
+        passes.append(("offsets", T))
+        return torch.empty_like(s)
+
+    s = torch.empty((3, 16, rows, chunks), dtype=torch.int32, device="meta")
+    cuda_jac._suffix_scan(s, cuda_jac._plan(schedule), tiles, offsets)
+    T, _ = cuda_jac.scan_tile(chunks, cuda_jac._plan(schedule)(rows, chunks))
+    assert len(passes) == (1 if chunks <= T else 3)
+    assert chunks > 256 or len(passes) == 1
 
 
 # ---------------------------------------------------- the batched device MSM
