@@ -1175,6 +1175,30 @@ def _scan_name(schedule) -> str:
     return "cluster" if schedule[0] == "cluster" else f"k={schedule[1]}"
 
 
+def _check_scan_schedules(s, label: str, err: dict) -> None:
+    """jac_suffix_scan over ``s`` in scan_plan's schedule and in each of
+    SCAN_SCHEDULES forced at every level, each limb for limb against its
+    plain version; the plain version runs once for each distinct order
+    (each level's (T, k): the cluster's is k = 1's)."""
+    from halo2_tpu_torch.ec import cuda_jac
+
+    rows, chunks = s.shape[2:]
+    plain = {}
+    for schedule in (None,) + cuda_jac.SCAN_SCHEDULES:
+        plan, c, order = cuda_jac._plan(schedule), chunks, ()
+        while True:
+            T, k = cuda_jac.scan_tile(c, plan(rows, c))
+            order += ((T, k),)
+            if c <= T:
+                break
+            c = -(-c // T)
+        if order not in plain:
+            plain[order] = cuda_jac._scan_plain(s, schedule)
+        got = cuda_jac._jac_suffix_scan(s, schedule)
+        name = "scan_plan's" if schedule is None else _scan_name(schedule)
+        err["jac_suffix_scan"] = max(err["jac_suffix_scan"], _max_abs_err(f"jac_suffix_scan {label} {name}", got, plain[order]))
+
+
 def _check_msm_kernels(device, gen, err, times) -> dict:
     """msm_chunk_acc and jac_suffix_scan against their plain versions, limb for limb, at every MSM_CASES batch, with each
     one's device time a call beside its bound and its chain; exception
@@ -1186,7 +1210,6 @@ def _check_msm_kernels(device, gen, err, times) -> dict:
     Returns the bounds at MSM_REPORT."""
     import torch
 
-    from halo2_tpu_torch import _build
     from halo2_tpu_torch.ec import cuda_jac
     from halo2_tpu_torch.ec import device as ecd
 
@@ -1229,12 +1252,7 @@ def _check_msm_kernels(device, gen, err, times) -> dict:
             )
             tot = got[1]
             sbound = _bound(*_scan_work(rows, chunks))
-            for schedule in cuda_jac.SCAN_SCHEDULES:
-                g = cuda_jac._jac_suffix_scan(tot, schedule)
-                e = _max_abs_err(f"jac_suffix_scan {label} {_scan_name(schedule)}", g, cuda_jac._scan_plain(tot, schedule))
-                err["jac_suffix_scan"] = max(err["jac_suffix_scan"], e)
-            g = cuda_jac.jac_suffix_scan_cuda(tot)
-            err["jac_suffix_scan"] = max(err["jac_suffix_scan"], _max_abs_err(f"jac_suffix_scan {label}", g, cuda_jac.jac_suffix_scan_plain(tot)))
+            _check_scan_schedules(tot, label, err)
             each = {}
             if n == SCHEDULES_TIMED_N:
                 each = {schedule: _scan_device_ms(tot, schedule)[0] for schedule in cuda_jac.SCAN_SCHEDULES}
@@ -1249,14 +1267,6 @@ def _check_msm_kernels(device, gen, err, times) -> dict:
                 )
             chain = _scan_chain(rows, chunks)
             plan = cuda_jac.scan_plan(rows, chunks)
-            if plan[0] == "cluster":
-                T, _ = cuda_jac.scan_tile(chunks, plan)
-                cs = max(1, T // cuda_jac.CLUSTER_CHUNKS)
-                print(
-                    f"[kernels] jac_suffix_scan {label}: {rows} clusters of {cs} blocks; the card holds "
-                    f"{_build.lib().h2t_scan_max_clusters(cs)} at once",
-                    flush=True,
-                )
             print(
                 f"[kernels] jac_suffix_scan {label}: every schedule equal to plain; scan_plan's {_scan_name(plan)} "
                 f"{t_d:.4f} ms on the device in {launches} launches, bound {sbound[0]:.6f} ms ({sbound[1]}, "
@@ -1277,10 +1287,7 @@ def _check_msm_kernels(device, gen, err, times) -> dict:
             s[:, :, 0, 2], s[1, :, 0, 2] = s[:, :, 0, 3], neg  # P == -Q
             s[:, :, 1, chunks // 2] = inf[:, :, 0]
             s[:, :, 1, -1] = inf[:, :, 0]
-        for schedule in (None,) + cuda_jac.SCAN_SCHEDULES:
-            got = cuda_jac._jac_suffix_scan(s, schedule)
-            e = _max_abs_err(f"jac_suffix_scan C={chunks} {schedule}", got, cuda_jac._scan_plain(s, schedule))
-            err["jac_suffix_scan"] = max(err["jac_suffix_scan"], e)
+        _check_scan_schedules(s, f"C={chunks}", err)
     print(
         f"[kernels] jac_suffix_scan at C={list(SCAN_RAGGED)}, P == Q, P == -Q and infinite chunks, scan_plan's "
         "schedule and each of SCAN_SCHEDULES at every level: equal to plain",

@@ -119,7 +119,6 @@ def lib() -> ctypes.CDLL:
                 "jac_horner": [vp, vp, i32, i32, i32, vp, vp],
                 "msm_chunk_acc": [vp, vp, vp, vp, vp, i32, i32, i32, vp, vp],
                 "jac_suffix_scan": [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp, vp],
-                "scan_max_clusters": [i32],
                 "mod_add": [vp, vp, vp, i32, i32, vp, i32, vp],
                 "mod_sub": [vp, vp, vp, i32, i32, i32, vp, i32, vp],
                 "vm_eval": [vp, vp, vp, vp, i32, i32, vp, i32, i32, i32, vp, i32, i32, i32, vp, i32, vp],

@@ -62,10 +62,11 @@
 //   the work, since the tiles fill the card.  A thread sums k consecutive
 //   chunks serially, the block runs the steps over the thread sums, and
 //   each thread walks its chunks back from its exclusive suffix: ~2 (k -
-//   1) / k + log2(T / k) / k adds a chunk (1,025 / 705 / 577 a 256-chunk
-//   row at k = 2 / 4 / 8) in a chain of 2 (k - 1) + log2(T / k) adds.
+//   1) / k + log2(T / k) / k adds a chunk (1,025 / 705 a 256-chunk row at
+//   k = 2 / 4) in a chain of 2 (k - 1) + log2(T / k) adds.
 // (Brent-Kung's steps, a quarter of the adds in twice the steps, measured
-// 1.7-1.9x slower than one-chunk Kogge-Stone at every batch: PERF.md.)
+// 1.7-1.9x slower than one-chunk Kogge-Stone at every batch, and k = 8,
+// 577 adds a row, slower than k = 4 at every batch: PERF.md.)
 
 #include <cooperative_groups.h>
 
@@ -395,23 +396,4 @@ extern "C" int h2t_jac_suffix_scan(const void* in, const void* add, void* out, v
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// The most clusters of cs blocks (a power of two <= CLUSTER_MAX) of the
-// cluster scan that the card holds at once, or a negative CUDA error.
-extern "C" int h2t_scan_max_clusters(int cs) {
-  if (cs <= 0 || cs > CLUSTER_MAX || (cs & (cs - 1))) return -static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(cs));
-  cfg.blockDim = dim3(CLUSTER_THREADS);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  const cudaError_t rc = cudaOccupancyMaxActiveClusters(&n, jac_suffix_scan_cluster_kernel, &cfg);
-  return rc == cudaSuccess ? n : -static_cast<int>(rc);
 }

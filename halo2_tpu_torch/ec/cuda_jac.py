@@ -247,14 +247,15 @@ def _stack_add(p, q):
     return torch.stack([r["x"], r["y"], r["z"]])
 
 
-def _scan_tiles_plain(s, schedule: tuple, T: int, k: int, totals: bool):
+def _scan_tiles_plain(s, T: int, k: int, totals: bool):
     """One tile pass of the suffix scan in plain torch ops: the exclusive
     suffixes of each tile of T chunks (chunks past C infinity) and, with
     ``totals``, the tile sums ``(3, 16, R, ceil(C / T))``, in the kernels'
-    order (``schedule`` enters through k).  Each of the T / k slots sums
-    its k chunks from the last down, acc = c_j + acc; then the Kogge-Stone
-    steps d = 1, 2, .. over the slots, slot i taking x[i] + x[i + d] (x[i]
-    first), every read of a step before its writes; then each slot walks
+    order, which T and k alone fix (the cluster schedule's is k = 1's).
+    Each of the T / k slots sums its k chunks from the last down, acc =
+    c_j + acc; then the Kogge-Stone steps d = 1, 2, .. over the slots, slot
+    i taking x[i] + x[i + d] (x[i] first), every read of a step before its
+    writes; then each slot walks
     its chunks back from slot i + 1's sum s (infinity for the last slot):
     chunk k - 1 takes s, chunk j - 1 takes s = c_j + s.  k = 1 is plain
     Kogge-Stone over the chunks."""
@@ -315,7 +316,8 @@ def _plan(schedule):
 def _scan_plain(s, schedule=None):
     """:func:`jac_suffix_scan_plain` in ``schedule`` at every level (None:
     :func:`scan_plan`'s)."""
-    return _suffix_scan(s, _plan(schedule), _scan_tiles_plain, _scan_offsets_plain)
+    tiles = lambda s, _schedule, T, k, totals: _scan_tiles_plain(s, T, k, totals)  # noqa: E731
+    return _suffix_scan(s, _plan(schedule), tiles, _scan_offsets_plain)
 
 
 def jac_suffix_scan_plain(s):
@@ -337,7 +339,7 @@ VARIANTS = {"wide": 0, "narrow": 1}
 # threads, CLUSTER_CHUNKS chunks a block, on a cluster of up to eight
 # blocks; or k chunks a thread (k = 1: plain Kogge-Stone).  A tile takes up
 # to SCAN_TILE chunks, or COARSE_THREADS k where that is more.
-SCAN_SCHEDULES = (("cluster", 1), ("coarse", 1), ("coarse", 2), ("coarse", 4), ("coarse", 8))
+SCAN_SCHEDULES = (("cluster", 1), ("coarse", 1), ("coarse", 2), ("coarse", 4))
 CLUSTER_CHUNKS = 32
 SCAN_TILE = 256
 COARSE_THREADS = 128
@@ -346,7 +348,7 @@ COARSE_THREADS = 128
 # scalar set's 32 x 256; k = 1 up to 16,384 (2^10 at four sets: its 7 steps
 # beat k = 2's chain of 8 on a card left half idle); k = 2 up to eight sets
 # at 2^11 (65,536); k = 4 above (faster from 2^10 at 20 sets, 81,920, up to
-# the 2^18 slice's 360,448).  k = 8 was slower than k = 4 at every batch.
+# the 2^18 slice's 360,448).
 SCAN_PLAN = ((1 << 13, ("cluster", 1)), (1 << 14, ("coarse", 1)), (1 << 16, ("coarse", 2)))
 SCAN_PLAN_ABOVE = ("coarse", 4)
 
@@ -517,7 +519,7 @@ def _jac_suffix_scan(s, schedule=None):
     if not s.is_contiguous():
         raise ValueError("jac_suffix_scan: s must be contiguous")
     if s.device.type == "cpu":
-        return _suffix_scan(s, plan, _scan_tiles_plain, _scan_offsets_plain)
+        return _scan_plain(s, schedule)
     if s.device.type != "cuda":
         raise ValueError(f"jac_suffix_scan: unsupported device {s.device}")
     if not s.numel():

@@ -8,13 +8,14 @@ and the plain versions of its two window-sum kernels, against the reference.
   P == -Q chunks.
 - ``jac_suffix_scan_plain`` (the ``jac_suffix_scan`` kernel's plain
   version, in ``scan_plan``'s schedule and in each schedule forced at every
-  level: Kogge-Stone over one chunk a slot for the cluster, k = 1, 2, 4,
-  8 chunks a thread for the coarsened scan) equals the exclusive suffix sums
+  level: Kogge-Stone over one chunk a slot for the cluster, k = 1, 2 and 4
+  chunks a thread for the coarsened scan) equals the exclusive suffix sums
   taken on the host with ``_hj_add``, as affine points, at C = 1, 2, 3,
   64, 65, 255, 256, 257, 300 and 4096 (C not a multiple of k among them),
   with P == Q and P == -Q neighbours and infinite chunks at a group's edge;
-  ``scan_plan`` at its thresholds' edges, and no shape up to 65,536 chunks
-  in more than three scan passes.
+  ``scan_plan`` at its thresholds' edges, a schedule outside
+  ``SCAN_SCHEDULES`` refused, and no shape up to 65,536 chunks in more
+  than three scan passes.
 - The batched ``_msm_raw`` and ``_commit_device`` over B = 1, 3 and 17
   scalar sets equal ``msm_points`` a set, the native host MSM and the
   reference's ``msm_points`` (JAX on the CPU) at n = 2^4, 2^8 and 2^11
@@ -143,7 +144,7 @@ def _scan_inputs(rows, chunks, seed):
     """(3, 16, rows, chunks) Jacobian points with random z != 1, and the
     same as host Jacobian tuples (None = infinity): row 0 has P == Q at
     chunks 0, 1 and P == -Q at 2, 3, and above 16 chunks infinity at 7 and
-    8 (a group's edge for k = 2, 4 and 8) and P == Q at 11, 12; the last
+    8 (a group's edge for k = 2 and 4) and P == Q at 11, 12; the last
     row infinity at chunk C // 2 and at the last chunk."""
     n = rows * chunks
     px, py = _srs(max(n, 1))
@@ -201,19 +202,6 @@ def test_jac_suffix_scan_plain_matches_host_suffix(chunks, schedule):
         assert torch.equal(cuda_jac._jac_suffix_scan(s, schedule), got)
 
 
-@pytest.mark.parametrize("chunks", [100, 700])
-def test_scan_cluster_order_is_one_chunk_kogge_stone(chunks):
-    """The cluster schedule's order is plain Kogge-Stone over tiles of up to
-    256 chunks, the order of one chunk a thread (k = 1): the same limbs."""
-    s, _ = _scan_inputs(1, chunks, 3)
-    assert cuda_jac.scan_tile(chunks, ("cluster", 1)) == cuda_jac.scan_tile(chunks, ("coarse", 1))
-    assert cuda_jac.scan_tile(chunks, ("cluster", 1)) == ((128, 1) if chunks == 100 else (256, 1))
-    got = cuda_jac._scan_plain(s, ("cluster", 1))
-    assert torch.equal(got, cuda_jac._scan_plain(s, ("coarse", 1)))
-    with pytest.raises(ValueError):
-        cuda_jac._scan_plain(s, ("coarse", 3))
-
-
 def _edges():
     plan = cuda_jac.SCAN_PLAN
     above = [schedule for _, schedule in plan[1:]] + [cuda_jac.SCAN_PLAN_ABOVE]
@@ -224,13 +212,17 @@ def _edges():
 def test_scan_plan_at_its_thresholds(lanes, at, above):
     """scan_plan picks by rows x chunks: a threshold's own lane count takes
     the schedule below it, one row more the one above it, whatever the
-    split into rows and chunks."""
+    split into rows and chunks; a schedule outside SCAN_SCHEDULES is
+    refused."""
     for chunks in (64, 256):
         rows = lanes // chunks
         assert cuda_jac.scan_plan(rows, chunks) == at
         assert cuda_jac.scan_plan(rows + 1, chunks) == above
     assert cuda_jac.scan_plan(1, 1) == ("cluster", 1)
     assert cuda_jac.scan_plan(1 << 20, 1 << 10) == cuda_jac.SCAN_PLAN_ABOVE
+    for schedule in (("coarse", 3), ("coarse", 8), ("cluster", 2)):
+        with pytest.raises(ValueError):
+            cuda_jac._plan(schedule)
 
 
 @pytest.mark.parametrize("schedule", [None, *cuda_jac.SCAN_SCHEDULES], ids=str)
