@@ -8,7 +8,8 @@ passes or raises:
 0. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 1. build of the CUDA kernels from halo2_tpu_torch/csrc (and of the native
    host engine), with their times, each kernel's registers and spills, and
-   the curve kernels' SASS instruction and IMAD counts (cuobjdump);
+   the curve kernels' SASS instruction and IMAD counts (cuobjdump), and
+   the inverse kernel's batch loop by pipe with an issue and a chain bound;
 2. every kernel against its plain PyTorch version on the card, limb for
    limb: mont_mul and mont_sqr for BN254 Fr, BN254 Fq and Pasta Fp at m in
    {1, 511, 513, 2^11, 2^15, 2^20} with edge values (mont_mul also with a
@@ -54,9 +55,12 @@ passes or raises:
    elements with the exponents p - 2, 0, 1, 2 and one of 300 bits; each
    one's device time per launch beside its throughput bound and its chain
    of dependent products; mont_inv (the inverse as a fixed-count safegcd
-   in one launch) at the same sizes and fields against its plain version
-   and the mont_pow kernel's a^(p - 2), zero included, timed beside
-   mont_pow in this call with its bound and its chain of divsteps; the
+   in one launch) at the same sizes and fields and at the sharded
+   flagship's batched 8,192 and 16,384 (INV_BATCHED) against its plain
+   version, with inv_plan's lane group and with each of INV_GROUPS, and
+   against the mont_pow kernel's a^(p - 2), zero included, timed beside
+   mont_pow in this call with its bound, its chain of divsteps and each
+   lane group's cycles a divstep; the
    device MSM's window-sum kernels, msm_chunk_acc (a batch's intra-chunk
    rounds in one launch) and jac_suffix_scan (the cross-chunk suffix scan
    in the schedule scan_plan picks, and in each of SCAN_SCHEDULES forced
@@ -122,7 +126,9 @@ passes or raises:
    times at W = 1 and W = 2 beside the single-device ones (native and
    device commits) and their phases; the transport of every collective;
    the launches a rank by kernel at W = 1 and W = 2, beside a W = 1
-   prove's before jac_horner and mont_pow (W1_LAUNCHES_BEFORE); the
+   prove's before jac_horner and mont_pow (W1_LAUNCHES_BEFORE), with
+   exactly two mont_inv launches a flagship prove (its permutation chunks'
+   and its lookups' grand products, one batch each); the
    commitments of each device MSM batch in one single-device
    device-commit prove and one W = 1 prove; one warm
    W = 1 prove under torch.profiler: its launches by kernel and by width,
@@ -173,6 +179,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import os
 import random
@@ -215,6 +222,11 @@ HORNER_REPORT_C, HORNER_REPORT_B = 8, 20
 # JSON line's ms at 2^11
 POW_SIZES = (1, 1 << 10, 1 << 11, 1 << 16)
 POW_REPORT_M = 1 << 11
+# mont_inv also at the sharded W = 1 flagship's two batched launches: its 4
+# permutation chunks and its 8 lookups of 2^11 denominators each
+INV_BATCHED = (4 << 11, 8 << 11)
+# the H100's SM clock (boost), for cycles a divstep from a device time
+SM_HZ = 1.98e9
 # the elements a stage of the sharded flagship's local stage ladders gave
 # mont_mul (half of 83 columns of 2^15 at W = 1, a quarter a rank at W = 2)
 # before its local transforms were one ntt_small_stages launch each: kept as
@@ -378,9 +390,112 @@ def phase_build():
             f"(IMAD.MOV not counted)",
             flush=True,
         )
+    for name, loop in _sass_inv_loops(_build.library_path()).items():
+        print(
+            f"[build] SASS {name}, the batch loop ({loop['steps']} divsteps and their matrix products a pass): "
+            f"{loop['n']} instructions, "
+            f"{loop['alu']} on the ALU pipe, {loop['fma']} on the FMA pipe ({loop['wide']} IMAD.WIDE), "
+            f"{loop['shfl']} SHFL, {loop['other']} other; issue at least {loop['issue']} cycles (a warp instruction "
+            f"holds its 16-lane pipe 2 clocks, IMAD.WIDE 4), dependent chain {loop['chain']} cycles at "
+            f"{SASS_LATENCY} a result ({SASS_MIO_LATENCY} a SHFL or LDS): {loop['issue'] / loop['steps']:.1f} / "
+            f"{loop['chain'] / loop['steps']:.1f} cycles a divstep",
+            flush=True,
+        )
     if not host_ok:
         raise RuntimeError("native host engine did not build (g++ missing?)")
     print(f"[build] native host engine: {host_dt:.2f} s (beside the CUDA build)", flush=True)
+
+
+# The SASS model of _sass_inv_loops: a fixed-latency integer result is
+# ready this many clocks after issue, a shuffle's or shared-memory read's
+# this many.
+SASS_LATENCY, SASS_MIO_LATENCY = 4, 24
+SASS_FMA_OPS = ("IMAD", "FFMA", "FMUL", "FADD")
+SASS_ALU_OPS = ("IADD3", "LOP3", "SHF", "SEL", "ISETP", "PLOP3", "LEA", "IABS", "IMNMX", "FSEL", "SGXT", "BMSK",
+                "PRMT", "P2R", "R2P", "VIADD", "IADD", "ULOP3", "UIADD3")
+
+
+@functools.lru_cache(maxsize=None)
+def _sass_text(library) -> str:
+    """``cuobjdump -sass`` of the built library, once a library ("" without
+    cuobjdump)."""
+    from halo2_tpu_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return ""
+    return subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True, check=True, timeout=300).stdout
+
+
+def _sass_inv_loops(library) -> dict:
+    """The batch loop of each mont_inv kernel in the built library's SASS
+    (the instructions from a backward branch's target to the branch): its
+    instructions by pipe and two lower bounds of its clocks for a warp alone
+    on its scheduler, the issue (2 clocks a warp instruction on the 16-lane
+    ALU or FMA pipe, 4 for IMAD.WIDE, the pipes side by side) and the
+    dependent chain through the registers and predicates the loop writes
+    (SASS_LATENCY a result, SASS_MIO_LATENCY a shuffle or shared-memory
+    read; within one pass).
+    A model for reading the measured cycles against, not a measurement."""
+    import re
+
+    from halo2_tpu_torch.field import cuda_mul
+
+    text = _sass_text(library)
+    funcs, name = {}, None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            name = None
+            if "mont_inv" in fn:
+                g = re.search(r"Li(\d)E", fn)
+                name = f"mont_inv G={g.group(1) if g else '?'} {'cc' if 'CcArith' in fn else 'wide'}"
+                funcs[name] = []
+        elif name and line.startswith("/*") and "*/" in line:
+            addr, rest = line[2:].split("*/", 1)
+            ins = rest.split(";")[0].strip()
+            if ins and not ins.startswith("/*"):
+                funcs[name].append((int(addr, 16), ins))
+    out = {}
+    for name, body in funcs.items():
+        loops = [(addr, int(m.group(1), 16)) for addr, ins in body
+                 for m in [re.search(r"BRA\s+(?:`\(\.L_x_\d+\)\s*)?0x([0-9a-f]+)", ins)] if m and int(m.group(1), 16) < addr]
+        if not loops:
+            continue
+        end, start = max(loops, key=lambda x: x[0] - x[1])
+        loop = [ins for addr, ins in body if start <= addr <= end]
+        ready, chain, n = {}, 0, {"alu": 0, "fma": 0, "wide": 0, "shfl": 0, "other": 0}
+        for ins in loop:
+            pred = re.match(r"@!?(U?P\w+)\s+", ins)
+            op = ins[pred.end():] if pred else ins
+            opcode, _, args = op.partition(" ")
+            base = opcode.split(".")[0]
+            kind = ("shfl" if base == "SHFL" else "fma" if base in SASS_FMA_OPS else "alu" if base in SASS_ALU_OPS
+                    else "other")
+            mio = base in ("SHFL", "LDS")
+            n[kind] += 1
+            if opcode.startswith("IMAD.WIDE"):
+                n["wide"] += 1
+            regs = [r.strip().lstrip("-!|~") for r in args.split(",")]
+            ndst = 2 if base in ("ISETP", "PLOP3", "SHFL") or (len(regs) > 1 and re.fullmatch(r"U?P\d", regs[1] or "")
+                                                           and base in ("IADD3", "LOP3")) else 1
+            dst, src = regs[:ndst], regs[ndst:] + ([pred.group(1)] if pred else [])
+            wide = opcode.startswith("IMAD.WIDE")
+            src = src + [f"R{int(r[1:]) + 1}" for r in src[2:3] if wide and re.fullmatch(r"R\d+", r)]
+            src = [m for tok in src for m in re.findall(r"\bU?[RP]\d+\b", tok)]  # [R30+0x10] reads R30
+            t = max([ready.get(r, 0) for r in src], default=0)
+            t += SASS_MIO_LATENCY if mio else SASS_LATENCY
+            for r in dst + ([f"R{int(dst[0][1:]) + 1}"] if wide and re.fullmatch(r"R\d+", dst[0]) else []):
+                if re.fullmatch(r"U?[RP]\d+", r):
+                    ready[r] = t
+            chain = max(chain, t)
+        issue = max(2 * (n["alu"]), 2 * (n["fma"] + n["wide"]), len(loop))
+        # a batch reads the jump table INV_JUMPS times: the batches a pass
+        reads = sum(1 for ins in loop if re.match(r"(@!?U?P\w+\s+)?LDS", ins))
+        steps = cuda_mul.INV_STEPS * max(1, reads // cuda_mul.INV_JUMPS)
+        out[name] = {"n": len(loop), **n, "issue": issue, "chain": chain, "steps": steps}
+    return out
 
 
 def _sass_counts(library) -> dict:
@@ -389,13 +504,12 @@ def _sass_counts(library) -> dict:
     microbenchmark in the built library's
     SASS (``cuobjdump -sass``): (instructions, IMAD.WIDE, other IMADs but
     IMAD.MOV); empty when the toolkit has no cuobjdump."""
-    from halo2_tpu_torch import _build
+    import re
 
-    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    if not os.path.exists(tool):
+    text = _sass_text(library)
+    if not text:
         print("[build] SASS counts not measured: no cuobjdump beside nvcc", flush=True)
         return {}
-    text = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True, check=True, timeout=300).stdout
     counts, name = {}, None
     for line in text.splitlines():
         line = line.strip()
@@ -404,7 +518,10 @@ def _sass_counts(library) -> dict:
             kernels = ("jac_madd_wide", "jac_madd_narrow", "jac_add_wide", "jac_add_narrow", "jac_horner", "mont_pow",
                        "mont_inv", "mul_chain", "jac_suffix_scan_cluster", "jac_suffix_scan_coarse")
             name = next((k for k in kernels if k in fn), None)
-            if name in ("mont_pow", "mont_inv"):
+            if name == "mont_inv":
+                g = re.search(r"Li(\d)E", fn)
+                name = f"mont_inv G={g.group(1) if g else '?'}"
+            if name and name.startswith(("mont_pow", "mont_inv")):
                 name += " cc" if "CcArith" in fn else " wide"
             if name:
                 counts[name] = [0, 0, 0]
@@ -1439,62 +1556,114 @@ def _check_ladders(device, gen, err, times) -> dict:
     for spec in (BN254_FR, BN254_FQ, PASTA_FP):
         p = spec.p
         edges = get_device_field(spec).encode([0, 1, p - 1, p - 2], device=device)
-        for m in POW_SIZES:
+        for m in POW_SIZES + INV_BATCHED:
             a = _random_field(spec, (m,), gen, device)
             a[:, : min(4, m)] = edges[:, : min(4, m)]
-            for e in (p - 2, 0, 1, 2, rnd):
-                got = cuda_mul.mont_pow(spec, a, e)
-                e_err = _max_abs_err(f"mont_pow {spec.name} m={m} e={e:#x}"[:80], got, cuda_mul.mont_pow_plain(spec, a, e))
-                err["mont_pow"] = max(err["mont_pow"], e_err)
-            inv = cuda_mul.mont_inv(spec, a)
-            err["mont_inv"] = max(err["mont_inv"], _max_abs_err(f"mont_inv {spec.name} m={m}", inv, cuda_mul.mont_inv_plain(spec, a)))
-            _max_abs_err(f"mont_inv {spec.name} m={m} against the mont_pow kernel's a^(p - 2)", inv, cuda_mul.mont_pow(spec, a, p - 2))
+            if m in POW_SIZES:
+                for e in (p - 2, 0, 1, 2, rnd):
+                    got = cuda_mul.mont_pow(spec, a, e)
+                    e_err = _max_abs_err(f"mont_pow {spec.name} m={m} e={e:#x}"[:80], got, cuda_mul.mont_pow_plain(spec, a, e))
+                    err["mont_pow"] = max(err["mont_pow"], e_err)
+            inv, want = cuda_mul.mont_inv(spec, a), cuda_mul.mont_inv_plain(spec, a)
+            err["mont_inv"] = max(err["mont_inv"], _max_abs_err(f"mont_inv {spec.name} m={m}", inv, want))
+            for group in cuda_mul.INV_GROUPS:
+                got = cuda_mul._mont_inv(spec, a, group)
+                err["mont_inv"] = max(err["mont_inv"], _max_abs_err(f"mont_inv {spec.name} m={m} G={group}", got, want))
+            if m in POW_SIZES:
+                _max_abs_err(f"mont_inv {spec.name} m={m} against the mont_pow kernel's a^(p - 2)", inv, cuda_mul.mont_pow(spec, a, p - 2))
             if spec is BN254_FR and m > 1:
                 _time_inverses(spec, a, m, times, bounds)
         print(
             f"[kernels] mont_pow {spec.name}: equal to plain at m={list(POW_SIZES)}, five exponents; mont_inv "
-            f"equal to plain and to mont_pow(a, p - 2) (0, 1, p - 1, p - 2 first)",
+            f"equal to plain with inv_plan's G and with each G of {list(cuda_mul.INV_GROUPS)} at "
+            f"m={list(POW_SIZES + INV_BATCHED)}, and to mont_pow(a, p - 2) at m={list(POW_SIZES)} (0, 1, p - 1, "
+            "p - 2 first)",
             flush=True,
         )
     return bounds
 
 
 def _time_inverses(spec, a, m: int, times, bounds) -> None:
-    """mont_pow(a, p - 2) and mont_inv(a), BN254 Fr, m elements: each one's
-    device time per launch in this call beside its throughput bound and its
-    chain; at POW_REPORT_M also each kernel's and plain version's time a
-    call (the JSON line's) and the most divsteps a lane of a needs."""
+    """mont_inv(a), BN254 Fr, m elements, with inv_plan's G and with each
+    G of INV_GROUPS: each one's device time per launch in this call
+    beside its throughput bound, its share of it and its cycles a divstep
+    (at SM_HZ); at POW_SIZES also mont_pow(a, p - 2) beside it; at
+    POW_REPORT_M also each kernel's and plain version's time a call (the
+    JSON line's) and the most divsteps a lane of a needs."""
     from halo2_tpu_torch.field import cuda_mul
 
     p = spec.p
-    pow_bound = _bound(*_pow_work(m, p - 2))
     inv_bound, inv_chain = _inv_bound(m), _inv_work(m)[2]
+    plan = cuda_mul.inv_plan(m)
     power = lambda: cuda_mul.mont_pow(spec, a, p - 2)  # noqa: E731
     inverse = lambda: cuda_mul.mont_inv(spec, a)  # noqa: E731
+    t_pow = None
     if m == POW_REPORT_M:
+        pow_bound = _bound(*_pow_work(m, p - 2))
         bounds["mont_pow"], bounds["mont_inv"] = pow_bound, inv_bound
         t_pow = _time_kernel("mont_pow", "mont_pow_kernel", m, power,
                              lambda: cuda_mul.mont_pow_plain(spec, a, p - 2), times, pow_bound[0], plain_calls=1)
         t_inv = _time_kernel("mont_inv", "mont_inv_kernel", m, inverse,
                              lambda: cuda_mul.mont_inv_plain(spec, a), times, inv_bound[0], plain_calls=1)
     else:
-        t_pow = _kernel_device_ms(power, "mont_pow_kernel", pow_bound[0])
+        if m in POW_SIZES:
+            pow_bound = _bound(*_pow_work(m, p - 2))
+            t_pow = _kernel_device_ms(power, "mont_pow_kernel", pow_bound[0])
         t_inv = _kernel_device_ms(inverse, "mont_inv_kernel", inv_bound[0])
-    steps = (p - 2).bit_length() - 1 + bin(p - 2).count("1") - 1
-    print(
-        f"[kernels] mont_pow bn254_fr m={m}, e = p - 2: {t_pow:.4f} ms on the device; throughput "
-        f"bound {pow_bound[0]:.6f} ms ({pow_bound[1]}, {pow_bound[0] / t_pow:.2%} of it); chain {steps} dependent "
-        f"products an element, {t_pow * 1e3 / steps:.3f} us each",
-        flush=True,
-    )
+    if t_pow is not None:
+        steps = (p - 2).bit_length() - 1 + bin(p - 2).count("1") - 1
+        print(
+            f"[kernels] mont_pow bn254_fr m={m}, e = p - 2: {t_pow:.4f} ms on the device; throughput "
+            f"bound {pow_bound[0]:.6f} ms ({pow_bound[1]}, {pow_bound[0] / t_pow:.2%} of it); chain {steps} dependent "
+            f"products an element, {t_pow * 1e3 / steps:.3f} us each",
+            flush=True,
+        )
+    sched = []
+    for group in cuda_mul.INV_GROUPS:  # the plan's G is t_inv; the other is forced
+        t_s = t_inv if group == plan else _kernel_device_ms(
+            lambda: cuda_mul._mont_inv(spec, a, group), "mont_inv_kernel", inv_bound[0])
+        sched.append(
+            f"G={group} {t_s:.4f} ms ({inv_bound[0] / t_s:.2%}, "
+            f"{t_s * 1e-3 * SM_HZ / inv_chain:.1f} cycles a divstep)"
+        )
     needed = f"; the most divsteps a lane of this data needs: {_divsteps_needed(a, spec)}" if m == POW_REPORT_M else ""
+    than_pow = f" ({t_pow / t_inv:.1f}x faster than mont_pow's {t_pow:.4f} in this call)" if t_pow else ""
     print(
-        f"[kernels] mont_inv bn254_fr m={m}: {t_inv:.4f} ms on the device ({t_pow / t_inv:.1f}x faster than "
-        f"mont_pow's {t_pow:.4f} in this call); throughput bound {inv_bound[0]:.6f} ms ({inv_bound[1]}, "
-        f"{inv_bound[0] / t_inv:.2%} of it); chain {inv_chain} dependent divsteps on every lane (and "
-        f"{cuda_mul.INV_BATCHES} matrix applications, one product), {t_inv * 1e3 / inv_chain:.4f} us a divstep{needed}",
+        f"[kernels] mont_inv bn254_fr m={m}: {t_inv:.4f} ms on the device with inv_plan's G={plan}{than_pow}; "
+        f"throughput bound {inv_bound[0]:.6f} ms ({inv_bound[1]}, {inv_bound[0] / t_inv:.2%} of it); chain "
+        f"{inv_chain} dependent divsteps on every lane (and {cuda_mul.INV_BATCHES} matrix applications, one "
+        f"product), {t_inv * 1e3 / inv_chain:.4f} us, {t_inv * 1e-3 * SM_HZ / inv_chain:.1f} cycles a divstep{needed}; "
+        f"each G: " + "; ".join(sched),
         flush=True,
     )
+
+
+# sweep_inverses: the element counts at which the mont_inv kernel is timed
+# with each G (inv_plan's thresholds come from these)
+INV_SWEEP = (1 << 10, 1 << 11, 1 << 12, 1 << 13, 3 << 12, 1 << 14, 1 << 15, 1 << 16, 1 << 18, 1 << 20)
+
+
+def sweep_inverses(device) -> None:
+    """The mont_inv kernel's device time per launch with each G (BN254 Fr) at every
+    INV_SWEEP size, beside its share of the bound and its cycles a divstep
+    (at SM_HZ), and inv_plan's pick: the sweep INV_PLAN is set from.  Not
+    a phase of main: ``python3 -c 'import chip_smoke as c;
+    c.sweep_inverses(c.phase_device())'``."""
+    import torch
+
+    from halo2_tpu_torch.field import cuda_mul
+    from halo2_tpu_torch.field.params import BN254_FR
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(17)
+    for m in INV_SWEEP:
+        a = _random_field(BN254_FR, (m,), gen, device)
+        bound, chain = _inv_bound(m)[0], _inv_work(m)[2]
+        cells = []
+        for group in cuda_mul.INV_GROUPS:
+            t = _kernel_device_ms(lambda: cuda_mul._mont_inv(BN254_FR, a, group), "mont_inv_kernel", bound)
+            cells.append(f"G={group} {t:.4f} ms ({bound / t:.2%}, {t * 1e-3 * SM_HZ / chain:.1f} cycles a divstep)")
+        print(f"[sweep] mont_inv m={m}: " + "; ".join(cells) + f"; inv_plan picks G={cuda_mul.inv_plan(m)}", flush=True)
 
 
 def _inv_work(m: int) -> tuple:
@@ -2470,8 +2639,9 @@ def compare_kernels(device) -> None:
     NTT_TIMED batches; the local
     transforms of the sharded W = 1 NTTs (poly.domain._ntt_unscaled at the
     first four SMALL_NTT_SHAPES: the stage ladder before the small-size
-    ntt_small_stages, one launch after) and DeviceField.inv at 2^11 and 2^16
-    elements (mont_pow before mont_inv), each per call and on the device
+    ntt_small_stages, one launch after) and DeviceField.inv at POW_SIZES
+    and INV_BATCHED elements (the G inv_plan picks, in a tree that has
+    one), each per call and on the device
     summed over the call's launches of every kernel (copies included); the flagship's
     83 x 2^15 coset scale through poly.domain._mul_columns, per call (CUDA
     events) and its device time summed over the call's launches; jac_horner
@@ -2543,7 +2713,7 @@ def compare_kernels(device) -> None:
             f"a call, {dev_ms:.4f} ms on the device in {n_launch:.0f} launches",
             flush=True,
         )
-    for m in (1 << 11, 1 << 16):
+    for m in POW_SIZES + INV_BATCHED:
         a = _random_field(spec, (m,), gen, device)
         dev_ms, n_launch = launches_ms(lambda: df.inv(a))
         print(
@@ -2642,6 +2812,7 @@ def _sharded_w1(device, params, pk, circuit, public, want, reps: int):
         profile_prove(device, params, pk, mesh=mesh)
     _require("sharded prove W=1 (nccl)", counts, SHARDED_KERNELS)
     _forbid("sharded prove W=1 (nccl)", counts, MSM_GONE)
+    _expect_inv_launches("sharded prove W=1 (nccl)", counts["mont_inv"], 1)
     if not verify_proof(params.verifier_params(), pk.vk, proof, [list(public)]):
         raise AssertionError("sharded prove W=1: the verifier rejected the proof")
     bad = list(public)
@@ -2649,6 +2820,20 @@ def _sharded_w1(device, params, pk, circuit, public, want, reps: int):
     if verify_proof(params.verifier_params(), pk.vk, proof, [bad]):
         raise AssertionError("sharded prove W=1: the verifier accepted a tampered root")
     return counts, batches, times, transports, phases
+
+
+# the flagship's grand products: its 4 permutation chunks in one batch, its
+# 8 lookups in another; a prove on a mesh runs one mont_inv launch each
+FLAGSHIP_GRAND_PRODUCTS = (4, 8)
+
+
+def _expect_inv_launches(path: str, launches: int, proves: int) -> None:
+    want = len(FLAGSHIP_GRAND_PRODUCTS) * proves
+    if launches != want:
+        raise AssertionError(
+            f"{path}: {launches} mont_inv launches in {proves} proves, expected {want} (one batched grand product "
+            f"for the {FLAGSHIP_GRAND_PRODUCTS[0]} permutation chunks, one for the {FLAGSHIP_GRAND_PRODUCTS[1]} lookups)"
+        )
 
 
 def _phases(timings: dict) -> str:
@@ -2815,6 +3000,9 @@ def _sharded_group(device, world: int, backend: str, dp, reps: int, want: bytes)
             raise AssertionError(f"sharded prove {label}, rank {rank}: the flagship differs from {FIXTURE} or fails to verify")
         _require(f"sharded prove {label}, rank {rank}", flag["launches"], SHARDED_KERNELS)
         _forbid(f"sharded prove {label}, rank {rank}", flag["launches"], MSM_GONE)
+        _expect_inv_launches(f"sharded prove {label}, rank {rank}", flag["launches"]["mont_inv"], reps + 1)
+        if flag["out"]["grand_products"] != [(16, c, 1 << 11) for c in FLAGSHIP_GRAND_PRODUCTS]:
+            raise AssertionError(f"sharded prove {label}, rank {rank}: grand products {flag['out']['grand_products']}")
         if lt["out"]["proof"] != lt_want or not lt["out"]["verified"]:
             raise AssertionError(f"sharded prove {label}, rank {rank}: less_than_v2 k=9 differs from single-device")
         _require(f"less_than_v2 {label}, rank {rank}", lt["launches"], SHARDED_KERNELS)

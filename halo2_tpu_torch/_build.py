@@ -110,7 +110,7 @@ def lib() -> ctypes.CDLL:
                 "mont_mul": [vp, i64, vp, i64, i32, vp, i32, i32, i32, i32, i32, vp, vp],
                 "mont_sqr": [vp, vp, i32, vp, vp],
                 "mont_pow": [vp, vp, i32, vp, i32, vp, i32, vp],
-                "mont_inv": [vp, vp, i32, vp, i32, vp],
+                "mont_inv": [vp, vp, i32, vp, i32, i32, vp, vp],
                 "mul_chain": [vp, vp, vp, i32, vp, vp],
                 "ntt_small_stages": [vp, vp, i32, i32, vp, vp, i32, vp],
                 "ntt_large_stage": [vp, vp, i32, i32, i32, i32, vp, vp, i32, vp],

@@ -358,6 +358,69 @@ def mont_pow(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
 # for every input below 2^256)
 INV_LIMBS, INV_BATCHES, INV_STEPS = 9, 20, 30
 _M30, _M32 = (1 << 30) - 1, (1 << 32) - 1
+# the kernel's schedules, G = 2 or 4 lanes of a warp an element
+# (csrc/inv.cu); inv_plan's rule, (most elements, G), measured on one H100
+# with chip_smoke.sweep_inverses (PERF.md): G = 4 up to 2^12 elements, G = 2
+# above (faster at 2^13-2^20 than G = 4 and than one thread an element)
+INV_GROUPS = (2, 4)
+INV_PLAN = ((1 << 12, 4),)
+INV_PLAN_ABOVE = 2
+# the kernel's jumps: a table lookup applies INV_JUMP divsteps at once
+# (INV_JUMPS of them a batch, then INV_STEPS - INV_JUMP INV_JUMPS single
+# divsteps).  The INV_JUMP steps from (zeta, f, g) depend on f and g mod
+# 2^INV_JUMP and on zeta only through zeta clamped to INV_ZETA_CLAMP (the
+# clamp that keeps every path, found by trying every zeta in [-60, 60]).
+INV_JUMP, INV_JUMPS = 4, 7
+INV_ZETA_CLAMP = (-4, 3)
+
+
+def _divsteps_path(zeta: int, f: int, g: int, steps: int) -> tuple:
+    """``steps`` divsteps from zeta on the integers f (odd) and g, as the
+    kernel takes them (halving g exactly); returns ((zeta scale s, zeta
+    offset c), M): the new zeta is s zeta + c, and M, the 2x2 matrix of
+    the steps scaled by 2^steps, maps (f, g) to 2^steps times the new
+    (f, g) and a matrix column of the batch to its new column."""
+    s, c = 1, 0
+    m = [[1, 0], [0, 1]]
+    for _ in range(steps):
+        odd, swap = g & 1, (g & 1) and zeta < 0
+        if swap:
+            zeta, f, g = -zeta - 2, g, (g - f) >> 1
+            s, c = -s, -c - 2
+        else:
+            zeta, g = zeta - 1, ((g + f) if odd else g) >> 1
+            c -= 1
+        step = [[0, 2], [-1, 1]] if swap else [[2, 0], [odd, 1]]
+        m = [[sum(step[r][k] * m[k][col] for k in range(2)) for col in range(2)] for r in range(2)]
+    return (s, c), m
+
+
+@functools.lru_cache(maxsize=None)
+def inv_jump_table() -> np.ndarray:
+    """``(classes x 2^(INV_JUMP - 1) x 2^INV_JUMP, 4)`` uint32, the
+    ``mont_inv`` kernel's table: entry ``((zc - lo) 2^(INV_JUMP - 1) + (f mod
+    2^INV_JUMP) // 2) 2^INV_JUMP + g mod 2^INV_JUMP``, for zc = zeta
+    clamped to ``INV_ZETA_CLAMP = (lo, hi)``, holds :func:`_divsteps_path`
+    of INV_JUMP steps as signed 16-bit halves, the low one first: (M00,
+    M01), (M10, M11), (s, c), then a zero word (16 bytes an entry, one
+    128-bit load)."""
+    lo, hi = INV_ZETA_CLAMP
+    half, full = 1 << (INV_JUMP - 1), 1 << INV_JUMP
+    table = np.zeros(((hi - lo + 1) * half * full, 4), np.uint32)
+    for zc in range(lo, hi + 1):
+        for fb in range(half):
+            for g in range(full):
+                (s, c), m = _divsteps_path(zc, 2 * fb + 1, g, INV_JUMP)
+                i = ((zc - lo) * half + fb) * full + g
+                for w, (x, y) in enumerate(((m[0][0], m[0][1]), (m[1][0], m[1][1]), (s, c))):
+                    table[i, w] = (x & 0xFFFF) | ((y & 0xFFFF) << 16)
+    return table
+
+
+@functools.lru_cache(maxsize=None)
+def _jump_table_device(device: torch.device) -> torch.Tensor:
+    """:func:`inv_jump_table` on ``device``, made once per device."""
+    return torch.from_numpy(inv_jump_table().view(np.int32)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -485,11 +548,28 @@ def mont_inv_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return mont_mul_plain(spec, limbs.to(torch.int32), r3_col).reshape(shape)
 
 
+def inv_plan(m: int) -> int:
+    """G, the lanes of a warp an element of the ``mont_inv`` kernel, for a
+    call over ``m`` elements: the first of ``INV_PLAN`` whose most elements
+    m does not exceed, else ``INV_PLAN_ABOVE``."""
+    return next((group for most, group in INV_PLAN if m <= most), INV_PLAN_ABOVE)
+
+
 def mont_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """a^-1 elementwise over Montgomery ``(16, *batch)`` a, inv(0) = 0 (the
     reference's ``DeviceField.inv``).  CPU tensors: :func:`mont_inv_plain`;
     CUDA tensors: the ``mont_inv`` kernel (a fixed-count safegcd, one
-    launch)."""
+    launch) with the G lanes an element :func:`inv_plan` picks."""
+    return _mont_inv(spec, a)
+
+
+def _mont_inv(spec: FieldSpec, a: torch.Tensor, group: int | None = None) -> torch.Tensor:
+    """:func:`mont_inv` with G = ``group`` lanes an element, one of
+    ``INV_GROUPS`` (None: :func:`inv_plan`'s); the tests and
+    ``chip_smoke.py`` force each one.  Every G gives the same limbs, so a
+    CPU tensor takes the plain version whatever G."""
+    if group is not None and group not in INV_GROUPS:
+        raise ValueError(f"mont_inv: unknown lane group {group!r}; one of {INV_GROUPS}")
     check_limbs("mont_inv", a=a)
     if a.device.type == "cpu":
         return mont_inv_plain(spec, a)
@@ -501,7 +581,11 @@ def mont_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     m = a.numel() // L
     if m == 0:
         return out
-    _build.launch("mont_inv", a.device, a.data_ptr(), out.data_ptr(), m, inv_words(spec).ctypes.data, ARITH[arith(spec)])
+    group = group or inv_plan(m)
+    _build.launch(
+        "mont_inv", a.device, a.data_ptr(), out.data_ptr(), m, inv_words(spec).ctypes.data, ARITH[arith(spec)], group,
+        _jump_table_device(a.device).data_ptr(),
+    )
     LAUNCHES["mont_inv"] += 1
     return out
 

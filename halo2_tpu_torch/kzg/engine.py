@@ -154,8 +154,8 @@ class TorchEngine:
         prog = self.st.quotient_program(rot_scale)
         return _run_program(prog, self.dfr, columns_ext)[0]
 
-    def grand_product_z(self, num_ints, den_ints, carry: int):
-        return _grand_product_fallback(num_ints, den_ints, carry)
+    def grand_products(self, nums, dens, chained: bool):
+        return _grand_products_host(nums, dens, chained)
 
     # ---- commitments / decode
     def commit_batch(self, coeffs_list):
@@ -190,8 +190,9 @@ class ShardedEngine(TorchEngine):
       :func:`..parallel.msm.sharded_msm` over the whole mesh (a call's
       columns as one batch), over the SRS uploaded once per (params,
       device), decoded to affine on the host;
-    * ``grand_product_z``: :func:`..parallel.scan.grand_product_z` with the
-      prover's labels;
+    * ``grand_products``: :func:`..parallel.scan.grand_product_z` with the
+      prover's labels, one call for all the permutation chunks and one for
+      all the lookups;
     * ``quotient_eval``: each rank runs the quotient program (one
       ``vm_eval``) over its ``extended_n / S`` rows of the whole columns,
       then an ``all_gather`` over ``sp``.
@@ -264,15 +265,28 @@ class ShardedEngine(TorchEngine):
         part = _run_program(prog, self.dfr, columns_ext, rows=(axis_index(self.mesh, "sp") * m, m))[0]
         return comm.all_gather(self.mesh, "sp", part).permute(1, 0, 2).reshape(16, ext_n)
 
-    # ---- the distributed grand product (the prover's real labels)
-    def grand_product_z(self, num_ints, den_ints, carry: int):
+    # ---- the distributed grand products (the prover's real labels)
+    def grand_products(self, nums, dens, chained: bool):
+        """Every column of the batch in one sharded grand product (one
+        ``mont_inv`` launch and one scan for all of them); the carry of a
+        chained batch is a host product, in column order."""
         from ..parallel.scan import grand_product_z
 
-        u, n = len(num_ints), self.st.n
-        num = self.dfr.encode([int(v) for v in num_ints] + [1] * (n - u), device=self.device)
-        den = self.dfr.encode([int(v) for v in den_ints] + [1] * (n - u), device=self.device)
-        zi = self.dfr.decode(grand_product_z(self.mesh, BN254_FR, num, den, axis="sp"))
-        return [carry * int(zi[r]) % P for r in range(u + 1)]
+        if not nums:
+            return []
+        u, n, cols = len(nums[0]), self.st.n, len(nums)
+
+        def encode(columns):
+            vals = [int(v) for col in columns for v in [*col, *[1] * (n - u)]]
+            return self.dfr.encode(vals, device=self.device).reshape(16, cols, n)
+
+        zi = self.dfr.decode(grand_product_z(self.mesh, BN254_FR, encode(nums), encode(dens), axis="sp"))
+        out, carry = [], 1
+        for col in zi:
+            out.append([carry * int(v) % P for v in col[: u + 1]])
+            if chained:
+                carry = out[-1][u]
+        return out
 
     # ---- distributed commitments
     def commit_batch(self, coeffs_list):
@@ -282,6 +296,18 @@ class ShardedEngine(TorchEngine):
         from ..parallel.msm import sharded_msm
 
         return _commit_by_length(self.params, self.device, coeffs_list, functools.partial(sharded_msm, self.mesh))
+
+
+def _grand_products_host(nums, dens, chained: bool):
+    """The z of each (num, den) column, one after another: z[0] = 1, or with
+    ``chained`` the last value of the column before (the permutation
+    chunks' carry)."""
+    out, carry = [], 1
+    for num, den in zip(nums, dens):
+        out.append(_grand_product_fallback(num, den, carry))
+        if chained:
+            carry = out[-1][len(num)]
+    return out
 
 
 def _grand_product_fallback(num_ints, den_ints, carry: int):
@@ -458,5 +484,5 @@ class NativeEngine:
         # prover tail as-is (the int round trip cost ~0.5 s per prove)
         return list(polys)
 
-    def grand_product_z(self, num_ints, den_ints, carry: int):
-        return _grand_product_fallback(num_ints, den_ints, carry)
+    def grand_products(self, nums, dens, chained: bool):
+        return _grand_products_host(nums, dens, chained)

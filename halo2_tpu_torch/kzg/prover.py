@@ -189,8 +189,7 @@ def create_proof(
     # -------------------------------------------- permutation grand products
     delta_pows, omegas = _perm_labels(st)
     perm_cols = cs.permutation_columns
-    perm_z_values = []
-    carry = 1
+    perm_nums, perm_dens = [], []
     global_idx = 0
     omega_arr = np.array(omegas[:u], dtype=object)
     for cols in st.perm_chunks:
@@ -205,11 +204,16 @@ def create_proof(
             num_a = num_a * ((v + lbl + gamma) % P) % P
             sig = np.array(pk.sigma_values[gi][:u], dtype=object)
             den_a = den_a * ((v + beta * sig + gamma) % P) % P
-        zh = eng.grand_product_z(num_a, den_a, carry)
-        carry = zh[u]
-        z = zh[: u + 1] + [rng.randrange(P) for _ in range(n - u - 1)]
-        perm_z_values.append(z)
+        perm_nums.append(num_a)
+        perm_dens.append(den_a)
         global_idx += len(cols)
+    # one engine call for every chunk, each chunk's z carried on from the
+    # last value of the chunk before; then each z's blinding draws, in chunk
+    # order
+    perm_z_values = [
+        zh[: u + 1] + [rng.randrange(P) for _ in range(n - u - 1)]
+        for zh in eng.grand_products(perm_nums, perm_dens, chained=True)
+    ]
 
     perm_z_coeffs = [eng.to_coeffs(z) for z in perm_z_values]
     if perm_z_coeffs:
@@ -218,14 +222,17 @@ def create_proof(
 
     # ------------------------------------------------ lookup grand products
     lookup_z_coeffs = []
+    lookup_nums, lookup_dens = [], []
     for ld in lookup_data:
         ap_a = np.array(ld["ap"][:u], dtype=object)
         sp_a = np.array(ld["sp"][:u], dtype=object)
-        dens = (ap_a + beta) % P * ((sp_a + gamma) % P) % P
+        lookup_dens.append((ap_a + beta) % P * ((sp_a + gamma) % P) % P)
         a_a = np.array(ld["a"][:u], dtype=object)
         s_a = np.array(ld["s"][:u], dtype=object)
-        nums = (a_a + beta) % P * ((s_a + gamma) % P) % P
-        zh = eng.grand_product_z(nums, dens, 1)
+        lookup_nums.append((a_a + beta) % P * ((s_a + gamma) % P) % P)
+    # one engine call for every lookup, then each z's draws in lookup order
+    lookup_zh = eng.grand_products(lookup_nums, lookup_dens, chained=False)
+    for ld, zh in zip(lookup_data, lookup_zh):
         z = zh[: u + 1] + [rng.randrange(P) for _ in range(n - u - 1)]
         ld["z"] = z
         ld["z_coeffs"] = eng.to_coeffs(z)

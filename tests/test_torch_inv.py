@@ -61,6 +61,117 @@ def test_mont_inv_plain_matches_reference_inv(field):
 
 
 @pytest.mark.parametrize("field", FIELDS)
+@pytest.mark.parametrize("m", [1, 3, 5, (1 << 11) - 1])
+def test_mont_inv_plain_matches_reference_at_ragged_sizes(field, m):
+    """The sizes a lane group leaves ragged (a group of 2 or 4 lanes an
+    element, 32-lane warps): each of 0, 1, p - 1 and p - 2 at the front in
+    turn, the rest numpy-seeded random values below p."""
+    rf = ref_field(getattr(ref_params, field))
+    spec = getattr(port_params, field)
+    p = rf.p
+    edges = [0, 1, p - 1, p - 2]
+    rand = _values(p, seed=m, count=max(0, m - 4))[10:]
+    for rot in range(4 if m < 4 else 1):
+        vals = (edges[rot:] + edges[:rot] + rand)[:m]
+        a_np = rf.encode_np(vals)
+        got = cuda_mul.mont_inv_plain(spec, _port(a_np))
+        assert np.array_equal(got.numpy().view(np.uint32), np.asarray(rf.inv(a_np))), (m, rot)
+        assert [int(v) for v in port_field(spec).decode(got).reshape(-1)] == _inverses(vals, p)
+
+
+PLAN_SIZES = {most + d for most, _s in cuda_mul.INV_PLAN for d in (-1, 0, 1)}
+
+
+@pytest.mark.parametrize("m", sorted({1, 2, 1 << 16, 1 << 20} | PLAN_SIZES))
+def test_inv_plan_thresholds(m):
+    """inv_plan takes the first INV_PLAN entry whose most elements m does
+    not exceed (at, below and just above each threshold), else
+    INV_PLAN_ABOVE; every G it picks is one of INV_GROUPS."""
+    want = next((s for most, s in cuda_mul.INV_PLAN if m <= most), cuda_mul.INV_PLAN_ABOVE)
+    assert cuda_mul.inv_plan(m) == want
+    assert want in cuda_mul.INV_GROUPS
+    nexts = [*cuda_mul.INV_PLAN[1:], (None, cuda_mul.INV_PLAN_ABOVE)]
+    for (most, sched), (nxt, nsched) in zip(cuda_mul.INV_PLAN, nexts):
+        assert cuda_mul.inv_plan(most) == sched and cuda_mul.inv_plan(most + 1) == nsched
+        assert nxt is None or nxt > most
+
+
+def _signed(v: int, bits: int) -> int:
+    v &= (1 << bits) - 1
+    return v - (1 << bits) if v >> (bits - 1) else v
+
+
+def _jump_batch(zeta: int, f: int, g: int) -> tuple:
+    """One batch of INV_STEPS divsteps as csrc/inv.cu's kernel runs it on
+    the low limbs (mod 2^32): INV_JUMPS table jumps of INV_JUMP steps, then
+    single steps; returns zeta and (u, v, q, r)."""
+    table, (lo, hi) = cuda_mul.inv_jump_table(), cuda_mul.INV_ZETA_CLAMP
+    jump, m32 = cuda_mul.INV_JUMP, (1 << 32) - 1
+    half, full = 1 << (jump - 1), 1 << jump
+    cols = [[1, 0], [0, 1]]  # (top, bottom): (u, q) and (v, r)
+    for _ in range(cuda_mul.INV_JUMPS):
+        zc = min(max(zeta, lo), hi)
+        entry = ((zc - lo) * half + ((f >> 1) & (half - 1))) * full + (g & (full - 1))
+        words = [int(w) for w in table[entry]]
+        m00, m01, m10, m11, s, c = (_signed(w >> (16 * k), 16) for w in words[:3] for k in range(2))
+        assert words[3] == 0
+        zeta = s * zeta + c
+        f, g = ((m00 * f + m01 * g) & m32) >> jump, ((m10 * f + m11 * g) & m32) >> jump
+        cols = [[(m00 * t + m01 * b) & m32, (m10 * t + m11 * b) & m32] for t, b in cols]
+    for i in range(cuda_mul.INV_STEPS - jump * cuda_mul.INV_JUMPS):
+        odd = (g >> i) & 1
+        swap = odd and zeta < 0
+        g_next = (g - f) if swap else (g + f) if odd else g
+        f, g = (2 * g if swap else 2 * f) & m32, g_next & m32
+        zeta = -zeta - 2 if swap else zeta - 1
+        cols = [
+            [(2 * b if swap else 2 * t) & m32, ((b - t) if swap else (b + t) if odd else b) & m32]
+            for t, b in cols
+        ]
+    return zeta, tuple(_signed(v, 32) for v in (cols[0][0], cols[1][0], cols[0][1], cols[1][1]))
+
+
+def test_inv_jump_table_gives_the_divsteps_matrix():
+    """The kernel's table-driven batch (INV_JUMPS lookups of INV_JUMP
+    divsteps, then single steps) gives the plain version's transition
+    matrix and zeta, on numpy-seeded 30-bit low limbs (f odd) and zeta
+    across the clamp's classes and far outside them."""
+    rng = np.random.default_rng(23)
+    n = 400
+    f = rng.integers(0, 1 << 29, n, dtype=np.int64) * 2 + 1
+    g = rng.integers(0, 1 << 30, n, dtype=np.int64)
+    zeta = rng.integers(-700, 700, n, dtype=np.int64)
+    zeta[:40] = np.arange(-20, 20)
+    want_z, want_t = cuda_mul._divsteps_30(*(torch.from_numpy(v) for v in (zeta, f, g)))
+    for k in range(n):
+        z, t = _jump_batch(int(zeta[k]), int(f[k]), int(g[k]))
+        assert z == int(want_z[k])
+        assert t == tuple(int(w[k]) for w in want_t)
+    lo, hi = cuda_mul.INV_ZETA_CLAMP
+    assert cuda_mul.inv_jump_table().shape == ((hi - lo + 1) << (2 * cuda_mul.INV_JUMP - 1), 4)
+    # the clamp keeps every INV_JUMP-step map: zeta and its class agree
+    for z in range(-60, 61):
+        for fv in range(1, 1 << cuda_mul.INV_JUMP, 2):
+            for gv in range(1 << cuda_mul.INV_JUMP):
+                want = cuda_mul._divsteps_path(min(max(z, lo), hi), fv, gv, cuda_mul.INV_JUMP)
+                assert cuda_mul._divsteps_path(z, fv, gv, cuda_mul.INV_JUMP) == want
+    assert cuda_mul.INV_JUMP * cuda_mul.INV_JUMPS <= cuda_mul.INV_STEPS
+
+
+def test_mont_inv_forced_groups():
+    """Every G gives the plain version's limbs on a CPU tensor; an unknown
+    G raises before anything runs."""
+    spec = port_params.BN254_FR
+    a = port_field(spec).encode(_values(spec.p, seed=3, count=20))
+    want = cuda_mul.mont_inv_plain(spec, a)
+    for group in cuda_mul.INV_GROUPS:
+        assert torch.equal(cuda_mul._mont_inv(spec, a, group), want)
+    for bad in (0, 1, 3, 8, 32, (2,)):
+        with pytest.raises(ValueError, match="unknown lane group"):
+            cuda_mul._mont_inv(spec, a, bad)
+
+
+@pytest.mark.parametrize("field", FIELDS)
 def test_inv_goes_to_mont_inv_and_keeps_the_batch_shape(field, monkeypatch):
     """DeviceField.inv calls mont_inv (not mont_pow) once, over a 2-d batch,
     and gives its shape back; the wrapper on a CPU tensor is the plain

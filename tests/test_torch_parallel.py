@@ -47,12 +47,29 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 P = BN254_FR.p
 GROUPS = {"w1": (1, None), "w2_sp2": (2, 1), "w4": (4, None)}
 NTT_N, MSM_N, GP_N = 1 << 8, 32, 1 << 9
+# the batched grand product: (16, C, GP_N) at these C, the first C of
+# GP_COLS numpy-seeded columns
+GP_BATCHES, GP_COLS = (1, 4, 8), 8
+# a lookup circuit whose mesh prove makes both batched grand products: 4
+# permutation chunks and 4 lookups at k = 5 (the dryrun's, Random(13))
+LOOKUP_CASE = ("overflow_check_v2", 5, 13)
 # hash_v1 rows (k = 4) whose gate s * (2a - b) is switched on with a = 1:
 # one violated row in the first half of the rows (rank 0's block at
 # sp = 2) and two in the second, so that a rank whose count is dropped or
 # that reads the other's rows changes the total
 PLANTED_ROWS = (3, 9, 14)
 PLANTED = tuple(cell for r in PLANTED_ROWS for cell in (("selector", 0, r, 1), ("advice", 0, r, 1)))
+
+
+def ref_overflow_check_v2():
+    """The reference's overflow_check_v2 circuit as the jobs' ``circuit``
+    builds the port's: 2^16 - 2 + 1."""
+    from halo2_tpu.circuits.overflow_check_v2 import OverflowCheckCircuitV2
+    from halo2_tpu.plonkish import Value
+
+    Fr = ref_field.Fr
+    a, b = Value.known(Fr.from_u64((1 << 16) - 2)), Value.known(Fr.from_u64(1))
+    return OverflowCheckCircuitV2(Fr, a, b)
 
 
 def _inputs():
@@ -77,11 +94,16 @@ def _inputs():
     z = [1] * GP_N
     for r in range(GP_N - 1):
         z[r + 1] = z[r] * nums[r] % P * pow(dens[r], -1, P) % P
+    cols = np.random.default_rng(17).integers(1, 1 << 62, size=(2, GP_COLS, GP_N), dtype=np.int64)
+    num_cols, den_cols = (
+        np.stack([dfr.encode_np([int(v) % P for v in c]) for c in half], axis=1) for half in cols
+    )
     return {
         "x": x, "points": pts, "scalars": scalars, "px": px, "py": py,
         "sc": dfr.encode_np(scalars, to_mont=False),
         "num": dfr.encode_np(nums), "den": dfr.encode_np(dens),
         "nums": nums, "dens": dens, "msm_host": ref_ec.g1_to_ints(acc), "z_host": z,
+        "num_cols": num_cols, "den_cols": den_cols,  # (16, GP_COLS, GP_N)
     }
 
 
@@ -101,6 +123,13 @@ def case(tmp_path_factory):
     proof = ref_kzg.create_proof(
         ref_params, ref_pk, ref_circuit, [list(ref_public)], rng=random.Random(11)
     )
+    name, lk_k, lk_seed = LOOKUP_CASE
+    lk_circuit = ref_overflow_check_v2()
+    lk_params = ref_kzg.ParamsKZG.setup_cached(lk_k)
+    lk_pk = ref_kzg.keygen(lk_params, lk_circuit, lk_k, ref_field.Fr)
+    lk_pk_path = str(tmp_path_factory.mktemp("pk") / f"pk_{name}_k{lk_k}.pkl")
+    lk_pk.save(lk_pk_path)
+    lk_proof = ref_kzg.create_proof(lk_params, lk_pk, lk_circuit, [[]], rng=random.Random(lk_seed))
     job_list = [
         ("ntt", {"x": inp["x"]}),
         ("ntt", {"x": inp["x"], "inverse": True}),
@@ -110,13 +139,18 @@ def case(tmp_path_factory):
         ("pipeline", {"name": "hash_v1", "k": k, "n_points": 16}),
         ("prefix_product", {"x": inp["num"]}),
         ("pipeline", {"name": "hash_v1", "k": k, "n_points": 16, "cells": PLANTED}),
+        *[
+            ("grand_product_z", {"num": inp["num_cols"][:, :c], "den": inp["den_cols"][:, :c]})
+            for c in GP_BATCHES
+        ],
+        ("prove", {"name": name, "k": lk_k, "pk_path": lk_pk_path, "seed": lk_seed}),
     ]
     pool = ThreadPoolExecutor(max_workers=len(GROUPS))
     futures = {
         g: pool.submit(spawn, jobs.run, w, "gloo", "cpu", job_list, dp=dp)
         for g, (w, dp) in GROUPS.items()
     }
-    yield {"inp": inp, "proof": proof, "futures": futures, "k": k}
+    yield {"inp": inp, "proof": proof, "lookup_proof": lk_proof, "futures": futures, "k": k}
     pool.shutdown(wait=True)
 
 
@@ -204,6 +238,49 @@ def test_grand_product_z_matches_reference_and_host(case, ref_gp, group):
     assert [int(v) for v in dfr.decode(torch.from_numpy(want))] == case["inp"]["z_host"]
     for got in _outs(case, group, 3):
         assert np.array_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def ref_gp_cols(case):
+    """The reference's grand_product_z on each of the GP_COLS columns
+    alone, (16, GP_COLS, GP_N)."""
+    import jax.numpy as jnp
+
+    mesh = ref_par.make_mesh(8)
+    inp = case["inp"]
+    return np.stack([
+        np.array(ref_par.grand_product_z(mesh, REF_FR, jnp.asarray(inp["num_cols"][:, c]),
+                                         jnp.asarray(inp["den_cols"][:, c])))
+        for c in range(GP_COLS)
+    ], axis=1)
+
+
+@pytest.mark.parametrize("group", list(GROUPS))
+@pytest.mark.parametrize("batch", range(len(GP_BATCHES)), ids=[f"C{c}" for c in GP_BATCHES])
+def test_batched_grand_product_z_matches_reference_per_column(case, ref_gp_cols, group, batch):
+    """A (16, C, n) batch in one call: each column equals the reference's
+    grand product of that column alone, on every rank."""
+    cols = GP_BATCHES[batch]
+    want = ref_gp_cols[:, :cols].view(np.int32)
+    for rank in case["futures"][group].result(timeout=900):
+        res = rank[8 + batch]
+        assert res["out"].shape == (16, cols, GP_N)
+        assert np.array_equal(res["out"], want)
+
+
+@pytest.mark.parametrize("group", list(GROUPS))
+def test_mesh_prove_batches_its_grand_products(case, group):
+    """A mesh prove makes one sharded grand product for all its permutation
+    chunks and one for all its lookups (overflow_check_v2 at k = 5: 4 and
+    4 columns of 32 rows; hash_v1 at k = 4: 2 chunks, no lookup), and its
+    bytes are the single-device prove's."""
+    name, k, _seed = LOOKUP_CASE
+    for got in _outs(case, group, 8 + len(GP_BATCHES)):
+        assert got["grand_products"] == [(16, 4, 1 << k), (16, 4, 1 << k)]
+        assert got["proof"] == case["lookup_proof"]
+        assert got["verified"]
+    for got in _outs(case, group, 4):
+        assert got["grand_products"] == [(16, 2, 1 << case["k"])]
 
 
 @pytest.mark.parametrize("group", list(GROUPS))
