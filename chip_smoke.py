@@ -56,7 +56,7 @@ passes or raises:
    one's device time per launch beside its throughput bound and its chain
    of dependent products; mont_inv (the inverse as a fixed-count safegcd
    in one launch) at the same sizes and fields and at the sharded
-   flagship's batched 8,192 and 16,384 (INV_BATCHED) against its plain
+   flagship's batched 4,096, 8,192 and 16,384 (INV_BATCHED) against its plain
    version, with inv_plan's lane group and with each of INV_GROUPS, and
    against the mont_pow kernel's a^(p - 2), zero included, timed beside
    mont_pow in this call with its bound, its chain of divsteps and each
@@ -222,9 +222,13 @@ HORNER_REPORT_C, HORNER_REPORT_B = 8, 20
 # JSON line's ms at 2^11
 POW_SIZES = (1, 1 << 10, 1 << 11, 1 << 16)
 POW_REPORT_M = 1 << 11
-# mont_inv also at the sharded W = 1 flagship's two batched launches: its 4
-# permutation chunks and its 8 lookups of 2^11 denominators each
-INV_BATCHED = (4 << 11, 8 << 11)
+# the flagship's grand products: its 4 permutation chunks in one batch, its
+# 8 lookups in another; a prove on a mesh runs one mont_inv launch each
+FLAGSHIP_GRAND_PRODUCTS = (4, 8)
+# mont_inv also at the sharded flagship's batched launches: each batch's
+# columns of 2^11 / W denominators a rank, at W = 1 and W = 2 (4,096, 8,192
+# and 16,384 elements)
+INV_BATCHED = tuple(sorted({(cols << 11) >> w for cols in FLAGSHIP_GRAND_PRODUCTS for w in (0, 1)}))
 # the H100's SM clock (boost), for cycles a divstep from a device time
 SM_HZ = 1.98e9
 # the elements a stage of the sharded flagship's local stage ladders gave
@@ -390,29 +394,9 @@ def phase_build():
             f"(IMAD.MOV not counted)",
             flush=True,
         )
-    for name, loop in _sass_inv_loops(_build.library_path()).items():
-        print(
-            f"[build] SASS {name}, the batch loop ({loop['steps']} divsteps and their matrix products a pass): "
-            f"{loop['n']} instructions, "
-            f"{loop['alu']} on the ALU pipe, {loop['fma']} on the FMA pipe ({loop['wide']} IMAD.WIDE), "
-            f"{loop['shfl']} SHFL, {loop['other']} other; issue at least {loop['issue']} cycles (a warp instruction "
-            f"holds its 16-lane pipe 2 clocks, IMAD.WIDE 4), dependent chain {loop['chain']} cycles at "
-            f"{SASS_LATENCY} a result ({SASS_MIO_LATENCY} a SHFL or LDS): {loop['issue'] / loop['steps']:.1f} / "
-            f"{loop['chain'] / loop['steps']:.1f} cycles a divstep",
-            flush=True,
-        )
     if not host_ok:
         raise RuntimeError("native host engine did not build (g++ missing?)")
     print(f"[build] native host engine: {host_dt:.2f} s (beside the CUDA build)", flush=True)
-
-
-# The SASS model of _sass_inv_loops: a fixed-latency integer result is
-# ready this many clocks after issue, a shuffle's or shared-memory read's
-# this many.
-SASS_LATENCY, SASS_MIO_LATENCY = 4, 24
-SASS_FMA_OPS = ("IMAD", "FFMA", "FMUL", "FADD")
-SASS_ALU_OPS = ("IADD3", "LOP3", "SHF", "SEL", "ISETP", "PLOP3", "LEA", "IABS", "IMNMX", "FSEL", "SGXT", "BMSK",
-                "PRMT", "P2R", "R2P", "VIADD", "IADD", "ULOP3", "UIADD3")
 
 
 @functools.lru_cache(maxsize=None)
@@ -425,77 +409,6 @@ def _sass_text(library) -> str:
     if not os.path.exists(tool):
         return ""
     return subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True, check=True, timeout=300).stdout
-
-
-def _sass_inv_loops(library) -> dict:
-    """The batch loop of each mont_inv kernel in the built library's SASS
-    (the instructions from a backward branch's target to the branch): its
-    instructions by pipe and two lower bounds of its clocks for a warp alone
-    on its scheduler, the issue (2 clocks a warp instruction on the 16-lane
-    ALU or FMA pipe, 4 for IMAD.WIDE, the pipes side by side) and the
-    dependent chain through the registers and predicates the loop writes
-    (SASS_LATENCY a result, SASS_MIO_LATENCY a shuffle or shared-memory
-    read; within one pass).
-    A model for reading the measured cycles against, not a measurement."""
-    import re
-
-    from halo2_tpu_torch.field import cuda_mul
-
-    text = _sass_text(library)
-    funcs, name = {}, None
-    for line in text.splitlines():
-        line = line.strip()
-        if line.startswith("Function :"):
-            fn = line.split(":", 1)[1].strip()
-            name = None
-            if "mont_inv" in fn:
-                g = re.search(r"Li(\d)E", fn)
-                name = f"mont_inv G={g.group(1) if g else '?'} {'cc' if 'CcArith' in fn else 'wide'}"
-                funcs[name] = []
-        elif name and line.startswith("/*") and "*/" in line:
-            addr, rest = line[2:].split("*/", 1)
-            ins = rest.split(";")[0].strip()
-            if ins and not ins.startswith("/*"):
-                funcs[name].append((int(addr, 16), ins))
-    out = {}
-    for name, body in funcs.items():
-        loops = [(addr, int(m.group(1), 16)) for addr, ins in body
-                 for m in [re.search(r"BRA\s+(?:`\(\.L_x_\d+\)\s*)?0x([0-9a-f]+)", ins)] if m and int(m.group(1), 16) < addr]
-        if not loops:
-            continue
-        end, start = max(loops, key=lambda x: x[0] - x[1])
-        loop = [ins for addr, ins in body if start <= addr <= end]
-        ready, chain, n = {}, 0, {"alu": 0, "fma": 0, "wide": 0, "shfl": 0, "other": 0}
-        for ins in loop:
-            pred = re.match(r"@!?(U?P\w+)\s+", ins)
-            op = ins[pred.end():] if pred else ins
-            opcode, _, args = op.partition(" ")
-            base = opcode.split(".")[0]
-            kind = ("shfl" if base == "SHFL" else "fma" if base in SASS_FMA_OPS else "alu" if base in SASS_ALU_OPS
-                    else "other")
-            mio = base in ("SHFL", "LDS")
-            n[kind] += 1
-            if opcode.startswith("IMAD.WIDE"):
-                n["wide"] += 1
-            regs = [r.strip().lstrip("-!|~") for r in args.split(",")]
-            ndst = 2 if base in ("ISETP", "PLOP3", "SHFL") or (len(regs) > 1 and re.fullmatch(r"U?P\d", regs[1] or "")
-                                                           and base in ("IADD3", "LOP3")) else 1
-            dst, src = regs[:ndst], regs[ndst:] + ([pred.group(1)] if pred else [])
-            wide = opcode.startswith("IMAD.WIDE")
-            src = src + [f"R{int(r[1:]) + 1}" for r in src[2:3] if wide and re.fullmatch(r"R\d+", r)]
-            src = [m for tok in src for m in re.findall(r"\bU?[RP]\d+\b", tok)]  # [R30+0x10] reads R30
-            t = max([ready.get(r, 0) for r in src], default=0)
-            t += SASS_MIO_LATENCY if mio else SASS_LATENCY
-            for r in dst + ([f"R{int(dst[0][1:]) + 1}"] if wide and re.fullmatch(r"R\d+", dst[0]) else []):
-                if re.fullmatch(r"U?[RP]\d+", r):
-                    ready[r] = t
-            chain = max(chain, t)
-        issue = max(2 * (n["alu"]), 2 * (n["fma"] + n["wide"]), len(loop))
-        # a batch reads the jump table INV_JUMPS times: the batches a pass
-        reads = sum(1 for ins in loop if re.match(r"(@!?U?P\w+\s+)?LDS", ins))
-        steps = cuda_mul.INV_STEPS * max(1, reads // cuda_mul.INV_JUMPS)
-        out[name] = {"n": len(loop), **n, "issue": issue, "chain": chain, "steps": steps}
-    return out
 
 
 def _sass_counts(library) -> dict:
@@ -1630,7 +1543,9 @@ def _time_inverses(spec, a, m: int, times, bounds) -> None:
     than_pow = f" ({t_pow / t_inv:.1f}x faster than mont_pow's {t_pow:.4f} in this call)" if t_pow else ""
     print(
         f"[kernels] mont_inv bn254_fr m={m}: {t_inv:.4f} ms on the device with inv_plan's G={plan}{than_pow}; "
-        f"throughput bound {inv_bound[0]:.6f} ms ({inv_bound[1]}, {inv_bound[0] / t_inv:.2%} of it); chain "
+        f"throughput bound {inv_bound[0]:.6f} ms ({inv_bound[1]}, {inv_bound[0] / t_inv:.2%} of it; "
+        f"{_inv_bound(m, INV_SLOTS_STEPWISE)[0] / t_inv:.2%} of the step-at-a-time count, {INV_SLOTS_STEPWISE} slots an "
+        f"element); chain "
         f"{inv_chain} dependent divsteps on every lane (and {cuda_mul.INV_BATCHES} matrix applications, one "
         f"product), {t_inv * 1e3 / inv_chain:.4f} us, {t_inv * 1e-3 * SM_HZ / inv_chain:.1f} cycles a divstep{needed}; "
         f"each G: " + "; ".join(sched),
@@ -1638,51 +1553,28 @@ def _time_inverses(spec, a, m: int, times, bounds) -> None:
     )
 
 
-# sweep_inverses: the element counts at which the mont_inv kernel is timed
-# with each G (inv_plan's thresholds come from these)
-INV_SWEEP = (1 << 10, 1 << 11, 1 << 12, 1 << 13, 3 << 12, 1 << 14, 1 << 15, 1 << 16, 1 << 18, 1 << 20)
-
-
-def sweep_inverses(device) -> None:
-    """The mont_inv kernel's device time per launch with each G (BN254 Fr) at every
-    INV_SWEEP size, beside its share of the bound and its cycles a divstep
-    (at SM_HZ), and inv_plan's pick: the sweep INV_PLAN is set from.  Not
-    a phase of main: ``python3 -c 'import chip_smoke as c;
-    c.sweep_inverses(c.phase_device())'``."""
-    import torch
-
-    from halo2_tpu_torch.field import cuda_mul
-    from halo2_tpu_torch.field.params import BN254_FR
-
-    gen = torch.Generator(device=device)
-    gen.manual_seed(17)
-    for m in INV_SWEEP:
-        a = _random_field(BN254_FR, (m,), gen, device)
-        bound, chain = _inv_bound(m)[0], _inv_work(m)[2]
-        cells = []
-        for group in cuda_mul.INV_GROUPS:
-            t = _kernel_device_ms(lambda: cuda_mul._mont_inv(BN254_FR, a, group), "mont_inv_kernel", bound)
-            cells.append(f"G={group} {t:.4f} ms ({bound / t:.2%}, {t * 1e-3 * SM_HZ / chain:.1f} cycles a divstep)")
-        print(f"[sweep] mont_inv m={m}: " + "; ".join(cells) + f"; inv_plan picks G={cuda_mul.inv_plan(m)}", flush=True)
-
-
 def _inv_work(m: int) -> tuple:
     """(bytes, issue slots, chain) of one mont_inv over m elements: each
     element read once and written once; the least instruction issue slots
-    of its fixed-count safegcd (INV_*_SLOTS); the chain is the divsteps
-    every lane runs, one after another (the count does not depend on the
-    data)."""
+    of its fixed-count table-jump safegcd (INV_*_SLOTS); the chain is the
+    divsteps every lane runs, one after another (the count does not depend
+    on the data)."""
     from halo2_tpu_torch.field import cuda_mul
 
-    steps = cuda_mul.INV_BATCHES * cuda_mul.INV_STEPS
-    slots = steps * INV_DIVSTEP_SLOTS + cuda_mul.INV_BATCHES * INV_BATCH_SLOTS + INV_TAIL_SLOTS + IMAD_MUL
-    return 2 * ELEM * m, slots * m, steps
+    singles = cuda_mul.INV_STEPS - cuda_mul.INV_JUMP * cuda_mul.INV_JUMPS
+    batch = cuda_mul.INV_JUMPS * INV_JUMP_SLOTS + singles * INV_DIVSTEP_SLOTS + INV_BATCH_SLOTS
+    slots = cuda_mul.INV_BATCHES * batch + INV_TAIL_SLOTS + IMAD_MUL
+    return 2 * ELEM * m, slots * m, cuda_mul.INV_BATCHES * cuda_mul.INV_STEPS
 
 
-def _inv_bound(m: int) -> tuple:
+def _inv_bound(m: int, slots_per_elem: int | None = None) -> tuple:
     """Least time (ms) of one mont_inv over m elements and what bounds it:
-    its bytes at BYTES_PER_S against its issue slots at 2 x IMAD_PER_S."""
+    its bytes at BYTES_PER_S against its issue slots at 2 x IMAD_PER_S
+    (``slots_per_elem`` in place of _inv_work's count: INV_SLOTS_STEPWISE for
+    the share against the step-at-a-time count)."""
     nbytes, slots, _ = _inv_work(m)
+    if slots_per_elem is not None:
+        slots = slots_per_elem * m
     t_bytes, t_ops = nbytes / BYTES_PER_S * 1e3, slots / (2 * IMAD_PER_S) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -1731,15 +1623,24 @@ def _lane_classes(p, q, qx, qy, valid) -> dict:
 # published memory rate.
 IMAD_MUL, IMAD_SQR = 272, 216
 # The least instruction issue slots of one mont_inv element (csrc/inv.cu),
-# counted low so that the bound is one: 18 a divstep (its two conditions,
-# the conditional adds to g, f, q, r, u, v, the three shifts and zeta's
-# update, with the conditional negations fused into them); 285 a batch's
-# update_de and update_fg (91 products accumulated in 64 bits, IMAD.WIDE at
-# two slots each, and the 30-bit masks and 64-bit shifts of 17 limb steps);
-# 100 for the limb conversions and the normalization; the closing product's
-# IMAD_MUL.  Any 32-bit integer instruction may issue at 4 x 32 lanes a SM a
-# clock (the ALU and the FMA pipe each take half), twice IMAD_PER_S.
-INV_DIVSTEP_SLOTS, INV_BATCH_SLOTS, INV_TAIL_SLOTS = 18, 285, 100
+# counted low so that the bound is one, for one lane holding the whole
+# matrix (a lane group splits the same work): a batch is INV_JUMPS table
+# jumps of INV_JUMP divsteps at 22 slots each (the index 5: zeta clamped
+# both ways, f's and g's low bits, the address; the entry 2 loads, as whole
+# words; 4 products and 2 shifts on (f, g); 8 products on the matrix's two
+# columns; 1 for zeta's affine map), its last single divsteps at 18 each
+# (two conditions, the conditional adds to g, f, q, r, u, v, three shifts
+# and zeta's update, the conditional negations fused into them), and 285
+# for its matrix application (91 products accumulated in 64 bits, IMAD.WIDE
+# at two slots each, and the 30-bit masks and 64-bit shifts of 17 limb
+# steps); 100 for the limb conversions and the normalization; the closing
+# product's IMAD_MUL.  The step-at-a-time safegcd this kernel replaced
+# counted every divstep at 18 slots (16,872 an element, INV_SLOTS_STEPWISE):
+# the shares against that count are printed beside, to compare with its.  Any 32-bit integer instruction may
+# issue at 4 x 32 lanes a SM a clock (the ALU and the FMA pipe each take
+# half), twice IMAD_PER_S.
+INV_JUMP_SLOTS, INV_DIVSTEP_SLOTS, INV_BATCH_SLOTS, INV_TAIL_SLOTS = 22, 18, 285, 100
+INV_SLOTS_STEPWISE = 16_872
 IMAD_PER_S = 132 * 64 * 1.98e9
 BYTES_PER_S = 3.35e12
 ELEM = 64  # bytes of one (16,) int32 field element
@@ -2155,37 +2056,41 @@ def profile_prove(device, params=None, pk=None, warm: int = 1, mesh=None) -> Non
     )
 
 
-def time_proves(device, reps: int = 5) -> list:
-    """Wall times (s) of ``reps`` warm native-commit flagship proves after
-    one warm-up, each ending in a synchronize and equal to the fixture.  It
-    uses only the port's entry points, so it also times an older checkout of
-    the port (scripts/torch_compare.sh), as profile_prove does."""
+def time_proves(device, reps: int = 3) -> dict:
+    """Wall times (s) of ``reps`` warm flagship proves with native commits
+    and ``reps`` with device commits, in turns, after one warm-up of each;
+    each ends in a synchronize and equals the fixture.  Beside each wall,
+    the prove's grand_products phase (PHASE_TIMINGS).  It uses only the
+    port's entry points, so it also times an older checkout of the port
+    (scripts/torch_compare.sh), as profile_prove does.  Prints the times as
+    one JSON object after "[proves] " and returns it."""
     import torch
 
     from halo2_tpu_torch.field import Fr
     from halo2_tpu_torch.kzg import ParamsKZG, ProvingKey, create_proof
+    from halo2_tpu_torch.kzg.prover import PHASE_TIMINGS
 
     circuit, public = _flagship_circuit()
     params = ParamsKZG.setup_cached(11)
     pk = ProvingKey.load(PK_CACHE, circuit, 11, Fr)
     with open(FIXTURE, "rb") as f:
         want = f.read()
-    times = []
+    out = {f"{commit}{key}": [] for commit in ("native", "device") for key in ("", "_grand_products")}
     for rep in range(reps + 1):
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        proof = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7))
-        torch.cuda.synchronize(device)
-        if proof != want:
-            raise AssertionError(f"prove {rep} differs from {FIXTURE}")
-        if rep:
-            times.append(time.perf_counter() - t0)
-    print(
-        f"[proves] {reps} warm native-commit proves (s): {[round(t, 3) for t in times]}; "
-        f"median {statistics.median(times):.3f}",
-        flush=True,
-    )
-    return times
+        for commit in ("native", "device"):
+            PHASE_TIMINGS.clear()
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            proof = create_proof(params, pk, circuit, [list(public)], rng=random.Random(7), commit=commit)
+            torch.cuda.synchronize(device)
+            dt = time.perf_counter() - t0
+            if proof != want:
+                raise AssertionError(f"{commit}-commit prove {rep} differs from {FIXTURE}")
+            if rep:
+                out[commit].append(dt)
+                out[f"{commit}_grand_products"].append(PHASE_TIMINGS["grand_products"])
+    print("[proves] " + json.dumps(out), flush=True)
+    return out
 
 
 def phase_prove(device):
@@ -2820,11 +2725,6 @@ def _sharded_w1(device, params, pk, circuit, public, want, reps: int):
     if verify_proof(params.verifier_params(), pk.vk, proof, [bad]):
         raise AssertionError("sharded prove W=1: the verifier accepted a tampered root")
     return counts, batches, times, transports, phases
-
-
-# the flagship's grand products: its 4 permutation chunks in one batch, its
-# 8 lookups in another; a prove on a mesh runs one mont_inv launch each
-FLAGSHIP_GRAND_PRODUCTS = (4, 8)
 
 
 def _expect_inv_launches(path: str, launches: int, proves: int) -> None:

@@ -360,7 +360,7 @@ INV_LIMBS, INV_BATCHES, INV_STEPS = 9, 20, 30
 _M30, _M32 = (1 << 30) - 1, (1 << 32) - 1
 # the kernel's schedules, G = 2 or 4 lanes of a warp an element
 # (csrc/inv.cu); inv_plan's rule, (most elements, G), measured on one H100
-# with chip_smoke.sweep_inverses (PERF.md): G = 4 up to 2^12 elements, G = 2
+# with scripts/inv_probe.py's sweep (PERF.md): G = 4 up to 2^12 elements, G = 2
 # above (faster at 2^13-2^20 than G = 4 and than one thread an element)
 INV_GROUPS = (2, 4)
 INV_PLAN = ((1 << 12, 4),)

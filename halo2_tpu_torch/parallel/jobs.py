@@ -14,7 +14,6 @@ table, and ``chip_smoke.py`` counts each of its paths with them.
 
 from __future__ import annotations
 
-import contextlib
 import time
 
 import numpy as np
@@ -117,26 +116,6 @@ def _grand_product_z(mesh, device, num, den):
     return _np(grand_product_z(mesh, BN254_FR, _tensor(num, device), _tensor(den, device)))
 
 
-@contextlib.contextmanager
-def _recorded_grand_products(shapes: list):
-    """Append the shape of each :func:`.scan.grand_product_z` call's num to
-    ``shapes`` while the block runs (``ShardedEngine`` looks the function
-    up at each call)."""
-    from . import scan
-
-    real = scan.grand_product_z
-
-    def record(mesh, spec, num, den, axis="sp"):
-        shapes.append(tuple(num.shape))
-        return real(mesh, spec, num, den, axis=axis)
-
-    scan.grand_product_z = record
-    try:
-        yield
-    finally:
-        scan.grand_product_z = real
-
-
 def _prove(mesh, device, name, k, pk_path, seed, reps=1, verify=True):
     """``reps`` proves with ``random.Random(seed)`` each; returns the last
     proof, whether every proof was the same, each prove's wall time, the
@@ -149,6 +128,7 @@ def _prove(mesh, device, name, k, pk_path, seed, reps=1, verify=True):
     from ..kzg import ParamsKZG, ProvingKey, create_proof, verify_proof
 
     from ..kzg.prover import PHASE_TIMINGS
+    from .scan import GRAND_PRODUCT_CALLS
 
     c, instances = circuit(name)
     params = ParamsKZG.setup_cached(k)
@@ -156,16 +136,15 @@ def _prove(mesh, device, name, k, pk_path, seed, reps=1, verify=True):
     proofs, times = [], []
     for _ in range(reps):
         PHASE_TIMINGS.clear()
-        shapes = []
+        GRAND_PRODUCT_CALLS.clear()
         _sync(device)
         t0 = time.perf_counter()
-        with _recorded_grand_products(shapes):
-            proofs.append(create_proof(params, pk, c, instances, rng=random.Random(seed), mesh=mesh))
+        proofs.append(create_proof(params, pk, c, instances, rng=random.Random(seed), mesh=mesh))
         _sync(device)
         times.append(time.perf_counter() - t0)
     out = {
         "proof": proofs[-1], "same": len(set(proofs)) == 1, "times": times, "phases": dict(PHASE_TIMINGS),
-        "grand_products": shapes,
+        "grand_products": list(GRAND_PRODUCT_CALLS),
     }
     if verify:
         out["verified"] = verify_proof(params.verifier_params(), pk.vk, proofs[-1], instances)

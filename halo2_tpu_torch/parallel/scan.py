@@ -22,6 +22,11 @@ from ..field.device import get_device_field
 from . import comm
 from .mesh import axis_index, axis_size
 
+# The shape of each grand_product_z call's num, in call order: a sharded
+# prove makes one call for its permutation chunks and one for its lookups
+# (parallel.jobs clears and reads it around each prove).
+GRAND_PRODUCT_CALLS: list = []
+
 
 def _prefix_product_local(df, x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix product along the last axis of a ``(16, m)`` or
@@ -73,6 +78,7 @@ def grand_product_z(mesh, spec, num: torch.Tensor, den: torch.Tensor, axis: str 
     if num.shape != den.shape or num.dim() not in (2, 3):
         raise ValueError(f"grand_product_z: num and den must be one (16, n) or (16, C, n) shape, "
                          f"got {tuple(num.shape)} and {tuple(den.shape)}")
+    GRAND_PRODUCT_CALLS.append(tuple(num.shape))
     df = get_device_field(spec)
     rows = _block(mesh, axis, num.shape[-1])
     ratio = df.mul(num[..., rows].contiguous(), df.inv(den[..., rows].contiguous()))

@@ -5,10 +5,13 @@
 # tree, this chip_smoke.py loaded by path from the old tree's root so that
 # the old package is the one profiled.  The logs go to the directory given
 # second (default .chip_scratch/compare, gitignored); the lines that carry
-# the end-to-end numbers are printed.  Last, warm native-commit proves
-# (chip_smoke.time_proves, five a process) from each tree in turns: old,
-# new, new, old, old, new.  With "proves" as the third argument only those
-# run; with "kernels", chip_smoke.compare_kernels (kernel device times
+# the end-to-end numbers are printed.  Last, ten pairs of processes, one
+# from each tree, the old tree first in odd pairs and second in even ones,
+# each timing three warm native-commit and three warm device-commit proves
+# in turns with their grand_products phase (chip_smoke.time_proves); a
+# summary of the process medians follows (scripts/prove_pairs.py).  With
+# "proves" as the third argument only those run; with "kernels",
+# chip_smoke.compare_kernels (kernel device times
 # through calls both trees have) in turns old / new / new / old, then one
 # profiled warm native-commit and one W = 1 sharded prove from each tree
 # (profile_prove, profile_sharded_prove), then the proves.  From the
@@ -64,12 +67,15 @@ if [ -n "$RUNS" ] || [ "$MODE" = kernels ]; then
   timeout 300 python3 -c "$PROF" > "$OUT/profile_change.log" 2>&1; echo "profile change rc=$?"
   grep profile "$OUT/profile_change.log" | cut -c1-1500
 fi
-i=0
-for run in parent change change parent parent change; do
-  i=$((i + 1))
-  case $run in
-    parent) (cd "$OLD" && timeout 300 python3 -c "$PROVES" > "$OUT/proves$i.log" 2>&1); rc=$? ;;
-    change) timeout 300 python3 -c "$PROVES" > "$OUT/proves$i.log" 2>&1; rc=$? ;;
-  esac
-  echo "proves $i $run rc=$rc $(grep '^\[proves\]' "$OUT/proves$i.log")"
+for pair in 1 2 3 4 5 6 7 8 9 10; do
+  if [ $((pair % 2)) = 1 ]; then order="parent change"; else order="change parent"; fi
+  for run in $order; do
+    log="$OUT/proves_${pair}_$run.log"
+    case $run in
+      parent) (cd "$OLD" && timeout 300 python3 -c "$PROVES" > "$log" 2>&1); rc=$? ;;
+      change) timeout 300 python3 -c "$PROVES" > "$log" 2>&1; rc=$? ;;
+    esac
+    echo "proves pair $pair $run rc=$rc $(grep '^\[proves\]' "$log")"
+  done
 done
+python3 "$ROOT/scripts/prove_pairs.py" "$OUT"

@@ -334,12 +334,13 @@ def test_mont_inv_kernel_matches_plain(device, spec, m):
 
 @pytest.mark.parametrize("spec", [BN254_FR, PASTA_FP], ids=lambda s: s.name)
 @pytest.mark.parametrize("group", cuda_mul.INV_GROUPS, ids=lambda g: f"G{g}")
-@pytest.mark.parametrize("m", [1, 3, 5, (1 << 11) - 1, 1 << 11, 8192, 16384, 1 << 16])
+@pytest.mark.parametrize("m", [1, 3, 5, (1 << 11) - 1, 1 << 11, 4096, 8192, 16384, 1 << 16])
 def test_mont_inv_groups_match_plain(device, spec, group, m):
     """The mont_inv kernel with each G lanes an element, forced, at the
     sizes a group leaves ragged, the sharded grand product's 2^11 and
-    batched 8,192 and 16,384, and setup's 2^16: one launch a call, the
-    plain version's limbs (0, 1, p - 1 and p - 2 first)."""
+    batched 4,096 (a W = 2 rank's chunks), 8,192 and 16,384, and setup's
+    2^16: one launch a call, the plain version's limbs (0, 1, p - 1 and
+    p - 2 first)."""
     a = _encoded(spec, m, 11, device)
     before = cuda_mul.LAUNCHES["mont_inv"]
     got = cuda_mul._mont_inv(spec, a, group)
