@@ -37,7 +37,9 @@ passes or raises:
    reading below the kernel's bound is taken again, then fails); mod_add
    and mod_sub (and the negation, a subtract from a broadcast zero) for
    BN254 Fr, BN254 Fq and Pasta Fp at the same m, the 16 pairs of edge
-   values first, with a broadcast element on either side; the expression VM
+   values first, with a broadcast element on either side; mont_sqr,
+   mod_add and mod_sub at the k = 16 setup's 2^16 BN254 Fq lanes, each
+   timed beside its bound; the expression VM
    (vm_eval, one launch per program) on the flagship's quotient program at
    its 2^15 rows (rot_scale 16: the 2042 rotation wraps; the challenges as
    stride-0 views), the Poseidon experiment's gates (Pasta Fp; also at
@@ -62,7 +64,9 @@ passes or raises:
    mont_pow in this call with its bound, its chain of divsteps and each
    lane group's cycles a divstep; the
    device MSM's window-sum kernels, msm_chunk_acc (a batch's intra-chunk
-   rounds in one launch) and jac_suffix_scan (the cross-chunk suffix scan
+   rounds in one launch, in the schedule acc_plan picks and in each of
+   ACC_SCHEDULES forced, every one held limb for limb, each forced one
+   timed at ACC_SCHEDULES_TIMED) and jac_suffix_scan (the cross-chunk suffix scan
    in the schedule scan_plan picks, and in each of SCAN_SCHEDULES forced
    at every level, timed at the flagship's batches), on the batches of
    MSM_CASES (the flagship's
@@ -201,6 +205,9 @@ MUL_SIZES = (1, 511, 513, 1 << 11, 1 << 15, 1 << 20)
 # and 2^20
 JAC_SIZES = (1, 32, 128, 2816, 1 << 11, 1 << 13, 1 << 14, 1 << 15, 180224, 1 << 20)
 TIMED_SIZES = (1 << 11, 1 << 15, 1 << 20)
+# the lanes of ParamsKZG.setup(16)'s scalar_mul_batched: the one path that
+# launches mont_sqr, mod_add and mod_sub by the thousand
+SETUP_LANES = 1 << 16
 # the coset NTT batch of the flagship prove: 20 advice, 11 fixed, 7 selector,
 # 1 instance, 4 permutation z, 24 lookup and 16 sigma columns
 FLAGSHIP_C = 83
@@ -258,6 +265,10 @@ MSM_REPORT = (1 << 11, 20)
 # the points at which phase 2 times the scan in each of its schedules: the
 # flagship prove's batches (elsewhere, scan_plan's schedule alone)
 SCHEDULES_TIMED_N = 1 << 11
+# the (points, sets) batches at which phase 2 times msm_chunk_acc in each of
+# its schedules (elsewhere, acc_plan's alone): the flagship's batches of 1,
+# 4 and 20 sets and the 2^16 MSM
+ACC_SCHEDULES_TIMED = ((1 << 11, 1), (1 << 11, 4), (1 << 11, 20), (1 << 16, 1))
 # the scan also at chunk counts no path gives it: one chunk, a tile's 256
 # plus one (two tiles, a ragged one), and three tiles and a bit
 SCAN_RAGGED = (1, 2, 65, 257, 700)
@@ -429,7 +440,8 @@ def _sass_counts(library) -> dict:
         if line.startswith("Function :"):
             fn = line.split(":", 1)[1].strip()
             kernels = ("jac_madd_wide", "jac_madd_narrow", "jac_add_wide", "jac_add_narrow", "jac_horner", "mont_pow",
-                       "mont_inv", "mul_chain", "jac_suffix_scan_cluster", "jac_suffix_scan_coarse")
+                       "mont_inv", "mul_chain", "jac_suffix_scan_cluster", "jac_suffix_scan_coarse",
+                       "msm_chunk_acc_group", "msm_chunk_acc_thread")
             name = next((k for k in kernels if k in fn), None)
             if name == "mont_inv":
                 g = re.search(r"Li(\d)E", fn)
@@ -520,6 +532,8 @@ def phase_kernels(device):
 
     _check_field_ops(device, gen, err, times)
 
+    _time_setup_field_ops(device, gen, err)
+
     classes = _check_jac_kernels(device, err, times)
 
     _check_ntt_kernels(device, gen, err, times)
@@ -540,6 +554,41 @@ def phase_kernels(device):
             flush=True,
         )
     return err, times, {**_bounds(classes, REPORT_SIZE), "vm_eval": vm_bound, **ladder_bounds, **msm_bounds}
+
+
+def _time_setup_field_ops(device, gen, err) -> None:
+    """mont_sqr, mod_add and mod_sub at the only shape a path launches them
+    in a number (SETUP_LANES BN254 Fq elements: ParamsKZG.setup(16)'s
+    scalar_mul_batched): each equal to its plain version, and its device
+    time per launch beside its bound, with L2 cold (a 64 MiB buffer written
+    before each launch: the bound reads from device memory) and warm (the
+    operands left in L2 by the launch before, as the setup's chain of ops
+    finds them; the 4-12 MiB fit the 50 MB L2, so a warm launch may beat
+    the bound, which then is no floor)."""
+    import torch
+
+    from halo2_tpu_torch.field import cuda_ops
+    from halo2_tpu_torch.field.cuda_mul import mont_sqr, mont_sqr_plain
+    from halo2_tpu_torch.field.params import BN254_FQ
+
+    spec, m = BN254_FQ, SETUP_LANES
+    a, b = _random_field(spec, (m,), gen, device), _random_field(spec, (m,), gen, device)
+    flush = torch.empty(1 << 24, dtype=torch.int32, device=device)
+    ops = {
+        "mont_sqr": (lambda: mont_sqr(spec, a), lambda: mont_sqr_plain(spec, a)),
+        "mod_add": (lambda: cuda_ops.mod_add(spec, a, b), lambda: cuda_ops.mod_add_plain(spec, a, b)),
+        "mod_sub": (lambda: cuda_ops.mod_sub(spec, a, b), lambda: cuda_ops.mod_sub_plain(spec, a, b)),
+    }
+    shares = []
+    for name, (kernel, plain) in ops.items():
+        err[name] = max(err[name], _max_abs_err(f"{name} {spec.name} m={m}", kernel(), plain()))
+        bound = _bound(*_field_work(m)[name])
+        cold = _kernel_device_ms(lambda: (flush.fill_(1), kernel()), f"{name}_kernel", bound[0])
+        warm = _kernel_device_ms(kernel, f"{name}_kernel", 0.0)
+        shares.append(f"{name} {cold:.4f} ms cold ({bound[0] / cold:.1%} of the bound {bound[0]:.6f} ms, "
+                      f"{bound[1]}), {warm:.4f} ms warm")
+    print(f"[kernels] {spec.name} m=2^{m.bit_length() - 1} (the k = 16 setup's lanes), equal to plain: "
+          + "; ".join(shares), flush=True)
 
 
 def _mul_columns_work(n: int, cols: int, b_elems: int) -> tuple:
@@ -1230,8 +1279,11 @@ def _check_scan_schedules(s, label: str, err: dict) -> None:
 
 
 def _check_msm_kernels(device, gen, err, times) -> dict:
-    """msm_chunk_acc and jac_suffix_scan against their plain versions, limb for limb, at every MSM_CASES batch, with each
-    one's device time a call beside its bound and its chain; exception
+    """msm_chunk_acc (in acc_plan's schedule and in each of ACC_SCHEDULES
+    forced, each forced one timed at ACC_SCHEDULES_TIMED) and
+    jac_suffix_scan against their plain versions, limb for limb, at every
+    MSM_CASES batch, with each one's device time a call beside its bound
+    and its chain; exception
     lanes at the flagship's one-set batch (a (0, 0) point, a y = 0 point, a
     chunk adding one point twice (P == Q), one adding a point and its
     negative (P == -Q), one adding a y = 0 point eight times, one starting
@@ -1261,23 +1313,40 @@ def _check_msm_kernels(device, gen, err, times) -> dict:
             rows, q, chunks = order.shape
             label = f"n=2^{n.bit_length() - 1} B={sets} ({rows} rows x {chunks} chunks x {q})"
             for tag, cpx, cpy, corder, csign in reversed(cases):  # the general batch last: its results stay
-                got = cuda_jac.msm_chunk_acc_cuda(cpx, cpy, corder, csign)
                 want = cuda_jac.msm_chunk_acc_plain(cpx, cpy, corder, csign)
-                for what, g, w in zip(("sfx", "tot"), got, want):
-                    err["msm_chunk_acc"] = max(err["msm_chunk_acc"], _max_abs_err(f"msm_chunk_acc {label}{tag} {what}", g, w))
+                for schedule in (None,) + cuda_jac.ACC_SCHEDULES:
+                    got = cuda_jac.msm_chunk_acc_cuda(cpx, cpy, corder, csign, schedule)
+                    for what, g, w in zip(("sfx", "tot"), got, want):
+                        err["msm_chunk_acc"] = max(
+                            err["msm_chunk_acc"],
+                            _max_abs_err(f"msm_chunk_acc {label}{tag} {schedule or 'acc_plan'} {what}", g, w),
+                        )
             nbytes, imads = _chunk_acc_work(px, order, want[0][2])
             del want
             bound = _bound(nbytes, imads)
             kernel = lambda: cuda_jac.msm_chunk_acc_cuda(px, py, order, sign)  # noqa: E731
-            t_d = _kernel_device_ms(kernel, "msm_chunk_acc_kernel", bound[0])
+            plan = cuda_jac.acc_plan(rows, chunks)
+            t_d = _kernel_device_ms(kernel, f"msm_chunk_acc_{plan}_kernel", bound[0])
+            each = {}
+            if (n, sets) in ACC_SCHEDULES_TIMED:
+                each = {
+                    schedule: _kernel_device_ms(
+                        lambda: cuda_jac.msm_chunk_acc_cuda(px, py, order, sign, schedule),
+                        f"msm_chunk_acc_{schedule}_kernel", bound[0],
+                    )
+                    for schedule in cuda_jac.ACC_SCHEDULES
+                }
             if (n, sets) == MSM_REPORT:
                 bounds["msm_chunk_acc"] = bound
                 times[("msm_chunk_acc", MSM_REPORT)] = (
                     _ms_per_call(kernel, 20), _ms_per_call(lambda: cuda_jac.msm_chunk_acc_plain(px, py, order, sign), 1, runs=3),
                 )
             print(
-                f"[kernels] msm_chunk_acc {label}: equal to plain; {t_d:.4f} ms on the device, bound {bound[0]:.6f} ms "
-                f"({bound[1]}, {bound[0] / t_d:.1%} of it); chain {q} dependent madds a lane",
+                f"[kernels] msm_chunk_acc {label}: every schedule equal to plain; acc_plan's {plan} {t_d:.4f} ms on "
+                f"the device, bound {bound[0]:.6f} ms ({bound[1]}, {bound[0] / t_d:.1%} of it); chain {q} dependent "
+                "madds a lane"
+                + ("; each schedule: " + ", ".join(f"{k} {v:.4f} ms ({bound[0] / v:.1%})" for k, v in each.items())
+                   if each else ""),
                 flush=True,
             )
             tot = got[1]
@@ -2550,8 +2619,9 @@ def compare_kernels(device) -> None:
     summed over the call's launches of every kernel (copies included); the flagship's
     83 x 2^15 coset scale through poly.domain._mul_columns, per call (CUDA
     events) and its device time summed over the call's launches; jac_horner
-    at every (c, lanes) of HORNER_CASES; jac_suffix_scan at every MSM_CASES
-    batch (its launches summed a call); jac_madd and jac_add, both
+    at every (c, lanes) of HORNER_CASES; msm_chunk_acc (the schedule each
+    tree picks; torch.profiler, the median launch) and jac_suffix_scan (its
+    launches summed a call) at every MSM_CASES batch; jac_madd and jac_add, both
     variants, at every JAC_SIZES width (_check_jac_kernels); the device MSM
     with its Horner (ec.device._msm_raw) over 1 and 16 scalar sets at 2^11
     points and one set at 2^16, per call and on the device over all its
@@ -2649,6 +2719,13 @@ def compare_kernels(device) -> None:
     for n, batches in MSM_CASES:
         for sets in batches:
             px, py, order, sign = _msm_batch(device, gen, n, sets)
+            acc = _kernel_device_ms(lambda: cuda_jac.msm_chunk_acc_cuda(px, py, order, sign), "msm_chunk_acc", 0.0)
+            rows, q, chunks = order.shape
+            print(
+                f"[compare] msm_chunk_acc n=2^{n.bit_length() - 1} B={sets} ({rows} rows x {chunks} chunks x {q}): "
+                f"{acc:.4f} ms on the device",
+                flush=True,
+            )
             tot = cuda_jac.msm_chunk_acc_cuda(px, py, order, sign)[1]
             ms, launches = _scan_call_ms(tot)
             print(

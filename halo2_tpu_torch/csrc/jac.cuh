@@ -111,9 +111,11 @@ __device__ __forceinline__ void add_tail(const uint32_t rr[WORDS], const uint32_
   cc::sub(t, u, M, y3);
 }
 
-// p + (qx, qy), madd-2007-bl: 7 multiplies and 4 squares.  (qx, qy) is a
-// finite affine point (z = 1); p at infinity gives (qx, qy, 1), P == Q the
-// doubling of p, P == -Q z = 0.
+// p + (qx, qy), madd-2007-bl: 8 multiplies and 3 squares, z3 taken as 2 z1 h
+// (the plain versions' (z1 + h)^2 - z1z1 - h^2: the same field element, and
+// z1, z1z1 and h^2 need not live to the end).  (qx, qy) is a finite affine
+// point (z = 1); p at infinity gives (qx, qy, 1), P == Q the doubling of p,
+// P == -Q z = 0.
 template <class P, class O>
 __device__ __forceinline__ void jac_madd_into(const P& p, const uint32_t qx[WORDS], const uint32_t qy[WORDS],
                                               const ModulusOne& C, const O& out) {
@@ -141,6 +143,9 @@ __device__ __forceinline__ void jac_madd_into(const P& p, const uint32_t qx[WORD
     jac_dbl_into(x1, y1, z1, M, out);
     return;
   }
+  cc::mul(z1, h, M, t);  // z3 = 2 z1 h; p's z is not read again
+  cc::dbl(t, M, t);
+  out.store(2, t);
   cc::sqr(h, M, hh);
   cc::dbl(hh, M, i4);
   cc::dbl(i4, M, i4);
@@ -150,11 +155,6 @@ __device__ __forceinline__ void jac_madd_into(const P& p, const uint32_t qx[WORD
   add_tail(rr, j, v, y1, M, x3, y3);
   out.store(0, x3);
   out.store(1, y3);
-  cc::add(z1, h, M, t);  // z3 = (z1 + h)^2 - z1z1 - hh
-  cc::sqr(t, M, t);
-  cc::sub(t, z1z1, M, t);
-  cc::sub(t, hh, M, u);
-  out.store(2, u);
 }
 
 // p + q, complete: p or q at infinity returns the other (q is checked
@@ -231,12 +231,19 @@ __device__ __forceinline__ void jac_add_into(const P& p, const Q& q, const Modul
 // in every thread of its group: at each level of a formula every thread runs
 // the same product on the operands its rank g in the group picks (selects,
 // not branches, so the warp never diverges), and the group trades the
-// results by __shfl_sync.  A doubling's chain is 3 products, an add's 5,
-// against 7 and 16 in one thread; the values are those of jac_dbl_into and
-// jac_add_into, so a kernel on either equals the plain versions limb for
-// limb.  Every thread of a warp must call them together (the shuffles and
-// the P == Q vote span the warp).  jac.cu's jac_horner and msm.cu's
-// cluster scan run on them.
+// results by __shfl_sync.  A doubling's chain is 3 products, an add's 5, a
+// mixed add's 4 (its adds and subtracts spread over the ranks too),
+// against 7, 16 and 11 in one thread; the values are those of
+// jac_dbl_into, jac_add_into and jac_madd_into, so a kernel on them equals
+// the plain versions limb for limb.  Every thread of a warp must call them
+// together (the shuffles and the P == Q vote span the warp).  jac.cu's
+// jac_horner and msm.cu's cluster scan run on the first two, msm.cu's
+// group schedule of msm_chunk_acc on the mixed add.  What it buys: a lane's
+// chain of dependent products is 4 instead of 11, for 16 products issued a
+// lane instead of 11, so a launch whose lanes leave the card half idle (one
+// scalar set's 8,192 chunks) gets four times the warps and a shorter
+// chain, and one whose lanes already fill the IMAD pipes is better off on
+// one thread a lane.
 constexpr int GROUP = 4;
 
 // r = v of the group's thread src, in every thread of the group.
@@ -373,6 +380,122 @@ __device__ __forceinline__ void add_group(int g, uint32_t x1[WORDS], uint32_t y1
       x1[k] = 0;
       y1[k] = K.one[k];
       z1[k] = 0;
+    } else {
+      x1[k] = x3[k];
+      y1[k] = y3[k];
+      z1[k] = z3[k];
+    }
+  }
+}
+
+// (x1, y1, z1) = (x1, y1, z1) + (qx, qy) over the group, (qx, qy) a finite
+// affine point: madd-2007-bl in four levels of products, and the adds and
+// subtracts between them spread over the ranks as well, one of a kind a
+// step (each rank the same instruction on the operands it picks, or
+// receives by a shuffle from the rank that holds them):
+//   L1 z1^2 | qy z1 | qx y1 | -              (2 x1 on every rank)
+//   L2 u2 = qx z1z1 | s2 = qy z1 z1z1 | t = qx y1 z1z1 | x1 y1
+//   A  h = u2 - x1 | s2 - y1 | h y1 = t - x1 y1 | h
+//   B  w = u2 + 2 x1 | rr = 2 (s2 - y1) | 2 h y1 | 2 h
+//   L3 i = (2 h)^2 | rr^2 | rr w | z3 = z1 (2 h)
+//   E  - | - | b = rr w - 2 h y1 | -
+//   L4 j = h i | 2 v = (2 x1) i | i b | rr rr^2
+//   G  - | rr^2 - j | y3 = i b - rr^3 | -
+//   H  - | x3 = rr^2 - j - 2 v | - | -
+// then x3, y3 and z3 go to every rank.  jac_madd_into's i = 4 h^2, y3 =
+// rr (v - x3) - 2 y1 j = 3 rr v - rr^3 + j (rr - 2 y1) = i b - rr^3 (w = 3
+// x1 + h) and z3 = (z1 + h)^2 - z1z1 - h^2 = 2 z1 h rearranged: the same
+// field elements, so the same canonical limbs.  Exceptions as
+// jac_madd_into: p at infinity gives (qx, qy, 1), P == Q the doubling of p,
+// P == -Q z3 = 0 with x3 = rr^2 and y3 = -rr^3.  A thread issues 4 products
+// and 6 adds or subtracts a madd, against 11 and 16 in one thread.
+__device__ __forceinline__ void madd_group(int g, uint32_t x1[WORDS], uint32_t y1[WORDS], uint32_t z1[WORDS],
+                                           const uint32_t qx[WORDS], const uint32_t qy[WORDS],
+                                           const ModulusOne& K) {
+  const Modulus& M = K.M;
+  uint32_t a[WORDS], b[WORDS], pr[WORDS], o[WORDS];
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {
+    a[k] = g == 1 ? qy[k] : g == 2 ? qx[k] : z1[k];
+    b[k] = g == 2 ? y1[k] : z1[k];
+  }
+  cc::mul(a, b, M, pr);  // L1
+  uint32_t x2[WORDS];
+  cc::add(x1, x1, M, x2);
+  from(pr, 0, o);  // z1z1
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {
+    a[k] = g == 0 ? qx[k] : g == 3 ? x1[k] : pr[k];
+    b[k] = g == 3 ? y1[k] : o[k];
+  }
+  cc::mul(a, b, M, pr);  // L2
+  from(pr, g == 2 ? 3 : g == 3 ? 0 : g, o);  // u2 | s2 | x1 y1 | u2
+  uint32_t ra[WORDS], rb[WORDS];
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {
+    a[k] = g == 2 ? pr[k] : o[k];
+    b[k] = g == 1 ? y1[k] : g == 2 ? o[k] : x1[k];
+  }
+  cc::sub(a, b, M, ra);  // A
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {
+    a[k] = g == 0 ? o[k] : ra[k];
+    b[k] = g == 0 ? x2[k] : ra[k];
+  }
+  cc::add(a, b, M, rb);  // B
+  const bool h_zero = __shfl_sync(0xFFFFFFFFu, is_zero(ra), 0, GROUP);
+  const bool r_zero = __shfl_sync(0xFFFFFFFFu, is_zero(rb), 1, GROUP);
+  uint32_t rr[WORDS];
+  from(rb, g == 0 ? 3 : 1, rr);  // 2 h | rr | rr | rr
+  from(rb, 0, o);                // w
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {
+    a[k] = g == 3 ? z1[k] : rr[k];
+    b[k] = g == 2 ? o[k] : g == 3 ? rb[k] : rr[k];
+  }
+  cc::mul(a, b, M, pr);  // L3
+  uint32_t p3[WORDS], e[WORDS];
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) p3[k] = pr[k];  // rr^2 on rank 1, z3 on rank 3
+  cc::sub(pr, rb, M, e);  // E
+  from(pr, g == 3 ? 1 : 0, o);  // i | i | i | rr^2
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {
+    a[k] = g == 0 ? ra[k] : g == 1 ? x2[k] : g == 2 ? o[k] : rr[k];
+    b[k] = g == 2 ? e[k] : o[k];
+  }
+  cc::mul(a, b, M, pr);  // L4
+  from(pr, g == 1 ? 0 : 3, o);  // - | j | rr^3 | -
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) a[k] = g == 1 ? p3[k] : pr[k];
+  cc::sub(a, o, M, b);   // G
+  cc::sub(b, pr, M, a);  // H
+  uint32_t x3[WORDS], y3[WORDS], z3[WORDS];
+  from(a, 1, x3);
+  from(b, 2, y3);
+  from(p3, 3, z3);
+  const bool p_inf = is_zero(z1);
+  const bool same = !p_inf && h_zero && r_zero;
+  uint32_t dx[WORDS], dy[WORDS], dz[WORDS];
+  if (__any_sync(0xFFFFFFFFu, same)) {  // uniform over the warp: the shuffles need every thread
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) {
+      dx[k] = x1[k];
+      dy[k] = y1[k];
+      dz[k] = z1[k];
+    }
+    dbl_group(g, dx, dy, dz, K);
+  }
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {
+    if (p_inf) {  // (qx, qy, 1)
+      x1[k] = qx[k];
+      y1[k] = qy[k];
+      z1[k] = K.one[k];
+    } else if (same) {  // P == Q
+      x1[k] = dx[k];
+      y1[k] = dy[k];
+      z1[k] = dz[k];
     } else {
       x1[k] = x3[k];
       y1[k] = y3[k];

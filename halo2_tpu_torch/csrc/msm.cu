@@ -15,7 +15,7 @@
 //   stores are coalesced (chunk-major, every store of a warp touched 32
 //   sectors, left half-written in L2 from round to round: 8-14 % of the
 //   bound, PERF.md); the points come as one (n, 32) table, a point's 128
-//   bytes in eight 16-byte loads.
+//   bytes in eight 16-byte pieces.
 // - jac_suffix_scan: the exclusive suffix sums of each row's C chunk totals,
 //   out[i] = sum_{j > i} in[j], infinity at C - 1.  Replaces the reference's
 //   _excl_suffix_scan (halo2_tpu/ec/device.py:359: a sequential fori_loop of
@@ -35,9 +35,27 @@
 // ((k * 16 + j) * ld + e); Montgomery form over BN254 Fq; z == 0 marks
 // infinity.
 //
-// What bounds them.  msm_chunk_acc: the IMADs of its R C (q - 1) mixed adds
-// (a lane's chain is q dependent adds; the gathers are random: the entries
-// are sorted by digit).  jac_suffix_scan, measured on the H100 (PERF.md):
+// What bounds them.  msm_chunk_acc: the IMADs of its R C (q - 1) mixed adds,
+// in chains of q dependent adds a lane; the gathers are random (the entries
+// are sorted by digit), so each lane fetches its point ACC_STAGES rounds
+// ahead into shared memory with cp.async, and the gather leaves the chain.
+// Two schedules (ec/cuda_jac.py:acc_plan picks one from the lane count, by
+// thresholds measured on the card; PERF.md):
+// - few lanes (a scalar set at 2^11 is 32 rows of 256 chunks: 8,192 lanes,
+//   64 blocks of one thread a lane, one warp on a scheduler of half the
+//   SMs, 5.6 us a round): the chain.  A lane runs on a group of four
+//   threads (jac.cuh: madd_group, four levels of products instead of a
+//   chain of 11), four times the warps: a round takes 2.9 us with one warp
+//   on a scheduler and 3.8 us with the two of one set, where the warps
+//   share the scheduler's IMAD and ALU pipes.
+// - many lanes (2-20 sets, the 2^16 and 2^18 windows): the IMAD pipes,
+//   which a group's 16 products a madd load more than one thread's 11.  A
+//   thread a lane, 128 a block at 126 registers, four blocks an SM: 67,584
+//   lanes a wave, so 8 and 16 sets (65,536, 131,072) take whole waves
+//   (three blocks an SM left 8 sets 1.3 waves); where three an SM leave
+//   the fuller last wave (2^10 points at 20 sets) the launch holds three
+//   (thread_blocks_sm).
+// jac_suffix_scan, measured on the H100 (PERF.md):
 // one thread's complete add is one serial stream of ~2,800 IMAD.WIDE on
 // PTX carry chains (field_cc.cuh), ~8 us, and one warp a scheduler already
 // keeps that scheduler's IMAD pipe busy, so a step's time grows with the
@@ -77,7 +95,6 @@ using namespace h2t;
 
 namespace {
 
-constexpr int ACC_THREADS = 128;
 constexpr int CLUSTER_CHUNKS = 32;  // the chunks a block of the cluster scan holds
 constexpr int CLUSTER_THREADS = GROUP * CLUSTER_CHUNKS;
 constexpr int CLUSTER_MAX = 8;  // its blocks a cluster: tiles of up to 256 chunks
@@ -85,48 +102,219 @@ constexpr int CLUSTER_BLOCKS_SM = 3;  // blocks an SM: 168 registers a thread
 constexpr int COARSE_MAX_THREADS = 256;  // the most threads a block of the coarsened scan has
 constexpr int OFFSET_THREADS = 128;
 
-// x and y of point i of a (n, 32) table (x's 16 limbs, then y's).
-__device__ __forceinline__ void load_point(const uint32_t* __restrict__ pts, size_t i, uint32_t x[WORDS],
-                                           uint32_t y[WORDS]) {
-  const uint4* p = reinterpret_cast<const uint4*>(pts + 32 * i);
+// msm_chunk_acc's block shapes: threads a block and the __launch_bounds__
+// minimum of blocks an SM, for each schedule (a -D at build time overrides
+// them: scripts/msm_probe.py sweeps them).
+#ifndef ACC_THREAD_BLOCK
+#define ACC_THREAD_BLOCK 128
+#endif
+#ifndef ACC_THREAD_BLOCKS_SM
+#define ACC_THREAD_BLOCKS_SM 4
+#endif
+#ifndef ACC_GROUP_BLOCK
+#define ACC_GROUP_BLOCK 128
+#endif
+#ifndef ACC_GROUP_BLOCKS_SM
+#define ACC_GROUP_BLOCKS_SM 3
+#endif
+constexpr int ACC_GROUP_LANES = ACC_GROUP_BLOCK / GROUP;
+constexpr int ACC_QMAX = 16;   // the most rounds a lane: the reference's q is 8 or 16
+constexpr int ACC_STAGES = 2;  // a lane's points in flight
+
+// cp.async: 16 bytes from device memory into shared memory, in groups
+// committed and waited on by the issuing thread.  Cached in L1 (.ca): a
+// 2^11-point table (256 KB) is read by every row, and past L1 (.cg, which
+// -DACC_CP_CG selects for scripts/msm_probe.py) the thread schedule measured
+// slower at every batch (PERF.md).
+__device__ __forceinline__ void cp_async16(uint4* dst, const uint4* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+#ifdef ACC_CP_CG
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
+#else
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
+#endif
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+// every group but the newest ACC_STAGES - 1 has landed
+__device__ __forceinline__ void cp_async_wait_stage() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(ACC_STAGES - 1) : "memory");
+}
+
+// A group lane's q entries, read once: step s (the rounds run from the last
+// entry down, s = q - 1 - pos) adds point ord[s], negated where bit s of neg
+// is set.  shift() moves step s + 1's index to ord[0], so every index stays
+// a register.
+struct Entries {
+  int ord[ACC_QMAX];
+  uint32_t neg;
+  __device__ __forceinline__ void load(const int* __restrict__ order, const uint8_t* __restrict__ sign, size_t row,
+                                       size_t chunk, int chunks, int q) {
+    neg = 0;
+#pragma unroll
+    for (int s = 0; s < ACC_QMAX; ++s) {
+      ord[s] = 0;
+      if (s < q) {
+        const size_t e = (row * q + (q - 1 - s)) * chunks + chunk;
+        ord[s] = __ldg(order + e);
+        neg |= static_cast<uint32_t>(__ldg(sign + e) != 0) << s;
+      }
+    }
+  }
+  __device__ __forceinline__ void shift() {
+#pragma unroll
+    for (int s = 0; s + 1 < ACC_QMAX; ++s) ord[s] = ord[s + 1];
+  }
+};
+
+// y = -y (p - y, 0 kept as 0, as DeviceField.neg does) where neg: a select,
+// not a branch, so that the compiler may schedule it beside the round
+// before.
+__device__ __forceinline__ void negate_if(uint32_t y[WORDS], bool neg, const Modulus& M) {
+  const uint32_t zero[WORDS] = {};
+  uint32_t n[WORDS];
+  cc::sub(zero, y, M, n);
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) y[k] = neg ? n[k] : y[k];
+}
+
+// x and y of the point in slot i of a stage: piece v (16 bytes, four limbs)
+// of a (n, 32) table row at [v][i], so that a warp's neighbouring slots
+// read neighbouring banks.
+template <int N>
+__device__ __forceinline__ void read_point(const uint4* buf, int i, uint32_t x[WORDS], uint32_t y[WORDS]) {
 #pragma unroll
   for (int v = 0; v < 8; ++v) {
-    const uint4 a = __ldg(p + v);
+    const uint4 a = buf[v * N + i];
     uint32_t* w = v < 4 ? x + 2 * v : y + 2 * (v - 4);
     w[0] = a.x | (a.y << 16);
     w[1] = a.z | (a.w << 16);
   }
 }
 
-__global__ void __launch_bounds__(ACC_THREADS)
-msm_chunk_acc_kernel(const uint32_t* __restrict__ pts, const int* __restrict__ order,
-                     const uint8_t* __restrict__ sign, uint32_t* __restrict__ sfx, uint32_t* __restrict__ tot,
-                     int rows, int chunks, int q, ModulusOne C) {
-  const size_t lane = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+// Many lanes: a thread a lane, jac_madd_into's 11 products in one chain.
+// Each round's point was fetched ACC_STAGES rounds ahead into this thread's
+// slot of a stage (cp.async, eight pieces), so the gather overlaps the
+// rounds before it; the thread reads back only its own copies, so no
+// barrier is needed.  The signs are one register of bits, read at the
+// start.  BLOCKS_SM names the instantiation that runs at that many blocks
+// an SM: 4, as the registers allow, or 3, held there by a smaller shared
+// memory carveout (thread_blocks_sm picks one).
+template <int BLOCKS_SM>
+__global__ void __launch_bounds__(ACC_THREAD_BLOCK, ACC_THREAD_BLOCKS_SM)
+msm_chunk_acc_thread_kernel(const uint32_t* __restrict__ pts, const int* __restrict__ order,
+                            const uint8_t* __restrict__ sign, uint32_t* __restrict__ sfx, uint32_t* __restrict__ tot,
+                            int rows, int chunks, int q, ModulusOne C) {
+  __shared__ uint4 stage[ACC_STAGES][8][ACC_THREAD_BLOCK];
+  const int i = threadIdx.x;
+  const size_t lane = static_cast<size_t>(blockIdx.x) * ACC_THREAD_BLOCK + i;
   const size_t lanes = static_cast<size_t>(rows) * chunks;
   if (lane >= lanes) return;
   // entry pos of lane (row, chunk), and its running sum in sfx (3, 16, R,
   // q C), at (row q + pos) C + chunk
   const size_t row = lane / chunks, chunk = lane % chunks;
+  auto entry = [&](int s) { return (row * q + (q - 1 - s)) * chunks + chunk; };  // step s's entry
+  uint32_t neg = 0;
+  for (int s = 0; s < q; ++s) neg |= static_cast<uint32_t>(__ldg(sign + entry(s)) != 0) << s;
+  const uint4* table = reinterpret_cast<const uint4*>(pts);
+  auto fetch = [&](int buf, int idx) {
+#pragma unroll
+    for (int v = 0; v < 8; ++v) cp_async16(&stage[buf][v][i], table + 8 * static_cast<size_t>(idx) + v);
+  };
+#pragma unroll
+  for (int s = 0; s < ACC_STAGES; ++s) {
+    if (s < q) fetch(s, __ldg(order + entry(s)));
+    cp_async_commit();
+  }
+  // the point index a fetch needs is read a round before it: off the chain,
+  // in one register (a lane's q indices held at once cost the registers of
+  // a fourth block an SM)
+  int ahead = ACC_STAGES < q ? __ldg(order + entry(ACC_STAGES)) : 0;
   const size_t ld = lanes * q;
   const GlobalOut sfx_out{{sfx, sfx + 16 * ld, sfx + 32 * ld}, ld, 0};
-  const uint32_t zero[WORDS] = {};
   Jac acc;
   store_infinity(RegOut{&acc}, C);
-  for (int pos = q - 1; pos >= 0; --pos) {
-    const size_t e = (row * q + pos) * chunks + chunk;
+  for (int s = 0; s < q; ++s) {
+    cp_async_wait_stage();  // step s's point has landed
     uint32_t qx[WORDS], qy[WORDS];
-    load_point(pts, static_cast<size_t>(order[e]), qx, qy);
-    if (sign[e]) cc::sub(zero, qy, C.M, qy);  // -(x, y) = (x, p - y)
+    read_point<ACC_THREAD_BLOCK>(&stage[s % ACC_STAGES][0][0], i, qx, qy);
+    if (s + ACC_STAGES < q) fetch(s % ACC_STAGES, ahead);
+    cp_async_commit();
+    if (s + ACC_STAGES + 1 < q) ahead = __ldg(order + entry(s + ACC_STAGES + 1));
+    negate_if(qy, (neg >> s) & 1, C.M);
     jac_madd_into(RegPoint{&acc}, qx, qy, C, RegOut{&acc});
     GlobalOut o = sfx_out;
-    o.i = e;
+    o.i = entry(s);
 #pragma unroll
     for (int k = 0; k < 3; ++k) o.store(k, acc.c[k]);
   }
   const GlobalOut t{{tot, tot + 16 * lanes, tot + 32 * lanes}, lanes, lane};
 #pragma unroll
   for (int k = 0; k < 3; ++k) t.store(k, acc.c[k]);
+}
+
+// Few lanes: a group of four threads a lane (jac.cuh: madd_group, four
+// levels of products), ACC_GROUP_LANES lanes a block.  Each rank fetches two
+// of the eight pieces of the round ACC_STAGES ahead; after the wait a
+// __syncwarp makes every rank's pieces visible to the group, and a second
+// one keeps the stage until all four have read it.  Groups past the last
+// lane redo the last lane's work and store nothing: the shuffles need whole
+// warps.  Rank k < 3 stores coordinate k.
+__global__ void __launch_bounds__(ACC_GROUP_BLOCK, ACC_GROUP_BLOCKS_SM)
+msm_chunk_acc_group_kernel(const uint32_t* __restrict__ pts, const int* __restrict__ order,
+                           const uint8_t* __restrict__ sign, uint32_t* __restrict__ sfx, uint32_t* __restrict__ tot,
+                           int rows, int chunks, int q, ModulusOne C) {
+  __shared__ uint4 stage[ACC_STAGES][8][ACC_GROUP_LANES];
+  const int g = threadIdx.x % GROUP, li = threadIdx.x / GROUP;
+  const size_t lanes = static_cast<size_t>(rows) * chunks;
+  const size_t own = static_cast<size_t>(blockIdx.x) * ACC_GROUP_LANES + li;
+  const bool real = own < lanes;
+  const size_t lane = real ? own : lanes - 1;
+  const size_t row = lane / chunks, chunk = lane % chunks;
+  Entries en;
+  en.load(order, sign, row, chunk, chunks, q);
+  const uint4* table = reinterpret_cast<const uint4*>(pts);
+  auto fetch = [&](int buf, int idx) {
+    const uint4* src = table + 8 * static_cast<size_t>(idx) + 2 * g;
+    cp_async16(&stage[buf][2 * g][li], src);
+    cp_async16(&stage[buf][2 * g + 1][li], src + 1);
+  };
+#pragma unroll
+  for (int s = 0; s < ACC_STAGES; ++s) {
+    if (s < q) fetch(s, en.ord[s]);
+    cp_async_commit();
+  }
+  const size_t ld = lanes * q;
+  uint32_t x[WORDS], y[WORDS], z[WORDS];
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {  // infinity
+    x[k] = 0;
+    y[k] = C.one[k];
+    z[k] = 0;
+  }
+  for (int s = 0; s < q; ++s) {
+    cp_async_wait_stage();
+    __syncwarp();
+    uint32_t qx[WORDS], qy[WORDS];
+    read_point<ACC_GROUP_LANES>(&stage[s % ACC_STAGES][0][0], li, qx, qy);
+    __syncwarp();
+    if (s + ACC_STAGES < q) fetch(s % ACC_STAGES, en.ord[ACC_STAGES]);
+    cp_async_commit();
+    en.shift();
+    negate_if(qy, (en.neg >> s) & 1, C.M);
+    madd_group(g, x, y, z, qx, qy, C);
+    if (real && g < 3) {
+      uint32_t v[WORDS];
+#pragma unroll
+      for (int k = 0; k < WORDS; ++k) v[k] = g == 0 ? x[k] : g == 1 ? y[k] : z[k];
+      store_elem(sfx + static_cast<size_t>(g) * 16 * ld, ld, (row * q + (q - 1 - s)) * chunks + chunk, v);
+    }
+  }
+  if (real && g < 3) {
+    uint32_t v[WORDS];
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) v[k] = g == 0 ? x[k] : g == 1 ? y[k] : z[k];
+    store_elem(tot + static_cast<size_t>(g) * 16 * lanes, lanes, lane, v);
+  }
 }
 
 // The suffix scan's tiles.  A tile is T chunks of one row (T a power of
@@ -329,22 +517,73 @@ jac_suffix_scan_offsets_kernel(const uint32_t* __restrict__ in, const uint32_t* 
                GlobalOut{{out, out + 16 * ld, out + 32 * ld}, ld, lane});
 }
 
+// Blocks an SM for the thread schedule's `blocks` blocks: `per`, all the
+// registers allow, or per - 1 where that leaves the fuller last wave (a
+// last wave of few blocks runs nearly as long as a full one: 2^10 points at
+// 20 sets, 640 blocks, 1.2 waves at four an SM, measured slower than at
+// three, 1.6 waves; PERF.md).
+int thread_blocks_sm(size_t blocks, int sms, int per) {
+  const size_t full = static_cast<size_t>(sms) * per, less = full - sms;
+  if (blocks <= full || per < 2) return per;
+  auto last = [blocks](size_t slots) { return blocks % slots ? double(blocks % slots) / slots : 1.0; };
+  return last(less) > last(full) ? per - 1 : per;
+}
+
+// Holds msm_chunk_acc_thread_kernel<3> at three blocks an SM: a shared
+// memory carveout (a percentage of the SM's) that three blocks' shared
+// memory fits and four do not.
+cudaError_t carve_three(int dev) {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  cudaFuncAttributes attr;
+  int smem = 0, reserved = 0;
+  cudaError_t rc = cudaFuncGetAttributes(&attr, msm_chunk_acc_thread_kernel<3>);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (rc == cudaSuccess)
+    rc = cudaFuncSetAttribute(msm_chunk_acc_thread_kernel<3>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              static_cast<int>(300 * (attr.sharedSizeBytes + reserved) / smem));
+  done = rc == cudaSuccess;
+  return rc;
+}
+
 }  // namespace
 
-// The intra-chunk rounds of R rows x C chunks of q sorted entries: order and
-// sign (R, q, C), position-major (int32 point indices into pts, bytes
-// 0/1); pts the (n, 32) point table (16-byte aligned); sfx (3, 16, R, q C)
-// the running sums, position-major, tot (3, 16, R, C) the chunk totals.
+// The intra-chunk rounds of R rows x C chunks of q <= ACC_QMAX sorted
+// entries: order and sign (R, q, C), position-major (int32 point indices
+// into pts, bytes 0/1); pts the (n, 32) point table (16-byte aligned); sfx
+// (3, 16, R, q C) the running sums, position-major, tot (3, 16, R, C) the
+// chunk totals.  mode 0: the group schedule, 1: the thread schedule.
 extern "C" int h2t_msm_chunk_acc(const void* pts, const void* order, const void* sign, void* sfx, void* tot,
-                                 int rows, int chunks, int q, const void* consts, void* stream) {
-  if (rows <= 0 || chunks <= 0 || q <= 0 || reinterpret_cast<uintptr_t>(pts) % 16)
+                                 int rows, int chunks, int q, int mode, const void* consts, void* stream) {
+  if (rows <= 0 || chunks <= 0 || q <= 0 || q > ACC_QMAX || (mode != 0 && mode != 1) ||
+      reinterpret_cast<uintptr_t>(pts) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const ModulusOne C = modulus_one_from_host(static_cast<const uint32_t*>(consts));
-  const size_t blocks = (static_cast<size_t>(rows) * chunks + ACC_THREADS - 1) / ACC_THREADS;
+  const size_t lanes = static_cast<size_t>(rows) * chunks;
+  const int per = mode == 0 ? ACC_GROUP_LANES : ACC_THREAD_BLOCK;
+  const size_t blocks = (lanes + per - 1) / per;
   if (blocks > 0x7FFFFFFFu) return static_cast<int>(cudaErrorInvalidValue);
-  msm_chunk_acc_kernel<<<static_cast<unsigned>(blocks), ACC_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(pts), static_cast<const int*>(order), static_cast<const uint8_t*>(sign),
-      static_cast<uint32_t*>(sfx), static_cast<uint32_t*>(tot), rows, chunks, q, C);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto p = static_cast<const uint32_t*>(pts);
+  const auto o = static_cast<const int*>(order);
+  const auto g = static_cast<const uint8_t*>(sign);
+  if (mode == 0) {
+    msm_chunk_acc_group_kernel<<<static_cast<unsigned>(blocks), ACC_GROUP_BLOCK, 0, s>>>(
+        p, o, g, static_cast<uint32_t*>(sfx), static_cast<uint32_t*>(tot), rows, chunks, q, C);
+  } else {
+    int dev = 0, sms = 0, per = 0;
+    cudaError_t rc = cudaGetDevice(&dev);
+    if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, msm_chunk_acc_thread_kernel<4>, ACC_THREAD_BLOCK, 0);
+    const bool three = rc == cudaSuccess && per == 4 && thread_blocks_sm(blocks, sms, per) == 3;
+    if (three) rc = carve_three(dev);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    auto kernel = three ? msm_chunk_acc_thread_kernel<3> : msm_chunk_acc_thread_kernel<4>;
+    kernel<<<static_cast<unsigned>(blocks), ACC_THREAD_BLOCK, 0, s>>>(
+        p, o, g, static_cast<uint32_t*>(sfx), static_cast<uint32_t*>(tot), rows, chunks, q, C);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

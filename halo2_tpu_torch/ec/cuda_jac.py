@@ -15,7 +15,9 @@ and complete adds, ``halo2_tpu/ec/device.py:597-607``) in one launch.
 Two more run the device MSM's window-sum rounds over a batch of rows
 (``csrc/msm.cu``): ``msm_chunk_acc``, every chunk's rounds of signed mixed
 adds in registers (the reference's ``fori_loop`` at
-``halo2_tpu/ec/device.py:465``), and ``jac_suffix_scan``, the exclusive
+``halo2_tpu/ec/device.py:465``) in one of two schedules that
+:func:`acc_plan` picks from the lane count (a chunk a group of four
+threads for few lanes, a thread for many), and ``jac_suffix_scan``, the exclusive
 suffix sums of each row's chunk totals over tiles (``_excl_suffix_scan``,
 ``:359``) in one of two schedules that :func:`scan_plan` picks from the
 shape: a chunk a group of four threads on a thread-block cluster for few
@@ -351,6 +353,19 @@ COARSE_THREADS = 128
 # the 2^18 slice's 360,448).
 SCAN_PLAN = ((1 << 13, ("cluster", 1)), (1 << 14, ("coarse", 1)), (1 << 16, ("coarse", 2)))
 SCAN_PLAN_ABOVE = ("coarse", 4)
+# msm_chunk_acc's schedules (csrc/msm.cu): a lane a group of four threads
+# (jac.cuh:madd_group, a chain of 4 product levels a round) or a lane a
+# thread (a chain of 11 products); each lane's points fetched ahead into
+# shared memory.  A lane runs at most ACC_QMAX rounds.
+ACC_SCHEDULES = ("group", "thread")
+ACC_QMAX = 16
+# acc_plan's rule, (most lanes, schedule) by rows x chunks, measured on one
+# H100 (scripts/msm_probe.py, PERF.md): the group up to one 2^11 scalar
+# set's 8,192 lanes (0.031 ms against the thread's 0.043; 0.023 against
+# 0.042 at 2,048-4,096), the thread from 16,384 (0.044 against 0.061) up
+# to the 2^18 slice's 360,448.
+ACC_PLAN = ((1 << 13, "group"),)
+ACC_PLAN_ABOVE = "thread"
 
 
 def variant(m: int) -> str:
@@ -461,15 +476,25 @@ def jac_horner_cuda(w, c: int):
     return {"x": out[0], "y": out[1], "z": out[2]}
 
 
-def msm_chunk_acc_cuda(px, py, order, sign):
+def acc_plan(rows: int, chunks: int) -> str:
+    """``msm_chunk_acc``'s schedule for ``rows`` x ``chunks`` lanes: the
+    first of ``ACC_PLAN`` whose most lanes the launch does not exceed, else
+    ``ACC_PLAN_ABOVE``.  Both schedules give the same limbs."""
+    return next((schedule for most, schedule in ACC_PLAN if rows * chunks <= most), ACC_PLAN_ABOVE)
+
+
+def msm_chunk_acc_cuda(px, py, order, sign, schedule=None):
     """The MSM's intra-chunk suffix rounds of ``(R, q, C)`` sorted entries
     (position-major; ``order``: int32 point indices below n, ``sign``:
     bool) over the affine points ``px``, ``py`` ``(16, n)``: ``(sfx (3, 16,
     R, q C), tot (3, 16, R, C))``, every running sum (position-major) and
     the chunk totals.  The ``msm_chunk_acc`` kernel on CUDA tensors (one
-    launch, a thread a lane, the signed negation and the P == Q doubling
-    inside; the points as one ``(n, 32)`` table), :func:`msm_chunk_acc_plain`
-    on CPU ones."""
+    launch in ``schedule``, one of ``ACC_SCHEDULES``, or :func:`acc_plan`'s
+    when None; the signed negation and the P == Q doubling inside; the
+    points as one ``(n, 32)`` table; q up to ``ACC_QMAX``),
+    :func:`msm_chunk_acc_plain` on CPU ones whatever the schedule."""
+    if schedule is not None and schedule not in ACC_SCHEDULES:
+        raise ValueError(f"msm_chunk_acc: schedule must be one of {ACC_SCHEDULES}, got {schedule!r}")
     check_limbs("msm_chunk_acc", px=px, py=py)
     if px.dim() != 2 or py.shape != px.shape:
         raise ValueError(f"msm_chunk_acc: px, py must be one (16, n) shape, got {tuple(px.shape)}, {tuple(py.shape)}")
@@ -486,13 +511,16 @@ def msm_chunk_acc_cuda(px, py, order, sign):
     from .. import _build
 
     rows, q, chunks = order.shape
+    if q > ACC_QMAX:
+        raise ValueError(f"msm_chunk_acc: at most {ACC_QMAX} entries a chunk, got {q}")
     sfx = torch.empty((3, L, rows, q * chunks), dtype=torch.int32, device=px.device)
     tot = torch.empty((3, L, rows, chunks), dtype=torch.int32, device=px.device)
     if order.numel():
         pts = torch.cat([px, py]).t().contiguous()  # (n, 32): a point's limbs together
         _build.launch(
             "msm_chunk_acc", px.device, pts.data_ptr(), order.data_ptr(), sign.data_ptr(), sfx.data_ptr(),
-            tot.data_ptr(), rows, chunks, q, modulus_one_words(BN254_FQ).ctypes.data,
+            tot.data_ptr(), rows, chunks, q, _ACC_MODES[schedule or acc_plan(rows, chunks)],
+            modulus_one_words(BN254_FQ).ctypes.data,
         )
         LAUNCHES["msm_chunk_acc"] += 1
     return sfx, tot
@@ -527,7 +555,9 @@ def _jac_suffix_scan(s, schedule=None):
     return _suffix_scan(s, plan, _scan_tiles_cuda, _scan_offsets_cuda)
 
 
-# the C entry's modes: a tile pass of either schedule, the offsets pass
+# the C entries' modes: msm_chunk_acc's schedules; a tile pass of either
+# scan schedule, the scan's offsets pass
+_ACC_MODES = {"group": 0, "thread": 1}
 _SCAN_MODES = {"cluster": 0, "offsets": 1, "coarse": 2}
 
 

@@ -696,10 +696,12 @@ def _msm_entries(n, sets, device, seed):
     return x, y, order, sign
 
 
-@pytest.mark.parametrize("n, sets", [(1 << 9, 1), (1 << 11, 1), (1 << 11, 8)])
-def test_msm_chunk_acc_kernel_matches_plain(device, n, sets):
-    """One launch equals the plain rounds limb for limb, with a (0, 0)
-    point, a y = 0 point, P == Q and P == -Q chunks."""
+@pytest.mark.parametrize("schedule", [None, *cuda_jac.ACC_SCHEDULES], ids=str)
+@pytest.mark.parametrize("n, sets", [(1 << 9, 1), (1 << 11, 1), (1 << 11, 4), (1 << 11, 8)])
+def test_msm_chunk_acc_kernel_matches_plain(device, n, sets, schedule):
+    """One launch, in acc_plan's schedule (None) or one forced, equals the
+    plain rounds limb for limb, with a (0, 0) point, a y = 0 point, P == Q
+    and P == -Q chunks."""
     x, y, order, sign = _msm_entries(n, sets, device, n + sets)
     x, y = x.clone(), y.clone()
     x[:, 3] = y[:, 3] = 0
@@ -710,7 +712,7 @@ def test_msm_chunk_acc_kernel_matches_plain(device, n, sets):
     order[1, :, 0], sign[1, :, 0] = 5, True
     order[1, -1, 1] = 3
     before = dict(cuda_jac.LAUNCHES)
-    got = cuda_jac.msm_chunk_acc_cuda(x, y, order, sign)
+    got = cuda_jac.msm_chunk_acc_cuda(x, y, order, sign, schedule)
     torch.cuda.synchronize(device)
     assert cuda_jac.LAUNCHES["msm_chunk_acc"] == before["msm_chunk_acc"] + 1
     assert cuda_jac.LAUNCHES["jac_madd"] == before["jac_madd"]
@@ -749,6 +751,12 @@ def test_msm_window_kernels_raise_on_bad_inputs(device):
         cuda_jac.msm_chunk_acc_cuda(x, y, order.long(), sign)
     with pytest.raises(ValueError):
         cuda_jac.msm_chunk_acc_cuda(x, y, order, sign.int())
+    with pytest.raises(ValueError):
+        cuda_jac.msm_chunk_acc_cuda(x, y, order, sign, "warp")
+    many = order.repeat(1, 3, 1)[:, : cuda_jac.ACC_QMAX + 1].contiguous()
+    many_sign = sign.repeat(1, 3, 1)[:, : cuda_jac.ACC_QMAX + 1].contiguous()
+    with pytest.raises(ValueError):
+        cuda_jac.msm_chunk_acc_cuda(x, y, many, many_sign)
     tot = cuda_jac.msm_chunk_acc_cuda(x, y, order, sign)[1]
     with pytest.raises(TypeError):
         cuda_jac.jac_suffix_scan_cuda(tot.long())

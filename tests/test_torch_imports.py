@@ -143,7 +143,9 @@ def test_slice_imports_without_jax():
 
 
 def test_no_port_file_imports_jax():
-    scripts = ("chip_smoke.py", "scripts/inv_probe.py", "scripts/prove_pairs.py")
+    scripts = (
+        "chip_smoke.py", "scripts/inv_probe.py", "scripts/msm_probe.py", "scripts/prove_pairs.py",
+    )
     paths = [os.path.join(ROOT, name) for name in scripts]
     for dirpath, _dirs, names in os.walk(PORT_DIR):
         paths += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
