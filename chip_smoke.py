@@ -267,8 +267,9 @@ MSM_REPORT = (1 << 11, 20)
 SCHEDULES_TIMED_N = 1 << 11
 # the (points, sets) batches at which phase 2 times msm_chunk_acc in each of
 # its schedules (elsewhere, acc_plan's alone): the flagship's batches of 1,
-# 4 and 20 sets and the 2^16 MSM
-ACC_SCHEDULES_TIMED = ((1 << 11, 1), (1 << 11, 4), (1 << 11, 20), (1 << 16, 1))
+# 4 and 20 sets, 2^10 at 20 sets (where three blocks an SM leave the fuller
+# last wave) and the 2^16 MSM
+ACC_SCHEDULES_TIMED = ((1 << 11, 1), (1 << 11, 4), (1 << 11, 20), (1 << 10, 20), (1 << 16, 1))
 # the scan also at chunk counts no path gives it: one chunk, a tile's 256
 # plus one (two tiles, a ragged one), and three tiles and a bit
 SCAN_RAGGED = (1, 2, 65, 257, 700)
@@ -441,7 +442,7 @@ def _sass_counts(library) -> dict:
             fn = line.split(":", 1)[1].strip()
             kernels = ("jac_madd_wide", "jac_madd_narrow", "jac_add_wide", "jac_add_narrow", "jac_horner", "mont_pow",
                        "mont_inv", "mul_chain", "jac_suffix_scan_cluster", "jac_suffix_scan_coarse",
-                       "msm_chunk_acc_group", "msm_chunk_acc_thread")
+                       "msm_chunk_acc_group", "msm_chunk_acc_thread3", "msm_chunk_acc_thread")
             name = next((k for k in kernels if k in fn), None)
             if name == "mont_inv":
                 g = re.search(r"Li(\d)E", fn)

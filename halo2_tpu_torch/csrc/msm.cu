@@ -52,9 +52,10 @@
 //   which a group's 16 products a madd load more than one thread's 11.  A
 //   thread a lane, 128 a block at 126 registers, four blocks an SM: 67,584
 //   lanes a wave, so 8 and 16 sets (65,536, 131,072) take whole waves
-//   (three blocks an SM left 8 sets 1.3 waves); where three an SM leave
-//   the fuller last wave (2^10 points at 20 sets) the launch holds three
-//   (thread_blocks_sm).
+//   (three blocks an SM left 8 sets 1.3 waves).  Where three an SM leave
+//   the fuller last wave (2^10 points at 20 sets: 1.6 waves against 1.2)
+//   acc_plan picks the same rounds held at three by a smaller shared
+//   memory carveout (msm_chunk_acc_thread3_kernel).
 // jac_suffix_scan, measured on the H100 (PERF.md):
 // one thread's complete add is one serial stream of ~2,800 IMAD.WIDE on
 // PTX carry chains (field_cc.cuh), ~8 us, and one warp a scheduler already
@@ -102,37 +103,24 @@ constexpr int CLUSTER_BLOCKS_SM = 3;  // blocks an SM: 168 registers a thread
 constexpr int COARSE_MAX_THREADS = 256;  // the most threads a block of the coarsened scan has
 constexpr int OFFSET_THREADS = 128;
 
-// msm_chunk_acc's block shapes: threads a block and the __launch_bounds__
-// minimum of blocks an SM, for each schedule (a -D at build time overrides
-// them: scripts/msm_probe.py sweeps them).
-#ifndef ACC_THREAD_BLOCK
-#define ACC_THREAD_BLOCK 128
-#endif
-#ifndef ACC_THREAD_BLOCKS_SM
-#define ACC_THREAD_BLOCKS_SM 4
-#endif
-#ifndef ACC_GROUP_BLOCK
-#define ACC_GROUP_BLOCK 128
-#endif
-#ifndef ACC_GROUP_BLOCKS_SM
-#define ACC_GROUP_BLOCKS_SM 3
-#endif
+// msm_chunk_acc's blocks: a thread schedule's 128 threads at four blocks an
+// SM (126 registers), a group schedule's 128 threads (32 lanes) at three
+// (166 registers); other shapes measured slower (PERF.md).
+constexpr int ACC_THREAD_BLOCK = 128;
+constexpr int ACC_THREAD_BLOCKS_SM = 4;
+constexpr int ACC_GROUP_BLOCK = 128;
+constexpr int ACC_GROUP_BLOCKS_SM = 3;
 constexpr int ACC_GROUP_LANES = ACC_GROUP_BLOCK / GROUP;
 constexpr int ACC_QMAX = 16;   // the most rounds a lane: the reference's q is 8 or 16
 constexpr int ACC_STAGES = 2;  // a lane's points in flight
 
 // cp.async: 16 bytes from device memory into shared memory, in groups
 // committed and waited on by the issuing thread.  Cached in L1 (.ca): a
-// 2^11-point table (256 KB) is read by every row, and past L1 (.cg, which
-// -DACC_CP_CG selects for scripts/msm_probe.py) the thread schedule measured
-// slower at every batch (PERF.md).
+// 2^11-point table (256 KB) is read by every row, and past L1 (.cg) the
+// thread schedule measured slower at every batch (PERF.md).
 __device__ __forceinline__ void cp_async16(uint4* dst, const uint4* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-#ifdef ACC_CP_CG
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
-#else
   asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
-#endif
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
 // every group but the newest ACC_STAGES - 1 has landed
@@ -196,14 +184,13 @@ __device__ __forceinline__ void read_point(const uint4* buf, int i, uint32_t x[W
 // slot of a stage (cp.async, eight pieces), so the gather overlaps the
 // rounds before it; the thread reads back only its own copies, so no
 // barrier is needed.  The signs are one register of bits, read at the
-// start.  BLOCKS_SM names the instantiation that runs at that many blocks
-// an SM: 4, as the registers allow, or 3, held there by a smaller shared
-// memory carveout (thread_blocks_sm picks one).
-template <int BLOCKS_SM>
-__global__ void __launch_bounds__(ACC_THREAD_BLOCK, ACC_THREAD_BLOCKS_SM)
-msm_chunk_acc_thread_kernel(const uint32_t* __restrict__ pts, const int* __restrict__ order,
-                            const uint8_t* __restrict__ sign, uint32_t* __restrict__ sfx, uint32_t* __restrict__ tot,
-                            int rows, int chunks, int q, ModulusOne C) {
+// start.  Two kernels run these rounds: msm_chunk_acc_thread_kernel at four
+// blocks an SM, as the registers allow, and msm_chunk_acc_thread3_kernel,
+// held at three by a smaller shared memory carveout (set_thread3_carveout).
+__device__ __forceinline__ void chunk_acc_thread(const uint32_t* __restrict__ pts, const int* __restrict__ order,
+                                                 const uint8_t* __restrict__ sign, uint32_t* __restrict__ sfx,
+                                                 uint32_t* __restrict__ tot, int rows, int chunks, int q,
+                                                 ModulusOne C) {
   __shared__ uint4 stage[ACC_STAGES][8][ACC_THREAD_BLOCK];
   const int i = threadIdx.x;
   const size_t lane = static_cast<size_t>(blockIdx.x) * ACC_THREAD_BLOCK + i;
@@ -250,6 +237,20 @@ msm_chunk_acc_thread_kernel(const uint32_t* __restrict__ pts, const int* __restr
   const GlobalOut t{{tot, tot + 16 * lanes, tot + 32 * lanes}, lanes, lane};
 #pragma unroll
   for (int k = 0; k < 3; ++k) t.store(k, acc.c[k]);
+}
+
+__global__ void __launch_bounds__(ACC_THREAD_BLOCK, ACC_THREAD_BLOCKS_SM)
+msm_chunk_acc_thread_kernel(const uint32_t* __restrict__ pts, const int* __restrict__ order,
+                            const uint8_t* __restrict__ sign, uint32_t* __restrict__ sfx, uint32_t* __restrict__ tot,
+                            int rows, int chunks, int q, ModulusOne C) {
+  chunk_acc_thread(pts, order, sign, sfx, tot, rows, chunks, q, C);
+}
+
+__global__ void __launch_bounds__(ACC_THREAD_BLOCK, ACC_THREAD_BLOCKS_SM)
+msm_chunk_acc_thread3_kernel(const uint32_t* __restrict__ pts, const int* __restrict__ order,
+                             const uint8_t* __restrict__ sign, uint32_t* __restrict__ sfx, uint32_t* __restrict__ tot,
+                             int rows, int chunks, int q, ModulusOne C) {
+  chunk_acc_thread(pts, order, sign, sfx, tot, rows, chunks, q, C);
 }
 
 // Few lanes: a group of four threads a lane (jac.cuh: madd_group, four
@@ -517,33 +518,25 @@ jac_suffix_scan_offsets_kernel(const uint32_t* __restrict__ in, const uint32_t* 
                GlobalOut{{out, out + 16 * ld, out + 32 * ld}, ld, lane});
 }
 
-// Blocks an SM for the thread schedule's `blocks` blocks: `per`, all the
-// registers allow, or per - 1 where that leaves the fuller last wave (a
-// last wave of few blocks runs nearly as long as a full one: 2^10 points at
-// 20 sets, 640 blocks, 1.2 waves at four an SM, measured slower than at
-// three, 1.6 waves; PERF.md).
-int thread_blocks_sm(size_t blocks, int sms, int per) {
-  const size_t full = static_cast<size_t>(sms) * per, less = full - sms;
-  if (blocks <= full || per < 2) return per;
-  auto last = [blocks](size_t slots) { return blocks % slots ? double(blocks % slots) / slots : 1.0; };
-  return last(less) > last(full) ? per - 1 : per;
-}
-
-// Holds msm_chunk_acc_thread_kernel<3> at three blocks an SM: a shared
-// memory carveout (a percentage of the SM's) that three blocks' shared
-// memory fits and four do not.
-cudaError_t carve_three(int dev) {
-  static bool done = false;
-  if (done) return cudaSuccess;
+// Holds msm_chunk_acc_thread3_kernel at three blocks an SM: a shared memory
+// carveout (a percentage of the SM's) that three blocks' shared memory fits
+// and four do not.  Set once for each device (a function's attribute holds
+// on the device that was current when it was set).
+cudaError_t set_thread3_carveout() {
+  constexpr int MAX_DEVICES = 64;
+  static bool done[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess || (dev < MAX_DEVICES && done[dev])) return rc;
   cudaFuncAttributes attr;
   int smem = 0, reserved = 0;
-  cudaError_t rc = cudaFuncGetAttributes(&attr, msm_chunk_acc_thread_kernel<3>);
+  rc = cudaFuncGetAttributes(&attr, msm_chunk_acc_thread3_kernel);
   if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
   if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
   if (rc == cudaSuccess)
-    rc = cudaFuncSetAttribute(msm_chunk_acc_thread_kernel<3>, cudaFuncAttributePreferredSharedMemoryCarveout,
+    rc = cudaFuncSetAttribute(msm_chunk_acc_thread3_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                               static_cast<int>(300 * (attr.sharedSizeBytes + reserved) / smem));
-  done = rc == cudaSuccess;
+  if (rc == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
   return rc;
 }
 
@@ -553,10 +546,11 @@ cudaError_t carve_three(int dev) {
 // entries: order and sign (R, q, C), position-major (int32 point indices
 // into pts, bytes 0/1); pts the (n, 32) point table (16-byte aligned); sfx
 // (3, 16, R, q C) the running sums, position-major, tot (3, 16, R, C) the
-// chunk totals.  mode 0: the group schedule, 1: the thread schedule.
+// chunk totals.  mode 0: the group schedule, 1: the thread schedule at four
+// blocks an SM, 2: at three (ec/cuda_jac.py:acc_plan picks one).
 extern "C" int h2t_msm_chunk_acc(const void* pts, const void* order, const void* sign, void* sfx, void* tot,
                                  int rows, int chunks, int q, int mode, const void* consts, void* stream) {
-  if (rows <= 0 || chunks <= 0 || q <= 0 || q > ACC_QMAX || (mode != 0 && mode != 1) ||
+  if (rows <= 0 || chunks <= 0 || q <= 0 || q > ACC_QMAX || mode < 0 || mode > 2 ||
       reinterpret_cast<uintptr_t>(pts) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const ModulusOne C = modulus_one_from_host(static_cast<const uint32_t*>(consts));
@@ -564,26 +558,17 @@ extern "C" int h2t_msm_chunk_acc(const void* pts, const void* order, const void*
   const int per = mode == 0 ? ACC_GROUP_LANES : ACC_THREAD_BLOCK;
   const size_t blocks = (lanes + per - 1) / per;
   if (blocks > 0x7FFFFFFFu) return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto p = static_cast<const uint32_t*>(pts);
-  const auto o = static_cast<const int*>(order);
-  const auto g = static_cast<const uint8_t*>(sign);
-  if (mode == 0) {
-    msm_chunk_acc_group_kernel<<<static_cast<unsigned>(blocks), ACC_GROUP_BLOCK, 0, s>>>(
-        p, o, g, static_cast<uint32_t*>(sfx), static_cast<uint32_t*>(tot), rows, chunks, q, C);
-  } else {
-    int dev = 0, sms = 0, per = 0;
-    cudaError_t rc = cudaGetDevice(&dev);
-    if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (rc == cudaSuccess)
-      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, msm_chunk_acc_thread_kernel<4>, ACC_THREAD_BLOCK, 0);
-    const bool three = rc == cudaSuccess && per == 4 && thread_blocks_sm(blocks, sms, per) == 3;
-    if (three) rc = carve_three(dev);
+  if (mode == 2) {
+    const cudaError_t rc = set_thread3_carveout();
     if (rc != cudaSuccess) return static_cast<int>(rc);
-    auto kernel = three ? msm_chunk_acc_thread_kernel<3> : msm_chunk_acc_thread_kernel<4>;
-    kernel<<<static_cast<unsigned>(blocks), ACC_THREAD_BLOCK, 0, s>>>(
-        p, o, g, static_cast<uint32_t*>(sfx), static_cast<uint32_t*>(tot), rows, chunks, q, C);
   }
+  const auto kernel = mode == 0   ? msm_chunk_acc_group_kernel
+                      : mode == 1 ? msm_chunk_acc_thread_kernel
+                                  : msm_chunk_acc_thread3_kernel;
+  kernel<<<static_cast<unsigned>(blocks), mode == 0 ? ACC_GROUP_BLOCK : ACC_THREAD_BLOCK, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(pts), static_cast<const int*>(order), static_cast<const uint8_t*>(sign),
+      static_cast<uint32_t*>(sfx), static_cast<uint32_t*>(tot), rows, chunks, q, C);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,9 +15,10 @@ and complete adds, ``halo2_tpu/ec/device.py:597-607``) in one launch.
 Two more run the device MSM's window-sum rounds over a batch of rows
 (``csrc/msm.cu``): ``msm_chunk_acc``, every chunk's rounds of signed mixed
 adds in registers (the reference's ``fori_loop`` at
-``halo2_tpu/ec/device.py:465``) in one of two schedules that
+``halo2_tpu/ec/device.py:465``) in one of three schedules that
 :func:`acc_plan` picks from the lane count (a chunk a group of four
-threads for few lanes, a thread for many), and ``jac_suffix_scan``, the exclusive
+threads for few lanes, a thread for many, at four or three blocks an SM),
+and ``jac_suffix_scan``, the exclusive
 suffix sums of each row's chunk totals over tiles (``_excl_suffix_scan``,
 ``:359``) in one of two schedules that :func:`scan_plan` picks from the
 shape: a chunk a group of four threads on a thread-block cluster for few
@@ -355,16 +356,21 @@ SCAN_PLAN = ((1 << 13, ("cluster", 1)), (1 << 14, ("coarse", 1)), (1 << 16, ("co
 SCAN_PLAN_ABOVE = ("coarse", 4)
 # msm_chunk_acc's schedules (csrc/msm.cu): a lane a group of four threads
 # (jac.cuh:madd_group, a chain of 4 product levels a round) or a lane a
-# thread (a chain of 11 products); each lane's points fetched ahead into
-# shared memory.  A lane runs at most ACC_QMAX rounds.
-ACC_SCHEDULES = ("group", "thread")
+# thread (a chain of 11 products) at four blocks an SM, or at three
+# ("thread3", held there by a smaller shared memory carveout); each lane's
+# points fetched ahead into shared memory.  A lane runs at most ACC_QMAX
+# rounds.
+ACC_SCHEDULES = ("group", "thread", "thread3")
 ACC_QMAX = 16
 # acc_plan's rule, (most lanes, schedule) by rows x chunks, measured on one
-# H100 (scripts/msm_probe.py, PERF.md): the group up to one 2^11 scalar
-# set's 8,192 lanes (0.031 ms against the thread's 0.043; 0.023 against
-# 0.042 at 2,048-4,096), the thread from 16,384 (0.044 against 0.061) up
-# to the 2^18 slice's 360,448.
-ACC_PLAN = ((1 << 13, "group"),)
+# H100 (132 SMs; scripts/msm_probe.py, PERF.md): the group up to one 2^11
+# scalar set's 8,192 lanes (0.031 ms against the thread's 0.043; 0.023
+# against 0.042 at 2,048-4,096); the thread from 16,384 (0.044 against
+# 0.061) up to one wave of four 128-lane blocks an SM, 67,584; above that up
+# to two waves of three, 101,376, three blocks an SM leave the fuller last
+# wave (2^10 at 20 sets, 81,920 lanes: 0.144 ms against 0.165 at four); the
+# thread again above, up to the 2^18 slice's 360,448.
+ACC_PLAN = ((1 << 13, "group"), (67_584, "thread"), (101_376, "thread3"))
 ACC_PLAN_ABOVE = "thread"
 
 
@@ -479,7 +485,7 @@ def jac_horner_cuda(w, c: int):
 def acc_plan(rows: int, chunks: int) -> str:
     """``msm_chunk_acc``'s schedule for ``rows`` x ``chunks`` lanes: the
     first of ``ACC_PLAN`` whose most lanes the launch does not exceed, else
-    ``ACC_PLAN_ABOVE``.  Both schedules give the same limbs."""
+    ``ACC_PLAN_ABOVE``.  Every schedule gives the same limbs."""
     return next((schedule for most, schedule in ACC_PLAN if rows * chunks <= most), ACC_PLAN_ABOVE)
 
 
@@ -557,7 +563,7 @@ def _jac_suffix_scan(s, schedule=None):
 
 # the C entries' modes: msm_chunk_acc's schedules; a tile pass of either
 # scan schedule, the scan's offsets pass
-_ACC_MODES = {"group": 0, "thread": 1}
+_ACC_MODES = {"group": 0, "thread": 1, "thread3": 2}
 _SCAN_MODES = {"cluster": 0, "offsets": 1, "coarse": 2}
 
 

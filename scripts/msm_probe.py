@@ -4,19 +4,14 @@ chip_smoke.py does not take on every run:
 - ``sweep``: each schedule (``ec.cuda_jac.ACC_SCHEDULES``) forced, held
   limb for limb against the plain rounds and timed (torch.profiler, the
   median launch) at SWEEP's batches, with its share of the bound: the sweep
-  that ``ACC_PLAN``'s threshold is set from;
+  that ``ACC_PLAN``'s thresholds are set from;
 - ``sass``: each schedule's kernel in the built library's SASS (cuobjdump
   -sass), its instructions by opcode class, static counts over the whole
-  kernel (the P == Q doubling's branch included);
-- ``shapes``: the block shapes of each schedule (threads a block and the
-  ``__launch_bounds__`` minimum of blocks an SM; a build of csrc/ with -D
-  overrides for each), with their registers, spills and shared memory from
-  ``nvcc -Xptxas -v``, each held against the plain rounds at one batch and
-  timed at SHAPE_BATCHES.
+  kernel (the P == Q doubling's branch included).
 
 From the repository root, on a machine with the card:
 
-    python3 scripts/msm_probe.py [sweep] [sass] [shapes]    # all without arguments
+    python3 scripts/msm_probe.py [sweep] [sass]    # both without arguments
 """
 
 from __future__ import annotations
@@ -33,22 +28,6 @@ import chip_smoke  # noqa: E402
 # the 2^16 MSM and the 2^18 slice
 SWEEP = tuple((1 << 11, b) for b in (1, 2, 3, 4, 6, 8, 16, 20)) + (
     (1 << 10, 1), (1 << 10, 4), (1 << 10, 20), (1 << 9, 1), (1 << 9, 4), (1 << 16, 1), (1 << 18, 1))
-# the block shapes tried: (schedule, threads a block, blocks an SM, more
-# -D flags: ACC_CP_CG fetches the points past L1)
-SHAPES = (
-    ("thread", 128, 3, ()), ("thread", 128, 3, ("ACC_CP_CG",)), ("thread", 128, 4, ()),
-    ("thread", 64, 6, ()), ("group", 128, 3, ()), ("group", 128, 3, ("ACC_CP_CG",)),
-    ("group", 128, 2, ()),
-)
-SHAPE_BATCHES = {
-    "thread": ((1 << 11, 4), (1 << 11, 8), (1 << 11, 16), (1 << 11, 20), (1 << 16, 1),
-               (1 << 18, 1)),
-    "group": ((1 << 11, 1), (1 << 11, 2), (1 << 11, 4), (1 << 10, 1), (1 << 9, 1)),
-}
-DEFINES = {
-    "thread": ("ACC_THREAD_BLOCK", "ACC_THREAD_BLOCKS_SM"),
-    "group": ("ACC_GROUP_BLOCK", "ACC_GROUP_BLOCKS_SM"),
-}
 
 
 def _batches(device, gen, wanted):
@@ -111,7 +90,7 @@ def sass(library) -> None:
         line = line.strip()
         if line.startswith("Function :"):
             fn = line.split(":", 1)[1]
-            name = next((f"msm_chunk_acc_{k}" for k in ("group", "thread")
+            name = next((f"msm_chunk_acc_{k}" for k in ("group", "thread3", "thread")
                          if f"msm_chunk_acc_{k}" in fn), None)
             if name:
                 counts[name] = dict.fromkeys(SASS_CLASSES + ("other",), 0)
@@ -139,34 +118,6 @@ def _ptxas(log: str) -> list:
     return lines
 
 
-def shapes(device, gen) -> None:
-    from halo2_tpu_torch import _build
-
-    flags = list(_build.ARCH_FLAGS)
-    batches = _batches(device, gen, sorted({b for v in SHAPE_BATCHES.values() for b in v}))
-    for schedule, threads, per_sm, more in SHAPES:
-        block, blocks_sm = DEFINES[schedule]
-        defines = [f"-D{block}={threads}", f"-D{blocks_sm}={per_sm}"] + [f"-D{m}" for m in more]
-        _build.ARCH_FLAGS = flags + defines
-        label = f"[probe] shape {schedule} {threads} threads, {per_sm} blocks an SM" + "".join(
-            f", {m}" for m in more)
-        _build._LIB = None
-        try:
-            _build.lib()
-        except RuntimeError as e:  # a shape the compiler refuses
-            print(f"{label}: no build: {str(e)[:600]}", flush=True)
-            continue
-        print(f"{label}: " + " | ".join(_ptxas(_build.log_path().read_text())), flush=True)
-        for n, sets in SHAPE_BATCHES[schedule]:
-            batch = batches[(n, sets)]
-            t = _time(batch, schedule)
-            share = batch[5][0] / t
-            print(f"[probe]   {_label(n, sets, batch)}: {t:.4f} ms ({share:.1%} of the bound)",
-                  flush=True)
-    _build.ARCH_FLAGS = flags
-    _build._LIB = None
-
-
 def main(argv) -> int:
     import torch
 
@@ -177,18 +128,16 @@ def main(argv) -> int:
 
     _build.lib()
     ptxas = _ptxas(_build.log_path().read_text())
-    print("[probe] default build: " + " | ".join(ptxas), flush=True)
+    print("[probe] build: " + " | ".join(ptxas), flush=True)
     for name, (total, wide, other) in chip_smoke._sass_counts(_build.library_path()).items():
         if name.startswith("msm_chunk_acc"):
             print(f"[probe] SASS {name}: {total} instructions, {wide} IMAD.WIDE, "
                   f"{other} other IMAD", flush=True)
-    modes = argv or ["sweep", "sass", "shapes"]
+    modes = argv or ["sweep", "sass"]
     if "sass" in modes:
         sass(_build.library_path())
     if "sweep" in modes:
         sweep(device, gen)
-    if "shapes" in modes:
-        shapes(device, gen)
     return 0
 
 

@@ -175,23 +175,39 @@ def test_madd_group_chain_matches_plain_rounds(seed):
 
 
 # ------------------------------------------------------------------ acc_plan
+# (points, scalar sets, the schedule measured fastest on the H100) of every
+# batch the main paths give msm_chunk_acc: 1-20 sets at 2^9, 2^10 and 2^11
+# points, one at 2^16 and the 2^18 slice, and a few points.  The group wins
+# up to 8,192 lanes, the thread at four blocks an SM above, and at three
+# where that leaves the fuller last wave (2^10 at 20 sets: 81,920 lanes);
+# scripts/msm_probe.py sweep and chip_smoke.py's ACC_SCHEDULES_TIMED, PERF.md.
+# The few-point batches (1,024-3,072 lanes) were not swept: the group, as
+# at 2,048-8,192.
+PATH_BATCHES = (
+    (1 << 9, 1, "group"), (1 << 9, 4, "group"),
+    (1 << 10, 1, "group"), (1 << 10, 4, "thread"), (1 << 10, 20, "thread3"),
+    (1 << 11, 1, "group"), (1 << 11, 4, "thread"), (1 << 11, 8, "thread"),
+    (1 << 11, 16, "thread"), (1 << 11, 20, "thread"),
+    (1 << 16, 1, "thread"), (1 << 18, 1, "thread"),
+    (16, 1, "group"), (16, 17, "group"), (256, 1, "group"), (256, 3, "group"),
+)
+
+
 def _path_shapes():
-    """(rows, chunks) of every batch the main paths give msm_chunk_acc:
-    1-20 scalar sets at 2^9, 2^10 and 2^11 points, one at 2^16 and the
-    2^18 slice, and one set at a few points."""
+    """(rows, chunks, the fastest schedule) of each of PATH_BATCHES."""
     shapes = []
-    cases = ((1 << 9, (1, 4)), (1 << 10, (1, 4, 20)), (1 << 11, (1, 4, 8, 16, 20)), (1 << 16, (1,)),
-             (1 << 18, (1,)), (16, (1, 17)), (256, (1, 3)))
-    for n, batches in cases:
+    for n, sets, fastest in PATH_BATCHES:
         windows = -(-254 // ecd._msm_c(n))
         q = n // max(1, n // ecd._q_rounds(n))
-        shapes += [(sets * windows, n // q) for sets in batches]
+        rows, chunks = sets * windows, n // q
+        shapes.append(pytest.param(rows, chunks, fastest, id=f"{rows}-{chunks}"))
     return shapes
 
 
-@pytest.mark.parametrize("rows, chunks", _path_shapes())
-def test_acc_plan_maps_every_path_shape(rows, chunks):
-    assert cuda_jac.acc_plan(rows, chunks) in cuda_jac.ACC_SCHEDULES
+@pytest.mark.parametrize("rows, chunks, fastest", _path_shapes())
+def test_acc_plan_maps_every_path_shape(rows, chunks, fastest):
+    assert fastest in cuda_jac.ACC_SCHEDULES
+    assert cuda_jac.acc_plan(rows, chunks) == fastest
 
 
 def test_acc_plan_thresholds_rise():
