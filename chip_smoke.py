@@ -37,9 +37,7 @@ passes or raises:
    reading below the kernel's bound is taken again, then fails); mod_add
    and mod_sub (and the negation, a subtract from a broadcast zero) for
    BN254 Fr, BN254 Fq and Pasta Fp at the same m, the 16 pairs of edge
-   values first, with a broadcast element on either side; mont_sqr,
-   mod_add and mod_sub at the k = 16 setup's 2^16 BN254 Fq lanes, each
-   timed beside its bound; the expression VM
+   values first, with a broadcast element on either side; the expression VM
    (vm_eval, one launch per program) on the flagship's quotient program at
    its 2^15 rows (rot_scale 16: the 2042 rotation wraps; the challenges as
    stride-0 views), the Poseidon experiment's gates (Pasta Fp; also at
@@ -75,7 +73,16 @@ passes or raises:
    with exception lanes (a (0, 0) point, a y = 0 point, P == Q and P == -Q
    in a chunk) and the scan at SCAN_RAGGED chunk counts in every
    schedule, each one's device time a call beside its bound and its chain
-   of dependent group ops;
+   of dependent group ops; jac_ladder (the setup's double-and-add in one
+   launch) at LADDER_SIZES lanes with 256 bit rows (a zero scalar, 1,
+   R - 1, an infinity base, P == Q at row 254) in ladder_plan's schedule
+   and each of LADDER_SCHEDULES, on uint8 and int32 bits, reading no P ==
+   Q flag, and each schedule timed at LADDER_TIMED lanes of the setup's
+   own operands beside the bound of the work they need; poseidon_hash
+   (the sponge, or a permutation, in one launch) at SPONGE_SIZES lanes for
+   SPONGE_CASES (BN254 Fr MySpec(5, 4) at L = 4, Pasta Fp P128Pow5T3 at
+   L = 2 and 3, width 5 at L = 3, and permute_device at both widths),
+   timed at SPONGE_TIMED lanes with hashes/s beside the bound;
 3. the device MSM: msm_points at 2^16 (the k = 16 SRS, random.Random(42)
    scalars) and 2^20 (that SRS and random.Random(9) scalars tiled 16 times)
    equals the native host MSM on the same arrays; the time of each (median
@@ -100,7 +107,9 @@ passes or raises:
    the native and torch engines give equal proofs, which verify; what
    engine="auto" picks at k = 11 and k = 13;
 5. the SRS setup on the card: ParamsKZG.setup(16) equals
-   .srs/kzg_bn254_k16_s857536.pkl limb for limb;
+   .srs/kzg_bn254_k16_s857536.pkl limb for limb, through one jac_ladder
+   launch, then mont_inv and mont_mul (SETUP_KERNELS), and no mont_sqr,
+   mod_add, mod_sub or jac_add (SETUP_GONE);
 6. keygen on the card: the flagship through keygen_vk then keygen_pk
    (native commits) and through keygen(..., commit="device"), each equal to
    .srs/pk_mst_d15_k11.pkl (digest, commitments, values, coefficients); a
@@ -112,8 +121,10 @@ passes or raises:
    the CPU; verify times on the card and on the CPU;
 8. the device Poseidon sponge: hash_device (MySpec(5, 4), L = 4, BN254 Fr)
    over 2^20 messages from random.Random, one level of a 2^21-leaf
-   merkle-sum tree; its first 1024 lanes equal the plain versions on the
-   CPU and 256 spread lanes equal the host poseidon_hash; hashes/s;
+   merkle-sum tree, in one poseidon_hash launch and no mont_mul, mont_sqr
+   or mod_add (SPONGE_GONE); its first 1024 lanes equal the plain versions
+   on the CPU and 256 spread lanes equal the host poseidon_hash; hashes/s
+   and peak device memory;
 9. the sharded prover (halo2_tpu_torch.parallel, create_proof(mesh=)):
    vm_eval over row ranges of the flagship's quotient (the two halves, and
    two ranges that start inside a kernel block, where rotations wrap)
@@ -158,9 +169,9 @@ not launched: mont_mul and the NTT kernels in the proves and the keygens,
 vm_eval in every prove, the MSM's kernels (MSM_KERNELS: msm_chunk_acc,
 jac_suffix_scan, jac_add) and jac_horner in the device-commit prove and
 the device-commit keygen, the MSM's kernels in the MSM and in every hybrid
-MSM whose device share is above 0, none in a NativeEngine prove, mont_sqr,
-mont_mul, mont_inv and jac_add in the setup, vm_eval in every
-MockProver run, mont_mul, mont_sqr and mod_add in the sponge, and in
+MSM whose device share is above 0, none in a NativeEngine prove,
+jac_ladder, mont_inv and mont_mul in the setup, vm_eval in every
+MockProver run, poseidon_hash in the sponge, and in
 phase 9 (each rank's counts set to 0 before each of its jobs and read
 after) every kernel of SHARDED_KERNELS (mont_mul, jac_horner, mont_inv,
 ntt_small_stages, vm_eval and the MSM's) in every sharded prove on every
@@ -169,7 +180,10 @@ mod_add or mod_sub in every sharded NTT, the MSM's kernels and jac_horner
 in the sharded MSM, and mont_inv in the sharded grand product; and no MSM
 path (the MSM, the device-commit and sharded proves, the sharded MSM)
 launches jac_madd or mod_sub (MSM_GONE: the mixed add and the negation
-run inside msm_chunk_acc), nor the device-commit keygen jac_madd; in phase 10
+run inside msm_chunk_acc), nor the device-commit keygen jac_madd; the
+setup no mont_sqr, mod_add, mod_sub or jac_add (SETUP_GONE: the ladder's
+rounds run inside jac_ladder) and the sponge no mont_mul, mont_sqr or
+mod_add (SPONGE_GONE: its rounds run inside poseidon_hash); in phase 10
 vm_eval in entry() and every kernel of SHARDED_KERNELS in each dryrun
 check on every rank.  The line
 before the last is a JSON object with one entry per kernel (its launches
@@ -205,8 +219,7 @@ MUL_SIZES = (1, 511, 513, 1 << 11, 1 << 15, 1 << 20)
 # and 2^20
 JAC_SIZES = (1, 32, 128, 2816, 1 << 11, 1 << 13, 1 << 14, 1 << 15, 180224, 1 << 20)
 TIMED_SIZES = (1 << 11, 1 << 15, 1 << 20)
-# the lanes of ParamsKZG.setup(16)'s scalar_mul_batched: the one path that
-# launches mont_sqr, mod_add and mod_sub by the thousand
+# the lanes of ParamsKZG.setup(16)'s scalar_mul_batched (one jac_ladder launch)
 SETUP_LANES = 1 << 16
 # the coset NTT batch of the flagship prove: 20 advice, 11 fixed, 7 selector,
 # 1 instance, 4 permutation z, 24 lookup and 16 sigma columns
@@ -274,8 +287,28 @@ ACC_SCHEDULES_TIMED = ((1 << 11, 1), (1 << 11, 4), (1 << 11, 20), (1 << 10, 20),
 # plus one (two tiles, a ragged one), and three tiles and a bit
 SCAN_RAGGED = (1, 2, 65, 257, 700)
 # the shape at which each kernel's ms in the JSON line is taken
+# jac_ladder: the lanes at which it is held against its plain version (one
+# plain run over the widest, 256 bit rows) and at which each schedule is
+# timed on the setup's own operands (the device branch runs k = 13 and up:
+# 2^13, 2^14 and k = 16's 2^16 lanes, and 2^11 for the JSON line); the
+# JSON line's ms at 2^11, where the plain version's 256 rounds take seconds
+LADDER_SIZES = (1, 33, 1 << 11)
+LADDER_TIMED = (1 << 11, 1 << 13, 1 << 14, SETUP_LANES)
+LADDER_REPORT_M = 1 << 11
+# poseidon_hash: (field, spec, L) of the sponges held against the plain
+# versions (L None: permute_device alone): the flagship's BN254 Fr
+# MySpec(5, 4) at L = 4 (phase 8), Pasta Fp P128Pow5T3 at L = 2 and 3
+# (one chunk, two), width 5 at L = 3 (padded), and a permutation of each
+# width; the lanes of the checks, of the timing (phase 8 hashes 2^20) and
+# of the JSON line's ms
+SPONGE_CASES = (("bn254_fr", "MySpec(5, 4)", 4), ("pasta_fp", "P128Pow5T3", 2), ("pasta_fp", "P128Pow5T3", 3),
+                            ("pasta_fp", "MySpec(5, 4)", 3), ("bn254_fr", "MySpec(5, 4)", None), ("pasta_fp", "P128Pow5T3", None))
+SPONGE_SIZES = (1, 33, 1 << 11)
+SPONGE_TIMED = (1 << 11, 1 << 16, 1 << 20)
+SPONGE_REPORT_M = 1 << 11
 REPORT_AT = {"jac_horner": HORNER_REPORT_B, "mont_pow": POW_REPORT_M, "mont_inv": POW_REPORT_M,
-             "msm_chunk_acc": MSM_REPORT, "jac_suffix_scan": MSM_REPORT}
+             "msm_chunk_acc": MSM_REPORT, "jac_suffix_scan": MSM_REPORT, "jac_ladder": LADDER_REPORT_M,
+             "poseidon_hash": SPONGE_REPORT_M}
 
 
 def _ms_per_call(fn, calls: int, runs: int = 5) -> float:
@@ -442,12 +475,16 @@ def _sass_counts(library) -> dict:
             fn = line.split(":", 1)[1].strip()
             kernels = ("jac_madd_wide", "jac_madd_narrow", "jac_add_wide", "jac_add_narrow", "jac_horner", "mont_pow",
                        "mont_inv", "mul_chain", "jac_suffix_scan_cluster", "jac_suffix_scan_coarse",
-                       "msm_chunk_acc_group", "msm_chunk_acc_thread3", "msm_chunk_acc_thread")
+                       "msm_chunk_acc_group", "msm_chunk_acc_thread3", "msm_chunk_acc_thread",
+                       "jac_ladder_thread", "jac_ladder_group", "poseidon_kernel")
             name = next((k for k in kernels if k in fn), None)
             if name == "mont_inv":
                 g = re.search(r"Li(\d)E", fn)
                 name = f"mont_inv G={g.group(1) if g else '?'}"
-            if name and name.startswith(("mont_pow", "mont_inv")):
+            if name == "poseidon_kernel":
+                w = re.search(r"Li(\d)E", fn)
+                name = f"poseidon W={w.group(1) if w else '?'}"
+            if name and name.startswith(("mont_pow", "mont_inv", "poseidon")):
                 name += " cc" if "CcArith" in fn else " wide"
             if name:
                 counts[name] = [0, 0, 0]
@@ -533,8 +570,6 @@ def phase_kernels(device):
 
     _check_field_ops(device, gen, err, times)
 
-    _time_setup_field_ops(device, gen, err)
-
     classes = _check_jac_kernels(device, err, times)
 
     _check_ntt_kernels(device, gen, err, times)
@@ -547,6 +582,8 @@ def phase_kernels(device):
 
     msm_bounds = _check_msm_kernels(device, gen, err, times)
 
+    setup_bounds = {**_check_setup_ladder(device, err, times), **_check_sponge(device, err, times)}
+
     for n in TIMED_SIZES:
         bounds = _bounds(classes, n)
         print(
@@ -554,42 +591,8 @@ def phase_kernels(device):
             + ", ".join(f"{k} {v[0]:.6f} {v[1]}" for k, v in bounds.items()),
             flush=True,
         )
-    return err, times, {**_bounds(classes, REPORT_SIZE), "vm_eval": vm_bound, **ladder_bounds, **msm_bounds}
-
-
-def _time_setup_field_ops(device, gen, err) -> None:
-    """mont_sqr, mod_add and mod_sub at the only shape a path launches them
-    in a number (SETUP_LANES BN254 Fq elements: ParamsKZG.setup(16)'s
-    scalar_mul_batched): each equal to its plain version, and its device
-    time per launch beside its bound, with L2 cold (a 64 MiB buffer written
-    before each launch: the bound reads from device memory) and warm (the
-    operands left in L2 by the launch before, as the setup's chain of ops
-    finds them; the 4-12 MiB fit the 50 MB L2, so a warm launch may beat
-    the bound, which then is no floor)."""
-    import torch
-
-    from halo2_tpu_torch.field import cuda_ops
-    from halo2_tpu_torch.field.cuda_mul import mont_sqr, mont_sqr_plain
-    from halo2_tpu_torch.field.params import BN254_FQ
-
-    spec, m = BN254_FQ, SETUP_LANES
-    a, b = _random_field(spec, (m,), gen, device), _random_field(spec, (m,), gen, device)
-    flush = torch.empty(1 << 24, dtype=torch.int32, device=device)
-    ops = {
-        "mont_sqr": (lambda: mont_sqr(spec, a), lambda: mont_sqr_plain(spec, a)),
-        "mod_add": (lambda: cuda_ops.mod_add(spec, a, b), lambda: cuda_ops.mod_add_plain(spec, a, b)),
-        "mod_sub": (lambda: cuda_ops.mod_sub(spec, a, b), lambda: cuda_ops.mod_sub_plain(spec, a, b)),
-    }
-    shares = []
-    for name, (kernel, plain) in ops.items():
-        err[name] = max(err[name], _max_abs_err(f"{name} {spec.name} m={m}", kernel(), plain()))
-        bound = _bound(*_field_work(m)[name])
-        cold = _kernel_device_ms(lambda: (flush.fill_(1), kernel()), f"{name}_kernel", bound[0])
-        warm = _kernel_device_ms(kernel, f"{name}_kernel", 0.0)
-        shares.append(f"{name} {cold:.4f} ms cold ({bound[0] / cold:.1%} of the bound {bound[0]:.6f} ms, "
-                      f"{bound[1]}), {warm:.4f} ms warm")
-    print(f"[kernels] {spec.name} m=2^{m.bit_length() - 1} (the k = 16 setup's lanes), equal to plain: "
-          + "; ".join(shares), flush=True)
+    return err, times, {**_bounds(classes, REPORT_SIZE), "vm_eval": vm_bound, **ladder_bounds, **msm_bounds,
+                        **setup_bounds}
 
 
 def _mul_columns_work(n: int, cols: int, b_elems: int) -> tuple:
@@ -1670,6 +1673,233 @@ def _divsteps_needed(a, spec) -> int:
     return worst
 
 
+def _once_ms(fn):
+    """fn()'s result and its time in ms: CUDA events around one call,
+    synchronized (for the plain versions, too slow to call twice)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _events_ms(fn, bound_ms: float, calls: int) -> float:
+    """Time of one call of fn(), which makes one kernel launch of a
+    millisecond or so: CUDA events around ``calls`` back-to-back calls, the
+    median of 3 runs after a warm-up (the host's share of a call, ~10 us,
+    is ~1 % of these kernels).  torch.profiler is not used: late in phase 2,
+    after long runs of plain versions, its profiles have come back without
+    the launches.  A time below ``bound_ms`` raises."""
+    t = _ms_per_call(fn, calls, runs=3)
+    if t < bound_ms:
+        raise AssertionError(f"{t:.6f} ms a call is below the bound {bound_ms:.6f} ms: not a time")
+    return t
+
+
+def _ladder_lanes(device, m: int):
+    """jac_ladder's checked operands at m lanes: the k = 16 SRS's points
+    doubled (z != 1) and random.Random(254) scalars below R as (256, m)
+    uint8 bit rows; lane 0 the scalar 0, lane 1 the scalar 1, lane 2 R - 1,
+    lane 3 an infinity base, lane 4 the bits of 2^254 mod R in rows 0-253
+    and row 254 set (acc equals base at row 254: the add's P == Q)."""
+    import torch
+
+    from halo2_tpu_torch.ec import device as ecd
+    from halo2_tpu_torch.ec import host as ec
+    from halo2_tpu_torch.kzg.params import scalar_bits
+
+    p = _curve_lanes(device, m, exceptions=False)[0]
+    rng = random.Random(254)
+    scalars = [rng.randrange(ec.R) for _ in range(m)]
+    special = [0, 1, ec.R - 1, scalars[3 % m], (1 << 254) % ec.R + (1 << 254)]
+    scalars[: min(5, m)] = special[: min(5, m)]
+    if m > 3:
+        for k, v in ecd.jac_infinity((), device=device).items():
+            p[k][:, 3] = v
+    return p, torch.from_numpy(scalar_bits(scalars)).to(device)
+
+
+def _setup_inputs(device, m: int):
+    """ParamsKZG.setup(16)'s ladder operands, its first m lanes: G on every
+    lane and the bit rows of tau^i (tau from the setup's seed)."""
+    import torch
+
+    from halo2_tpu_torch.ec import device as ecd
+    from halo2_tpu_torch.ec import host as ec
+    from halo2_tpu_torch.field.params import BN254_FQ
+    from halo2_tpu_torch.field.device import get_device_field
+    from halo2_tpu_torch.kzg.params import scalar_bits
+
+    tau = random.Random(0xD15C0).randrange(1, ec.R)
+    powers = [1] * m
+    for i in range(1, m):
+        powers[i] = powers[i - 1] * tau % ec.R
+    g = get_device_field(BN254_FQ).encode(list(ec.g1_to_ints(ec.G1)), device=device)
+    base = ecd.jac_from_affine(g[:, :1].expand(16, m).contiguous(), g[:, 1:].expand(16, m).contiguous())
+    return base, torch.from_numpy(scalar_bits(powers)).to(device)
+
+
+def _ladder_work(bits) -> tuple:
+    """(bytes, IMADs) of one jac_ladder over the (nbits, m) bit rows: each
+    lane's point read once and its sum written once, the bit rows read
+    once; nbits - 1 doublings (dbl-2009-l: 2 products, 5 squares) a lane
+    and one complete add (12 products, 4 squares) a set bit."""
+    nbits, m = bits.shape
+    dbl, add = 2 * IMAD_MUL + 5 * IMAD_SQR, 12 * IMAD_MUL + 4 * IMAD_SQR
+    adds = int((bits != 0).sum())
+    return 6 * ELEM * m + bits.numel() * bits.element_size(), max(nbits - 1, 0) * dbl * m + add * adds
+
+
+def _check_setup_ladder(device, err, times) -> dict:
+    """jac_ladder against scalar_mul_batched_plain, limb for limb, with 256
+    bit rows at LADDER_SIZES lanes (one plain run over the widest; the
+    exception lanes of _ladder_lanes), in ladder_plan's schedule and in each
+    of LADDER_SCHEDULES, on uint8 and int32 bits, reading no P == Q flag;
+    each schedule's time a launch (_events_ms) at LADDER_TIMED lanes of the
+    setup's own operands beside the bound of the work they need; kernel
+    and plain version per call at the JSON line's 2^11.  Returns that
+    bound."""
+    import torch
+
+    from halo2_tpu_torch.ec import cuda_jac
+
+    p_all, bits_all = _ladder_lanes(device, max(LADDER_SIZES))
+    want, plain_ms = _once_ms(lambda: cuda_jac.scalar_mul_batched_plain(p_all, bits_all))
+    for m in LADDER_SIZES:
+        p = {k: v[:, :m].contiguous() for k, v in p_all.items()}
+        bits = bits_all[:, :m].contiguous()
+        runs = [(s, bits) for s in (None, *cuda_jac.LADDER_SCHEDULES)] + [(None, bits.to(torch.int32))]
+        for schedule, b in runs:
+            with _FlagReads() as flags:
+                got = cuda_jac.jac_ladder_cuda(p, b, schedule)
+            if flags.reads:
+                raise AssertionError(f"jac_ladder m={m}: {flags.reads} P == Q flag reads")
+            for k in ("x", "y", "z"):
+                label = f"jac_ladder m={m} {schedule or cuda_jac.ladder_plan(m)} {b.dtype} {k}"
+                err["jac_ladder"] = max(err["jac_ladder"], _max_abs_err(label, got[k], want[k][:, :m].contiguous()))
+    print(
+        f"[kernels] jac_ladder m={list(LADDER_SIZES)}, 256 bit rows: equal to plain in ladder_plan's schedule and "
+        f"each of {list(cuda_jac.LADDER_SCHEDULES)}, uint8 and int32 bits (lanes: 0, 1, R - 1, an infinity base, "
+        f"P == Q at row 254), no flag reads",
+        flush=True,
+    )
+    bound = None
+    for m in LADDER_TIMED:
+        base, bits = _setup_inputs(device, m)
+        b = _bound(*_ladder_work(bits))
+        shares = []
+        for schedule in cuda_jac.LADDER_SCHEDULES:
+            t_d = _events_ms(lambda: cuda_jac.jac_ladder_cuda(base, bits, schedule), b[0], calls=3)
+            times[("jac_ladder", schedule, m)] = t_d
+            shares.append(f"{schedule} {t_d:.4f} ms ({b[0] / t_d:.1%})")
+        print(
+            f"[kernels] jac_ladder m={m} (the setup's operands, 256 rows, {int((bits != 0).sum())} set bits): "
+            f"bound {b[0]:.6f} ms ({b[1]}); ms a launch (CUDA events): " + "; ".join(shares)
+            + f"; ladder_plan: {cuda_jac.ladder_plan(m)}",
+            flush=True,
+        )
+        if m == LADDER_REPORT_M:
+            bound = b
+            t_k = _ms_per_call(lambda: cuda_jac.jac_ladder_cuda(base, bits), 10, runs=3)
+            times[("jac_ladder", m)] = (t_k, plain_ms)
+            print(f"[kernels] jac_ladder m={m}: kernel {t_k:.4f} ms per call, plain {plain_ms:.1f} ms (one call, "
+                  f"the check's operands)", flush=True)
+    return {"jac_ladder": bound}
+
+
+def _sponge_messages(spec, words: int, m: int, seed: int, device):
+    """(words, 16, m) random canonical Montgomery limbs from
+    random.Random(seed); lane 0 all zeros, lane 1 all p - 1."""
+    import numpy as np
+    import torch
+
+    from halo2_tpu_torch.field.device import get_device_field
+
+    rng = random.Random(seed)
+    limbs = np.frombuffer(rng.randbytes(words * 16 * m * 2), np.uint16).reshape(words, 16, m).astype(np.int32)
+    limbs[:, 15] %= spec.p >> 240
+    x = torch.from_numpy(limbs).to(device)
+    x[:, :, 0] = 0
+    if m > 1:
+        x[:, :, 1] = get_device_field(spec).encode([spec.p - 1], device=device)[:, 0]
+    return x
+
+
+def _sponge_work(spec, L: int | None, m: int) -> tuple:
+    """(bytes, IMADs) of one poseidon_hash launch over m lanes: hashing
+    (L words) reads the messages and writes the digests, permuting (L None)
+    reads and writes W words; a permutation is W 2 r_f + r_p S-boxes (2
+    squares and a product) and (2 r_f + r_p) W^2 MDS products, IMAD_MUL and
+    IMAD_SQR each (the carry-chain arithmetic's count), ceil(L / rate) of
+    them a hash."""
+    W, r_f, r_p = spec.width, spec.full_rounds() // 2, spec.partial_rounds()
+    perm = (W * 2 * r_f + r_p) * (2 * IMAD_SQR + IMAD_MUL) + (2 * r_f + r_p) * W * W * IMAD_MUL
+    if L is None:
+        return 2 * W * ELEM * m, perm * m
+    return (L + 1) * ELEM * m, perm * -(-L // spec.rate) * m
+
+
+def _check_sponge(device, err, times) -> dict:
+    """poseidon_hash against the plain versions, limb for limb, at
+    SPONGE_SIZES lanes (one plain run over the widest) for each of
+    SPONGE_CASES and permute_device alone for both widths; its time a
+    launch (_events_ms) at SPONGE_TIMED lanes for BN254 Fr MySpec(5, 4), L = 4,
+    beside the bound; kernel and plain version per call at the JSON line's
+    2^11 (the plain version's one call, the check's).  Returns that bound."""
+    from halo2_tpu_torch.field.device import get_device_field
+    from halo2_tpu_torch.field.params import BN254_FR, PASTA_FP
+    from halo2_tpu_torch.poseidon import (
+        MySpec,
+        P128Pow5T3,
+        hash_device,
+        hash_device_plain,
+        permute_device,
+        permute_device_plain,
+    )
+
+    specs = {"MySpec(5, 4)": MySpec(5, 4), "P128Pow5T3": P128Pow5T3()}
+    fields = {"bn254_fr": BN254_FR, "pasta_fp": PASTA_FP}
+    top, plain_ms = max(SPONGE_SIZES), None
+    for n, (field, name, L) in enumerate(SPONGE_CASES):
+        spec, df = specs[name], get_device_field(fields[field])
+        words = spec.width if L is None else L
+        x = _sponge_messages(df.spec, words, top, 0x5B0 + n, device)
+        if L is None:
+            run, plain = lambda y: permute_device(df, spec, y), lambda y: permute_device_plain(df, spec, y)
+        else:
+            run, plain = lambda y: hash_device(df, spec, L, y), lambda y: hash_device_plain(df, spec, L, y)
+        want, ms = _once_ms(lambda: plain(x))
+        if (field, name, L) == ("bn254_fr", "MySpec(5, 4)", 4):
+            plain_ms = ms
+        for m in SPONGE_SIZES:
+            got = run(x[..., :m].contiguous())
+            label = f"poseidon_hash {field} {name} {'permute' if L is None else f'L={L}'} m={m}"
+            err["poseidon_hash"] = max(err["poseidon_hash"], _max_abs_err(label, got, want[..., :m].contiguous()))
+    print(f"[kernels] poseidon_hash: equal to plain at m={list(SPONGE_SIZES)} for {SPONGE_CASES} (L None: "
+          f"permute_device)", flush=True)
+    spec, df, L = specs["MySpec(5, 4)"], get_device_field(BN254_FR), 4
+    bound = None
+    for m in SPONGE_TIMED:
+        x = _sponge_messages(df.spec, L, m, 0x5B1, device)
+        b = _bound(*_sponge_work(spec, L, m))
+        t_d = _events_ms(lambda: hash_device(df, spec, L, x), b[0], calls=5)
+        print(
+            f"[kernels] poseidon_hash bn254_fr MySpec(5, 4) L={L} m={m}: {t_d:.4f} ms a launch (CUDA events), "
+            f"{m / t_d * 1e3:.4g} hashes/s; bound {b[0]:.6f} ms ({b[1]}, {b[0] / t_d:.1%} of it)",
+            flush=True,
+        )
+        if m == SPONGE_REPORT_M:
+            bound = b
+            t_k = _ms_per_call(lambda: hash_device(df, spec, L, x), 20, runs=3)
+            times[("poseidon_hash", m)] = (t_k, plain_ms)
+            print(f"[kernels] poseidon_hash m={m}: kernel {t_k:.4f} ms per call, plain {plain_ms:.1f} ms (one "
+                  f"call, the check's operands)", flush=True)
+    return {"poseidon_hash": bound}
+
+
 def _lane_classes(p, q, qx, qy, valid) -> dict:
     """The lanes of the group-law operands by the work their formulas need:
     finite sums (madd: valid, P finite; add: both finite) and P == Q lanes,
@@ -2256,6 +2486,13 @@ def phase_engines(device):
     return runs
 
 
+# the setup's kernels: the ladder, then jac_to_affine's inverse and
+# products; the field ops and adds the ladder's rounds launched before
+# jac_ladder run inside it
+SETUP_KERNELS = ("jac_ladder", "mont_inv", "mont_mul")
+SETUP_GONE = ("mont_sqr", "mod_add", "mod_sub", "jac_add")
+
+
 def phase_setup(device):
     """ParamsKZG.setup(16) on the card against the saved k = 16 SRS; returns
     the launch counts of the setup."""
@@ -2278,7 +2515,8 @@ def phase_setup(device):
             raise AssertionError(f"setup(16) on the card: {name} differs from {SRS16}")
     if [c.c for c in got.s_g2] != [c.c for c in want.s_g2]:
         raise AssertionError(f"setup(16) on the card: s_g2 differs from {SRS16}")
-    _require("setup", counts, ("mont_sqr", "mont_mul", "mont_inv", "jac_add"))
+    _require("setup", counts, SETUP_KERNELS)
+    _forbid("setup", counts, SETUP_GONE)
     print(f"[setup] k=16 on the card: {dt:.3f} s, equal to {os.path.relpath(SRS16, ROOT)}; launches {counts}", flush=True)
     return [counts]
 
@@ -2465,6 +2703,10 @@ def phase_mock(device):
     return runs
 
 
+# the field ops of the sponge's rounds, which run inside poseidon_hash
+SPONGE_GONE = ("mont_mul", "mont_sqr", "mod_add")
+
+
 def phase_poseidon(device, batch: int = 1 << 20):
     """hash_device (MySpec(5, 4), L = 4, BN254 Fr) over ``batch`` random
     messages on the card: the first 1024 lanes equal the plain versions on
@@ -2476,7 +2718,7 @@ def phase_poseidon(device, batch: int = 1 << 20):
     from halo2_tpu_torch.field import Fr
     from halo2_tpu_torch.field.device import get_device_field
     from halo2_tpu_torch.field.params import BN254_FR
-    from halo2_tpu_torch.poseidon import MySpec, hash_device, poseidon_hash
+    from halo2_tpu_torch.poseidon import MySpec, hash_device, hash_device_plain, poseidon_hash
 
     spec, L = MySpec(5, 4), 4
     df = get_device_field(BN254_FR)
@@ -2496,11 +2738,12 @@ def phase_poseidon(device, batch: int = 1 << 20):
     _sync(device)
     first = time.perf_counter() - t0
     counts = read_launches()
-    _require("hash_device", counts, ("mont_mul", "mont_sqr", "mod_add"))
+    _require("hash_device", counts, ("poseidon_hash",))
+    _forbid("hash_device", counts, SPONGE_GONE)
     peak = torch.cuda.max_memory_allocated(device) / 2**20 if device.type == "cuda" else float("nan")
 
     lanes = min(1024, batch)
-    plain = hash_device(df, spec, L, messages[:, :, :lanes].cpu())
+    plain = hash_device_plain(df, spec, L, messages[:, :, :lanes].cpu())
     if not torch.equal(out[:, :lanes].cpu(), plain):
         raise AssertionError(f"hash_device: the card's first {lanes} lanes differ from the plain versions")
     spread = list(range(0, batch, max(1, batch // 256)))[:256]
@@ -3112,6 +3355,9 @@ KERNELS = (
     # the MSM's window-sum loops: the intra-chunk fori_loop and the suffix scan
     ("msm_chunk_acc", "halo2_tpu_torch/csrc/msm.cu", "halo2_tpu/ec/device.py:465"),
     ("jac_suffix_scan", "halo2_tpu_torch/csrc/msm.cu", "halo2_tpu/ec/device.py:359"),
+    # the setup's lax.scan double-and-add and the sponge's three lax.scans
+    ("jac_ladder", "halo2_tpu_torch/csrc/ladder.cu", "halo2_tpu/ec/device.py:246"),
+    ("poseidon_hash", "halo2_tpu_torch/csrc/poseidon.cu", "halo2_tpu/poseidon/primitives.py:163"),
 )
 
 
@@ -3156,7 +3402,8 @@ def main() -> int:
                 "bound_by": bounds[name][1],
                 # no single PyTorch call computes a 256-bit Montgomery
                 # product, power or modular add, a prime-field NTT, a curve
-                # add or Horner, or an expression program over field columns
+                # add, Horner or ladder, an expression program over field
+                # columns, or a Poseidon sponge
                 "library_ms": None,
             }
             for name, source, replaces in KERNELS

@@ -11,7 +11,11 @@ the wrappers read nothing back from the card.  A point is a dict ``{x, y,
 z}`` of ``(16, *batch)`` int32 Montgomery limb tensors over BN254 Fq; z == 0
 marks infinity.  A third kernel, ``jac_horner``, runs the sharded MSM's
 Horner combine of window sums (the reference's ``fori_loop`` of doublings
-and complete adds, ``halo2_tpu/ec/device.py:597-607``) in one launch.
+and complete adds, ``halo2_tpu/ec/device.py:597-607``) in one launch, and
+a fourth, ``jac_ladder`` (``csrc/ladder.cu``), the SRS setup's per-lane
+double-and-add (the reference's ``lax.scan`` ``scalar_mul_batched``,
+``:246``) in one launch, a lane a thread or a group of four threads by
+:func:`ladder_plan`.
 Two more run the device MSM's window-sum rounds over a batch of rows
 (``csrc/msm.cu``): ``msm_chunk_acc``, every chunk's rounds of signed mixed
 adds in registers (the reference's ``fori_loop`` at
@@ -31,7 +35,7 @@ products); :func:`variant` picks one from the lane count.  The plain
 versions flag the P == Q lanes and double them in :func:`_double_fixup`,
 behind one device -> host read of ``same.any()`` (the reference's
 ``lax.cond``).  :func:`jac_madd_cuda` / :func:`jac_add_cuda` /
-:func:`jac_horner_cuda` / :func:`msm_chunk_acc_cuda` /
+:func:`jac_horner_cuda` / :func:`jac_ladder_cuda` / :func:`msm_chunk_acc_cuda` /
 :func:`jac_suffix_scan_cuda` run the plain versions for CPU tensors and
 launch the kernels for CUDA tensors; there is no fallback between the two.
 ``LAUNCHES`` counts kernel launches.
@@ -39,56 +43,20 @@ launch the kernels for CUDA tensors; there is no fallback between the two.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from ..field.cuda_mul import (
-    check_limbs,
-    modulus_one_words,
-    mont_inv_plain,
-    mont_mul_plain,
-    mont_pow_plain,
-    mont_sqr_plain,
-)
-from ..field.cuda_ops import mod_add_plain, mod_neg_plain, mod_sub_plain
-from ..field.device import DeviceField
+from ..field.cuda_mul import check_limbs, modulus_one_words
+from ..field.device import PlainField
+from ..field.device import plain_field as _plain_field
 from ..field.params import BN254_FQ, NUM_LIMBS
 
 L = NUM_LIMBS
-LAUNCHES = {"jac_madd": 0, "jac_add": 0, "jac_horner": 0, "msm_chunk_acc": 0, "jac_suffix_scan": 0}
+LAUNCHES = {"jac_madd": 0, "jac_add": 0, "jac_horner": 0, "jac_ladder": 0, "msm_chunk_acc": 0, "jac_suffix_scan": 0}
 
 
-class _PlainField(DeviceField):
-    """DeviceField whose multiplies, adds and subtracts are the plain
-    versions on any device, so the plain group ops launch no kernel of this
-    package."""
-
-    def mul(self, a, b):
-        return mont_mul_plain(self.spec, a, b)
-
-    def square(self, a):
-        return mont_sqr_plain(self.spec, a)
-
-    def add(self, a, b):
-        return mod_add_plain(self.spec, *self._bcast(a, b)[:2])
-
-    def sub(self, a, b):
-        return mod_sub_plain(self.spec, *self._bcast(a, b)[:2])
-
-    def neg(self, a):
-        return mod_neg_plain(self.spec, a)
-
-    def _pow_bits(self, a, e):
-        return mont_pow_plain(self.spec, a, e)
-
-    def inv(self, a):
-        return mont_inv_plain(self.spec, a)
-
-
-@functools.lru_cache(maxsize=None)
-def plain_field() -> _PlainField:
-    return _PlainField(BN254_FQ)
+def plain_field() -> PlainField:
+    """The plain BN254 Fq field the plain group ops run on (no kernel)."""
+    return _plain_field(BN254_FQ)
 
 
 # ------------------------------------------------------------ plain versions
@@ -196,6 +164,28 @@ def horner_plain(w, c: int):
         for _ in range(c):
             acc = jac_double(acc, d)
         acc = jac_add_plain(acc, jac(w[0, ..., i], w[1, ..., i], w[2, ..., i]))
+    return acc
+
+
+def scalar_mul_batched_plain(points, bits):
+    """Per-lane double-and-add in plain torch ops on the points' device:
+    points a jac dict ``(16, N)``, bits ``(nbits, N)`` rows (nonzero =
+    set, LSB first, uint8 or int32).  acc starts at infinity; row r adds
+    base where its bit is set (:func:`jac_add_plain`, a select), then
+    doubles base (``jac_double``, dbl-2009-l) but after the last row: the
+    port's loop before ``jac_ladder``, the reference's ``lax.scan``
+    (``halo2_tpu/ec/device.py:246``)."""
+    from .device import jac_double, jac_infinity
+
+    d = plain_field()
+    n = points["x"].shape[-1]
+    acc, base = jac_infinity((n,), device=points["x"].device), points
+    for r in range(bits.shape[0]):
+        added = jac_add_plain(acc, base)
+        bit = bits[r] != 0
+        acc = {k: d.select(bit, added[k], acc[k]) for k in acc}
+        if r + 1 < bits.shape[0]:
+            base = jac_double(base, d)
     return acc
 
 
@@ -372,6 +362,16 @@ ACC_QMAX = 16
 # thread again above, up to the 2^18 slice's 360,448.
 ACC_PLAN = ((1 << 13, "group"), (67_584, "thread"), (101_376, "thread3"))
 ACC_PLAN_ABOVE = "thread"
+# jac_ladder's schedules (csrc/ladder.cu): a lane a thread, or a lane a
+# group of four threads (jac.cuh:dbl_group/add_group); ladder_plan's rule,
+# (most lanes, schedule) by the lane count, measured on one H100 with the
+# setup's own operands, 256 rows (chip_smoke.py phase 2, PERF.md): the
+# group up to the k = 13 setup's 8,192 lanes (1.68 ms against the thread's
+# 2.61; 2^11 1.30 against 2.58), the thread above (2^14 2.61 against 3.46,
+# the k = 16 setup's 2^16 8.0 against 12.6)
+LADDER_SCHEDULES = ("thread", "group")
+LADDER_PLAN = ((1 << 13, "group"),)
+LADDER_PLAN_ABOVE = "thread"
 
 
 def variant(m: int) -> str:
@@ -482,6 +482,48 @@ def jac_horner_cuda(w, c: int):
     return {"x": out[0], "y": out[1], "z": out[2]}
 
 
+def ladder_plan(m: int) -> str:
+    """``jac_ladder``'s schedule for m lanes: the first of ``LADDER_PLAN``
+    whose most lanes m does not exceed, else ``LADDER_PLAN_ABOVE``.  Every
+    schedule gives the same limbs."""
+    return next((schedule for most, schedule in LADDER_PLAN if m <= most), LADDER_PLAN_ABOVE)
+
+
+def jac_ladder_cuda(points, bits, schedule=None):
+    """Per-lane double-and-add of a jac dict ``(16, N)`` by its ``(nbits,
+    N)`` bit rows (uint8 or int32, nonzero = set, LSB first): the
+    ``jac_ladder`` kernel on CUDA tensors (the whole ladder in one launch,
+    in ``schedule``, one of ``LADDER_SCHEDULES``, or :func:`ladder_plan`'s
+    when None), :func:`scalar_mul_batched_plain` on CPU ones whatever the
+    schedule."""
+    if schedule is not None and schedule not in LADDER_SCHEDULES:
+        raise ValueError(f"jac_ladder: schedule must be one of {LADDER_SCHEDULES}, got {schedule!r}")
+    px, py, pz = points["x"], points["y"], points["z"]
+    check_limbs("jac_ladder", px=px, py=py, pz=pz)
+    if px.dim() != 2 or py.shape != px.shape or pz.shape != px.shape:
+        raise ValueError(f"jac_ladder: the points must be (16, N), got {tuple(px.shape)}, {tuple(py.shape)}, {tuple(pz.shape)}")
+    if bits.dtype not in (torch.uint8, torch.int32) or bits.dim() != 2 or not bits.is_contiguous():
+        raise ValueError(f"jac_ladder: bits must be a contiguous uint8 or int32 (nbits, N), got {bits.dtype} {tuple(bits.shape)}")
+    if bits.shape[1] != px.shape[1] or bits.device != px.device:
+        raise ValueError(f"jac_ladder: bits must be (nbits, {px.shape[1]}) on {px.device}, got {tuple(bits.shape)} on {bits.device}")
+    if px.device.type == "cpu":
+        return scalar_mul_batched_plain(points, bits)
+    if px.device.type != "cuda":
+        raise ValueError(f"jac_ladder: unsupported device {px.device}")
+    from .. import _build
+
+    m = px.shape[1]
+    out = torch.empty((3, L, m), dtype=torch.int32, device=px.device)
+    if m:
+        _build.launch(
+            "jac_ladder", px.device, px.data_ptr(), py.data_ptr(), pz.data_ptr(), bits.data_ptr(),
+            int(bits.dtype == torch.int32), out.data_ptr(), m, bits.shape[0],
+            _LADDER_MODES[schedule or ladder_plan(m)], modulus_one_words(BN254_FQ).ctypes.data,
+        )
+        LAUNCHES["jac_ladder"] += 1
+    return {"x": out[0], "y": out[1], "z": out[2]}
+
+
 def acc_plan(rows: int, chunks: int) -> str:
     """``msm_chunk_acc``'s schedule for ``rows`` x ``chunks`` lanes: the
     first of ``ACC_PLAN`` whose most lanes the launch does not exceed, else
@@ -564,6 +606,7 @@ def _jac_suffix_scan(s, schedule=None):
 # the C entries' modes: msm_chunk_acc's schedules; a tile pass of either
 # scan schedule, the scan's offsets pass
 _ACC_MODES = {"group": 0, "thread": 1, "thread3": 2}
+_LADDER_MODES = {"thread": 0, "group": 1}
 _SCAN_MODES = {"cluster": 0, "offsets": 1, "coarse": 2}
 
 

@@ -4,9 +4,11 @@ Pippenger MSM (port of halo2_tpu/ec/device.py).
 Points are dicts ``{x, y, z}`` of ``(16, *B)`` int32 Montgomery limb tensors
 over BN254 Fq; z == 0 marks infinity.  ``jac_add``/``jac_madd`` go to the
 CUDA kernels of :mod:`.cuda_jac` for CUDA tensors (their plain versions for
-CPU tensors); doubling, the inverse and the selects are :class:`DeviceField`
-ops, whose squares, multiplies and inverses (one ``mont_inv`` launch) are
-the CUDA kernels of :mod:`..field.cuda_mul`.
+CPU tensors), as does ``scalar_mul_batched`` (the ``jac_ladder`` kernel,
+the whole double-and-add in one launch); doubling, the inverse and the
+selects are :class:`DeviceField` ops, whose squares, multiplies and
+inverses (one ``mont_inv`` launch) are the CUDA kernels of
+:mod:`..field.cuda_mul`.
 
 The MSM keeps the reference's schedule: window digits from canonical
 limbs, signed digits, a per-window sort by (digit, sign, index), q rounds of
@@ -44,7 +46,14 @@ import torch
 from .. import native
 from ..field.device import DeviceField, get_device_field
 from ..field.params import BN254_FQ, NUM_LIMBS as L
-from .cuda_jac import jac_add_cuda, jac_horner_cuda, jac_madd_cuda, jac_suffix_scan_cuda, msm_chunk_acc_cuda
+from .cuda_jac import (
+    jac_add_cuda,
+    jac_horner_cuda,
+    jac_ladder_cuda,
+    jac_madd_cuda,
+    jac_suffix_scan_cuda,
+    msm_chunk_acc_cuda,
+)
 
 
 def df() -> DeviceField:
@@ -115,10 +124,12 @@ def jac_madd(p, qx, qy, valid):
 
 
 def jac_to_affine(p):
-    """Batch-normalize to affine (Montgomery); infinity -> (0, 0)."""
+    """Batch-normalize to affine (Montgomery); infinity -> (0, 0).  z^-2 is
+    the product z^-1 z^-1 (the square's limbs), so the setup after its
+    ladder launches ``mont_inv`` and ``mont_mul`` alone."""
     d = df()
     zinv = d.inv(p["z"])
-    zinv2 = d.square(zinv)
+    zinv2 = d.mul(zinv, zinv)
     x = d.mul(p["x"], zinv2)
     y = d.mul(p["y"], d.mul(zinv2, zinv))
     inf = d.is_zero(p["z"])
@@ -127,18 +138,11 @@ def jac_to_affine(p):
 
 
 def scalar_mul_batched(points, scalar_bits):
-    """points: jac dict (16, N); scalar_bits: (nbits, N) 0/1 tensor —
-    per-point double-and-add, batched over N (LSB first)."""
-    d = df()
-    n = points["x"].shape[-1]
-    acc, base = jac_infinity((n,), device=points["x"].device), points
-    for r in range(scalar_bits.shape[0]):
-        added = jac_add(acc, base)
-        bit = scalar_bits[r] != 0
-        acc = {k: d.select(bit, added[k], acc[k]) for k in acc}
-        if r + 1 < scalar_bits.shape[0]:
-            base = jac_double(base)
-    return acc
+    """points: jac dict (16, N); scalar_bits: (nbits, N) uint8 or int32
+    rows, nonzero = set — per-point double-and-add, batched over N (LSB
+    first): one ``jac_ladder`` launch on CUDA tensors, its plain version on
+    CPU ones."""
+    return jac_ladder_cuda(_contig(points), scalar_bits.contiguous())
 
 
 # ---------------------------------------------------------------------- MSM

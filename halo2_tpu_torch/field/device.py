@@ -15,7 +15,10 @@ broadcast to :func:`.cuda_mul.mont_mul_columns`) and
 knows, as one launch), ``inv`` to :func:`.cuda_mul.mont_inv` (a
 fixed-count safegcd in one launch, where the reference scans a^(p - 2)):
 the CUDA kernels for a CUDA tensor, their plain versions (int64 torch ops)
-for a CPU tensor.
+for a CPU tensor.  :func:`plain_field` gives a :class:`PlainField`, whose
+ops are the plain versions on any device: the plain versions of the
+kernels that run a whole loop (the group ops, the ladder, the sponge) are
+written on it.
 """
 
 from __future__ import annotations
@@ -26,8 +29,18 @@ import math
 import numpy as np
 import torch
 
-from .cuda_mul import mont_inv, mont_mul, mont_mul_columns, mont_pow, mont_sqr
-from .cuda_ops import mod_add, mod_neg, mod_sub
+from .cuda_mul import (
+    mont_inv,
+    mont_inv_plain,
+    mont_mul,
+    mont_mul_columns,
+    mont_mul_plain,
+    mont_pow,
+    mont_pow_plain,
+    mont_sqr,
+    mont_sqr_plain,
+)
+from .cuda_ops import mod_add, mod_add_plain, mod_neg, mod_neg_plain, mod_sub, mod_sub_plain
 from .params import FieldSpec, LIMB_BITS, LIMB_MASK, NUM_LIMBS, to_limbs
 
 L = NUM_LIMBS
@@ -234,3 +247,36 @@ class DeviceField:
 @functools.lru_cache(maxsize=None)
 def get_device_field(spec: FieldSpec) -> DeviceField:
     return DeviceField(spec)
+
+
+class PlainField(DeviceField):
+    """DeviceField whose multiplies, squares, adds, subtracts, powers and
+    inverses are the plain versions on any device, so the plain versions
+    of the loops that became one kernel each (the group ops, the ladder,
+    the sponge) launch no kernel of this package."""
+
+    def mul(self, a, b):
+        return mont_mul_plain(self.spec, a, b)
+
+    def square(self, a):
+        return mont_sqr_plain(self.spec, a)
+
+    def add(self, a, b):
+        return mod_add_plain(self.spec, *self._bcast(a, b)[:2])
+
+    def sub(self, a, b):
+        return mod_sub_plain(self.spec, *self._bcast(a, b)[:2])
+
+    def neg(self, a):
+        return mod_neg_plain(self.spec, a)
+
+    def _pow_bits(self, a, e):
+        return mont_pow_plain(self.spec, a, e)
+
+    def inv(self, a):
+        return mont_inv_plain(self.spec, a)
+
+
+@functools.lru_cache(maxsize=None)
+def plain_field(spec: FieldSpec) -> PlainField:
+    return PlainField(spec)

@@ -6,7 +6,8 @@ The SRS stays host numpy, as in the reference: ``g1_x``/``g1_y`` are
 ``setup`` computes G * tau^i on the host for n <= 4096 or ``device="cpu"``,
 and otherwise takes the reference's device branch: one batched double-and-add
 over the 256 bit rows of the powers (:func:`..ec.device.scalar_mul_batched`,
-the ``jac_add`` and ``mont_sqr`` kernels), then ``jac_to_affine``.
+one ``jac_ladder`` launch), then ``jac_to_affine`` (``mont_inv``,
+``mont_mul``).
 """
 
 from __future__ import annotations
@@ -21,26 +22,39 @@ import torch
 from .._device import resolve_device
 from ..ec import host as ec
 from ..field.device import get_device_field
-from ..field.params import BN254_FQ, BN254_FR
+from ..field.params import BN254_FQ
 
 HOST_SETUP_MAX_N = 4096
+
+
+def value_bits(values) -> np.ndarray:
+    """Ints in [0, 2^256) -> (n, 256) uint8, bit r of value i at [i, r]:
+    one unpack of their little-endian bytes."""
+    raw = np.frombuffer(b"".join(int(v).to_bytes(32, "little") for v in values), np.uint8)
+    return np.unpackbits(raw.reshape(len(values), 32), axis=1, bitorder="little")
+
+
+def scalar_bits(values) -> np.ndarray:
+    """Ints in [0, 2^256) -> their (256, n) uint8 bit rows, LSB first (row r
+    holds bit r of every value): :func:`value_bits` transposed."""
+    return np.ascontiguousarray(value_bits(values).T)
 
 
 def device_g1_powers(powers, device) -> tuple:
     """[G * v for v in powers] as affine Montgomery limbs (two (16, n) numpy
     uint32 arrays), computed on ``device``: the reference's device branch of
-    ``ParamsKZG.setup``."""
+    ``ParamsKZG.setup``.  The powers' bits go to the device as uint8 and
+    become its (256, n) rows there (a 16 MB transpose at n = 2^16 that
+    takes the host ~0.15 s)."""
     from ..ec.device import jac_from_affine, jac_to_affine, scalar_mul_batched
 
     d = get_device_field(BN254_FQ)
     n = len(powers)
-    limbs = get_device_field(BN254_FR).encode_np(powers, to_mont=False)  # (16, n)
-    # (16, n) 16-bit limbs -> (256, n) LSB-first bits
-    bits = ((limbs[:, None, :] >> np.arange(16, dtype=np.uint32)[None, :, None]) & 1).reshape(256, n)
+    bits = torch.from_numpy(value_bits(powers)).to(device).t().contiguous()
     gx, gy = ec.g1_to_ints(ec.G1)
     g = d.encode([gx, gy], device=device)
     base = jac_from_affine(g[:, :1].expand(16, n).contiguous(), g[:, 1:].expand(16, n).contiguous())
-    acc = scalar_mul_batched(base, torch.from_numpy(bits.astype(np.int32)).to(device))
+    acc = scalar_mul_batched(base, bits)
     g1_x, g1_y = jac_to_affine(acc)
     return tuple(a.cpu().numpy().view(np.uint32) for a in (g1_x, g1_y))
 

@@ -29,8 +29,10 @@ def _launch_tables():
     from ..field import cuda_mul, cuda_ops
     from ..plonkish import cuda_vm
     from ..poly import cuda_ntt
+    from ..poseidon import cuda_sponge
 
-    return cuda_mul.LAUNCHES, cuda_ntt.LAUNCHES, cuda_jac.LAUNCHES, cuda_vm.LAUNCHES, cuda_ops.LAUNCHES
+    return (cuda_mul.LAUNCHES, cuda_ntt.LAUNCHES, cuda_jac.LAUNCHES, cuda_vm.LAUNCHES, cuda_ops.LAUNCHES,
+            cuda_sponge.LAUNCHES)
 
 
 def reset_launches() -> None:

@@ -1,5 +1,6 @@
 """Poseidon: a copy of the reference's grain constants, the host sponge and the batched
-device sponge (``permute_device``/``hash_device``) on torch tensors."""
+device sponge (``permute_device``/``hash_device``: one ``poseidon_hash`` kernel launch
+on the card, the plain versions on the CPU) on torch tensors."""
 
 from .grain import Grain, generate_constants
 from .primitives import (
@@ -9,8 +10,10 @@ from .primitives import (
     P128Pow5T3,
     Spec,
     hash_device,
+    hash_device_plain,
     permute,
     permute_device,
+    permute_device_plain,
     poseidon_hash,
 )
 
@@ -23,7 +26,9 @@ __all__ = [
     "P128Pow5T3",
     "Spec",
     "hash_device",
+    "hash_device_plain",
     "permute",
     "permute_device",
+    "permute_device_plain",
     "poseidon_hash",
 ]

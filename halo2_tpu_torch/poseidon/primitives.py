@@ -7,11 +7,13 @@ sponge and so cannot be loaded here.  They mirror halo2_gadgets
 feed instance columns, so they must match the reference bit-exactly.
 
 The device sponge (``permute_device``, ``hash_device``; the reference's
-lines 152-224) keeps the state as a ``(W, 16, B)`` int32 Montgomery tensor,
-vectorized over the batch axis B.  The reference's three ``lax.scan``s over
-the rounds are Python loops here: on a CUDA tensor every sbox square is a
-launch of the ``mont_sqr`` kernel and every other multiply one of
-``mont_mul``; on a CPU tensor the same calls run their plain versions.
+lines 152-224) takes the state as a ``(W, 16, B)`` int32 Montgomery tensor,
+vectorized over the batch axis B.  On a CUDA tensor each call is one
+launch of the ``poseidon_hash`` kernel (:mod:`.cuda_sponge`), the whole
+sponge or permutation with the state in registers, where the reference
+compiles three ``lax.scan``s over the rounds; on a CPU tensor it runs the
+plain versions (``permute_device_plain``, ``hash_device_plain``), those
+scans as Python loops of plain field ops.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ import functools
 
 import torch
 
-from ..field.device import DeviceField, get_device_field
+from ..field.device import DeviceField, get_device_field, plain_field
 from ..field.host import PrimeField
+from . import cuda_sponge
 from .grain import generate_constants
 
 
@@ -166,34 +169,34 @@ def _device_constants(field_spec, width, r_f_total, r_p, secure_mds, device: tor
     return table(rcs), table(mds)
 
 
-def permute_device(df: DeviceField, spec: Spec, state: torch.Tensor) -> torch.Tensor:
-    """Batched Poseidon permutation: state (W, 16, B) Montgomery limbs ->
-    the same shape.  A round is W round-constant adds, the x^5 sbox (two
-    squares and a multiply) on W words (full round) or one (partial round),
-    and the MDS product: W^2 multiplies and W (W - 1) adds."""
+def _permute_loop(d: DeviceField, spec: Spec, state: torch.Tensor) -> torch.Tensor:
+    """The permutation as a loop of field ops on ``d``: a round is W
+    round-constant adds, the x^5 sbox (two squares and a multiply) on W
+    words (full round) or one (partial round), and the MDS product: W^2
+    multiplies and W (W - 1) adds."""
     W = spec.width
     r_f = spec.full_rounds() // 2
     r_p = spec.partial_rounds()
     rc_dev, mds_dev = _device_constants(
-        df.spec, W, spec.full_rounds(), r_p, spec.secure_mds(), state.device
+        d.spec, W, spec.full_rounds(), r_p, spec.secure_mds(), state.device
     )
 
     def sbox(x):
-        x2 = df.square(x)
-        return df.mul(df.square(x2), x)
+        x2 = d.square(x)
+        return d.mul(d.square(x2), x)
 
     def apply_mds(st):
         out = []
         for i in range(W):
-            acc = df.mul(st[0], mds_dev[i, 0])
+            acc = d.mul(st[0], mds_dev[i, 0])
             for j in range(1, W):
-                acc = df.add(acc, df.mul(st[j], mds_dev[i, j]))
+                acc = d.add(acc, d.mul(st[j], mds_dev[i, j]))
             out.append(acc)
         return out
 
     st = list(state.unbind(0))
     for r in range(2 * r_f + r_p):
-        st = [df.add(st[i], rc_dev[r, i]) for i in range(W)]
+        st = [d.add(st[i], rc_dev[r, i]) for i in range(W)]
         if r_f <= r < r_f + r_p:  # partial round
             st[0] = sbox(st[0])
         else:
@@ -202,20 +205,57 @@ def permute_device(df: DeviceField, spec: Spec, state: torch.Tensor) -> torch.Te
     return torch.stack(st)
 
 
-def hash_device(df: DeviceField, spec: Spec, L: int, messages: torch.Tensor) -> torch.Tensor:
-    """Batched ConstantLength<L> hash: messages (L, 16, B) Montgomery limbs
-    -> digests (16, B)."""
-    if messages.shape[0] != L:
-        raise ValueError(f"hash_device: {messages.shape[0]} message words, ConstantLength<{L}>")
+def _hash_loop(d: DeviceField, spec: Spec, L: int, messages: torch.Tensor) -> torch.Tensor:
+    """The ConstantLength<L> sponge as a loop of field ops on ``d``."""
     B = messages.shape[-1]
     rate = spec.rate
     k = (L + rate - 1) // rate
     state = messages.new_zeros((spec.width, 16, B))
-    state[rate] = df.encode([L << 64], device=messages.device)  # the capacity element
+    state[rate] = d.encode([L << 64], device=messages.device)  # the capacity element
     padded = torch.cat([messages, messages.new_zeros((k * rate - L, 16, B))])
     for c in range(k):
         chunk = padded[c * rate : (c + 1) * rate]
         for i in range(rate):
-            state[i] = df.add(state[i], chunk[i])
-        state = permute_device(df, spec, state)
+            state[i] = d.add(state[i], chunk[i])
+        state = _permute_loop(d, spec, state)
     return state[0]
+
+
+def permute_device_plain(df: DeviceField, spec: Spec, state: torch.Tensor) -> torch.Tensor:
+    """:func:`permute_device` in plain torch ops on the state's device (the
+    field ops of ``plain_field(df.spec)``, no kernel): the port's loop
+    before ``poseidon_hash``, the reference's ``lax.scan``s."""
+    return _permute_loop(plain_field(df.spec), spec, state)
+
+
+def hash_device_plain(df: DeviceField, spec: Spec, L: int, messages: torch.Tensor) -> torch.Tensor:
+    """:func:`hash_device` in plain torch ops on the messages' device."""
+    return _hash_loop(plain_field(df.spec), spec, L, messages)
+
+
+def permute_device(df: DeviceField, spec: Spec, state: torch.Tensor) -> torch.Tensor:
+    """Batched Poseidon permutation: state (W, 16, B) Montgomery limbs ->
+    the same shape.  On a CUDA tensor one ``poseidon_hash`` launch (widths
+    3 and 5); on a CPU tensor :func:`permute_device_plain`."""
+    if state.dtype != torch.int32 or state.dim() != 3 or state.shape[:2] != (spec.width, 16):
+        raise ValueError(f"permute_device: state must be int32 ({spec.width}, 16, B), got {state.dtype} {tuple(state.shape)}")
+    if state.device.type == "cpu":
+        return permute_device_plain(df, spec, state)
+    if state.device.type != "cuda":
+        raise ValueError(f"permute_device: unsupported device {state.device}")
+    return cuda_sponge.launch(df.spec, spec, state.contiguous(), spec.width, hash_mode=False)
+
+
+def hash_device(df: DeviceField, spec: Spec, L: int, messages: torch.Tensor) -> torch.Tensor:
+    """Batched ConstantLength<L> hash: messages (L, 16, B) Montgomery limbs
+    -> digests (16, B).  On a CUDA tensor one ``poseidon_hash`` launch
+    (widths 3 and 5); on a CPU tensor :func:`hash_device_plain`."""
+    if messages.shape[0] != L:
+        raise ValueError(f"hash_device: {messages.shape[0]} message words, ConstantLength<{L}>")
+    if messages.dtype != torch.int32 or messages.dim() != 3 or messages.shape[1] != 16:
+        raise ValueError(f"hash_device: messages must be int32 (L, 16, B), got {messages.dtype} {tuple(messages.shape)}")
+    if messages.device.type == "cpu":
+        return hash_device_plain(df, spec, L, messages)
+    if messages.device.type != "cuda":
+        raise ValueError(f"hash_device: unsupported device {messages.device}")
+    return cuda_sponge.launch(df.spec, spec, messages.contiguous(), L, hash_mode=True)

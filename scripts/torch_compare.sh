@@ -14,18 +14,21 @@
 # chip_smoke.compare_kernels (kernel device times
 # through calls both trees have) in turns old / new / new / old, then one
 # profiled warm native-commit and one W = 1 sharded prove from each tree
-# (profile_prove, profile_sharded_prove), then the proves.  From the
-# repository root:
+# (profile_prove, profile_sharded_prove), then the proves; with "setup",
+# only each tree's own chip_smoke.py phases 5 and 8 (ParamsKZG.setup(16)
+# and the 2^20 Poseidon sponge, after its build) and three warm
+# ParamsKZG.setup(16) calls timed between them, old / new / new / old.
+# From the repository root:
 #
 #   git archive <commit> | tar -x -C .chip_scratch/parent   # a gitignored dir
-#   bash scripts/torch_compare.sh .chip_scratch/parent [log dir] [proves|kernels]
+#   bash scripts/torch_compare.sh .chip_scratch/parent [log dir] [proves|kernels|setup]
 set -u
 RUNS="parent1 change1 change2 parent2"
 MODE=${3:-}
 case $MODE in
   '') ;;
-  proves|kernels) RUNS="" ;;
-  *) echo "unknown mode $MODE (proves or kernels)" >&2; exit 2 ;;
+  proves|kernels|setup) RUNS="" ;;
+  *) echo "unknown mode $MODE (proves, kernels or setup)" >&2; exit 2 ;;
 esac
 ROOT=$(cd "$(dirname "$0")/.." && pwd)
 OLD=$(cd "$1" && pwd)
@@ -43,6 +46,28 @@ for run in $RUNS; do
   echo "$run rc=$rc $(( $(date +%s) - t0 )) s"
   grep -E "^\[(prove|mock|poseidon|profile|done)\]|vm_eval m=|mod_add m=|mod_sub m=|bn254_fr C=(83 n=32768|1 n=1048576) on the device" "$OUT/$run.log" | grep -v keygen | cut -c1-900
 done
+if [ "$MODE" = setup ]; then
+  SETUP="import statistics, time, torch, chip_smoke as m
+from halo2_tpu_torch.kzg.params import ParamsKZG
+d = m.phase_device()
+m.phase_build()
+m.phase_setup(d)
+ts = []
+for _ in range(3):
+    torch.cuda.synchronize(); t0 = time.perf_counter(); ParamsKZG.setup(16); torch.cuda.synchronize()
+    ts.append(time.perf_counter() - t0)
+print(f'[setup] warm ParamsKZG.setup(16): median {statistics.median(ts):.3f} s of {[round(t, 3) for t in ts]}')
+m.phase_poseidon(d)"
+  for run in parent1 change1 change2 parent2; do
+    case $run in
+      parent*) (cd "$OLD" && timeout 600 python3 -c "$SETUP" > "$OUT/setup_$run.log" 2>&1); rc=$? ;;
+      change*) timeout 600 python3 -c "$SETUP" > "$OUT/setup_$run.log" 2>&1; rc=$? ;;
+    esac
+    echo "setup $run rc=$rc"
+    grep -E "^\[(setup|poseidon)\]|^\[build\] CUDA" "$OUT/setup_$run.log" | cut -c1-900
+  done
+  exit 0
+fi
 PROF="import importlib.util
 s = importlib.util.spec_from_file_location('chip_smoke_new', '$ROOT/chip_smoke.py')
 m = importlib.util.module_from_spec(s); s.loader.exec_module(m)

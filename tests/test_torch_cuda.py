@@ -796,3 +796,91 @@ def test_batched_device_commits_launch_one_window_pass(device, flag_reads):
     for col, pt in zip(cols, got):
         canon = dfr.from_mont_arr(col).cpu().numpy().view(np.uint32)
         assert host.g1_to_ints(pt) == native.msm_g1_mont(px, py, native.pack_device(canon))
+
+
+# ------------------------------------------------ the setup ladder, the sponge
+def _ladder_operands(m, device):
+    """m SRS points doubled (z != 1) and random.Random(254) scalars below R
+    as (256, m) uint8 bit rows: lane 0 the scalar 0, lane 1 the scalar 1,
+    lane 2 R - 1, lane 3 an infinity base, lane 4 P == Q at row 254."""
+    from halo2_tpu_torch.ec import host
+    from halo2_tpu_torch.kzg.params import scalar_bits
+
+    _, _, x, y = _srs(m, device)
+    p = ecd.jac_double(ecd.jac_from_affine(x, y))
+    rng = random.Random(254)
+    scalars = [rng.randrange(host.R) for _ in range(m)]
+    special = [0, 1, host.R - 1, rng.randrange(host.R), (1 << 254) % host.R + (1 << 254)]
+    scalars[:5] = special[: min(5, m)]
+    if m > 3:
+        for k, v in ecd.jac_infinity((), device=device).items():
+            p[k][:, 3] = v
+    return p, torch.from_numpy(scalar_bits(scalars)).to(device)
+
+
+@pytest.mark.parametrize("schedule", [None, *cuda_jac.LADDER_SCHEDULES], ids=str)
+@pytest.mark.parametrize("m", [1, 33, 300])
+def test_jac_ladder_kernel_matches_plain(device, m, schedule, flag_reads):
+    p, bits = _ladder_operands(m, device)
+    before = cuda_jac.LAUNCHES["jac_ladder"]
+    got = cuda_jac.jac_ladder_cuda(p, bits, schedule)
+    got32 = cuda_jac.jac_ladder_cuda(p, bits.to(torch.int32), schedule)
+    torch.cuda.synchronize(device)
+    assert cuda_jac.LAUNCHES["jac_ladder"] == before + 2
+    assert flag_reads == []
+    want = cuda_jac.scalar_mul_batched_plain(p, bits)
+    for k in ("x", "y", "z"):
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got32[k], want[k]), k
+
+
+def test_setup_runs_one_ladder(device):
+    """ParamsKZG.setup(13), the device branch's smallest k, equals the saved
+    SRS, through one jac_ladder launch and no field-op or add launch."""
+    from halo2_tpu_torch.kzg.params import ParamsKZG
+    from halo2_tpu_torch.parallel.jobs import read_launches, reset_launches
+
+    reset_launches()
+    got = ParamsKZG.setup(13)
+    counts = read_launches()
+    want = ParamsKZG.load(os.path.join(ROOT, ".srs", "kzg_bn254_k13_s857536.pkl"))
+    assert np.array_equal(got.g1_x, want.g1_x) and np.array_equal(got.g1_y, want.g1_y)
+    assert counts["jac_ladder"] == 1 and counts["mont_inv"] == 1
+    assert counts["mont_sqr"] == counts["mod_add"] == counts["mod_sub"] == counts["jac_add"] == 0
+
+
+SPONGE_CASES = [(BN254_FR, 5, 4), (PASTA_FP, 3, 2), (PASTA_FP, 3, 3), (PASTA_FP, 5, 3),
+                (BN254_FR, 5, None), (PASTA_FP, 3, None)]
+
+
+@pytest.mark.parametrize(
+    "field, width, L", SPONGE_CASES, ids=lambda v: getattr(v, "name", str(v))
+)
+@pytest.mark.parametrize("m", [1, 33, 2048])
+def test_poseidon_kernel_matches_plain(device, field, width, L, m):
+    """hash_device (L words) or permute_device (L None) in one poseidon_hash
+    launch, limb for limb against the plain versions."""
+    from halo2_tpu_torch import poseidon
+    from halo2_tpu_torch.poseidon import cuda_sponge
+
+    df = get_device_field(field)
+    spec = poseidon.P128Pow5T3() if width == 3 else poseidon.MySpec(5, 4)
+    words = width if L is None else L
+    x = torch.stack([_encoded(field, m, 40 + i, device) for i in range(words)])
+    before = cuda_sponge.LAUNCHES["poseidon_hash"]
+    if L is None:
+        got, want = poseidon.permute_device(df, spec, x), poseidon.permute_device_plain(df, spec, x)
+    else:
+        got, want = poseidon.hash_device(df, spec, L, x), poseidon.hash_device_plain(df, spec, L, x)
+    torch.cuda.synchronize(device)
+    assert cuda_sponge.LAUNCHES["poseidon_hash"] == before + 1
+    assert torch.equal(got, want)
+
+
+def test_poseidon_kernel_refuses_other_widths(device):
+    from halo2_tpu_torch import poseidon
+
+    df = get_device_field(BN254_FR)
+    x = torch.stack([_encoded(BN254_FR, 64, 60 + i, device) for i in range(4)])
+    with pytest.raises(ValueError, match="widths"):
+        poseidon.permute_device(df, poseidon.MySpec(4, 3), x)
