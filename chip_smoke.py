@@ -75,10 +75,9 @@ passes or raises:
    schedule, each one's device time a call beside its bound and its chain
    of dependent group ops; jac_ladder (the setup's double-and-add in one
    launch) at LADDER_SIZES lanes with 256 bit rows (a zero scalar, 1,
-   R - 1, an infinity base, P == Q at row 254) in ladder_plan's schedule
-   and each of LADDER_SCHEDULES, on uint8 and int32 bits, reading no P ==
-   Q flag, and each schedule timed at LADDER_TIMED lanes of the setup's
-   own operands beside the bound of the work they need; poseidon_hash
+   R - 1, an infinity base, P == Q at row 254) on uint8 and int32 bits,
+   reading no P == Q flag, timed at LADDER_TIMED lanes of the setup's own
+   operands beside the bound of the work they need; poseidon_hash
    (the sponge, or a permutation, in one launch) at SPONGE_SIZES lanes for
    SPONGE_CASES (BN254 Fr MySpec(5, 4) at L = 4, Pasta Fp P128Pow5T3 at
    L = 2 and 3, width 5 at L = 3, and permute_device at both widths),
@@ -288,8 +287,8 @@ ACC_SCHEDULES_TIMED = ((1 << 11, 1), (1 << 11, 4), (1 << 11, 20), (1 << 10, 20),
 SCAN_RAGGED = (1, 2, 65, 257, 700)
 # the shape at which each kernel's ms in the JSON line is taken
 # jac_ladder: the lanes at which it is held against its plain version (one
-# plain run over the widest, 256 bit rows) and at which each schedule is
-# timed on the setup's own operands (the device branch runs k = 13 and up:
+# plain run over the widest, 256 bit rows) and at which it is timed on the
+# setup's own operands (the device branch runs k = 13 and up:
 # 2^13, 2^14 and k = 16's 2^16 lanes, and 2^11 for the JSON line); the
 # JSON line's ms at 2^11, where the plain version's 256 rounds take seconds
 LADDER_SIZES = (1, 33, 1 << 11)
@@ -476,7 +475,7 @@ def _sass_counts(library) -> dict:
             kernels = ("jac_madd_wide", "jac_madd_narrow", "jac_add_wide", "jac_add_narrow", "jac_horner", "mont_pow",
                        "mont_inv", "mul_chain", "jac_suffix_scan_cluster", "jac_suffix_scan_coarse",
                        "msm_chunk_acc_group", "msm_chunk_acc_thread3", "msm_chunk_acc_thread",
-                       "jac_ladder_thread", "jac_ladder_group", "poseidon_kernel")
+                       "jac_ladder", "poseidon_kernel")
             name = next((k for k in kernels if k in fn), None)
             if name == "mont_inv":
                 g = re.search(r"Li(\d)E", fn)
@@ -1756,9 +1755,8 @@ def _ladder_work(bits) -> tuple:
 def _check_setup_ladder(device, err, times) -> dict:
     """jac_ladder against scalar_mul_batched_plain, limb for limb, with 256
     bit rows at LADDER_SIZES lanes (one plain run over the widest; the
-    exception lanes of _ladder_lanes), in ladder_plan's schedule and in each
-    of LADDER_SCHEDULES, on uint8 and int32 bits, reading no P == Q flag;
-    each schedule's time a launch (_events_ms) at LADDER_TIMED lanes of the
+    exception lanes of _ladder_lanes), on uint8 and int32 bits, reading no
+    P == Q flag; its time a launch (_events_ms) at LADDER_TIMED lanes of the
     setup's own operands beside the bound of the work they need; kernel
     and plain version per call at the JSON line's 2^11.  Returns that
     bound."""
@@ -1771,34 +1769,27 @@ def _check_setup_ladder(device, err, times) -> dict:
     for m in LADDER_SIZES:
         p = {k: v[:, :m].contiguous() for k, v in p_all.items()}
         bits = bits_all[:, :m].contiguous()
-        runs = [(s, bits) for s in (None, *cuda_jac.LADDER_SCHEDULES)] + [(None, bits.to(torch.int32))]
-        for schedule, b in runs:
+        for b in (bits, bits.to(torch.int32)):
             with _FlagReads() as flags:
-                got = cuda_jac.jac_ladder_cuda(p, b, schedule)
+                got = cuda_jac.jac_ladder_cuda(p, b)
             if flags.reads:
                 raise AssertionError(f"jac_ladder m={m}: {flags.reads} P == Q flag reads")
             for k in ("x", "y", "z"):
-                label = f"jac_ladder m={m} {schedule or cuda_jac.ladder_plan(m)} {b.dtype} {k}"
+                label = f"jac_ladder m={m} {b.dtype} {k}"
                 err["jac_ladder"] = max(err["jac_ladder"], _max_abs_err(label, got[k], want[k][:, :m].contiguous()))
     print(
-        f"[kernels] jac_ladder m={list(LADDER_SIZES)}, 256 bit rows: equal to plain in ladder_plan's schedule and "
-        f"each of {list(cuda_jac.LADDER_SCHEDULES)}, uint8 and int32 bits (lanes: 0, 1, R - 1, an infinity base, "
-        f"P == Q at row 254), no flag reads",
+        f"[kernels] jac_ladder m={list(LADDER_SIZES)}, 256 bit rows: equal to plain on uint8 and int32 bits "
+        f"(lanes: 0, 1, R - 1, an infinity base, P == Q at row 254), no flag reads",
         flush=True,
     )
     bound = None
     for m in LADDER_TIMED:
         base, bits = _setup_inputs(device, m)
         b = _bound(*_ladder_work(bits))
-        shares = []
-        for schedule in cuda_jac.LADDER_SCHEDULES:
-            t_d = _events_ms(lambda: cuda_jac.jac_ladder_cuda(base, bits, schedule), b[0], calls=3)
-            times[("jac_ladder", schedule, m)] = t_d
-            shares.append(f"{schedule} {t_d:.4f} ms ({b[0] / t_d:.1%})")
+        t_d = _events_ms(lambda: cuda_jac.jac_ladder_cuda(base, bits), b[0], calls=3)
         print(
             f"[kernels] jac_ladder m={m} (the setup's operands, 256 rows, {int((bits != 0).sum())} set bits): "
-            f"bound {b[0]:.6f} ms ({b[1]}); ms a launch (CUDA events): " + "; ".join(shares)
-            + f"; ladder_plan: {cuda_jac.ladder_plan(m)}",
+            f"bound {b[0]:.6f} ms ({b[1]}); {t_d:.4f} ms a launch (CUDA events), {b[0] / t_d:.1%} of the bound",
             flush=True,
         )
         if m == LADDER_REPORT_M:
@@ -1832,11 +1823,15 @@ def _sponge_work(spec, L: int | None, m: int) -> tuple:
     """(bytes, IMADs) of one poseidon_hash launch over m lanes: hashing
     (L words) reads the messages and writes the digests, permuting (L None)
     reads and writes W words; a permutation is W 2 r_f + r_p S-boxes (2
-    squares and a product) and (2 r_f + r_p) W^2 MDS products, IMAD_MUL and
-    IMAD_SQR each (the carry-chain arithmetic's count), ceil(L / rate) of
-    them a hash."""
+    squares and a product) and the fewest MDS products that give its
+    output: W^2 a full round, and in the partial rounds the sparse form
+    (one dense W x W matrix, then 2 W - 1 products a round: a row and a
+    column), though the kernel multiplies by the dense matrix in every
+    round; IMAD_MUL and IMAD_SQR each (the carry-chain arithmetic's count),
+    ceil(L / rate) permutations a hash."""
     W, r_f, r_p = spec.width, spec.full_rounds() // 2, spec.partial_rounds()
-    perm = (W * 2 * r_f + r_p) * (2 * IMAD_SQR + IMAD_MUL) + (2 * r_f + r_p) * W * W * IMAD_MUL
+    mds = 2 * r_f * W * W + W * W + r_p * (2 * W - 1)
+    perm = (W * 2 * r_f + r_p) * (2 * IMAD_SQR + IMAD_MUL) + mds * IMAD_MUL
     if L is None:
         return 2 * W * ELEM * m, perm * m
     return (L + 1) * ELEM * m, perm * -(-L // spec.rate) * m

@@ -117,7 +117,7 @@ def lib() -> ctypes.CDLL:
                 "jac_madd": [vp] * 9 + [i32, vp, i32, vp],
                 "jac_add": [vp] * 9 + [i32, vp, i32, vp],
                 "jac_horner": [vp, vp, i32, i32, i32, vp, vp],
-                "jac_ladder": [vp, vp, vp, vp, i32, vp, i32, i32, i32, vp, vp],
+                "jac_ladder": [vp, vp, vp, vp, vp, i32, i32, vp, vp],
                 "poseidon_hash": [vp, vp, i32, i32, i32, i32, vp, i32, i32, vp, vp, i32, vp],
                 "msm_chunk_acc": [vp, vp, vp, vp, vp, i32, i32, i32, i32, vp, vp],
                 "jac_suffix_scan": [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp, vp],

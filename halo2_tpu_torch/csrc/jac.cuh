@@ -237,8 +237,7 @@ __device__ __forceinline__ void jac_add_into(const P& p, const Q& q, const Modul
 // jac_dbl_into, jac_add_into and jac_madd_into, so a kernel on them equals
 // the plain versions limb for limb.  Every thread of a warp must call them
 // together (the shuffles and the P == Q vote span the warp).  jac.cu's
-// jac_horner, ladder.cu's group schedule and msm.cu's cluster scan run on
-// the first two, msm.cu's
+// jac_horner and msm.cu's cluster scan run on the first two, msm.cu's
 // group schedule of msm_chunk_acc on the mixed add.  What it buys: a lane's
 // chain of dependent products is 4 instead of 11, for 16 products issued a
 // lane instead of 11, so a launch whose lanes leave the card half idle (one
@@ -299,11 +298,10 @@ __device__ __forceinline__ void dbl_group(int g, uint32_t x[WORDS], uint32_t y[W
 // add-2007-bl in five levels of products (z1^2 | z2^2 | y1 z2 | y2 z1, u1 |
 // u2 | s1 | s2, h^2 | z1 z2 | rr^2, j | z3 | v, rr (v - x3) | s1 j) with
 // the exceptions of _jac_add_jnp: q at infinity gives p, p at infinity q,
-// P == Q the doubling of p, P == -Q (0, 1, 0).  A lane whose group passes
-// take = false keeps p, as if q were at infinity (jac_ladder's unset bits).
+// P == Q the doubling of p, P == -Q (0, 1, 0).
 __device__ __forceinline__ void add_group(int g, uint32_t x1[WORDS], uint32_t y1[WORDS], uint32_t z1[WORDS],
                                           const uint32_t x2[WORDS], const uint32_t y2[WORDS],
-                                          const uint32_t z2[WORDS], const ModulusOne& K, bool take = true) {
+                                          const uint32_t z2[WORDS], const ModulusOne& K) {
   const Modulus& M = K.M;
   uint32_t u[WORDS], v[WORDS], pr[WORDS];
   uint32_t z1z1[WORDS], z2z2[WORDS], y1z2[WORDS], y2z1[WORDS];
@@ -354,7 +352,7 @@ __device__ __forceinline__ void add_group(int g, uint32_t x1[WORDS], uint32_t y1
   from(pr, 1, u);   // s1 j
   cc::dbl(u, M, u);
   cc::sub(y3, u, M, y3);  // y3 = rr (v - x3) - 2 s1 j
-  const bool q_inf = !take || is_zero(z2), p_inf = is_zero(z1);
+  const bool q_inf = is_zero(z2), p_inf = is_zero(z1);
   const bool h_zero = is_zero(h), r_zero = is_zero(rd);
   const bool same = !q_inf && !p_inf && h_zero && r_zero;
   uint32_t dx[WORDS], dy[WORDS], dz[WORDS];

@@ -14,8 +14,7 @@ Horner combine of window sums (the reference's ``fori_loop`` of doublings
 and complete adds, ``halo2_tpu/ec/device.py:597-607``) in one launch, and
 a fourth, ``jac_ladder`` (``csrc/ladder.cu``), the SRS setup's per-lane
 double-and-add (the reference's ``lax.scan`` ``scalar_mul_batched``,
-``:246``) in one launch, a lane a thread or a group of four threads by
-:func:`ladder_plan`.
+``:246``) in one launch, a thread a lane.
 Two more run the device MSM's window-sum rounds over a batch of rows
 (``csrc/msm.cu``): ``msm_chunk_acc``, every chunk's rounds of signed mixed
 adds in registers (the reference's ``fori_loop`` at
@@ -362,16 +361,6 @@ ACC_QMAX = 16
 # thread again above, up to the 2^18 slice's 360,448.
 ACC_PLAN = ((1 << 13, "group"), (67_584, "thread"), (101_376, "thread3"))
 ACC_PLAN_ABOVE = "thread"
-# jac_ladder's schedules (csrc/ladder.cu): a lane a thread, or a lane a
-# group of four threads (jac.cuh:dbl_group/add_group); ladder_plan's rule,
-# (most lanes, schedule) by the lane count, measured on one H100 with the
-# setup's own operands, 256 rows (chip_smoke.py phase 2, PERF.md): the
-# group up to the k = 13 setup's 8,192 lanes (1.68 ms against the thread's
-# 2.61; 2^11 1.30 against 2.58), the thread above (2^14 2.61 against 3.46,
-# the k = 16 setup's 2^16 8.0 against 12.6)
-LADDER_SCHEDULES = ("thread", "group")
-LADDER_PLAN = ((1 << 13, "group"),)
-LADDER_PLAN_ABOVE = "thread"
 
 
 def variant(m: int) -> str:
@@ -482,22 +471,12 @@ def jac_horner_cuda(w, c: int):
     return {"x": out[0], "y": out[1], "z": out[2]}
 
 
-def ladder_plan(m: int) -> str:
-    """``jac_ladder``'s schedule for m lanes: the first of ``LADDER_PLAN``
-    whose most lanes m does not exceed, else ``LADDER_PLAN_ABOVE``.  Every
-    schedule gives the same limbs."""
-    return next((schedule for most, schedule in LADDER_PLAN if m <= most), LADDER_PLAN_ABOVE)
-
-
-def jac_ladder_cuda(points, bits, schedule=None):
+def jac_ladder_cuda(points, bits):
     """Per-lane double-and-add of a jac dict ``(16, N)`` by its ``(nbits,
     N)`` bit rows (uint8 or int32, nonzero = set, LSB first): the
-    ``jac_ladder`` kernel on CUDA tensors (the whole ladder in one launch,
-    in ``schedule``, one of ``LADDER_SCHEDULES``, or :func:`ladder_plan`'s
-    when None), :func:`scalar_mul_batched_plain` on CPU ones whatever the
-    schedule."""
-    if schedule is not None and schedule not in LADDER_SCHEDULES:
-        raise ValueError(f"jac_ladder: schedule must be one of {LADDER_SCHEDULES}, got {schedule!r}")
+    ``jac_ladder`` kernel on CUDA tensors (the whole ladder in one launch;
+    it reads uint8 rows, so int32 ones are narrowed first),
+    :func:`scalar_mul_batched_plain` on CPU ones."""
     px, py, pz = points["x"], points["y"], points["z"]
     check_limbs("jac_ladder", px=px, py=py, pz=pz)
     if px.dim() != 2 or py.shape != px.shape or pz.shape != px.shape:
@@ -515,10 +494,11 @@ def jac_ladder_cuda(points, bits, schedule=None):
     m = px.shape[1]
     out = torch.empty((3, L, m), dtype=torch.int32, device=px.device)
     if m:
+        if bits.dtype != torch.uint8:
+            bits = (bits != 0).to(torch.uint8)
         _build.launch(
             "jac_ladder", px.device, px.data_ptr(), py.data_ptr(), pz.data_ptr(), bits.data_ptr(),
-            int(bits.dtype == torch.int32), out.data_ptr(), m, bits.shape[0],
-            _LADDER_MODES[schedule or ladder_plan(m)], modulus_one_words(BN254_FQ).ctypes.data,
+            out.data_ptr(), m, bits.shape[0], modulus_one_words(BN254_FQ).ctypes.data,
         )
         LAUNCHES["jac_ladder"] += 1
     return {"x": out[0], "y": out[1], "z": out[2]}
@@ -606,7 +586,6 @@ def _jac_suffix_scan(s, schedule=None):
 # the C entries' modes: msm_chunk_acc's schedules; a tile pass of either
 # scan schedule, the scan's offsets pass
 _ACC_MODES = {"group": 0, "thread": 1, "thread3": 2}
-_LADDER_MODES = {"thread": 0, "group": 1}
 _SCAN_MODES = {"cluster": 0, "offsets": 1, "coarse": 2}
 
 

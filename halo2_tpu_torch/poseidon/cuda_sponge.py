@@ -17,8 +17,8 @@ import numpy as np
 import torch
 
 from ..field.cuda_mul import ARITH, arith, modulus_words
+from ..field.device import get_device_field
 from ..field.params import NUM_LIMBS, FieldSpec
-from .grain import generate_constants
 
 L = NUM_LIMBS
 LAUNCHES = {"poseidon_hash": 0}
@@ -27,24 +27,23 @@ LAUNCHES = {"poseidon_hash": 0}
 WIDTHS = (3, 5)
 
 
-def _words(values, p: int, r: int) -> np.ndarray:
-    """Ints -> (n, 8) uint32: each value's Montgomery form (v R mod p) as
-    eight little-endian 32-bit words, the kernel's register layout."""
-    out = np.empty((len(values), 8), np.uint32)
-    for e, v in enumerate(values):
-        m = int(v) % p * r % p
-        out[e] = [(m >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
-    return out
+def _pack(limbs: np.ndarray) -> np.ndarray:
+    """(n, 16) 16-bit limbs -> (n, 8) uint32, the kernel's register layout:
+    word k is limb 2k | limb 2k + 1 << 16."""
+    u = limbs.astype(np.uint32)
+    return u[:, 0::2] | u[:, 1::2] << 16
 
 
 def constants_words(field_spec: FieldSpec, width: int, r_f_total: int, r_p: int, secure_mds: int) -> np.ndarray:
     """The kernel's constant table, ``(R W + W W, 8)`` uint32: round r's
     constant for word i at row r W + i (R = r_f_total + r_p rounds), then
     the MDS matrix's entry (i, j) at row R W + i W + j, each in Montgomery
-    form as eight little-endian words."""
-    rcs, mds, _ = generate_constants(field_spec, width, r_f_total, r_p, secure_mds)
-    flat = [v for row in rcs for v in row] + [v for row in mds for v in row]
-    return _words(flat, field_spec.p, field_spec.r)
+    form as eight little-endian words: the plain versions' tables
+    (``primitives._device_constants``), their limbs packed in pairs."""
+    from .primitives import _device_constants
+
+    rcs, mds = _device_constants(field_spec, width, r_f_total, r_p, secure_mds, torch.device("cpu"))
+    return _pack(torch.cat([rcs.reshape(-1, L), mds.reshape(-1, L)]).numpy())
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,7 +58,7 @@ def _table(field_spec: FieldSpec, width: int, r_f_total: int, r_p: int, secure_m
 def _capacity_words(field_spec: FieldSpec, n_msg: int) -> np.ndarray:
     """ConstantLength<n_msg>'s capacity word n_msg 2^64 in Montgomery form,
     eight words."""
-    return _words([n_msg << 64], field_spec.p, field_spec.r)[0]
+    return _pack(get_device_field(field_spec).encode_np([n_msg << 64]).T)[0]
 
 
 def launch(field_spec: FieldSpec, spec, inp: torch.Tensor, n_msg: int, hash_mode: bool) -> torch.Tensor:

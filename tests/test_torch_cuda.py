@@ -818,13 +818,12 @@ def _ladder_operands(m, device):
     return p, torch.from_numpy(scalar_bits(scalars)).to(device)
 
 
-@pytest.mark.parametrize("schedule", [None, *cuda_jac.LADDER_SCHEDULES], ids=str)
-@pytest.mark.parametrize("m", [1, 33, 300])
-def test_jac_ladder_kernel_matches_plain(device, m, schedule, flag_reads):
+@pytest.mark.parametrize("m", [1, 33, 300, 2081])
+def test_jac_ladder_kernel_matches_plain(device, m, flag_reads):
     p, bits = _ladder_operands(m, device)
     before = cuda_jac.LAUNCHES["jac_ladder"]
-    got = cuda_jac.jac_ladder_cuda(p, bits, schedule)
-    got32 = cuda_jac.jac_ladder_cuda(p, bits.to(torch.int32), schedule)
+    got = cuda_jac.jac_ladder_cuda(p, bits)
+    got32 = cuda_jac.jac_ladder_cuda(p, bits.to(torch.int32))
     torch.cuda.synchronize(device)
     assert cuda_jac.LAUNCHES["jac_ladder"] == before + 2
     assert flag_reads == []

@@ -145,6 +145,7 @@ def test_slice_imports_without_jax():
 def test_no_port_file_imports_jax():
     scripts = (
         "chip_smoke.py", "scripts/inv_probe.py", "scripts/msm_probe.py", "scripts/prove_pairs.py",
+        "scripts/ladder_probe.py",
     )
     paths = [os.path.join(ROOT, name) for name in scripts]
     for dirpath, _dirs, names in os.walk(PORT_DIR):

@@ -13,8 +13,8 @@ the CPU, where the wrappers run their plain versions:
   2^10 random powers, and ``device_g1_powers`` at n = 32 against the host
   branch of ``ParamsKZG.setup``;
 - the wrapper's dispatch: a CPU tensor runs the plain version and counts
-  no launch; another device, a bad dtype or shape, or an unknown schedule
-  raises; ``ladder_plan``'s rule.
+  no launch; another device, a bad dtype or shape raises; any nonzero
+  uint8 or int32 value is a set bit.
 
 The kernel is held against the plain version on the card
 (tests/test_torch_cuda.py, chip_smoke.py phase 2).  Inputs come from a
@@ -143,12 +143,7 @@ def test_jac_ladder_dispatch_and_checks():
     got = cuda_jac.jac_ladder_cuda(pts, bits)
     want = cuda_jac.scalar_mul_batched_plain(pts, bits)
     assert all(torch.equal(got[k], want[k]) for k in want)
-    for schedule in cuda_jac.LADDER_SCHEDULES:  # every schedule is the plain version on the CPU
-        forced = cuda_jac.jac_ladder_cuda(pts, bits, schedule)
-        assert all(torch.equal(forced[k], want[k]) for k in want)
     assert cuda_jac.LAUNCHES == before, "a CPU tensor launched a kernel"
-    with pytest.raises(ValueError, match="schedule"):
-        cuda_jac.jac_ladder_cuda(pts, bits, "warp")
     with pytest.raises(ValueError, match="bits"):
         cuda_jac.jac_ladder_cuda(pts, bits.to(torch.int64))
     with pytest.raises(ValueError, match="bits"):
@@ -163,11 +158,18 @@ def test_jac_ladder_dispatch_and_checks():
 
 
 @pytest.mark.parametrize(
-    "m, want",
-    [(1, "group"), (1 << 11, "group"), (1 << 13, "group"), ((1 << 13) + 1, "thread"),
-     (1 << 16, "thread")],
+    "dtype, value",
+    [(torch.uint8, 1), (torch.uint8, 255), (torch.int32, 1), (torch.int32, -1),
+     (torch.int32, 1 << 30)],
+    ids=["u8-1", "u8-255", "i32-1", "i32-minus1", "i32-2^30"],
 )
-def test_ladder_plan_rule(m, want):
-    """The group for few lanes (up to the k = 13 setup's), a thread a lane above."""
-    assert cuda_jac.ladder_plan(m) == want
-    assert set(cuda_jac.LADDER_SCHEDULES) == {"thread", "group"}
+def test_jac_ladder_any_nonzero_bit_is_set(dtype, value):
+    """Bit rows whose set entries hold ``value`` give the limbs of the 0/1
+    uint8 rows, with no launch."""
+    pts = {k: _port(v) for k, v in _points(5).items()}
+    bits = torch.from_numpy(scalar_bits(_scalars(6, 12))[:12])
+    want = cuda_jac.scalar_mul_batched_plain(pts, bits)
+    before = dict(cuda_jac.LAUNCHES)
+    got = cuda_jac.jac_ladder_cuda(pts, torch.where(bits != 0, value, 0).to(dtype))
+    assert cuda_jac.LAUNCHES == before
+    assert all(torch.equal(got[k], want[k]) for k in want)
