@@ -73,11 +73,17 @@ passes or raises:
    with exception lanes (a (0, 0) point, a y = 0 point, P == Q and P == -Q
    in a chunk) and the scan at SCAN_RAGGED chunk counts in every
    schedule, each one's device time a call beside its bound and its chain
-   of dependent group ops; jac_ladder (the setup's double-and-add in one
-   launch) at LADDER_SIZES lanes with 256 bit rows (a zero scalar, 1,
+   of dependent group ops; jac_ladder (a per-lane double-and-add in one
+   launch; no path launches it since jac_fixed_base) at LADDER_SIZES lanes with 256 bit rows (a zero scalar, 1,
    R - 1, an infinity base, P == Q at row 254) on uint8 and int32 bits,
    reading no P == Q flag, timed at LADDER_TIMED lanes of the setup's own
-   operands beside the bound of the work they need; poseidon_hash
+   operands beside the bound of the work they need; jac_fixed_base (the
+   setup's G tau^i: one shared point's window table, a mixed add a window
+   a lane, in one launch) at FIXED_BASE_SIZES lanes for two points (G and
+   7 G; scalars 0, 1, R - 1, R with P == -Q in the top window, 2^255 - R
+   with P == Q there, 2^256 - 1), reading no P == Q flag, timed at
+   FIXED_BASE_TIMED lanes of the setup's operands beside its bound and the
+   double-and-add's bound of the same scalars; poseidon_hash
    (the sponge, or a permutation, in one launch) at SPONGE_SIZES lanes for
    SPONGE_CASES (BN254 Fr MySpec(5, 4) at L = 4, Pasta Fp P128Pow5T3 at
    L = 2 and 3, width 5 at L = 3, and permute_device at both widths),
@@ -106,9 +112,9 @@ passes or raises:
    the native and torch engines give equal proofs, which verify; what
    engine="auto" picks at k = 11 and k = 13;
 5. the SRS setup on the card: ParamsKZG.setup(16) equals
-   .srs/kzg_bn254_k16_s857536.pkl limb for limb, through one jac_ladder
-   launch, then mont_inv and mont_mul (SETUP_KERNELS), and no mont_sqr,
-   mod_add, mod_sub or jac_add (SETUP_GONE);
+   .srs/kzg_bn254_k16_s857536.pkl limb for limb, through one
+   jac_fixed_base launch, then mont_inv and mont_mul (SETUP_KERNELS), and
+   no jac_ladder, mont_sqr, mod_add, mod_sub or jac_add (SETUP_GONE);
 6. keygen on the card: the flagship through keygen_vk then keygen_pk
    (native commits) and through keygen(..., commit="device"), each equal to
    .srs/pk_mst_d15_k11.pkl (digest, commitments, values, coefficients); a
@@ -169,7 +175,7 @@ vm_eval in every prove, the MSM's kernels (MSM_KERNELS: msm_chunk_acc,
 jac_suffix_scan, jac_add) and jac_horner in the device-commit prove and
 the device-commit keygen, the MSM's kernels in the MSM and in every hybrid
 MSM whose device share is above 0, none in a NativeEngine prove,
-jac_ladder, mont_inv and mont_mul in the setup, vm_eval in every
+jac_fixed_base, mont_inv and mont_mul in the setup, vm_eval in every
 MockProver run, poseidon_hash in the sponge, and in
 phase 9 (each rank's counts set to 0 before each of its jobs and read
 after) every kernel of SHARDED_KERNELS (mont_mul, jac_horner, mont_inv,
@@ -180,8 +186,8 @@ in the sharded MSM, and mont_inv in the sharded grand product; and no MSM
 path (the MSM, the device-commit and sharded proves, the sharded MSM)
 launches jac_madd or mod_sub (MSM_GONE: the mixed add and the negation
 run inside msm_chunk_acc), nor the device-commit keygen jac_madd; the
-setup no mont_sqr, mod_add, mod_sub or jac_add (SETUP_GONE: the ladder's
-rounds run inside jac_ladder) and the sponge no mont_mul, mont_sqr or
+setup no jac_ladder, mont_sqr, mod_add, mod_sub or jac_add (SETUP_GONE:
+its multiples are one jac_fixed_base launch) and the sponge no mont_mul, mont_sqr or
 mod_add (SPONGE_GONE: its rounds run inside poseidon_hash); in phase 10
 vm_eval in entry() and every kernel of SHARDED_KERNELS in each dryrun
 check on every rank.  The line
@@ -218,7 +224,8 @@ MUL_SIZES = (1, 511, 513, 1 << 11, 1 << 15, 1 << 20)
 # and 2^20
 JAC_SIZES = (1, 32, 128, 2816, 1 << 11, 1 << 13, 1 << 14, 1 << 15, 180224, 1 << 20)
 TIMED_SIZES = (1 << 11, 1 << 15, 1 << 20)
-# the lanes of ParamsKZG.setup(16)'s scalar_mul_batched (one jac_ladder launch)
+# the lanes of ParamsKZG.setup(16)'s fixed-base multiplication (one
+# jac_fixed_base launch)
 SETUP_LANES = 1 << 16
 # the coset NTT batch of the flagship prove: 20 advice, 11 fixed, 7 selector,
 # 1 instance, 4 permutation z, 24 lookup and 16 sigma columns
@@ -297,17 +304,25 @@ LADDER_REPORT_M = 1 << 11
 # poseidon_hash: (field, spec, L) of the sponges held against the plain
 # versions (L None: permute_device alone): the flagship's BN254 Fr
 # MySpec(5, 4) at L = 4 (phase 8), Pasta Fp P128Pow5T3 at L = 2 and 3
-# (one chunk, two), width 5 at L = 3 (padded), and a permutation of each
+# (one chunk, two), width 5 at L = 3 (padded), BN254 Fr P128Pow5T3 at L = 2
+# (so both widths run under both arithmetics), and a permutation of each
 # width; the lanes of the checks, of the timing (phase 8 hashes 2^20) and
 # of the JSON line's ms
 SPONGE_CASES = (("bn254_fr", "MySpec(5, 4)", 4), ("pasta_fp", "P128Pow5T3", 2), ("pasta_fp", "P128Pow5T3", 3),
-                            ("pasta_fp", "MySpec(5, 4)", 3), ("bn254_fr", "MySpec(5, 4)", None), ("pasta_fp", "P128Pow5T3", None))
+                ("pasta_fp", "MySpec(5, 4)", 3), ("bn254_fr", "P128Pow5T3", 2), ("bn254_fr", "MySpec(5, 4)", None),
+                ("pasta_fp", "P128Pow5T3", None))
 SPONGE_SIZES = (1, 33, 1 << 11)
 SPONGE_TIMED = (1 << 11, 1 << 16, 1 << 20)
 SPONGE_REPORT_M = 1 << 11
+# jac_fixed_base: the lanes at which it is held against its plain version
+# (for G and 7 G), those at which it is timed on the setup's own operands
+# (the device branch runs k = 13 and up), and the JSON line's (k = 16's)
+FIXED_BASE_SIZES = (1, 33, 1 << 11)
+FIXED_BASE_TIMED = (1 << 13, 1 << 14, SETUP_LANES)
+FIXED_BASE_REPORT_M = SETUP_LANES
 REPORT_AT = {"jac_horner": HORNER_REPORT_B, "mont_pow": POW_REPORT_M, "mont_inv": POW_REPORT_M,
              "msm_chunk_acc": MSM_REPORT, "jac_suffix_scan": MSM_REPORT, "jac_ladder": LADDER_REPORT_M,
-             "poseidon_hash": SPONGE_REPORT_M}
+             "poseidon_hash": SPONGE_REPORT_M, "jac_fixed_base": FIXED_BASE_REPORT_M}
 
 
 def _ms_per_call(fn, calls: int, runs: int = 5) -> float:
@@ -475,7 +490,7 @@ def _sass_counts(library) -> dict:
             kernels = ("jac_madd_wide", "jac_madd_narrow", "jac_add_wide", "jac_add_narrow", "jac_horner", "mont_pow",
                        "mont_inv", "mul_chain", "jac_suffix_scan_cluster", "jac_suffix_scan_coarse",
                        "msm_chunk_acc_group", "msm_chunk_acc_thread3", "msm_chunk_acc_thread",
-                       "jac_ladder", "poseidon_kernel")
+                       "jac_ladder", "jac_fixed_base", "poseidon_kernel")
             name = next((k for k in kernels if k in fn), None)
             if name == "mont_inv":
                 g = re.search(r"Li(\d)E", fn)
@@ -581,7 +596,8 @@ def phase_kernels(device):
 
     msm_bounds = _check_msm_kernels(device, gen, err, times)
 
-    setup_bounds = {**_check_setup_ladder(device, err, times), **_check_sponge(device, err, times)}
+    setup_bounds = {**_check_setup_ladder(device, err, times), **_check_fixed_base(device, err, times),
+                    **_check_sponge(device, err, times)}
 
     for n in TIMED_SIZES:
         bounds = _bounds(classes, n)
@@ -1801,6 +1817,102 @@ def _check_setup_ladder(device, err, times) -> dict:
     return {"jac_ladder": bound}
 
 
+def _fixed_base_lanes(m: int, seed: int) -> list:
+    """jac_fixed_base's checked scalars at m lanes: random.Random(seed)
+    ones below 2^256, lanes 0-5 the scalars 0, 1, R - 1, R (the top window,
+    bits 252 and up at w = 4 or 6, holds the digit 3 and meets -3 2^252 P:
+    P == -Q, the sum infinity), 2^255 - R (the digit 4 meets 4 2^252 P:
+    P == Q) and 2^256 - 1."""
+    from halo2_tpu_torch.ec import host as ec
+
+    rng = random.Random(seed)
+    scalars = [rng.getrandbits(256) for _ in range(m)]
+    special = [0, 1, ec.R - 1, ec.R, (1 << 255) - ec.R, (1 << 256) - 1]
+    scalars[: min(len(special), m)] = special[: min(len(special), m)]
+    return scalars
+
+
+def _fixed_base_work(words, window: int) -> tuple:
+    """(bytes, IMADs) of one jac_fixed_base over the (8, m) scalar words:
+    the words read once, the table read once, the sums written once; a
+    mixed add (7 products and 4 squares, 2,768 IMADs) for each nonzero
+    digit after a lane's first (the first takes the entry as it is)."""
+    from halo2_tpu_torch.ec import cuda_jac
+
+    digits = cuda_jac.fixed_base_digits(words, window)
+    m = words.shape[1]
+    adds = int((digits != 0).sum()) - int((digits != 0).any(dim=0).sum())
+    table = cuda_jac.fixed_base_windows(window) * ((1 << window) - 1) * 4 * cuda_jac.ENTRY_WORDS
+    return 4 * 8 * m + table + 3 * ELEM * m, adds * (7 * IMAD_MUL + 4 * IMAD_SQR)
+
+
+def _check_fixed_base(device, err, times) -> dict:
+    """jac_fixed_base against fixed_base_mul_plain, limb for limb, at
+    FIXED_BASE_SIZES lanes (one plain run over the widest) for G and for
+    7 G, on _fixed_base_lanes' scalars, reading no P == Q flag; its time a
+    launch (_events_ms) at FIXED_BASE_TIMED lanes of ParamsKZG.setup(16)'s
+    own scalars (tau^i) beside its bound and the double-and-add's bound of
+    the same scalars (_ladder_work); kernel and plain version per call at
+    the JSON line's 2^16, where the two also agree.  Returns that bound."""
+    import numpy as np
+    import torch
+
+    from halo2_tpu_torch.ec import cuda_jac
+    from halo2_tpu_torch.ec import host as ec
+    from halo2_tpu_torch.kzg.params import scalar_bits, scalar_words
+
+    w = cuda_jac.FIXED_BASE_WINDOW
+    top = max(FIXED_BASE_SIZES)
+    words_all = torch.from_numpy(scalar_words(_fixed_base_lanes(top, 0xF1B)).view(np.int32)).to(device)
+    for k in (1, 7):
+        x, y = ec.g1_to_ints(ec.ec_mul(ec.G1, k))
+        table = cuda_jac.fixed_base_table_tensor(x, y, w, device)
+        want = cuda_jac.fixed_base_mul_plain(table, words_all)
+        for m in FIXED_BASE_SIZES:
+            words = words_all[:, :m].contiguous()
+            with _FlagReads() as flags:
+                got = cuda_jac.jac_fixed_base_cuda(table, words)
+            if flags.reads:
+                raise AssertionError(f"jac_fixed_base m={m}: {flags.reads} P == Q flag reads")
+            for c in ("x", "y", "z"):
+                label = f"jac_fixed_base {k} G m={m} {c}"
+                err["jac_fixed_base"] = max(err["jac_fixed_base"], _max_abs_err(label, got[c], want[c][:, :m].contiguous()))
+    print(
+        f"[kernels] jac_fixed_base w={w}, m={list(FIXED_BASE_SIZES)}, G and 7 G: equal to plain (lanes: 0, 1, "
+        f"R - 1, R (P == -Q in the top window), 2^255 - R (P == Q there), 2^256 - 1), no flag reads",
+        flush=True,
+    )
+    tau = random.Random(0xD15C0).randrange(1, ec.R)
+    powers = [1] * max(FIXED_BASE_TIMED)
+    for i in range(1, len(powers)):
+        powers[i] = powers[i - 1] * tau % ec.R
+    gx, gy = ec.g1_to_ints(ec.G1)
+    table = cuda_jac.fixed_base_table_tensor(gx, gy, w, device)
+    bound = None
+    for m in FIXED_BASE_TIMED:
+        words = torch.from_numpy(scalar_words(powers[:m]).view(np.int32)).to(device)
+        b = _bound(*_fixed_base_work(words, w))
+        ladder = _bound(*_ladder_work(torch.from_numpy(scalar_bits(powers[:m]))))
+        t_d = _events_ms(lambda: cuda_jac.jac_fixed_base_cuda(table, words), b[0], calls=5)
+        print(
+            f"[kernels] jac_fixed_base m={m} (the setup's scalars, w={w}): {t_d:.4f} ms a launch (CUDA events); "
+            f"bound {b[0]:.6f} ms ({b[1]}, {b[0] / t_d:.1%} of it); the double-and-add's bound of the same "
+            f"scalars {ladder[0]:.6f} ms ({ladder[1]})",
+            flush=True,
+        )
+        if m == FIXED_BASE_REPORT_M:
+            bound = b
+            want, plain_ms = _once_ms(lambda: cuda_jac.fixed_base_mul_plain(table, words))
+            got = cuda_jac.jac_fixed_base_cuda(table, words)
+            for c in ("x", "y", "z"):
+                _max_abs_err(f"jac_fixed_base setup m={m} {c}", got[c], want[c])
+            t_k = _ms_per_call(lambda: cuda_jac.jac_fixed_base_cuda(table, words), 10, runs=3)
+            times[("jac_fixed_base", m)] = (t_k, plain_ms)
+            print(f"[kernels] jac_fixed_base m={m}: kernel {t_k:.4f} ms per call, equal to plain, plain "
+                  f"{plain_ms:.1f} ms (one call)", flush=True)
+    return {"jac_fixed_base": bound}
+
+
 def _sponge_messages(spec, words: int, m: int, seed: int, device):
     """(words, 16, m) random canonical Montgomery limbs from
     random.Random(seed); lane 0 all zeros, lane 1 all p - 1."""
@@ -1825,9 +1937,8 @@ def _sponge_work(spec, L: int | None, m: int) -> tuple:
     reads and writes W words; a permutation is W 2 r_f + r_p S-boxes (2
     squares and a product) and the fewest MDS products that give its
     output: W^2 a full round, and in the partial rounds the sparse form
-    (one dense W x W matrix, then 2 W - 1 products a round: a row and a
-    column), though the kernel multiplies by the dense matrix in every
-    round; IMAD_MUL and IMAD_SQR each (the carry-chain arithmetic's count),
+    the kernel runs (one dense W x W matrix, then 2 W - 1 products a round:
+    a row and a column); IMAD_MUL and IMAD_SQR each (the carry-chain arithmetic's count),
     ceil(L / rate) permutations a hash."""
     W, r_f, r_p = spec.width, spec.full_rounds() // 2, spec.partial_rounds()
     mds = 2 * r_f * W * W + W * W + r_p * (2 * W - 1)
@@ -2481,11 +2592,11 @@ def phase_engines(device):
     return runs
 
 
-# the setup's kernels: the ladder, then jac_to_affine's inverse and
-# products; the field ops and adds the ladder's rounds launched before
-# jac_ladder run inside it
-SETUP_KERNELS = ("jac_ladder", "mont_inv", "mont_mul")
-SETUP_GONE = ("mont_sqr", "mod_add", "mod_sub", "jac_add")
+# the setup's kernels: G's fixed-base multiples, then jac_to_affine's
+# inverse and products; the double-and-add ladder it ran before and the
+# field ops and adds of that ladder's rounds are gone from it
+SETUP_KERNELS = ("jac_fixed_base", "mont_inv", "mont_mul")
+SETUP_GONE = ("jac_ladder", "mont_sqr", "mod_add", "mod_sub", "jac_add")
 
 
 def phase_setup(device):
@@ -3353,6 +3464,9 @@ KERNELS = (
     # the setup's lax.scan double-and-add and the sponge's three lax.scans
     ("jac_ladder", "halo2_tpu_torch/csrc/ladder.cu", "halo2_tpu/ec/device.py:246"),
     ("poseidon_hash", "halo2_tpu_torch/csrc/poseidon.cu", "halo2_tpu/poseidon/primitives.py:163"),
+    # the setup's G tau^i, which the reference runs as that double-and-add
+    # over G on every lane, from G's window table
+    ("jac_fixed_base", "halo2_tpu_torch/csrc/ladder.cu", "halo2_tpu/kzg/params.py:74"),
 )
 
 

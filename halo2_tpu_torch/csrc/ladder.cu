@@ -1,5 +1,6 @@
-// jac_ladder: the batched double-and-add of ParamsKZG.setup's device branch
-// in one launch.  Lane i of m holds a point P_i and the bits of its scalar,
+// jac_ladder: a batched double-and-add in one launch (ec.device's
+// scalar_mul_batched, per-lane bases; since jac_fixed_base, below, took
+// over ParamsKZG.setup, no path launches it).  Lane i of m holds a point P_i and the bits of its scalar,
 // LSB first in rows r = 0 .. nbits - 1 of a (nbits, m) uint8 array (nonzero
 // = set); acc starts at infinity, and in row r acc = acc + base where the
 // bit is set (the complete add), then base = 2 base (dbl-2009-l) except
@@ -35,6 +36,7 @@
 // queued, and the block's set bits of a row compacted onto ceil(bits / 32)
 // warps through shared memory; neither shortens the busiest warp's chain.
 
+#include "bulk.cuh"
 #include "jac.cuh"
 
 using namespace h2t;
@@ -83,5 +85,125 @@ extern "C" int h2t_jac_ladder(const void* px, const void* py, const void* pz, co
   jac_ladder_kernel<<<(m + LADDER_THREADS - 1) / LADDER_THREADS, LADDER_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(px), static_cast<const uint32_t*>(py), static_cast<const uint32_t*>(pz),
       static_cast<const uint8_t*>(bits), static_cast<uint32_t*>(out), m, nbits, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// jac_fixed_base: [s_i] P for one affine point P that every lane shares
+// (ec.device.fixed_base_mul; ParamsKZG.setup's G tau^i), in one launch, a
+// thread a lane, from a table of P's window multiples: entry (j, d) =
+// d 2^(w j) P for window j < ceil(256 / w) and digit d = 1 .. 2^w - 1, at
+// row j (2^w - 1) + d - 1, as affine Montgomery x then y, 8 words each (64
+// bytes; built on the host once per point and window width,
+// ec/cuda_jac.py: fixed_base_table).  Lane i's scalar is column i of an
+// (8, m) array of little-endian 32-bit words.  acc starts at infinity; for
+// j = 0, 1, ..: the next w bits of the scalar are the digit d, and where
+// d != 0, acc = acc + entry (j, d) by jac.cuh's complete mixed add
+// (jac_madd_into: acc at infinity takes the entry, P == Q doubles, P == -Q
+// gives z = 0).  Out: acc, (3, 16, m).  Equal limb for limb to
+// fixed_base_mul_plain (ec/cuda_jac.py), the same windows on the plain
+// mixed add.
+//
+// Replaces, for the setup, the reference's lax.scan scalar_mul_batched
+// (halo2_tpu/ec/device.py:246, compiled by halo2_tpu/kzg/params.py:74)
+// and the port's jac_ladder: the 255 doublings a lane are gone (the table
+// holds them), and every lane runs the same window loop, so a warp adds in
+// each window where any lane's digit is nonzero (all but 1 in 2^(32 w)),
+// not in every row where any lane's bit is set.  What bounds it: 2,768
+// IMADs a mixed add, ceil(256 / w) of them a lane: at w = 6 and 2^16 lanes
+// ~0.44 ms at the H100's IMAD rate, against ~3.7 ms of doublings and adds
+// for the ladder.  The window width w (H2T_FB_WINDOW) and how the table is
+// read (H2T_FB_STAGE: 0 through __ldg, the lanes' gathers served from
+// L1/L2; 1 one bulk copy into shared memory a block) are compile-time
+// constants.  Built: w = 6 (43 windows, a 173,376-byte table) through
+// __ldg; on one H100, w = 6 took 0.62 ms at 2^16 lanes where w = 5 took
+// 0.72 and w = 4 0.91, and the shared-memory copy (w = 4, 5) was no faster
+// at 2^16 and 1.4x slower at 2^13-2^14, where its 256-thread blocks
+// leave SMs idle (scripts/table_probe.py builds and times the others;
+// PERF.md).  The wrapper passes its w, and another is refused.
+
+#ifndef H2T_FB_WINDOW
+#define H2T_FB_WINDOW 6
+#endif
+#ifndef H2T_FB_STAGE
+#define H2T_FB_STAGE 0
+#endif
+
+namespace {
+
+constexpr int FB_W = H2T_FB_WINDOW;
+constexpr int FB_DIGITS = (1 << FB_W) - 1;
+constexpr int FB_WINDOWS = (256 + FB_W - 1) / FB_W;
+constexpr uint32_t FB_TABLE_BYTES = static_cast<uint32_t>(FB_WINDOWS * FB_DIGITS) * 64u;
+// four 128-thread blocks an SM (at most 128 registers): 2^16 lanes in one
+// wave; with the table in shared memory, two 256-thread blocks an SM
+constexpr int FB_THREADS = H2T_FB_STAGE ? 256 : 128;
+constexpr int FB_MIN_BLOCKS = H2T_FB_STAGE ? 2 : 4;
+
+__device__ __forceinline__ void load_entry(const uint4* __restrict__ tab, int e, uint32_t x[WORDS],
+                                           uint32_t y[WORDS]) {
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+#if H2T_FB_STAGE
+    const uint4 v = tab[4 * e + h];
+#else
+    const uint4 v = __ldg(tab + 4 * e + h);
+#endif
+    uint32_t* dst = h < 2 ? x + 4 * h : y + 4 * (h - 2);
+    dst[0] = v.x;
+    dst[1] = v.y;
+    dst[2] = v.z;
+    dst[3] = v.w;
+  }
+}
+
+__global__ void __launch_bounds__(FB_THREADS, FB_MIN_BLOCKS)
+jac_fixed_base_kernel(const uint32_t* __restrict__ scalars, const uint4* __restrict__ table,
+                      uint32_t* __restrict__ out, int m, ModulusOne K) {
+#if H2T_FB_STAGE
+  extern __shared__ __align__(16) uint4 staged[];
+  __shared__ uint64_t bar;
+  bulk_stage(staged, table, FB_TABLE_BYTES, &bar);
+  const uint4* tab = staged;
+#else
+  const uint4* __restrict__ tab = table;
+#endif
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<size_t>(m)) return;
+  const size_t ld = static_cast<size_t>(m);
+  uint32_t s[WORDS];
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) s[k] = scalars[k * ld + i];
+  Jac acc;
+  set_infinity(acc, K);
+#pragma unroll 1
+  for (int j = 0; j < FB_WINDOWS; ++j) {
+    const uint32_t d = s[0] & FB_DIGITS;
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) s[k] = (s[k] >> FB_W) | (k + 1 < WORDS ? s[k + 1] << (32 - FB_W) : 0u);
+    if (d == 0) continue;
+    uint32_t qx[WORDS], qy[WORDS];
+    load_entry(tab, j * FB_DIGITS + static_cast<int>(d) - 1, qx, qy);
+    jac_madd_into(RegPoint{&acc}, qx, qy, K, RegOut{&acc});
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) store_elem(out + static_cast<size_t>(k) * 16 * ld, ld, i, acc.c[k]);
+}
+
+}  // namespace
+
+// m lanes' (8, m) scalar words, the (FB_WINDOWS (2^w - 1), 16) table ->
+// (3, 16, m); window must be the compiled w.
+extern "C" int h2t_jac_fixed_base(const void* scalars, const void* table, void* out, int m, int window,
+                                  const void* consts, void* stream) {
+  if (m <= 0 || window != FB_W) return static_cast<int>(cudaErrorInvalidValue);
+  const ModulusOne K = modulus_one_from_host(static_cast<const uint32_t*>(consts));
+  const uint32_t smem = H2T_FB_STAGE ? FB_TABLE_BYTES : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc =
+        cudaFuncSetAttribute(jac_fixed_base_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  jac_fixed_base_kernel<<<(m + FB_THREADS - 1) / FB_THREADS, FB_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(scalars), static_cast<const uint4*>(table), static_cast<uint32_t*>(out), m, K);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,34 +20,64 @@
 // (poseidon/primitives.py: permute_device_plain, hash_device_plain) limb
 // for limb.
 //
+// The round schedule: the full rounds as the spec states them (W round
+// constants, W S-boxes, the dense W x W MDS product), and the r_p partial
+// rounds in their equivalent sparse form (Grassi et al., Poseidon, USENIX
+// Security 2021, Appendix B; the authors' calc_equivalent_constants and
+// calc_equivalent_matrices), computed exactly on the host
+// (poseidon/cuda_sponge.py: sparse_form): before the first partial round
+// one vector constant c_hat and one dense matrix (the edge, B_0), then a
+// partial round is one S-box on word 0, one scalar constant k_q added to
+// word 0, and a sparse matrix: a first row (new x0 = sum_j row_j x_j, W
+// products) and a first column (new x_i = x_i + col_i x0, W - 1 products).
+// A MySpec(5, 4) permutation takes 25 + 56 x 9 + 8 x 25 = 729 MDS products
+// where the dense form took 64 x 25 = 1,600.
+//
 // What bounds it: integer multiplies.  A MySpec(5, 4) permutation is 96
-// S-boxes and 64 x 25 MDS products, 502,784 IMADs (CcArith), against (L + 1)
-// x 64 bytes of message and digest a lane: ~31.5 ms at 2^20 lanes at the
+// S-boxes and 729 MDS products, 265,872 IMADs (CcArith), against (L + 1) x
+// 64 bytes of message and digest a lane: ~16.7 ms at 2^20 lanes at the
 // H100's IMAD rate, ~0.1 ms of bytes.  So the state (W x 8 words) and the
 // MDS row sums stay in registers for the whole sponge, and only the
 // messages and the result touch device memory.  The code stays small (an
 // unrolled round of W = 5 would be ~40 products, ~16K instructions, past
-// the instruction cache): the rounds, the S-box words and the MDS rows are
-// loops that are not unrolled, each step on word 0 of the state (or the
-// newest row sum) followed by a rotation of the W words in registers, so a
-// round's code is one add, one S-box and one row of W products.
+// the instruction cache): the rounds, the S-box words, the MDS rows and the
+// sparse matrix's entries are loops that are not unrolled, each step on
+// word 0 of the state (or the newest row sum) followed by a rotation of the
+// W words in registers, so a full round's code is one add, one S-box and
+// one row of W products, and a partial round's one S-box and two products
+// (an entry of the row, an entry of the column).
 //
-// Constants: the round constants and the MDS matrix as one table of 8-word
-// elements (round r's word i at r W + i, then MDS entry (i, j) at R W + i W
-// + j), packed once per field, spec and device (poseidon/cuda_sponge.py).
+// Constants: one table of 8-word Montgomery elements
+// (poseidon/cuda_sponge.py: constants_words, table_layout), packed once per
+// field, spec and device, in this order (entry offsets):
+//   0                the full rounds' constants: full round f (the first
+//                    r_f, then the last r_f) word i at f W + i;
+//   RC = 2 r_f W     c_hat, W entries;
+//   KS = RC + W      k_q, r_p entries (k_(r_p - 1) = 0);
+//   MDS = KS + r_p   the MDS matrix, (i, j) at MDS + i W + j;
+//   EDGE = MDS + W^2 the edge matrix B_0, (i, j) at EDGE + i W + j;
+//   SP = EDGE + W^2  partial round q's sparse matrix at SP + q (2 W - 1):
+//                    its first row (W), then its first column below the
+//                    corner (W - 1).
+// 655 entries (20,960 bytes) for W = 5, 381 (12,192 bytes) for W = 3.
 // Every thread of a warp reads the same entry at the same time, so each
-// read is one 32-byte request the warp shares; they go through __ldg (the
-// read-only path into L1, where the table's <= 11 KB stay) rather than a
-// copy into shared memory a block: at 2^20 lanes that would be 8,192
-// copies and a barrier each, for reads that L1 already serves to a whole
-// warp at once.
+// read is one request the warp shares.  H2T_SPONGE_STAGE picks where from:
+// 1 (built), one bulk copy of the table into shared memory a block
+// (bulk.cuh), or 0, through __ldg (the read-only path into L1, where the
+// table stays); on one H100 the copy was 2 % faster at 2^20 lanes and 7-10 %
+// at 2^11-2^16 (scripts/table_probe.py, PERF.md).
 //
-// Widths: 3 (P128Pow5T3) and 5 (MySpec(5, 4), MySpec(5, 3)), each for both
+// Widths: 3 (P128Pow5T3) and 5 (MySpec(5, 4)), each for both
 // arithmetics (arith.cuh: CcArith for BN254 Fr, WideArith for the Pasta
 // fields); any other width is refused.  Three 128-thread blocks an SM (at
 // most 168 registers).
 
 #include "arith.cuh"
+#include "bulk.cuh"
+
+#ifndef H2T_SPONGE_STAGE
+#define H2T_SPONGE_STAGE 1
+#endif
 
 using namespace h2t;
 
@@ -56,13 +86,22 @@ namespace {
 constexpr int SPONGE_THREADS = 128;
 constexpr int SPONGE_MIN_BLOCKS = 3;
 
+// The table's size in bytes (the layout above).
+__host__ __device__ constexpr uint32_t table_bytes(int W, int r_f, int r_p) {
+  return static_cast<uint32_t>(2 * r_f * W + W + r_p + 2 * W * W + r_p * (2 * W - 1)) * 32u;
+}
+
 // The capacity word, by value.
 struct Word8 {
   uint32_t w[WORDS];
 };
 
 __device__ __forceinline__ void load_const(const uint4* __restrict__ tab, int e, uint32_t v[WORDS]) {
+#if H2T_SPONGE_STAGE
+  const uint4 lo = tab[2 * e], hi = tab[2 * e + 1];
+#else
   const uint4 lo = __ldg(tab + 2 * e), hi = __ldg(tab + 2 * e + 1);
+#endif
   v[0] = lo.x;
   v[1] = lo.y;
   v[2] = lo.z;
@@ -93,50 +132,99 @@ __device__ __forceinline__ void sbox(uint32_t x[WORDS], const Modulus& M) {
   A::mul(t, x, M, x);
 }
 
+// st = mat st for the dense W x W matrix at entry e (row i at e + i W): row
+// i's sum, then the sums rotate in, so that after W rows sums[i] is row i.
+template <int W, class A>
+__device__ __forceinline__ void dense(uint32_t st[W][WORDS], const uint4* __restrict__ tab, int e,
+                                      const Modulus& M) {
+  uint32_t sums[W][WORDS] = {};
+#pragma unroll 1
+  for (int i = 0; i < W; ++i) {
+    uint32_t c[WORDS], t[WORDS];
+    load_const(tab, e + i * W, c);
+    A::mul(st[0], c, M, sums[0]);
+#pragma unroll
+    for (int j = 1; j < W; ++j) {
+      load_const(tab, e + i * W + j, c);
+      A::mul(st[j], c, M, t);
+      A::add(sums[0], t, M, sums[0]);
+    }
+    rotate<W>(sums);
+  }
+#pragma unroll
+  for (int i = 0; i < W; ++i)
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) st[i][k] = sums[i][k];
+}
+
+// st += the W constants at entry e, word by word (word i is at 0); with
+// sbox, each word then through the S-box.
+template <int W, class A>
+__device__ __forceinline__ void add_consts(uint32_t st[W][WORDS], const uint4* __restrict__ tab, int e, bool sbox_all,
+                                           const Modulus& M) {
+#pragma unroll 1
+  for (int i = 0; i < W; ++i) {
+    uint32_t c[WORDS];
+    load_const(tab, e + i, c);
+    A::add(st[0], c, M, st[0]);
+    if (sbox_all) sbox<A>(st[0], M);
+    rotate<W>(st);
+  }
+}
+
 template <int W, class A>
 __device__ __forceinline__ void permute(uint32_t st[W][WORDS], const uint4* __restrict__ tab, int r_f,
                                         int r_p, const Modulus& M) {
-  const int rounds = 2 * r_f + r_p;
-  const uint4* mds = tab + 2 * rounds * W;
+  const int ks = 2 * r_f * W + W, mds = ks + r_p, edge = mds + W * W, sp = edge + W * W;
 #pragma unroll 1
-  for (int r = 0; r < rounds; ++r) {
-    const bool full = r < r_f || r >= r_f + r_p;
-    // the round constants and the S-boxes, word by word: word i is at 0
+  for (int f = 0; f < 2 * r_f; ++f) {
+    add_consts<W, A>(st, tab, f * W, true, M);
+    dense<W, A>(st, tab, mds, M);
+    if (f + 1 != r_f) continue;
+    // the partial block: c_hat and the edge matrix, then the r_p sparse rounds
+    add_consts<W, A>(st, tab, 2 * r_f * W, false, M);
+    dense<W, A>(st, tab, edge, M);
 #pragma unroll 1
-    for (int i = 0; i < W; ++i) {
-      uint32_t c[WORDS];
-      load_const(tab, r * W + i, c);
+    for (int q = 0; q < r_p; ++q) {
+      uint32_t c[WORDS], t[WORDS], x0[WORDS], row[WORDS];
+      sbox<A>(st[0], M);
+      load_const(tab, ks + q, c);
       A::add(st[0], c, M, st[0]);
-      if (full || i == 0) sbox<A>(st[0], M);
-      rotate<W>(st);
-    }
-    // the MDS product: row i's sum, then the sums rotate in, so that after
-    // W rows sums[i] is row i
-    uint32_t sums[W][WORDS] = {};
+      const int e = sp + q * (2 * W - 1);
+#pragma unroll
+      for (int k = 0; k < WORDS; ++k) x0[k] = st[0][k];
+      load_const(tab, e, c);
+      A::mul(x0, c, M, row);
+      // word j at 0 after j rotations: its row product, then its column update
 #pragma unroll 1
-    for (int i = 0; i < W; ++i) {
-      uint32_t c[WORDS], t[WORDS];
-      load_const(mds, i * W, c);
-      A::mul(st[0], c, M, sums[0]);
-#pragma unroll
       for (int j = 1; j < W; ++j) {
-        load_const(mds, i * W + j, c);
-        A::mul(st[j], c, M, t);
-        A::add(sums[0], t, M, sums[0]);
+        rotate<W>(st);
+        load_const(tab, e + j, c);
+        A::mul(st[0], c, M, t);
+        A::add(row, t, M, row);
+        load_const(tab, e + W + j - 1, c);
+        A::mul(x0, c, M, t);
+        A::add(st[0], t, M, st[0]);
       }
-      rotate<W>(sums);
+      rotate<W>(st);
+#pragma unroll
+      for (int k = 0; k < WORDS; ++k) st[0][k] = row[k];
     }
-#pragma unroll
-    for (int i = 0; i < W; ++i)
-#pragma unroll
-      for (int k = 0; k < WORDS; ++k) st[i][k] = sums[i][k];
   }
 }
 
 template <int W, class A>
 __global__ void __launch_bounds__(SPONGE_THREADS, SPONGE_MIN_BLOCKS)
 poseidon_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int m, int n_msg, int hash,
-                const uint4* __restrict__ tab, int r_f, int r_p, Modulus M, Word8 cap) {
+                const uint4* __restrict__ table, int r_f, int r_p, Modulus M, Word8 cap) {
+#if H2T_SPONGE_STAGE
+  extern __shared__ __align__(16) uint4 staged[];
+  __shared__ uint64_t bar;
+  bulk_stage(staged, table, table_bytes(W, r_f, r_p), &bar);
+  const uint4* tab = staged;
+#else
+  const uint4* __restrict__ tab = table;
+#endif
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<size_t>(m)) return;
   const size_t ld = static_cast<size_t>(m);
@@ -174,7 +262,8 @@ poseidon_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int
 template <int W, class A>
 int launch(const void* in, void* out, int m, int n_msg, int hash, const void* table, int r_f, int r_p,
            const Modulus& M, const Word8& cap, cudaStream_t s) {
-  poseidon_kernel<W, A><<<(m + SPONGE_THREADS - 1) / SPONGE_THREADS, SPONGE_THREADS, 0, s>>>(
+  const uint32_t smem = H2T_SPONGE_STAGE ? table_bytes(W, r_f, r_p) : 0;
+  poseidon_kernel<W, A><<<(m + SPONGE_THREADS - 1) / SPONGE_THREADS, SPONGE_THREADS, smem, s>>>(
       static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), m, n_msg, hash,
       static_cast<const uint4*>(table), r_f, r_p, M, cap);
   return static_cast<int>(cudaGetLastError());
@@ -188,7 +277,7 @@ int launch(const void* in, void* out, int m, int n_msg, int hash, const void* ta
 // Montgomery form; read in hash mode); arith 0 = CcArith, 1 = WideArith.
 extern "C" int h2t_poseidon_hash(const void* in, void* out, int m, int n_msg, int hash, int width, const void* table,
                                  int r_f, int r_p, const void* modulus, const void* cap, int arith, void* stream) {
-  if (m <= 0 || n_msg < 0 || r_f < 0 || r_p < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (m <= 0 || n_msg < 0 || r_f < 1 || r_p < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Modulus M = modulus_from_host(static_cast<const uint32_t*>(modulus));
   Word8 c;
   for (int k = 0; k < WORDS; ++k) c.w[k] = static_cast<const uint32_t*>(cap)[k];

@@ -12,9 +12,12 @@ z}`` of ``(16, *batch)`` int32 Montgomery limb tensors over BN254 Fq; z == 0
 marks infinity.  A third kernel, ``jac_horner``, runs the sharded MSM's
 Horner combine of window sums (the reference's ``fori_loop`` of doublings
 and complete adds, ``halo2_tpu/ec/device.py:597-607``) in one launch, and
-a fourth, ``jac_ladder`` (``csrc/ladder.cu``), the SRS setup's per-lane
-double-and-add (the reference's ``lax.scan`` ``scalar_mul_batched``,
-``:246``) in one launch, a thread a lane.
+a fourth, ``jac_ladder`` (``csrc/ladder.cu``), a per-lane double-and-add
+(the reference's ``lax.scan`` ``scalar_mul_batched``, ``:246``) in one
+launch, a thread a lane, each lane with its own base; a fifth,
+``jac_fixed_base`` (``csrc/ladder.cu``), [s_i] P for one point P every lane
+shares, the setup's G tau^i, from a table of P's window multiples: one
+mixed add a window a lane and no doubling.
 Two more run the device MSM's window-sum rounds over a batch of rows
 (``csrc/msm.cu``): ``msm_chunk_acc``, every chunk's rounds of signed mixed
 adds in registers (the reference's ``fori_loop`` at
@@ -34,7 +37,8 @@ products); :func:`variant` picks one from the lane count.  The plain
 versions flag the P == Q lanes and double them in :func:`_double_fixup`,
 behind one device -> host read of ``same.any()`` (the reference's
 ``lax.cond``).  :func:`jac_madd_cuda` / :func:`jac_add_cuda` /
-:func:`jac_horner_cuda` / :func:`jac_ladder_cuda` / :func:`msm_chunk_acc_cuda` /
+:func:`jac_horner_cuda` / :func:`jac_ladder_cuda` / :func:`jac_fixed_base_cuda` /
+:func:`msm_chunk_acc_cuda` /
 :func:`jac_suffix_scan_cuda` run the plain versions for CPU tensors and
 launch the kernels for CUDA tensors; there is no fallback between the two.
 ``LAUNCHES`` counts kernel launches.
@@ -42,6 +46,9 @@ launch the kernels for CUDA tensors; there is no fallback between the two.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..field.cuda_mul import check_limbs, modulus_one_words
@@ -50,7 +57,15 @@ from ..field.device import plain_field as _plain_field
 from ..field.params import BN254_FQ, NUM_LIMBS
 
 L = NUM_LIMBS
-LAUNCHES = {"jac_madd": 0, "jac_add": 0, "jac_horner": 0, "jac_ladder": 0, "msm_chunk_acc": 0, "jac_suffix_scan": 0}
+LAUNCHES = {"jac_madd": 0, "jac_add": 0, "jac_horner": 0, "jac_ladder": 0, "jac_fixed_base": 0, "msm_chunk_acc": 0,
+            "jac_suffix_scan": 0}
+# jac_fixed_base's window width w, the kernel's compile-time H2T_FB_WINDOW:
+# ceil(256 / w) mixed adds a lane over a table of ceil(256 / w) (2^w - 1)
+# points (w = 6: 43 adds, 2,709 points, 173,376 bytes); the fastest of the
+# sweep of w = 4, 5, 6 on the H100 (scripts/table_probe.py, PERF.md)
+FIXED_BASE_WINDOW = 6
+SCALAR_WORDS = 8
+ENTRY_WORDS = 16  # a table entry: affine x, then y, eight 32-bit words each
 
 
 def plain_field() -> PlainField:
@@ -185,6 +200,81 @@ def scalar_mul_batched_plain(points, bits):
         acc = {k: d.select(bit, added[k], acc[k]) for k in acc}
         if r + 1 < bits.shape[0]:
             base = jac_double(base, d)
+    return acc
+
+
+def fixed_base_windows(window: int) -> int:
+    """The windows of a 256-bit scalar at width ``window``."""
+    return -(-256 // window)
+
+
+def fixed_base_table(x: int, y: int, window: int) -> np.ndarray:
+    """The window multiples of the finite affine point (x, y) (ints over
+    BN254 Fq), ``(ceil(256 / w) (2^w - 1), 16)`` uint32: entry (j, d) = d
+    2^(w j) (x, y) for d = 1 .. 2^w - 1 at row j (2^w - 1) + d - 1, its
+    affine x then y in Montgomery form, eight little-endian 32-bit words
+    each.  Host arithmetic (``ec/host.py``): w doublings and 2^w - 2 adds a
+    window."""
+    from ..field.device import get_device_field
+    from . import host
+
+    base, pts = host.g1_from_ints(x, y), []
+    for _ in range(fixed_base_windows(window)):
+        acc = base
+        for _d in range(1, 1 << window):
+            pts.append(host.g1_to_ints(acc))
+            acc = host.ec_add(acc, base)
+        for _ in range(window):
+            base = host.ec_double(base)
+    limbs = get_device_field(BN254_FQ).encode_np([c for pt in pts for c in pt]).T.reshape(len(pts), 2, L)
+    return np.ascontiguousarray((limbs[..., 0::2] | limbs[..., 1::2] << 16).reshape(len(pts), ENTRY_WORDS))
+
+
+@functools.lru_cache(maxsize=None)
+def fixed_base_table_tensor(x: int, y: int, window: int, device) -> torch.Tensor:
+    """:func:`fixed_base_table` on ``device`` as int32, made once per point,
+    window width and device."""
+    return torch.from_numpy(fixed_base_table(x, y, window).view(np.int32)).to(device)
+
+
+def _table_limbs(table):
+    """``(rows, 16)`` packed words -> the x and y limbs, ``(16, rows)``
+    int32 each."""
+    w = table.to(torch.int64) & 0xFFFFFFFF
+    limbs = torch.stack([w & 0xFFFF, w >> 16], dim=-1).reshape(w.shape[0], 2, L)
+    return tuple(limbs[:, c].t().to(torch.int32).contiguous() for c in range(2))
+
+
+def fixed_base_digits(scalars, window: int):
+    """``(8, N)`` scalar words -> ``(ceil(256 / w), N)`` int64 digits:
+    window j is bits w j .. w j + w - 1."""
+    s = scalars.to(torch.int64) & 0xFFFFFFFF
+    rows = []
+    for j in range(fixed_base_windows(window)):
+        word, off = divmod(window * j, 32)
+        v = s[word] >> off
+        if off + window > 32 and word + 1 < SCALAR_WORDS:
+            v = v | (s[word + 1] << (32 - off))
+        rows.append(v & ((1 << window) - 1))
+    return torch.stack(rows)
+
+
+def fixed_base_mul_plain(table, scalars, window: int = FIXED_BASE_WINDOW):
+    """[s_i] P in plain torch ops on the scalars' device, from P's window
+    table (:func:`fixed_base_table`, ``(rows, 16)`` int32) and ``(8, N)``
+    int32 scalar words: acc starts at infinity, and window j adds entry (j,
+    d_j) with :func:`jac_madd_plain` where the digit d_j is not 0, as the
+    kernel does.  Returns a jac dict ``(16, N)``."""
+    from .device import jac_infinity
+
+    tx, ty = _table_limbs(table)
+    digits = fixed_base_digits(scalars, window)
+    acc = jac_infinity((scalars.shape[1],), device=scalars.device)
+    per = (1 << window) - 1
+    for j in range(digits.shape[0]):
+        d = digits[j]
+        idx = j * per + (d - 1).clamp(min=0)
+        acc = jac_madd_plain(acc, tx[:, idx], ty[:, idx], d != 0)
     return acc
 
 
@@ -501,6 +591,38 @@ def jac_ladder_cuda(points, bits):
             out.data_ptr(), m, bits.shape[0], modulus_one_words(BN254_FQ).ctypes.data,
         )
         LAUNCHES["jac_ladder"] += 1
+    return {"x": out[0], "y": out[1], "z": out[2]}
+
+
+def jac_fixed_base_cuda(table, scalars):
+    """[s_i] P for one point P of ``table`` (:func:`fixed_base_table` at
+    ``FIXED_BASE_WINDOW``, contiguous int32 ``(rows, 16)``) and the ``(8,
+    N)`` contiguous int32 little-endian scalar words: the ``jac_fixed_base``
+    kernel on CUDA tensors (one launch), :func:`fixed_base_mul_plain` on CPU
+    ones.  Returns a jac dict ``(16, N)``."""
+    rows = fixed_base_windows(FIXED_BASE_WINDOW) * ((1 << FIXED_BASE_WINDOW) - 1)
+    for name, t, shape in (("table", table, (rows, ENTRY_WORDS)), ("scalars", scalars, None)):
+        if t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"jac_fixed_base: {name} must be a contiguous int32 2-D tensor, got {t.dtype} {tuple(t.shape)}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"jac_fixed_base: table must be {shape}, got {tuple(t.shape)}")
+    if scalars.shape[0] != SCALAR_WORDS or table.device != scalars.device:
+        raise ValueError(f"jac_fixed_base: scalars must be ({SCALAR_WORDS}, N) on {table.device}, got "
+                         f"{tuple(scalars.shape)} on {scalars.device}")
+    if scalars.device.type == "cpu":
+        return fixed_base_mul_plain(table, scalars)
+    if scalars.device.type != "cuda":
+        raise ValueError(f"jac_fixed_base: unsupported device {scalars.device}")
+    from .. import _build
+
+    m = scalars.shape[1]
+    out = torch.empty((3, L, m), dtype=torch.int32, device=scalars.device)
+    if m:
+        _build.launch(
+            "jac_fixed_base", scalars.device, scalars.data_ptr(), table.data_ptr(), out.data_ptr(), m,
+            FIXED_BASE_WINDOW, modulus_one_words(BN254_FQ).ctypes.data,
+        )
+        LAUNCHES["jac_fixed_base"] += 1
     return {"x": out[0], "y": out[1], "z": out[2]}
 
 

@@ -4,8 +4,10 @@ Pippenger MSM (port of halo2_tpu/ec/device.py).
 Points are dicts ``{x, y, z}`` of ``(16, *B)`` int32 Montgomery limb tensors
 over BN254 Fq; z == 0 marks infinity.  ``jac_add``/``jac_madd`` go to the
 CUDA kernels of :mod:`.cuda_jac` for CUDA tensors (their plain versions for
-CPU tensors), as does ``scalar_mul_batched`` (the ``jac_ladder`` kernel,
-the whole double-and-add in one launch); doubling, the inverse and the
+CPU tensors), as do ``scalar_mul_batched`` (the ``jac_ladder`` kernel,
+the whole double-and-add in one launch) and ``fixed_base_mul`` (the
+``jac_fixed_base`` kernel: one shared point's multiples from its window
+table); doubling, the inverse and the
 selects are :class:`DeviceField` ops, whose squares, multiplies and
 inverses (one ``mont_inv`` launch) are the CUDA kernels of
 :mod:`..field.cuda_mul`.
@@ -47,7 +49,10 @@ from .. import native
 from ..field.device import DeviceField, get_device_field
 from ..field.params import BN254_FQ, NUM_LIMBS as L
 from .cuda_jac import (
+    FIXED_BASE_WINDOW,
+    fixed_base_table_tensor,
     jac_add_cuda,
+    jac_fixed_base_cuda,
     jac_horner_cuda,
     jac_ladder_cuda,
     jac_madd_cuda,
@@ -143,6 +148,19 @@ def scalar_mul_batched(points, scalar_bits):
     first): one ``jac_ladder`` launch on CUDA tensors, its plain version on
     CPU ones."""
     return jac_ladder_cuda(_contig(points), scalar_bits.contiguous())
+
+
+def fixed_base_mul(point, scalars):
+    """[s_i] P for one finite affine point P = ``point`` (x, y) ints over
+    Fq, shared by every lane, and ``(8, N)`` int32 little-endian scalar
+    words (any value below 2^256) on a device: one ``jac_fixed_base``
+    launch on a CUDA tensor, its plain version on a CPU one, over P's window
+    table (built once per point and device).  Returns a jac dict ``(16,
+    N)``.  The setup's G tau^i; the reference runs it as
+    ``scalar_mul_batched`` over G on every lane (``halo2_tpu/kzg/params.py:74``)."""
+    x, y = (int(c) for c in point)
+    table = fixed_base_table_tensor(x, y, FIXED_BASE_WINDOW, scalars.device)
+    return jac_fixed_base_cuda(table, scalars.contiguous())
 
 
 # ---------------------------------------------------------------------- MSM

@@ -4,10 +4,11 @@ The SRS stays host numpy, as in the reference: ``g1_x``/``g1_y`` are
 (16, n) uint32 Montgomery limbs over BN254 Fq, read by the native host MSM.
 ``load`` reads the reference's pickles (numpy arrays and ints only).
 ``setup`` computes G * tau^i on the host for n <= 4096 or ``device="cpu"``,
-and otherwise takes the reference's device branch: one batched double-and-add
-over the 256 bit rows of the powers (:func:`..ec.device.scalar_mul_batched`,
-one ``jac_ladder`` launch), then ``jac_to_affine`` (``mont_inv``,
-``mont_mul``).
+and otherwise takes the reference's device branch (there a batched
+double-and-add over G on every lane, ``scalar_mul_batched``): here G's
+fixed-base window table and the powers' 32-bit words
+(:func:`..ec.device.fixed_base_mul`, one ``jac_fixed_base`` launch), then
+``jac_to_affine`` (``mont_inv``, ``mont_mul``).
 """
 
 from __future__ import annotations
@@ -40,21 +41,22 @@ def scalar_bits(values) -> np.ndarray:
     return np.ascontiguousarray(value_bits(values).T)
 
 
+def scalar_words(values) -> np.ndarray:
+    """Ints in [0, 2^256) -> their (8, n) uint32 little-endian words (word k
+    of value i at [k, i])."""
+    raw = np.frombuffer(b"".join(int(v).to_bytes(32, "little") for v in values), "<u4")
+    return raw.reshape(len(values), 8).T.copy()
+
+
 def device_g1_powers(powers, device) -> tuple:
     """[G * v for v in powers] as affine Montgomery limbs (two (16, n) numpy
     uint32 arrays), computed on ``device``: the reference's device branch of
-    ``ParamsKZG.setup``.  The powers' bits go to the device as uint8 and
-    become its (256, n) rows there (a 16 MB transpose at n = 2^16 that
-    takes the host ~0.15 s)."""
-    from ..ec.device import jac_from_affine, jac_to_affine, scalar_mul_batched
+    ``ParamsKZG.setup``.  The powers go to the device as (8, n) 32-bit
+    words (2 MB at n = 2^16) for one fixed-base multiplication of G."""
+    from ..ec.device import fixed_base_mul, jac_to_affine
 
-    d = get_device_field(BN254_FQ)
-    n = len(powers)
-    bits = torch.from_numpy(value_bits(powers)).to(device).t().contiguous()
-    gx, gy = ec.g1_to_ints(ec.G1)
-    g = d.encode([gx, gy], device=device)
-    base = jac_from_affine(g[:, :1].expand(16, n).contiguous(), g[:, 1:].expand(16, n).contiguous())
-    acc = scalar_mul_batched(base, bits)
+    words = torch.from_numpy(scalar_words(powers).view(np.int32)).to(device)
+    acc = fixed_base_mul(ec.g1_to_ints(ec.G1), words)
     g1_x, g1_y = jac_to_affine(acc)
     return tuple(a.cpu().numpy().view(np.uint32) for a in (g1_x, g1_y))
 

@@ -16,8 +16,11 @@
 # profiled warm native-commit and one W = 1 sharded prove from each tree
 # (profile_prove, profile_sharded_prove), then the proves; with "setup",
 # only each tree's own chip_smoke.py phases 5 and 8 (ParamsKZG.setup(16)
-# and the 2^20 Poseidon sponge, after its build) and three warm
-# ParamsKZG.setup(16) calls timed between them, old / new / new / old.
+# and the 2^20 Poseidon sponge, after its build), three warm
+# ParamsKZG.setup(16) calls timed between them, and its kernel checks of
+# the setup's and the sponge's kernels (the timed sizes of jac_ladder,
+# jac_fixed_base where the tree has it, and poseidon_hash), old / new /
+# new / old.
 # From the repository root:
 #
 #   git archive <commit> | tar -x -C .chip_scratch/parent   # a gitignored dir
@@ -57,14 +60,20 @@ for _ in range(3):
     torch.cuda.synchronize(); t0 = time.perf_counter(); ParamsKZG.setup(16); torch.cuda.synchronize()
     ts.append(time.perf_counter() - t0)
 print(f'[setup] warm ParamsKZG.setup(16): median {statistics.median(ts):.3f} s of {[round(t, 3) for t in ts]}')
-m.phase_poseidon(d)"
+m.phase_poseidon(d)
+e, t = {n: 0.0 for n, _, _ in m.KERNELS}, {}
+m._check_setup_ladder(d, e, t)
+if hasattr(m, '_check_fixed_base'):
+    m._check_fixed_base(d, e, t)
+m._check_sponge(d, e, t)"
   for run in parent1 change1 change2 parent2; do
     case $run in
       parent*) (cd "$OLD" && timeout 600 python3 -c "$SETUP" > "$OUT/setup_$run.log" 2>&1); rc=$? ;;
       change*) timeout 600 python3 -c "$SETUP" > "$OUT/setup_$run.log" 2>&1; rc=$? ;;
     esac
     echo "setup $run rc=$rc"
-    grep -E "^\[(setup|poseidon)\]|^\[build\] CUDA" "$OUT/setup_$run.log" | cut -c1-900
+    grep -E "^\[(setup|poseidon)\]|^\[build\] CUDA|(jac_ladder|jac_fixed_base|poseidon_hash bn254_fr MySpec\(5, 4\) L=4) m=" \
+      "$OUT/setup_$run.log" | cut -c1-900
   done
   exit 0
 fi

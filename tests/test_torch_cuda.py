@@ -835,7 +835,8 @@ def test_jac_ladder_kernel_matches_plain(device, m, flag_reads):
 
 def test_setup_runs_one_ladder(device):
     """ParamsKZG.setup(13), the device branch's smallest k, equals the saved
-    SRS, through one jac_ladder launch and no field-op or add launch."""
+    SRS, through one jac_fixed_base launch (G's window multiples) and no
+    jac_ladder, field-op or add launch."""
     from halo2_tpu_torch.kzg.params import ParamsKZG
     from halo2_tpu_torch.parallel.jobs import read_launches, reset_launches
 
@@ -844,12 +845,73 @@ def test_setup_runs_one_ladder(device):
     counts = read_launches()
     want = ParamsKZG.load(os.path.join(ROOT, ".srs", "kzg_bn254_k13_s857536.pkl"))
     assert np.array_equal(got.g1_x, want.g1_x) and np.array_equal(got.g1_y, want.g1_y)
-    assert counts["jac_ladder"] == 1 and counts["mont_inv"] == 1
+    assert counts["jac_fixed_base"] == 1 and counts["mont_inv"] == 1 and counts["jac_ladder"] == 0
     assert counts["mont_sqr"] == counts["mod_add"] == counts["mod_sub"] == counts["jac_add"] == 0
 
 
+def _fixed_base_scalars(m, device):
+    """m random.Random(0xF1B) scalars below 2^256 as (8, m) int32 words;
+    lanes 0-5: 0, 1, R - 1, R (P == -Q in the top window at w = 4 or 6),
+    2^255 - R (P == Q there), 2^256 - 1."""
+    from halo2_tpu_torch.ec import host
+    from halo2_tpu_torch.kzg.params import scalar_words
+
+    rng = random.Random(0xF1B)
+    scalars = [rng.getrandbits(256) for _ in range(m)]
+    special = [0, 1, host.R - 1, host.R, (1 << 255) - host.R, (1 << 256) - 1]
+    scalars[: min(6, m)] = special[: min(6, m)]
+    return torch.from_numpy(scalar_words(scalars).view(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("k", [1, 7])
+@pytest.mark.parametrize("m", [1, 33, 300, 2081])
+def test_jac_fixed_base_kernel_matches_plain(device, k, m, flag_reads):
+    from halo2_tpu_torch.ec import host
+
+    x, y = host.g1_to_ints(host.ec_mul(host.G1, k))
+    table = cuda_jac.fixed_base_table_tensor(x, y, cuda_jac.FIXED_BASE_WINDOW, device)
+    words = _fixed_base_scalars(m, device)
+    before = cuda_jac.LAUNCHES["jac_fixed_base"]
+    got = cuda_jac.jac_fixed_base_cuda(table, words)
+    torch.cuda.synchronize(device)
+    assert cuda_jac.LAUNCHES["jac_fixed_base"] == before + 1
+    assert flag_reads == []
+    want = cuda_jac.fixed_base_mul_plain(table, words)
+    for c in ("x", "y", "z"):
+        assert torch.equal(got[c], want[c]), c
+
+
+def test_fixed_base_mul_matches_host(device):
+    """ec.device.fixed_base_mul on the card, then jac_to_affine, equals the
+    host ec_mul on the exception lanes and a few random ones."""
+    from halo2_tpu_torch.ec import host
+
+    words = _fixed_base_scalars(12, device)
+    ax, ay = ecd.jac_to_affine(ecd.fixed_base_mul(host.g1_to_ints(host.G1), words))
+    d = get_device_field(BN254_FQ)
+    shifts = 32 * np.arange(8)[:, None]
+    vals = (words.cpu().numpy().view(np.uint32).astype(object) << shifts).sum(axis=0)
+    for i, (x, y) in enumerate(zip(d.decode(ax), d.decode(ay))):
+        assert (int(x), int(y)) == host.g1_to_ints(host.ec_mul(host.G1, int(vals[i]))), i
+
+
+def test_jac_fixed_base_refuses_bad_inputs(device):
+    from halo2_tpu_torch.ec import host
+
+    x, y = host.g1_to_ints(host.G1)
+    table = cuda_jac.fixed_base_table_tensor(x, y, cuda_jac.FIXED_BASE_WINDOW, device)
+    words = _fixed_base_scalars(8, device)
+    with pytest.raises(ValueError, match="table"):
+        cuda_jac.jac_fixed_base_cuda(table[:-1].contiguous(), words)
+    with pytest.raises(ValueError, match="scalars"):
+        cuda_jac.jac_fixed_base_cuda(table, words[:7].contiguous())
+    with pytest.raises(ValueError, match="scalars"):
+        cuda_jac.jac_fixed_base_cuda(table, words.cpu())
+
+
 SPONGE_CASES = [(BN254_FR, 5, 4), (PASTA_FP, 3, 2), (PASTA_FP, 3, 3), (PASTA_FP, 5, 3),
-                (BN254_FR, 5, None), (PASTA_FP, 3, None)]
+                (BN254_FR, 3, 2), (BN254_FR, 5, None), (PASTA_FP, 3, None), (BN254_FR, 3, None),
+                (PASTA_FP, 5, None)]
 
 
 @pytest.mark.parametrize(

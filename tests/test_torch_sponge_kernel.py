@@ -7,8 +7,9 @@ where ``hash_device``/``permute_device`` run their plain versions:
 - ``hash_device_plain`` at width 5 (MySpec(5, 4): BN254 Fr at L = 4, Pasta
   Fp at L = 3, padded) against the reference's host ``poseidon_hash`` (its
   width-5 device sponge takes ~50 s to compile on the CPU);
-- the kernel's constant table (``cuda_sponge.constants_words``) against
-  the spec's round constants and MDS matrix, and the capacity word;
+- the kernel's constant table (``cuda_sponge.constants_words``): its full
+  rounds' constants and MDS matrix against the spec's, and the capacity
+  word (the partial rounds' sparse form: tests/test_torch_sponge_sparse.py);
 - the dispatch: a CPU tensor runs the plain versions and counts no
   launch; another device or a bad shape raises, and so does a width the
   kernel was not built for, before anything is launched.
@@ -86,19 +87,24 @@ def test_hash_plain_width5_matches_host_sponge(field, L):
     ids=["bn254_fr-w5", "pasta_fp-w3", "pasta_fp-w5"],
 )
 def test_constant_table_holds_the_spec_constants(field, width):
+    """The full rounds' constants and the MDS matrix stand in the table as
+    the spec gives them; the partial block's entries (the sparse form) are
+    held by tests/test_torch_sponge_sparse.py."""
     spec = port_poseidon.MySpec(width, width - 1)
     table = cuda_sponge.constants_words(
         field, width, spec.full_rounds(), spec.partial_rounds(), spec.secure_mds()
     )
     F = field_class(field)
     rcs, mds, _ = ref_poseidon.MySpec(width, width - 1).constants(F)
-    rounds = spec.full_rounds() + spec.partial_rounds()
-    assert table.dtype == np.uint32 and table.shape == (rounds * width + width * width, 8)
+    r_f, r_p = spec.full_rounds() // 2, spec.partial_rounds()
+    lay = cuda_sponge.table_layout(width, spec.full_rounds(), r_p)
+    assert table.dtype == np.uint32 and table.shape == (lay["rows"], 8)
     values = [sum(int(w) << (32 * k) for k, w in enumerate(row)) for row in table]
     r_inv = pow(2**256, -1, field.p)
     plain = [v * r_inv % field.p for v in values]  # out of Montgomery form
-    assert plain[: rounds * width] == [int(c) for row in rcs for c in row]
-    assert plain[rounds * width :] == [int(c) for row in mds for c in row]
+    full = rcs[:r_f] + rcs[r_f + r_p :]
+    assert plain[: lay["c_hat"]] == [int(c) for row in full for c in row]
+    assert plain[lay["mds"] : lay["edge"]] == [int(c) for row in mds for c in row]
     cap = cuda_sponge._capacity_words(field, 4)
     assert sum(int(w) << (32 * k) for k, w in enumerate(cap)) * r_inv % field.p == 4 << 64
 
