@@ -2,10 +2,9 @@
 // memory by Hopper's 1-D bulk copy (cp.async.bulk, the Tensor Memory
 // Accelerator's non-tensor form): thread 0 arms an mbarrier with the byte
 // count and issues the copy, every thread waits on the barrier's phase 0.
-// The threads spend no registers or loads on the copy.  poseidon.cu and
-// ladder.cu read their tables either this way or through __ldg, chosen at
-// compile time (H2T_SPONGE_STAGE, H2T_FB_STAGE); scripts/table_probe.py
-// times both.
+// The threads spend no registers or loads on the copy.  poseidon.cu stages
+// its constant table this way (scripts/table_variants.cu also stages
+// jac_fixed_base's window table so, a variant that was not kept).
 #pragma once
 
 #include <cstdint>

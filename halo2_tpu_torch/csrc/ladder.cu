@@ -36,7 +36,6 @@
 // queued, and the block's set bits of a row compacted onto ceil(bits / 32)
 // warps through shared memory; neither shortens the busiest warp's chain.
 
-#include "bulk.cuh"
 #include "jac.cuh"
 
 using namespace h2t;
@@ -111,43 +110,31 @@ extern "C" int h2t_jac_ladder(const void* px, const void* py, const void* pz, co
 // not in every row where any lane's bit is set.  What bounds it: 2,768
 // IMADs a mixed add, ceil(256 / w) of them a lane: at w = 6 and 2^16 lanes
 // ~0.44 ms at the H100's IMAD rate, against ~3.7 ms of doublings and adds
-// for the ladder.  The window width w (H2T_FB_WINDOW) and how the table is
-// read (H2T_FB_STAGE: 0 through __ldg, the lanes' gathers served from
-// L1/L2; 1 one bulk copy into shared memory a block) are compile-time
-// constants.  Built: w = 6 (43 windows, a 173,376-byte table) through
-// __ldg; on one H100, w = 6 took 0.62 ms at 2^16 lanes where w = 5 took
-// 0.72 and w = 4 0.91, and the shared-memory copy (w = 4, 5) was no faster
-// at 2^16 and 1.4x slower at 2^13-2^14, where its 256-thread blocks
-// leave SMs idle (scripts/table_probe.py builds and times the others;
-// PERF.md).  The wrapper passes its w, and another is refused.
-
-#ifndef H2T_FB_WINDOW
-#define H2T_FB_WINDOW 6
-#endif
-#ifndef H2T_FB_STAGE
-#define H2T_FB_STAGE 0
-#endif
+// for the ladder.  The window width is 6 (43 windows, a 173,376-byte table),
+// the table read through __ldg (the lanes' gathers served from L1/L2), at
+// three 128-thread blocks an SM (136 registers, no spill): on one H100,
+// w = 6 took 0.60-0.62 ms at 2^16 lanes where w = 5 took 0.71-0.72 and
+// w = 4 0.90; one bulk copy of the table into shared memory a block (w =
+// 4, 5) was no faster at 2^16 and 1.5x slower at 2^13-2^14; four blocks an
+// SM (128 registers, a 24-byte spill) was within 3 % at 2^13-2^16, the IMAD
+// pipe as busy with 12 warps an SM as with 16 (scripts/table_variants.cu
+// holds the variants, scripts/table_probe.py times them; PERF.md).  The
+// wrapper passes its w, and another is refused.
 
 namespace {
 
-constexpr int FB_W = H2T_FB_WINDOW;
+constexpr int FB_W = 6;
 constexpr int FB_DIGITS = (1 << FB_W) - 1;
 constexpr int FB_WINDOWS = (256 + FB_W - 1) / FB_W;
-constexpr uint32_t FB_TABLE_BYTES = static_cast<uint32_t>(FB_WINDOWS * FB_DIGITS) * 64u;
-// four 128-thread blocks an SM (at most 128 registers): 2^16 lanes in one
-// wave; with the table in shared memory, two 256-thread blocks an SM
-constexpr int FB_THREADS = H2T_FB_STAGE ? 256 : 128;
-constexpr int FB_MIN_BLOCKS = H2T_FB_STAGE ? 2 : 4;
+// three 128-thread blocks an SM (at most 168 registers)
+constexpr int FB_THREADS = 128;
+constexpr int FB_MIN_BLOCKS = 3;
 
 __device__ __forceinline__ void load_entry(const uint4* __restrict__ tab, int e, uint32_t x[WORDS],
                                            uint32_t y[WORDS]) {
 #pragma unroll
   for (int h = 0; h < 4; ++h) {
-#if H2T_FB_STAGE
-    const uint4 v = tab[4 * e + h];
-#else
     const uint4 v = __ldg(tab + 4 * e + h);
-#endif
     uint32_t* dst = h < 2 ? x + 4 * h : y + 4 * (h - 2);
     dst[0] = v.x;
     dst[1] = v.y;
@@ -159,14 +146,6 @@ __device__ __forceinline__ void load_entry(const uint4* __restrict__ tab, int e,
 __global__ void __launch_bounds__(FB_THREADS, FB_MIN_BLOCKS)
 jac_fixed_base_kernel(const uint32_t* __restrict__ scalars, const uint4* __restrict__ table,
                       uint32_t* __restrict__ out, int m, ModulusOne K) {
-#if H2T_FB_STAGE
-  extern __shared__ __align__(16) uint4 staged[];
-  __shared__ uint64_t bar;
-  bulk_stage(staged, table, FB_TABLE_BYTES, &bar);
-  const uint4* tab = staged;
-#else
-  const uint4* __restrict__ tab = table;
-#endif
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= static_cast<size_t>(m)) return;
   const size_t ld = static_cast<size_t>(m);
@@ -182,7 +161,7 @@ jac_fixed_base_kernel(const uint32_t* __restrict__ scalars, const uint4* __restr
     for (int k = 0; k < WORDS; ++k) s[k] = (s[k] >> FB_W) | (k + 1 < WORDS ? s[k + 1] << (32 - FB_W) : 0u);
     if (d == 0) continue;
     uint32_t qx[WORDS], qy[WORDS];
-    load_entry(tab, j * FB_DIGITS + static_cast<int>(d) - 1, qx, qy);
+    load_entry(table, j * FB_DIGITS + static_cast<int>(d) - 1, qx, qy);
     jac_madd_into(RegPoint{&acc}, qx, qy, K, RegOut{&acc});
   }
 #pragma unroll
@@ -197,13 +176,7 @@ extern "C" int h2t_jac_fixed_base(const void* scalars, const void* table, void* 
                                   const void* consts, void* stream) {
   if (m <= 0 || window != FB_W) return static_cast<int>(cudaErrorInvalidValue);
   const ModulusOne K = modulus_one_from_host(static_cast<const uint32_t*>(consts));
-  const uint32_t smem = H2T_FB_STAGE ? FB_TABLE_BYTES : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t rc =
-        cudaFuncSetAttribute(jac_fixed_base_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-  }
-  jac_fixed_base_kernel<<<(m + FB_THREADS - 1) / FB_THREADS, FB_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  jac_fixed_base_kernel<<<(m + FB_THREADS - 1) / FB_THREADS, FB_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(scalars), static_cast<const uint4*>(table), static_cast<uint32_t*>(out), m, K);
   return static_cast<int>(cudaGetLastError());
 }

@@ -61,11 +61,11 @@
 //                    corner (W - 1).
 // 655 entries (20,960 bytes) for W = 5, 381 (12,192 bytes) for W = 3.
 // Every thread of a warp reads the same entry at the same time, so each
-// read is one request the warp shares.  H2T_SPONGE_STAGE picks where from:
-// 1 (built), one bulk copy of the table into shared memory a block
-// (bulk.cuh), or 0, through __ldg (the read-only path into L1, where the
-// table stays); on one H100 the copy was 2 % faster at 2^20 lanes and 7-10 %
-// at 2^11-2^16 (scripts/table_probe.py, PERF.md).
+// read is one request the warp shares.  A block copies the table once into
+// shared memory (bulk.cuh, Hopper's bulk copy) and reads it there: on one
+// H100 that was 1-2 % faster at 2^20 lanes and 7-23 % at 2^11-2^16 than
+// reading it through the read-only path (scripts/table_variants.cu holds
+// that variant, scripts/table_probe.py times it; PERF.md).
 //
 // Widths: 3 (P128Pow5T3) and 5 (MySpec(5, 4)), each for both
 // arithmetics (arith.cuh: CcArith for BN254 Fr, WideArith for the Pasta
@@ -74,10 +74,6 @@
 
 #include "arith.cuh"
 #include "bulk.cuh"
-
-#ifndef H2T_SPONGE_STAGE
-#define H2T_SPONGE_STAGE 1
-#endif
 
 using namespace h2t;
 
@@ -97,11 +93,7 @@ struct Word8 {
 };
 
 __device__ __forceinline__ void load_const(const uint4* __restrict__ tab, int e, uint32_t v[WORDS]) {
-#if H2T_SPONGE_STAGE
   const uint4 lo = tab[2 * e], hi = tab[2 * e + 1];
-#else
-  const uint4 lo = __ldg(tab + 2 * e), hi = __ldg(tab + 2 * e + 1);
-#endif
   v[0] = lo.x;
   v[1] = lo.y;
   v[2] = lo.z;
@@ -217,14 +209,10 @@ template <int W, class A>
 __global__ void __launch_bounds__(SPONGE_THREADS, SPONGE_MIN_BLOCKS)
 poseidon_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int m, int n_msg, int hash,
                 const uint4* __restrict__ table, int r_f, int r_p, Modulus M, Word8 cap) {
-#if H2T_SPONGE_STAGE
   extern __shared__ __align__(16) uint4 staged[];
   __shared__ uint64_t bar;
   bulk_stage(staged, table, table_bytes(W, r_f, r_p), &bar);
   const uint4* tab = staged;
-#else
-  const uint4* __restrict__ tab = table;
-#endif
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<size_t>(m)) return;
   const size_t ld = static_cast<size_t>(m);
@@ -262,7 +250,7 @@ poseidon_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int
 template <int W, class A>
 int launch(const void* in, void* out, int m, int n_msg, int hash, const void* table, int r_f, int r_p,
            const Modulus& M, const Word8& cap, cudaStream_t s) {
-  const uint32_t smem = H2T_SPONGE_STAGE ? table_bytes(W, r_f, r_p) : 0;
+  const uint32_t smem = table_bytes(W, r_f, r_p);  // the staged table
   poseidon_kernel<W, A><<<(m + SPONGE_THREADS - 1) / SPONGE_THREADS, SPONGE_THREADS, smem, s>>>(
       static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), m, n_msg, hash,
       static_cast<const uint4*>(table), r_f, r_p, M, cap);

@@ -59,7 +59,7 @@ from ..field.params import BN254_FQ, NUM_LIMBS
 L = NUM_LIMBS
 LAUNCHES = {"jac_madd": 0, "jac_add": 0, "jac_horner": 0, "jac_ladder": 0, "jac_fixed_base": 0, "msm_chunk_acc": 0,
             "jac_suffix_scan": 0}
-# jac_fixed_base's window width w, the kernel's compile-time H2T_FB_WINDOW:
+# jac_fixed_base's window width w, the kernel's FB_W (csrc/ladder.cu):
 # ceil(256 / w) mixed adds a lane over a table of ceil(256 / w) (2^w - 1)
 # points (w = 6: 43 adds, 2,709 points, 173,376 bytes); the fastest of the
 # sweep of w = 4, 5, 6 on the H100 (scripts/table_probe.py, PERF.md)

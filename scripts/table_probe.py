@@ -1,17 +1,17 @@
-"""How jac_fixed_base (csrc/ladder.cu) and poseidon_hash (csrc/poseidon.cu)
-read their constant tables, and jac_fixed_base's window width, measured on
-the card: each variant built from the kernel's own source with nvcc at
-other compile-time constants (H2T_FB_WINDOW = 4, 5, 6 with the table read
-through __ldg; H2T_FB_STAGE = 1 and H2T_SPONGE_STAGE = 1, one bulk copy of
-the table into shared memory a block, bulk.cuh), held limb for limb
-against the plain version (jac_fixed_base: fixed_base_mul_plain at its w on
-chip_smoke's exception lanes at 2^11; poseidon_hash: the built kernel,
-which chip_smoke holds against the plain versions) and timed in turns
-(the built kernel, the variants, the variants in reverse, the built
-kernel) with CUDA events: jac_fixed_base on ParamsKZG.setup(16)'s scalars
-at FB_PROBE lanes beside each w's bound, poseidon_hash (BN254 Fr,
-MySpec(5, 4), L = 4) at SPONGE_PROBE lanes beside its bound.  Each
-variant's ptxas registers and spills are printed.
+"""The variants of jac_fixed_base (csrc/ladder.cu) and poseidon_hash
+(csrc/poseidon.cu) that were not kept, measured on the card beside the
+kernels: scripts/table_variants.cu built with nvcc (other window widths, a
+128-register launch bound, the table copied into shared memory or read
+through __ldg; that file lists them), each variant and each kernel held
+limb for limb against its plain version (jac_fixed_base: fixed_base_mul_plain
+at its w on chip_smoke's exception lanes at 2^11; poseidon_hash:
+hash_device_plain, BN254 Fr, MySpec(5, 4), L = 4, at 2^11), then timed in
+turns (the kernel, the variants, the variants in reverse, the kernel) with
+CUDA events: jac_fixed_base on ParamsKZG.setup(16)'s scalars at FB_PROBE
+lanes beside each w's bound, poseidon_hash at SPONGE_PROBE lanes beside its
+bound.  Printed too: the registers and spills of each kernel and variant
+(ptxas), and the table loads in the SASS of each variant that reads through
+the read-only path (cuobjdump).
 
 From the repository root, on a machine with the card:
 
@@ -31,67 +31,72 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 
-# name -> -D flags; the built kernels: jac_fixed_base w = 6 through __ldg,
-# poseidon_hash's table in shared memory
-FB_VARIANTS = {
-    "w4 ldg": ("H2T_FB_WINDOW=4", "H2T_FB_STAGE=0"),
-    "w5 ldg": ("H2T_FB_WINDOW=5", "H2T_FB_STAGE=0"),
-    "w6 ldg": ("H2T_FB_WINDOW=6", "H2T_FB_STAGE=0"),
-    "w4 shared": ("H2T_FB_WINDOW=4", "H2T_FB_STAGE=1"),
-    "w5 shared": ("H2T_FB_WINDOW=5", "H2T_FB_STAGE=1"),
-}
-SPONGE_VARIANTS = {"ldg": ("H2T_SPONGE_STAGE=0",), "shared": ("H2T_SPONGE_STAGE=1",)}
+# fb_variant's index -> (name, w); the kernel: w = 6 through __ldg, 3
+# 128-thread blocks an SM
+FB_VARIANTS = {"w4 ldg": (0, 4), "w5 ldg": (1, 5), "w6 ldg 4 blocks": (2, 6), "w4 shared": (3, 4),
+               "w5 shared": (4, 5)}
 FB_PROBE = (1 << 13, 1 << 14, 1 << 16)
 SPONGE_PROBE = (1 << 11, 1 << 16, 1 << 20)
 
 
-def _build_all() -> dict:
-    """Every variant -> (ctypes library, its ptxas lines), the nvcc
-    processes started together."""
+def _ptxas(text: str, want: str) -> list:
+    """The registers and spill lines of ptxas -v output for the entries
+    whose mangled name holds ``want``."""
+    lines, keep = [], False
+    for ln in text.splitlines():
+        if "Compiling entry" in ln:
+            keep = want in ln
+            name = ln.split("'")[1] if "'" in ln else ln
+        elif keep and ("registers" in ln or "spill" in ln):
+            lines.append(f"{name}: " + ln.split("ptxas info    :")[-1].strip())
+    return lines
+
+
+def _build_variants():
+    """scripts/table_variants.cu -> (ctypes library, its path, ptxas log)."""
     from halo2_tpu_torch import _build
 
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "table_variants.cu")
     _build.BUILD_DIR.mkdir(exist_ok=True)
-    jobs = {}
-    kinds = (("fb", "ladder.cu", FB_VARIANTS), ("sponge", "poseidon.cu", SPONGE_VARIANTS))
-    for kind, source, variants in kinds:
-        for name, defs in variants.items():
-            out = _build.BUILD_DIR / f"probe_{kind}_{re.sub(r'\W', '_', name)}.so"
-            cmd = [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
-                   "-fPIC", "-shared", "-Xptxas", "-v", *(f"-D{d}" for d in defs),
-                   "-I", str(_build.CSRC), "-o", str(out), str(_build.CSRC / source)]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                    text=True)
-            jobs[(kind, name)] = (out, proc)
-    libs = {}
+    out = _build.BUILD_DIR / "table_variants.so"
+    cmd = [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+           "-shared", "-Xptxas", "-v", "-I", str(_build.CSRC), "-o", str(out), src]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc table_variants.cu failed:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    for key, (out, proc) in jobs.items():
-        text = proc.communicate(timeout=900)[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {key} failed:\n{text}")
-        lib = ctypes.CDLL(str(out))
-        if key[0] == "fb":
-            fn, types = lib.h2t_jac_fixed_base, [vp, vp, vp, i32, i32, vp, vp]
-            want = "jac_fixed_base"
-        else:
-            fn = lib.h2t_poseidon_hash
-            types = [vp, vp, i32, i32, i32, i32, vp, i32, i32, vp, vp, i32, vp]
-            want = "poseidon_kernel"
-        fn.argtypes, fn.restype = types, i32
-        lines, keep = [], False
-        for ln in text.splitlines():
-            if "Compiling entry" in ln:
-                keep = want in ln
-            if keep and ("registers" in ln or "spill" in ln):
-                lines.append(ln.split("ptxas info    :")[-1].strip())
-        libs[key] = (fn, lines)
-    return libs
+    lib.fb_variant.argtypes = [i32, vp, vp, vp, i32, vp, vp]
+    lib.sponge_ldg.argtypes = [vp, vp, i32, i32, i32, vp, i32, i32, vp, vp, i32, vp]
+    lib.fb_variant.restype = lib.sponge_ldg.restype = i32
+    return lib, out, proc.stdout + proc.stderr
 
 
-def _window(name: str) -> int:
-    return int(name[1])
+def _sass_loads(path) -> dict:
+    """Mangled function name -> (read-only-path 128-bit loads, other
+    128-bit global loads) in its SASS, for fb_variant_kernel and
+    sponge_ldg_kernel; {} where cuobjdump is not there."""
+    from halo2_tpu_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            name = name if ("fb_variant" in name or "sponge_ldg" in name) else None
+            if name:
+                counts[name] = [0, 0]
+        elif name and "LDG.E.128" in ln:
+            counts[name][0 if ".CONSTANT" in ln else 1] += 1
+    return counts
 
 
-def _fb_run(fn, name, table, words):
+def _fb_run(lib, name, table, words):
     import torch
 
     from halo2_tpu_torch.field.cuda_mul import modulus_one_words
@@ -99,15 +104,15 @@ def _fb_run(fn, name, table, words):
 
     m = words.shape[1]
     out = torch.empty((3, 16, m), dtype=torch.int32, device=words.device)
-    stream = torch.cuda.current_stream(words.device).cuda_stream
-    rc = fn(words.data_ptr(), table.data_ptr(), out.data_ptr(), m, _window(name),
-            modulus_one_words(BN254_FQ).ctypes.data, stream)
+    rc = lib.fb_variant(FB_VARIANTS[name][0], words.data_ptr(), table.data_ptr(), out.data_ptr(), m,
+                        modulus_one_words(BN254_FQ).ctypes.data,
+                        torch.cuda.current_stream(words.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"jac_fixed_base {name}: CUDA error {rc}")
     return {"x": out[0], "y": out[1], "z": out[2]}
 
 
-def _sponge_run(fn, name, df, spec, L, x):
+def _sponge_run(lib, df, spec, L, x):
     import torch
 
     from halo2_tpu_torch.field.cuda_mul import ARITH, arith, modulus_words
@@ -119,11 +124,12 @@ def _sponge_run(fn, name, df, spec, L, x):
     table = cuda_sponge._table(df.spec, spec.width, spec.full_rounds(), r_p, spec.secure_mds(),
                                x.device)
     cap = cuda_sponge._capacity_words(df.spec, L)
-    rc = fn(x.data_ptr(), out.data_ptr(), B, L, 1, spec.width, table.data_ptr(),
-            spec.full_rounds() // 2, r_p, modulus_words(df.spec).ctypes.data, cap.ctypes.data,
-            ARITH[arith(df.spec)], torch.cuda.current_stream(x.device).cuda_stream)
+    rc = lib.sponge_ldg(x.data_ptr(), out.data_ptr(), B, L, spec.width, table.data_ptr(),
+                        spec.full_rounds() // 2, r_p, modulus_words(df.spec).ctypes.data,
+                        cap.ctypes.data, ARITH[arith(df.spec)],
+                        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"poseidon_hash {name}: CUDA error {rc}")
+        raise RuntimeError(f"poseidon_hash ldg: CUDA error {rc}")
     return out
 
 
@@ -131,28 +137,34 @@ def main() -> int:
     import numpy as np
     import torch
 
+    from halo2_tpu_torch import _build
     from halo2_tpu_torch.ec import cuda_jac
     from halo2_tpu_torch.ec import host as ec
     from halo2_tpu_torch.field.device import get_device_field
     from halo2_tpu_torch.field.params import BN254_FR
     from halo2_tpu_torch.kzg.params import scalar_words
-    from halo2_tpu_torch.poseidon import MySpec, hash_device
+    from halo2_tpu_torch.poseidon import MySpec, hash_device, hash_device_plain
 
     device = chip_smoke.phase_device()
     chip_smoke.phase_build()
-    libs = _build_all()
-    for (kind, name), (_fn, lines) in libs.items():
-        print(f"[probe] {kind} {name}: " + " | ".join(lines), flush=True)
+    lib, path, log = _build_variants()
+    kernel_log = _build.log_path().read_text()
+    for label, text, want in (("kernel", kernel_log, "jac_fixed_base"),
+                              ("variant", log, "fb_variant"),
+                              ("kernel", kernel_log, "poseidon_kernel"),
+                              ("variant", log, "sponge_ldg")):
+        for ln in _ptxas(text, want):
+            print(f"[probe] ptxas {label} {ln}", flush=True)
+    for name, (ro, other) in _sass_loads(path).items():
+        print(f"[probe] sass {name}: {ro} LDG.E.128.CONSTANT, {other} other LDG.E.128", flush=True)
 
     gx, gy = ec.g1_to_ints(ec.G1)
     lanes = scalar_words(chip_smoke._fixed_base_lanes(1 << 11, 0xF1B))
     check = torch.from_numpy(lanes.view(np.int32)).to(device)
     tables = {w: cuda_jac.fixed_base_table_tensor(gx, gy, w, device) for w in (4, 5, 6)}
-    wants = {w: cuda_jac.fixed_base_mul_plain(tables[w], check, window=w) for w in (4, 5, 6)}
-    for name in FB_VARIANTS:
-        w = _window(name)
-        want = wants[w]
-        got = _fb_run(libs[("fb", name)][0], name, tables[w], check)
+    for name, (_v, w) in FB_VARIANTS.items():
+        want = cuda_jac.fixed_base_mul_plain(tables[w], check, window=w)
+        got = _fb_run(lib, name, tables[w], check)
         for c in ("x", "y", "z"):
             chip_smoke._max_abs_err(f"jac_fixed_base {name} {c}", got[c], want[c])
     print(f"[probe] jac_fixed_base {', '.join(FB_VARIANTS)}: equal to fixed_base_mul_plain at "
@@ -172,9 +184,8 @@ def main() -> int:
                 w = cuda_jac.FIXED_BASE_WINDOW
                 fn = lambda w=w: cuda_jac.jac_fixed_base_cuda(tables[w], words)  # noqa: E731
             else:
-                w = _window(name)
-                lib = libs[("fb", name)][0]
-                fn = lambda lib=lib, name=name, w=w: _fb_run(lib, name, tables[w], words)  # noqa: E731
+                w = FB_VARIANTS[name][1]
+                fn = lambda name=name, w=w: _fb_run(lib, name, tables[w], words)  # noqa: E731
             times.append((name, w, chip_smoke._events_ms(fn, bounds[w], calls=5)))
         print(f"[probe] jac_fixed_base m=2^{m.bit_length() - 1} (the setup's scalars; bound ms "
               f"w=4 {bounds[4]:.6f}, w=5 {bounds[5]:.6f}, w=6 {bounds[6]:.6f}), ms a launch in "
@@ -183,13 +194,12 @@ def main() -> int:
 
     spec, L, df = MySpec(5, 4), 4, get_device_field(BN254_FR)
     x = chip_smoke._sponge_messages(df.spec, L, 1 << 11, 0x5B2, device)
-    want = hash_device(df, spec, L, x)
-    for name in SPONGE_VARIANTS:
-        got = _sponge_run(libs[("sponge", name)][0], name, df, spec, L, x)
-        chip_smoke._max_abs_err(f"poseidon_hash {name}", got, want)
-    print(f"[probe] poseidon_hash {', '.join(SPONGE_VARIANTS)}: equal to the built kernel at 2^11 "
-          "lanes", flush=True)
-    order = ["kernel", *SPONGE_VARIANTS, *reversed(SPONGE_VARIANTS), "kernel"]
+    want = hash_device_plain(df, spec, L, x)
+    chip_smoke._max_abs_err("poseidon_hash kernel", hash_device(df, spec, L, x), want)
+    chip_smoke._max_abs_err("poseidon_hash ldg", _sponge_run(lib, df, spec, L, x), want)
+    print("[probe] poseidon_hash kernel (shared) and ldg: equal to hash_device_plain at 2^11 lanes",
+          flush=True)
+    order = ["kernel", "ldg", "ldg", "kernel"]
     for m in SPONGE_PROBE:
         x = chip_smoke._sponge_messages(df.spec, L, m, 0x5B1, device)
         bound = chip_smoke._bound(*chip_smoke._sponge_work(spec, L, m))[0]
@@ -198,8 +208,7 @@ def main() -> int:
             if name == "kernel":
                 fn = lambda: hash_device(df, spec, L, x)  # noqa: E731
             else:
-                lib = libs[("sponge", name)][0]
-                fn = lambda lib=lib, name=name: _sponge_run(lib, name, df, spec, L, x)  # noqa: E731
+                fn = lambda: _sponge_run(lib, df, spec, L, x)  # noqa: E731
             times.append((name, chip_smoke._events_ms(fn, bound, calls=5)))
         print(f"[probe] poseidon_hash MySpec(5, 4) L=4 m=2^{m.bit_length() - 1} (bound "
               f"{bound:.6f} ms), ms a launch in turns: "
