@@ -124,6 +124,21 @@ passes or raises:
    and two of the reference's negative vectors (a ConstraintNotSatisfied
    and a Lookup failure); every card run's failures equal the same run on
    the CPU; verify times on the card and on the CPU;
+7b. the experiment circuits (tests/experiment_vectors.py: add_carry_v1,
+   add_carry_v2, hash_v2, inclusion_check, inclusion_check_v2,
+   less_than_v3, merkle_v1, merkle_v2, merkle_v3, safe_accumulator): the
+   25 MockProver vectors of the reference's own tests on the card, each
+   one's failures equal to the reference's committed in
+   tests/data/experiments/results.json; each circuit's valid instance over
+   BN254 Fr through keygen, create_proof (random.Random(3)) and
+   verify_proof with native commits, and merkle_v3 (k = 11) also with
+   commit="device": the proof bytes equal the committed reference proof,
+   the verdict the reference's (the reference rejects its own proofs of
+   add_carry_v1, inclusion_check and inclusion_check_v2, and its keygen
+   raises IndexError on safe_accumulator: the port must do the same), and
+   a tampered instance fails wherever the reference's proof verifies; one
+   line a circuit with its MockProver seconds, keygen, prove and verify
+   seconds and launches by kernel;
 8. the device Poseidon sponge: hash_device (MySpec(5, 4), L = 4, BN254 Fr)
    over 2^20 messages from random.Random, one level of a 2^21-leaf
    merkle-sum tree, in one poseidon_hash launch and no mont_mul, mont_sqr
@@ -167,7 +182,7 @@ passes or raises:
 
 Phases 3-10 call the entry points without a device: they run on the card
 by default (the ranks of phases 9 and 10 on their own card).  The device-commit paths of
-phases 3-6 must read no P == Q flag back.  Every path of phases 3-10 runs
+phases 3-6 and 7b must read no P == Q flag back.  Every path of phases 3-10 runs
 once with the launch counts set to 0
 just before and read just after, and fails if a kernel it must launch was
 not launched: mont_mul and the NTT kernels in the proves and the keygens,
@@ -176,7 +191,11 @@ jac_suffix_scan, jac_add) and jac_horner in the device-commit prove and
 the device-commit keygen, the MSM's kernels in the MSM and in every hybrid
 MSM whose device share is above 0, none in a NativeEngine prove,
 jac_fixed_base, mont_inv and mont_mul in the setup, vm_eval in every
-MockProver run, poseidon_hash in the sponge, and in
+MockProver run (in phase 7b every run of a circuit with gates or lookups:
+inclusion_check has neither), in every experiment keygen and prove the NTT
+kernels and mont_mul (ntt_large_stage above 512 points) and in the prove
+vm_eval, with device commits also the MSM's kernels and jac_horner,
+poseidon_hash in the sponge, and in
 phase 9 (each rank's counts set to 0 before each of its jobs and read
 after) every kernel of SHARDED_KERNELS (mont_mul, jac_horner, mont_inv,
 ntt_small_stages, vm_eval and the MSM's) in every sharded prove on every
@@ -2809,6 +2828,116 @@ def phase_mock(device):
     return runs
 
 
+def _experiment_vectors():
+    """tests/experiment_vectors.py, loaded by path: tests/ is no package and
+    its conftest imports JAX; the module itself imports no package."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("experiment_vectors", os.path.join(ROOT, "tests", "experiment_vectors.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class _Steps:
+    """``experiment_vectors.prove``'s ``step``: each step's seconds and
+    launch counts (set to 0 before it, read after)."""
+
+    def __init__(self):
+        self.seconds, self.launches = {}, {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        reset_launches()
+        t0 = time.perf_counter()
+        yield
+        self.seconds[name] = time.perf_counter() - t0
+        self.launches[name] = read_launches()
+
+
+# the experiment circuits also proved with their commitments on the device MSM
+EXPERIMENT_DEVICE_COMMIT = ("merkle_v3",)
+
+
+def _experiment_kernels(n: int, commit: str) -> tuple:
+    """The kernels a keygen or prove over an ``n``-point domain must launch:
+    the NTT and the Montgomery products, the large NTT stages above 512
+    points, and with device commits the MSM's kernels and its Horner."""
+    names = ("ntt_small_stages", "mont_mul") + (("ntt_large_stage",) if n > 512 else ())
+    return names + (MSM_KERNELS + ("jac_horner",) if commit == "device" else ())
+
+
+def _launched(counts: dict) -> str:
+    return ", ".join(f"{name} {c}" for name, c in counts.items() if c) or "none"
+
+
+def _verdicts(res: dict) -> str:
+    if "keygen_error" in res:
+        return f"keygen raised {res['keygen_error']}"
+    out = f"{len(res['proof'])} bytes, {'verified' if res['verifies'] else 'rejected by the verifier'}"
+    return out + (", a tampered instance rejected" if res.get("tampered_verifies") is False else "")
+
+
+def phase_experiments(device):
+    """The ten experiment circuits of tests/experiment_vectors.py on the
+    card, held against the reference's results committed under
+    tests/data/experiments/: every MockProver vector's failures, and each
+    circuit's keygen, proof bytes and verdicts (native commits; merkle_v3
+    also with device commits); a tampered instance is rejected wherever the
+    reference accepts.  One line a circuit.  Returns the launch counts of
+    every MockProver run, keygen and prove."""
+    ev = _experiment_vectors()
+    port = ev.side("halo2_tpu_torch")
+    want = ev.load_results()
+    runs = []
+    for name, (_build, mock_k, field, _proof_k) in ev.CIRCUITS.items():
+        mock = []
+        for v in ev.mock_vectors(port, [name]):
+            reset_launches()
+            t0 = time.perf_counter()
+            prover = port.dev.MockProver.run(v.k, v.circuit, v.instances, F=v.F)
+            got = [repr(f) for f in prover.verify()]
+            _sync(device)
+            dt = time.perf_counter() - t0
+            counts = read_launches()
+            # inclusion_check has neither gates nor lookups: its MockProver
+            # checks only the copy constraints, on the host
+            if prover.cs.gates or prover.cs.lookups:
+                _require(f"MockProver {v.label}", counts, ("vm_eval",))
+            if got != want["mock"][v.label]:
+                raise AssertionError(f"MockProver {v.label}: {got} differs from the reference's {want['mock'][v.label]}")
+            runs.append(counts)
+            mock.append(f"{v.label.rsplit('-', 1)[1]} {len(got)} failures in {dt:.3f} s (vm_eval {counts['vm_eval']})")
+        v = ev.proof_vector(port, name)
+        proofs = []
+        for commit in ("native",) + (("device",) if name in EXPERIMENT_DEVICE_COMMIT else ()):
+            steps = _Steps()
+            with _FlagReads() as flags:
+                got = ev.prove(port, v, step=steps, commit=commit)
+            _no_flag_reads(f"{name} commit={commit}", flags)
+            if got != want["proofs"][name]:
+                raise AssertionError(
+                    f"{name} commit={commit}: {_verdicts(got)}, not the reference's {_verdicts(want['proofs'][name])}"
+                )
+            if "prove" in steps.launches:
+                _require(f"{name} keygen commit={commit}", steps.launches["keygen"], _experiment_kernels(1 << v.k, commit))
+                # the extended domain has at least 2n points
+                _require(f"{name} prove commit={commit}", steps.launches["prove"],
+                         ("vm_eval",) + _experiment_kernels(2 << v.k, commit))
+                _forbid(f"{name} prove commit={commit}", steps.launches["prove"], MSM_GONE)
+                runs += [steps.launches["keygen"], steps.launches["prove"]]
+            proofs.append(", ".join(
+                [f"commit={commit}: {_verdicts(got)}, as the reference's"]
+                + [f"{step} {t:.3f} s (launches: {_launched(steps.launches[step])})" for step, t in steps.seconds.items()]
+            ))
+        print(
+            f"[experiments] {name}: MockProver k={mock_k} {field}: " + "; ".join(mock)
+            + f", as the reference's | proof k={v.k} Fr: " + " | ".join(proofs),
+            flush=True,
+        )
+    return runs
+
+
 # the field ops of the sponge's rounds, which run inside poseidon_hash
 SPONGE_GONE = ("mont_mul", "mont_sqr", "mod_add")
 
@@ -3486,8 +3615,8 @@ def main() -> int:
     runs = []
     for name, phase in (
         ("msm", phase_msm), ("prove", phase_prove), ("engines", phase_engines), ("setup", phase_setup),
-        ("keygen", phase_keygen), ("mock", phase_mock), ("poseidon", phase_poseidon), ("sharded", phase_sharded),
-        ("graft", phase_graft),
+        ("keygen", phase_keygen), ("mock", phase_mock), ("experiments", phase_experiments),
+        ("poseidon", phase_poseidon), ("sharded", phase_sharded), ("graft", phase_graft),
     ):
         runs += timed(name, phase, device)
     launches = {name: sum(r[name] for r in runs) for name, _, _ in KERNELS}

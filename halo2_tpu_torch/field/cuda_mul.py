@@ -61,13 +61,27 @@ def modulus_one_words(spec: FieldSpec) -> np.ndarray:
 
 
 # ------------------------------------------------------------- plain version
+_ROW_CARRY_MIN = 1 << 11  # elements a limb row from which carry() goes row by row on the CPU
+
+
 def carry(t: torch.Tensor):
     """Carry-propagate int64 limb columns ``(nl, *B)`` (any sign) into
     16-bit limbs; returns ``(limbs, carry_out)``, carry_out < 0 on a borrow.
     Every row passes its carry up at once, until no row has one: a few
     passes of whole-tensor ops (a ripple through limbs of 0xFFFF takes one
     more pass a limb) instead of one pass a row, which at the narrow widths
-    of a curve's Horner tail is what the plain versions' time goes to."""
+    of a curve's Horner tail is what the plain versions' time goes to.  On
+    CPU tensors of ``_ROW_CARRY_MIN`` elements a row or more, one pass a
+    row: there the passes' whole-tensor memory traffic costs more than the
+    ops (on the card every op is a launch, and the passes stay)."""
+    if t.device.type == "cpu" and t[0].numel() >= _ROW_CARRY_MIN:
+        out = torch.empty_like(t)
+        c = torch.zeros_like(t[0])
+        for r in range(t.shape[0]):
+            v = t[r] + c
+            out[r] = v & LIMB_MASK
+            c = v >> LIMB_BITS
+        return out, c
     c = torch.zeros_like(t[0])
     while True:
         hi = t >> LIMB_BITS
@@ -131,16 +145,26 @@ def _terms(square: bool, device: torch.device) -> tuple:
 
 
 _PRODUCT_CHUNK = 1 << 16  # columns a pass: up to 256 int64 products each, 128 MB
+_GATHER_MAX = 128  # CPU columns up to which _product_columns gathers every limb product
 
 
 def _product_columns(a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
     """int64 limbs ``(L, m)`` -> the ``(2L, m)`` column sums of the
     schoolbook product a * b, or of the square a * a when ``b`` is None
     (each sum < 16 * 2^32): every limb product of a chunk of columns at
-    once, summed into its column by one ``index_add_`` (exact in int64)."""
+    once, summed into its column by one ``index_add_`` (exact in int64), in
+    few ops.  On CPU tensors of more than ``_GATHER_MAX`` columns, a_i times
+    all of b added into rows i .. i + 15, one op pair a limb of a, which
+    moves 16 times less memory than the gathered products (on the card
+    every op is a launch, and the gather stays)."""
+    t = a.new_zeros((2 * L, a.shape[1]))
+    if a.device.type == "cpu" and a.shape[1] > _GATHER_MAX:
+        b = a if b is None else b
+        for i in range(L):
+            t[i:i + L] += a[i] * b
+        return t
     i, j, col, w = _terms(b is None, a.device)
     b = a if b is None else b
-    t = a.new_zeros((2 * L, a.shape[1]))
     for lo in range(0, a.shape[1], _PRODUCT_CHUNK):
         hi = lo + _PRODUCT_CHUNK
         t[:, lo:hi].index_add_(0, col, a[i, lo:hi] * b[j, lo:hi] * w[:, None])
@@ -159,8 +183,9 @@ def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.T
 
 def mont_sqr_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """a * a * 2^-256 mod p in int64 torch ops: T from the 136 limb products
-    of the upper triangle (off-diagonal ones doubled), then
-    :func:`_redc_plain`; equal to ``mont_mul_plain(spec, a, a)``."""
+    of the upper triangle (off-diagonal ones doubled; from all 256 on CPU
+    tensors above ``_GATHER_MAX`` elements), then :func:`_redc_plain`; equal to
+    ``mont_mul_plain(spec, a, a)``."""
     shape = a.shape
     return _redc_plain(spec, _product_columns(a.reshape(L, -1).to(torch.int64), None)).reshape(shape)
 
