@@ -5,4 +5,6 @@ callable, ``state["work"]``, a request's work by kind, and ``state["calls"]``,
 its calls' sizes), ``request(state, i)`` (issues request i, returns before
 the device is done), ``finish(state, handle)`` (waits; returns the answer),
 ``inputs(state, i)`` (request i's exact inputs, for the reference) and
-``release(state)`` (drops the program's objects)."""
+``release(state)`` (drops the program's objects).  ``cache_dir`` is a
+fixed directory inside the checkout for what a driver keeps from run to
+run, such as a commit cell's SRS."""

@@ -12,9 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# BN254 scalar field Fr and base field Fq (halo2curves bn256)
+# BN254 scalar field Fr (halo2curves bn256)
 FR = 0x30644E72E131A029B85045B68181585D2833E84879B9709143E1F593F0000001
-FQ = 0x30644E72E131A029B85045B68181585D97816A916871CA8D3C208C16D87CFD47
 LIMBS = 16
 R = 1 << 256
 

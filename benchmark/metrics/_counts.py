@@ -27,12 +27,6 @@ IMAD_PER_S = PEAKS["sms"] * PEAKS["imad_per_sm_per_clock"] * PEAKS["boost_clock_
 BYTES_PER_S = PEAKS["memory_bytes_per_s"]
 IMAD_PER_PRODUCT = 256
 ELEMENT_BYTES = 32
-# madd-2007-bl (Jacobian plus affine, a = 0): 7 products and 4 squares
-PRODUCTS_PER_MIXED_ADD = 11
-# the windows of the MSM's digits: 12-bit signed digits, as the device
-# Pippenger takes them at 2^14 points and above
-MSM_WINDOW_BITS = 12
-SCALAR_BITS = 254
 
 # each of the port's kernels as its symbols name it in a trace
 KERNEL_SYMBOLS = {
@@ -90,44 +84,3 @@ def ntt_stage_products(n: int) -> int:
 def ntt_stages_bound_s(columns: int, n: int) -> float:
     return bound_s(columns * ntt_stage_products(n), 2 * columns * n * ELEMENT_BYTES)
 
-
-def signed_digits(scalars: torch.Tensor, c: int = MSM_WINDOW_BITS) -> torch.Tensor:
-    """(C, 16, n) canonical (not Montgomery) limbs -> (C, W, n) signed c-bit
-    digit magnitudes, W = ceil(254 / c): a digit above 2^(c - 1) becomes
-    2^c minus it with a carry into the next window; the top window takes
-    the last carry."""
-    cols, _, n = scalars.shape
-    w_n = -(-SCALAR_BITS // c)
-    s = torch.cat([scalars.to(torch.int64), torch.zeros_like(scalars[:, :2].to(torch.int64))], dim=1)
-    mags, carry = [], torch.zeros((cols, n), dtype=torch.int64, device=scalars.device)
-    for k in range(w_n):
-        lo, off = divmod(k * c, 16)
-        raw = ((s[:, lo] | s[:, lo + 1] << 16 | s[:, lo + 2] << 32) >> off) & ((1 << c) - 1)
-        d = raw + carry
-        if k == w_n - 1:
-            mags.append(d)
-            break
-        neg = d > 1 << (c - 1)
-        mags.append(torch.where(neg, (1 << c) - d, d))
-        carry = neg.to(torch.int64)
-    return torch.stack(mags, dim=1)
-
-
-def msm_mixed_adds(scalars: torch.Tensor, c: int = MSM_WINDOW_BITS) -> list[int]:
-    """Per column of (C, 16, n) canonical scalars: the signed mixed additions
-    its digits put into non-empty buckets, summed over the windows (in a
-    window, each nonzero digit but the first of its bucket)."""
-    mags = signed_digits(scalars, c)
-    cols, w_n, n = mags.shape
-    top = int(mags.max()) + 1
-    rows = mags.reshape(cols * w_n, n)
-    keys = rows + torch.arange(cols * w_n, device=rows.device)[:, None] * top
-    filled = torch.bincount(keys.reshape(-1), minlength=cols * w_n * top).reshape(cols * w_n, top)
-    adds = (filled[:, 1:].sum(1) - (filled[:, 1:] > 0).sum(1)).reshape(cols, w_n).sum(1)
-    return [int(v) for v in adds]
-
-
-def msm_bound_s(mixed_adds: int, columns: int, n: int) -> float:
-    """The mixed additions at their products; the points and the scalars
-    read once."""
-    return bound_s(mixed_adds * PRODUCTS_PER_MIXED_ADD, n * 2 * ELEMENT_BYTES + columns * n * ELEMENT_BYTES)

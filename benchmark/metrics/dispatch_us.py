@@ -1,6 +1,6 @@
-"""The median over the window's requests of the host span from a request's
-first call into the program until its last call returns, before the
-synchronise (the benchmark's own clock around its calls)."""
+"""The median over the (untraced) window's requests of the host span from
+a request's first call into the program until its last call returns,
+before the synchronise (the benchmark's own clock around its calls)."""
 
 import statistics
 

@@ -15,11 +15,14 @@ A run: set-up (the kernel build on a checkout's first run, the driver's
 inputs and program objects, one warm request), then a closed loop of
 requests from one client for ``--seconds``: the next request is issued when
 the previous one has finished, and each ends in a synchronise or a read of
-its result.  With ``--trace 1`` the window runs under ``torch.profiler`` and
-the line carries the per-layer metrics; with ``--trace 0`` the end-to-end
-ones.  ``--control 1`` feeds the program inputs held to their top 240 bits
-while the reference judges against the exact inputs: the comparison's
-control, which must come out not correct.
+its result.  With ``--trace 0`` the line carries the end-to-end metrics.
+With ``--trace 1`` a second window of the same loop follows the first under
+``torch.profiler``, and the line carries the per-layer metrics: those of
+the host's clock from the first window, which no profiler slows, and
+those of the device trace from the second.  ``--control 1`` feeds the
+program inputs held to their top 240 bits while the reference judges
+against the exact inputs: the comparison's control, which must come out
+not correct.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 CACHE = HERE / "_cache"
 FORBIDDEN = ("jax", "jaxlib", "flax", "halo2_tpu")
-# a traced run profiles at most this many seconds at the start of its window
+# a traced run profiles at most this many seconds, after its window
 TRACE_SECONDS = 10
 # the port's own launch counters, read before and after the window
 COUNTERS = (
@@ -164,7 +167,7 @@ def run_cell(
                 c = time.perf_counter()
             latencies.append(c - a)
             dispatch.append(b - a)
-            if len(kept) < keep:  # a seeded uniform sample of the window's requests
+            if len(kept) < keep:  # a seeded uniform sample of the run's requests
                 kept.append((i, answer))
             else:
                 j = rng.randrange(i + 1)
@@ -176,32 +179,29 @@ def run_cell(
                 return i, c
 
     before = _launches()
-    trace_summary = None
+    w0 = time.perf_counter()
+    requests, c = loop(0, w0, seconds, nullcontext)
+    setup_s = w0 - t0
+    window_s = c - w0
+    after = _launches()
+    trace_summary, attempted = None, requests
     if trace:
         from torch.profiler import ProfilerActivity, profile, record_function
 
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.device(device).type == "cuda" else [])
         with profile(activities=activities) as prof:
             with record_function("bench.window"):
-                w0 = time.perf_counter()
-                traced, c = loop(0, w0, min(seconds, TRACE_SECONDS), record_function)
+                attempted, _ = loop(requests, time.perf_counter(), min(seconds, TRACE_SECONDS), record_function)
         trace_summary = summarize(prof)
         del prof
-        requests, c = loop(traced, w0, seconds, nullcontext) if c - w0 < seconds else (traced, c)
-    else:
-        w0 = time.perf_counter()
-        requests, c = loop(0, w0, seconds, nullcontext)
-        traced = requests
-    setup_s = w0 - t0
-    window_s = c - w0
-    after = _launches()
     peak = torch.cuda.max_memory_allocated(device) if torch.device(device).type == "cuda" else 0
 
     ctx = types.SimpleNamespace(
         cell=cell, config=config, traffic=traffic, seed=seed, device=device, driver=driver, state=state,
-        setup_s=setup_s, window_s=window_s, requests=requests, latencies_s=latencies, dispatch_s=dispatch,
+        setup_s=setup_s, window_s=window_s, requests=requests,
+        latencies_s=latencies[:requests], dispatch_s=dispatch[:requests],
         work={k: v * requests for k, v in state["work"].items()},
-        trace=trace_summary, trace_requests=traced,
+        trace=trace_summary, trace_requests=attempted - requests,
         launches={k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)},
     )
     metrics = {}
@@ -219,12 +219,12 @@ def run_cell(
     checks, per_request = load_module("reference", traffic["entry"]).check(config, traffic, samples, seed)
     line = {
         "correct": all(c["value"] <= c["limit"] for c in checks.values()),
-        "attempted": requests,
+        "attempted": attempted,
         "failed": sum(1 for ok in per_request if not ok),
         "metrics": metrics,
         "checks": checks,
     }
-    return line, types.SimpleNamespace(peak=peak, trace=trace_summary, launches=ctx.launches, latencies_s=latencies)
+    return line, types.SimpleNamespace(peak=peak, trace=trace_summary, launches=ctx.launches, latencies_s=ctx.latencies_s)
 
 
 def main(argv=None) -> int:

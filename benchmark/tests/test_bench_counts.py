@@ -9,7 +9,7 @@ import torch
 
 from benchmark import fields
 from benchmark.metrics import _counts
-from benchmark.reference import _curve, _evaluate, _poseidon
+from benchmark.reference import _evaluate, _poseidon
 from sparse_poseidon import permute_sparse
 
 
@@ -22,41 +22,6 @@ def test_poseidon_products_match_a_counted_sparse_permutation(width):
     out, products = permute_sparse(state, p, rcs, mds, 8, 56)
     assert out == _poseidon.permute(state, p, 8, 56)
     assert products == _counts.poseidon_products(width, 8, 56)
-
-
-def _signed_digits_int(v: int, c: int, windows: int) -> list[int]:
-    out, carry = [], 0
-    for k in range(windows):
-        d = (v >> (k * c)) % (1 << c) + carry
-        if k < windows - 1 and d > 1 << (c - 1):
-            out.append((1 << c) - d)
-            carry = 1
-        else:
-            out.append(d)
-            carry = 0
-    return out
-
-
-@pytest.mark.parametrize("c", [4, 12])
-def test_msm_mixed_adds_match_a_literal_bucket_fill(c):
-    rng = random.Random(c)
-    cols, n = 3, 200
-    vals = [[rng.randrange(fields.FR) for _ in range(n)] for _ in range(cols)]
-    vals[1][:50] = [7] * 50  # a bucket that fills many times, and digit-0 windows
-    limbs = torch.stack([torch.from_numpy(fields.ints_to_limbs(v)) for v in vals])
-    windows = -(-254 // c)
-    want = []
-    for col in vals:
-        adds = 0
-        for w in range(windows):
-            buckets = set()
-            for v in col:
-                d = _signed_digits_int(v, c, windows)[w]
-                if d:
-                    adds += d in buckets
-                    buckets.add(d)
-        want.append(adds)
-    assert _counts.msm_mixed_adds(limbs, c) == want
 
 
 def test_ntt_stage_products_match_a_counted_inverse_transform():
@@ -124,9 +89,9 @@ def test_peaks():
     assert math.isclose(_counts.poseidon_hash_bound_s(1 << 20, 4, 5, 4, 8, 56), (1 << 20) * 1017 * 256 / _counts.IMAD_PER_S)
 
 
-@pytest.mark.parametrize("p", [fields.FR, fields.FQ])
-def test_plain_montgomery_product(p):
-    rng = random.Random(p % 97)
+def test_plain_montgomery_product():
+    p = fields.FR
+    rng = random.Random(97)
     a = [rng.randrange(p) for _ in range(300)] + [0, p - 1]
     b = [rng.randrange(p) for _ in range(301)] + [p - 1]
     got = fields.limbs_to_ints(
@@ -151,15 +116,6 @@ def test_exact_evaluation():
     x = rng.randrange(p)
     got = _evaluate.evaluate(limbs, _evaluate.power_limbs(x, n, p, "cpu"), p)
     assert got == [sum(c * pow(x, i, p) for i, c in enumerate(col)) % p for col in cols]
-
-
-def test_generator_multiples():
-    assert _curve.mul_generator(0) == (0, 0)
-    assert _curve.mul_generator(1) == _curve.G1
-    x, y = _curve.mul_generator(fields.FR - 1)  # -G
-    assert (x, y) == (1, fields.FQ - 2)
-    x, y = _curve.mul_generator(123456789)
-    assert (y * y - x * x * x - 3) % fields.FQ == 0
 
 
 def test_trace_busy_union_and_gaps():

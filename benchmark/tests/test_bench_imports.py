@@ -38,7 +38,7 @@ def test_a_run_loads_no_jax(tmp_path):
     code = (
         "import json, sys, time; from benchmark import run\n"
         "b = run.manifest()\n"
-        "small = {'hash_device': {'batches': [2]}, 'lagrange_to_coeff': {'columns': 1}, 'commit_device': {'columns': 1}}\n"
+        "small = {'hash_device': {'batches': [2]}, 'lagrange_to_coeff': {'columns': 1}}\n"
         "for cell in b['workloads']:\n"
         "    t = run.load_json('workloads', cell['traffic']); c = run.load_json('configs', cell['config'])\n"
         "    t.update(small[t['entry']]); c.update({'k': 3} if 'k' in c else {})\n"

@@ -154,7 +154,7 @@ def test_a_cell_a_configuration_and_a_metric_come_as_new_files(tmp_path):
     assert all(p.read_bytes() == b for p, b in before.items())
 
 
-@pytest.mark.parametrize("argv", [["--workload", "mst.hash_level_2e20", "--seed", "1", "--seconds", "1", "--trace", "0"]])
+@pytest.mark.parametrize("argv", [["--workload", "mst.tree_build_d15", "--seed", "1", "--seconds", "1", "--trace", "0"]])
 def test_without_a_card_or_a_program_no_result(argv, tmp_path):
     """Without a card the run exits non-zero and prints no result; so does
     a directory holding only BENCHMARK.json and the benchmark."""
@@ -163,6 +163,6 @@ def test_without_a_card_or_a_program_no_result(argv, tmp_path):
     assert out.returncode != 0 and out.stdout.strip() == ""
     shutil.copytree(ROOT / "benchmark", tmp_path / "benchmark", ignore=shutil.ignore_patterns("_cache", "__pycache__"))
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
-    code = "from benchmark import run; import sys, time; b = run.manifest(); sys.exit(0 if run.run_cell(b, b['workloads'][1], 1, 0.01, False, 'cpu', t0=time.perf_counter()) is None else 1)"
+    code = "from benchmark import run; import sys, time; b = run.manifest(); sys.exit(0 if run.run_cell(b, b['workloads'][0], 1, 0.01, False, 'cpu', t0=time.perf_counter()) is None else 1)"
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0 and "halo2_tpu_torch" in out.stderr
